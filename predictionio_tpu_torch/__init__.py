@@ -1,0 +1,11 @@
+"""predictionio_tpu_torch: the PyTorch/CUDA port of predictionio_tpu.
+
+A second package beside the JAX one, held against it by parity tests.
+It imports torch and numpy, never jax and never predictionio_tpu. Entry
+points run on CUDA unless the caller passes `device="cpu"`; each kernel
+the JAX package wrote in Pallas is a hand-written Hopper kernel under
+`csrc/`, built with nvcc at first use.
+
+Ported so far: the recommendation template's serving path (deploy ->
+/queries.json) through the fused top-k kernel. See ROADMAP.md.
+"""

@@ -1,0 +1,69 @@
+"""Command line of the port: `deploy` a recommendation model.
+
+    python -m predictionio_tpu_torch.cli deploy --model m.npz --port 8000 \
+        [--device cpu] [--batch-max 64]
+
+The model file is an `.npz` written by `ops.als.ALSModel.save_npz` (two
+factor matrices and both id lists). The server runs on CUDA unless
+`--device cpu` is given, and refuses to start without CUDA otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import signal
+import sys
+import threading
+from typing import Optional, Sequence
+
+from predictionio_tpu_torch.core.workflow import prepare_deploy
+from predictionio_tpu_torch.models.recommendation import RecommendationEngine
+from predictionio_tpu_torch.ops.als import ALSModel, load_npz
+from predictionio_tpu_torch.serving.server import (PredictionServer,
+                                                   _Deployment)
+
+
+def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
+           batch_max: int = 64, window_s: float = 0.002) -> PredictionServer:
+    """Warm `model` for serving (kernel built, every bucket up to
+    `batch_max` launched once) and start a `PredictionServer` on it in a
+    background thread; returns the running server."""
+    algos, models, serving = prepare_deploy(
+        RecommendationEngine.apply(), [model], warm_batch_max=batch_max)
+    server = PredictionServer(_Deployment(algos, models, serving),
+                              host=host, port=port, batch_max=batch_max,
+                              window_s=window_s)
+    server.start()
+    return server
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    parser = argparse.ArgumentParser(prog="predictionio_tpu_torch.cli")
+    sub = parser.add_subparsers(dest="command", required=True)
+    dep = sub.add_parser("deploy", help="serve /queries.json for a model")
+    dep.add_argument("--model", required=True, help="model .npz file")
+    dep.add_argument("--ip", default="127.0.0.1")
+    dep.add_argument("--port", type=int, default=8000)
+    dep.add_argument("--device", default=None,
+                     help="torch device (default cuda)")
+    dep.add_argument("--batch-max", type=int, default=64)
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+
+    model = load_npz(args.model, device=args.device)
+    server = deploy(model, host=args.ip, port=args.port,
+                    batch_max=args.batch_max)
+    print(f"serving {args.model} on http://{args.ip}:{server.port} "
+          f"({model.device})", flush=True)
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait()
+    server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

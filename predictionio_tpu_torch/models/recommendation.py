@@ -1,0 +1,139 @@
+"""Recommendation template, serving side: ALS top-N with blacklist and
+whitelist filtering.
+
+The port of `predictionio_tpu/models/recommendation.py` (parity target
+`examples/scala-parallel-recommendation/blacklist-items/`):
+  - predict = top-N with blacklist filter, empty result for unknown
+    users (`ALSAlgorithm.scala:96-112`);
+  - wire format: query `{"user": "1", "num": 4}` ->
+    `{"itemScores": [{"item": "i", "score": s}]}`.
+
+A deployment serves blackList queries through the warmed `BucketedTopK`
+plan, that is through the fused CUDA kernel; whiteList queries and
+queries past the plan (num > 10, more than 64 bans) take the generic
+paths. Training comes with a later slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch.core.base import Algorithm, FirstServing
+from predictionio_tpu_torch.core.engine import Engine, EngineFactory
+from predictionio_tpu_torch.core.params import Params
+from predictionio_tpu_torch.models.common import resolve_item_mask
+from predictionio_tpu_torch.ops.als import ALSModel
+from predictionio_tpu_torch.ops.topk import (NEG_INF, BucketedTopK,
+                                             topk_scores,
+                                             topk_scores_filtered)
+
+
+@dataclass(frozen=True)
+class Query(Params):
+    user: str
+    num: int = 10
+    blackList: Optional[Sequence[str]] = None
+    whiteList: Optional[Sequence[str]] = None
+
+
+@dataclass(frozen=True)
+class ItemScore:
+    item: str
+    score: float
+
+
+@dataclass(frozen=True)
+class PredictedResult:
+    itemScores: Sequence[ItemScore] = ()
+
+
+@dataclass(frozen=True)
+class ALSAlgorithmParams(Params):
+    rank: int = 10
+    num_iterations: int = 10
+    lambda_: float = 0.01
+    seed: Optional[int] = None
+
+
+class ALSAlgorithm(Algorithm):
+    params_class = ALSAlgorithmParams
+    query_class = Query
+
+    # the plan's width: blackLists up to this many known ids fit it
+    SERVE_BANNED_WIDTH = 64
+
+    def __init__(self, params: Optional[Params] = None):
+        super().__init__(params)
+        self._serve_plan: Optional[BucketedTopK] = None
+
+    def train(self, ctx, pd) -> ALSModel:
+        raise NotImplementedError(
+            "ALS training is not ported yet (Queue 1 item 4 of ROADMAP.md: "
+            "ops/als.py over ops/linalg.py); train with predictionio_tpu "
+            "and carry the model over with ops.als.als_model_from_numpy")
+
+    def predict(self, model: ALSModel, query: Query) -> PredictedResult:
+        return self.batch_predict(model, [(0, query)])[0][1]
+
+    def warm_serving(self, model: ALSModel, buckets) -> int:
+        """Deploy warmup: pin the item factors on the model's device and
+        launch the fused kernel once per bucket (blackList queries are the
+        common case; whiteList queries use the dense-mask path)."""
+        self._serve_plan = BucketedTopK(
+            model.item_factors, k=Query(user="").num, buckets=buckets,
+            banned_width=self.SERVE_BANNED_WIDTH, device=model.device)
+        return self._serve_plan.warm()
+
+    def batch_predict(self, model: ALSModel,
+                      queries: Sequence[Tuple[int, Query]]
+                      ) -> List[Tuple[int, PredictedResult]]:
+        """One scoring call over the whole batch; unknown users get empty
+        results (ALSAlgorithm.scala:96-112 semantics)."""
+        known = [(i, q, model.users.get(q.user)) for i, q in queries]
+        out: List[Tuple[int, PredictedResult]] = [
+            (i, PredictedResult()) for i, _, u in known if u is None]
+        live = [(i, q, u) for i, q, u in known if u is not None]
+        if not live:
+            return out
+        n_items = model.item_factors.shape[0]
+        k = max(min(q.num, n_items) for _, q, _ in live)
+        rows = torch.tensor([u for _, _, u in live], device=model.device)
+        vecs = model.user_factors[rows]
+        if all(q.whiteList is None for _, q, _ in live):
+            banned = [
+                [ix for ix in (model.items.get(b) for b in (q.blackList or ()))
+                 if ix is not None]
+                for _, q, _ in live]
+            plan = self._serve_plan
+            if plan is not None and plan.fits(
+                    max_banned=max(map(len, banned), default=0), k=k):
+                scores, ixs = plan(vecs, banned)
+            else:
+                scores, ixs = topk_scores_filtered(
+                    vecs, model.item_factors, banned, k=k)
+        else:
+            mask = np.concatenate(
+                [resolve_item_mask(model.items, white_list=q.whiteList,
+                                   black_list=q.blackList or ())
+                 for _, q, _ in live], axis=0)
+            scores, ixs = topk_scores(vecs, model.item_factors, mask, k=k)
+        for row, (i, q, _) in enumerate(live):
+            items = []
+            for s, ix in zip(scores[row], ixs[row]):
+                if s <= NEG_INF / 2 or len(items) >= q.num:
+                    continue
+                items.append(ItemScore(model.items.inverse(int(ix)),
+                                       float(s)))
+            out.append((i, PredictedResult(tuple(items))))
+        return out
+
+
+class RecommendationEngine(EngineFactory):
+    @classmethod
+    def apply(cls) -> Engine:
+        return Engine(algorithms={"als": ALSAlgorithm, "": ALSAlgorithm},
+                      serving=FirstServing)

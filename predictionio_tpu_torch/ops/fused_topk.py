@@ -1,0 +1,210 @@
+"""Fused serve kernel: matmul -> ban/valid mask -> top-k in one call.
+
+The port of `predictionio_tpu/ops/fused_topk.py`. The kernel is CUDA
+C++ for Hopper (`csrc/fused_topk.cu`, two launches per call: per-tile
+candidates, then a per-row merge), built with nvcc at first use into
+`_build/` and bound with ctypes. Beside it:
+
+  - `fused_topk_reference`, the plain PyTorch version of the same
+    function. The wrapper runs it for tensors on the CPU, and only
+    there; for CUDA tensors it launches the kernel or raises. There is
+    no fallback and no switch: the JAX package's `PIO_SERVE_FUSED` gate
+    has no counterpart here.
+  - `LAUNCHES`, a count of wrapper calls that launched the kernel, so a
+    run can show that its serving path went through it.
+
+Semantics (both versions): `scores = vecs @ factors^T` in exact fp32;
+ids >= `n_valid` and each row's banned ids score `NEG_INF`, out-of-range
+banned ids (the `n_items` filler) are dropped; rows are ranked by
+(score desc, id asc), `lax.top_k`'s lowest-index tie-break, so a
+banned item is still emitted when fewer than k others remain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from predictionio_tpu_torch.ops.topk import NEG_INF, _topk_rows
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "fused_topk.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+# limits of the kernel (csrc/fused_topk.cu kTile, kMaxK, kMaxBucket)
+TILE_ITEMS = 128
+MAX_K = 64
+MAX_BUCKET = 128
+# pass 2 keeps one byte per tile in shared memory; pass 1 stages a tile
+_MAX_SMEM = 227 * 1024
+
+LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+
+
+def fused_topk_reference(vecs: torch.Tensor, factors: torch.Tensor,
+                         banned: torch.Tensor, *, k: int, n_valid: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the kernel, on any device:
+    (scores [b, k] f32, ids [b, k] i32)."""
+    # exact fp32 product, as the kernel: no TF32 on CUDA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scores = torch.matmul(vecs, factors.T)
+    n_rows = factors.shape[0]
+    ids = torch.arange(n_rows, device=scores.device)
+    scores = scores.masked_fill(ids >= n_valid, NEG_INF)
+    if k > n_rows:   # the kernel's tiles hold ids past the catalog, masked
+        pad = scores.new_full((scores.shape[0], k - n_rows), NEG_INF)
+        scores = torch.cat([scores, pad], dim=1)
+    ban = banned.to(torch.int64)
+    keep = (ban >= 0) & (ban < scores.shape[1])
+    rows = torch.arange(ban.shape[0], device=ban.device)[:, None].expand_as(ban)
+    scores[rows[keep], ban[keep]] = NEG_INF
+    return _topk_rows(scores, k)
+
+
+def fused_topk(vecs: torch.Tensor, factors: torch.Tensor,
+               banned: torch.Tensor, *, k: int, n_valid: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of `vecs [b, rank] @ factors[n_rows, rank]^T` under the
+    per-row `banned [b, W]` ids and the `n_valid` row bound. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (and count
+    in `LAUNCHES`) or raise. Returns device tensors without
+    synchronising."""
+    devices = {vecs.device, factors.device, banned.device}
+    if len(devices) != 1:
+        raise ValueError(f"fused_topk: tensors on several devices {devices}")
+    dev = vecs.device
+    if dev.type == "cpu":
+        return fused_topk_reference(vecs, factors, banned, k=k,
+                                    n_valid=n_valid)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_topk: no kernel for device {dev}")
+    b, rank, n_rows, width = _check(vecs, factors, banned, k, n_valid)
+    lib = load_library()
+    n_tiles = -(-n_rows // TILE_ITEMS)
+    with torch.cuda.device(dev):
+        out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+        out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+        cand_s = torch.empty((b, k, n_tiles), dtype=torch.float32, device=dev)
+        cand_i = torch.empty((b, k, n_tiles), dtype=torch.int32, device=dev)
+        err = lib.pio_fused_topk(
+            vecs.data_ptr(), factors.data_ptr(), banned.data_ptr(),
+            cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), b, rank, n_rows, n_valid, width, k,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.pio_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused_topk launch failed ({err}): {msg}")
+    global LAUNCHES
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+    return out_s, out_i
+
+
+def _check(vecs, factors, banned, k: int, n_valid: int):
+    if vecs.dtype != torch.float32 or factors.dtype != torch.float32:
+        raise TypeError("fused_topk: vecs and factors must be float32")
+    if banned.dtype != torch.int32:
+        raise TypeError("fused_topk: banned must be int32")
+    if vecs.dim() != 2 or factors.dim() != 2 or banned.dim() != 2:
+        raise ValueError("fused_topk: vecs, factors, banned must be 2-D")
+    b, rank = vecs.shape
+    n_rows = factors.shape[0]
+    if factors.shape[1] != rank or banned.shape[0] != b:
+        raise ValueError(
+            f"fused_topk: shapes vecs {tuple(vecs.shape)}, factors "
+            f"{tuple(factors.shape)}, banned {tuple(banned.shape)} disagree")
+    if not (vecs.is_contiguous() and factors.is_contiguous()
+            and banned.is_contiguous()):
+        raise ValueError("fused_topk: inputs must be contiguous")
+    if not 1 <= b <= MAX_BUCKET:
+        raise ValueError(f"fused_topk: bucket {b} outside 1..{MAX_BUCKET}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"fused_topk: k={k} outside 1..{MAX_K}")
+    if n_rows < 1 or not 0 <= n_valid <= n_rows:
+        raise ValueError(
+            f"fused_topk: n_valid={n_valid} outside 0..n_rows={n_rows}")
+    rank4 = -(-rank // 4) * 4
+    smem1 = 4 * (TILE_ITEMS * (rank4 + 1) + b * rank4) + b * TILE_ITEMS
+    n_tiles = -(-n_rows // TILE_ITEMS)
+    if max(smem1, n_tiles) > _MAX_SMEM:
+        raise ValueError(
+            f"fused_topk: rank {rank} x bucket {b} over {n_rows} rows needs "
+            "more shared memory than a block has")
+    return b, rank, n_rows, banned.shape[1]
+
+
+def _find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 DEFAULT_CUDA_HOME):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, CUDA_PATH, "
+        f"{DEFAULT_CUDA_HOME}): the fused_topk kernel cannot be built")
+
+
+def build_library() -> Path:
+    """Compile `csrc/fused_topk.cu` for sm_90a into `_build/`, named by
+    the source's hash so an edited source rebuilds; returns the shared
+    library's path. nvcc's output (ptxas register and shared-memory
+    report included) lands beside it as a `.log`. Raises on failure."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"fused_topk_{digest}.so"
+    if lib.is_file():
+        return lib
+    nvcc = _find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"fused_topk_{digest}.{os.getpid()}.tmp.so"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True, check=False)
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode} building {SOURCE}:\n"
+            f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)   # atomic: a concurrent build never sees half a file
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build_library()))
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.pio_fused_topk.argtypes = [ptr] * 7 + [i] * 6 + [ptr]
+            lib.pio_fused_topk.restype = i
+            lib.pio_cuda_error_string.argtypes = [i]
+            lib.pio_cuda_error_string.restype = ctypes.c_char_p
+            for name in ("pio_fused_topk_tile", "pio_fused_topk_max_k",
+                         "pio_fused_topk_max_bucket"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = i
+            limits = (lib.pio_fused_topk_tile(), lib.pio_fused_topk_max_k(),
+                      lib.pio_fused_topk_max_bucket())
+            if limits != (TILE_ITEMS, MAX_K, MAX_BUCKET):
+                raise RuntimeError(
+                    f"fused_topk library limits {limits} != wrapper's "
+                    f"{(TILE_ITEMS, MAX_K, MAX_BUCKET)}")
+            _LIB = lib
+        return _LIB

@@ -1,0 +1,338 @@
+"""Prediction server: `/queries.json` over a micro-batcher.
+
+The port of the core of `predictionio_tpu/serving/server.py`
+(CreateServer.scala): a deployment (`_Deployment.predict_batch`), the
+micro-batcher that coalesces concurrent requests into device batches
+(`_MicroBatcher`), and an HTTP front end on the standard library's
+`ThreadingHTTPServer` that answers
+
+  POST /queries.json   {"user", "num", "blackList"?, "whiteList"?}
+                       -> {"itemScores": [{"item", "score"}]}
+  GET  /               status JSON, with the fused kernel's launch count
+
+Tenancy, fleet, tracing, SLO and quality accounting, the selector wire
+and the binary frame are not ported yet (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import threading
+import time
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from predictionio_tpu_torch.core.params import ParamsError, extract_params
+
+_log = logging.getLogger("pio.torch.server")
+
+
+class OverloadedError(RuntimeError):
+    """Work refused for capacity: HTTP 503 with Retry-After."""
+
+    def __init__(self, message: str, retry_after: float = 1.0):
+        super().__init__(message)
+        self.retry_after = retry_after
+
+
+class DeadlineExceeded(TimeoutError):
+    """A queued request outlived its wait: HTTP 504."""
+
+
+def to_jsonable(obj: Any) -> Any:
+    """Prediction/query dataclasses -> JSON-ready structures."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: to_jsonable(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [to_jsonable(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: to_jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+class _Deployment:
+    """One loaded (algorithms, models, serving) set."""
+
+    def __init__(self, algos, models, serving):
+        self.algos = list(algos)
+        self.models = list(models)
+        self.serving = serving
+        self.query_class = next(
+            (a.query_class for a in self.algos if a.query_class is not None),
+            None)
+
+    def predict_batch(self, queries: Sequence[Any]) -> List[Any]:
+        """supplement -> per-algo batch_predict -> serve, for a batch.
+
+        A failing algorithm is dropped from the ensemble for this batch
+        and logged; only when every algorithm fails does the batch
+        error."""
+        supplemented = [self.serving.supplement(q) for q in queries]
+        indexed = list(enumerate(supplemented))
+        alive, errors = [], []
+        for i, (algo, model) in enumerate(zip(self.algos, self.models)):
+            try:
+                alive.append(dict(algo.batch_predict(model, indexed)))
+            except Exception as e:  # noqa: BLE001 — isolated per algorithm
+                errors.append(e)
+                _log.warning("algo_predict_failed algo=%d:%s error=%s: %s",
+                             i, type(algo).__name__, type(e).__name__, e)
+        if not alive:
+            raise errors[0]
+        return [self.serving.serve(q, [pa[i] for pa in alive])
+                for i, q in enumerate(queries)]
+
+
+class _MicroBatcher:
+    """Coalesces concurrent requests into device batches.
+
+    One drainer at a time: a submit either becomes the drainer (none is
+    active) or just queues. The drainer waits out the batching window,
+    or less when a full batch forms, takes up to `batch_max` pending
+    items, processes them outside the lock, and loops while more work
+    queued meanwhile; an empty window retires it. The queue is bounded
+    (`queue_max`; a full queue raises OverloadedError) and every submit
+    waits at most `submit_timeout_s` (then DeadlineExceeded), so a
+    wedged drainer never strands a handler thread. A drainer that dies
+    fails every waiter and clears the flag for the next submit."""
+
+    def __init__(self, window_s: float, batch_max: int,
+                 queue_max: int = 256, submit_timeout_s: float = 30.0):
+        self.window_s = window_s
+        self.batch_max = batch_max
+        self.queue_max = queue_max
+        self.submit_timeout_s = submit_timeout_s
+        self._lock = threading.Lock()
+        self._full = threading.Condition(self._lock)
+        # items: (deployment, query, done event, result slot)
+        self._queue: deque = deque()
+        self._draining = False
+        self._closed = False
+        # drained batch size -> count
+        self._sizes: Dict[int, int] = {}
+
+    def batch_sizes(self) -> Dict[int, int]:
+        """Drained batch sizes -> how many batches had that size."""
+        with self._lock:
+            return dict(self._sizes)
+
+    def submit(self, deployment: _Deployment, query: Any) -> Any:
+        done = threading.Event()
+        slot: Dict[str, Any] = {}
+        item = (deployment, query, done, slot)
+        with self._lock:
+            if self._closed:
+                raise OverloadedError("server draining for shutdown")
+            if self.queue_max > 0 and len(self._queue) >= self.queue_max:
+                raise OverloadedError("micro-batch queue full",
+                                      retry_after=max(self.window_s, 0.05))
+            self._queue.append(item)
+            if len(self._queue) >= self.batch_max:
+                self._full.notify()
+            drain = not self._draining
+            self._draining = True
+        if drain:
+            threading.Thread(target=self._drain_loop, daemon=True,
+                             name="pio-torch-batch-drain").start()
+        if not done.wait(self.submit_timeout_s):
+            with self._lock:
+                try:
+                    self._queue.remove(item)
+                except ValueError:
+                    pass   # already taken by the drainer
+            raise DeadlineExceeded(
+                f"micro-batch submit timed out after "
+                f"{self.submit_timeout_s:.1f}s")
+        if "error" in slot:
+            raise slot["error"]
+        return slot["result"]
+
+    def _drain_loop(self) -> None:
+        batch: List[tuple] = []
+        try:
+            while True:
+                with self._lock:
+                    self._full.wait_for(
+                        lambda: len(self._queue) >= self.batch_max,
+                        timeout=self.window_s)
+                    n = min(len(self._queue), self.batch_max)
+                    batch = [self._queue.popleft() for _ in range(n)]
+                    if not batch:
+                        # retire under the lock every submit checks, so
+                        # the next arrival starts a fresh drainer
+                        self._draining = False
+                        self._full.notify_all()
+                        return
+                    self._sizes[n] = self._sizes.get(n, 0) + 1
+                self._process(batch)
+                batch = []
+        except BaseException as e:
+            with self._lock:
+                stranded = batch + list(self._queue)
+                self._queue.clear()
+                self._draining = False
+                self._full.notify_all()
+            for _, _, done, slot in stranded:
+                slot["error"] = e
+                done.set()
+            _log.error("batch_drainer_crashed error=%s: %s stranded=%d",
+                       type(e).__name__, e, len(stranded))
+            raise
+
+    def _process(self, pending: List[tuple]) -> None:
+        # one predict_batch call per deployment among the drained items
+        by_dep: Dict[int, List[tuple]] = {}
+        for item in pending:
+            by_dep.setdefault(id(item[0]), []).append(item)
+        for items in by_dep.values():
+            dep = items[0][0]
+            try:
+                results = dep.predict_batch([item[1] for item in items])
+            except Exception as e:  # noqa: BLE001 — reported per request
+                for _, _, done, slot in items:
+                    slot["error"] = e
+                    done.set()
+                continue
+            for (_, _, done, slot), r in zip(items, results):
+                slot["result"] = r
+                done.set()
+
+    def close(self, timeout: float = 30.0) -> bool:
+        """Stop admitting and wait for accepted requests to drain."""
+        with self._lock:
+            self._closed = True
+            return self._full.wait_for(
+                lambda: not self._queue and not self._draining,
+                timeout=timeout)
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    # listen backlog: bursts of concurrent clients queue here instead of
+    # being reset (the socketserver default is 5)
+    request_queue_size = 1024
+
+
+class PredictionServer:
+    """`/queries.json` over one deployment (CreateServer.scala's
+    MasterActor + ServerActor). `port=0` binds an ephemeral port."""
+
+    def __init__(self, deployment: _Deployment, *, host: str = "127.0.0.1",
+                 port: int = 8000, batch_max: int = 64,
+                 window_s: float = 0.002):
+        self.deployment = deployment
+        self.batcher = _MicroBatcher(window_s, batch_max)
+        self._stats_lock = threading.Lock()
+        self.request_count = 0
+        self.avg_serving_sec = 0.0
+        self.last_serving_sec = 0.0
+        self._httpd = _HTTPServer((host, port), _handler_for(self))
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self) -> int:
+        """Serve in a background thread; returns the bound port."""
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="pio-torch-http", daemon=True)
+        self._thread.start()
+        return self.port
+
+    def stop(self, timeout: float = 10.0) -> None:
+        """Drain accepted requests, then close the socket."""
+        self.batcher.close(timeout)
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    def serve_query(self, payload: Any) -> Any:
+        t0 = time.perf_counter()
+        dep = self.deployment
+        query = (extract_params(dep.query_class, payload)
+                 if dep.query_class is not None else payload)
+        prediction = self.batcher.submit(dep, query)
+        dt = time.perf_counter() - t0
+        with self._stats_lock:
+            self.request_count += 1
+            self.last_serving_sec = dt
+            self.avg_serving_sec += (
+                (dt - self.avg_serving_sec) / self.request_count)
+        return to_jsonable(prediction)
+
+    def status(self) -> Dict[str, Any]:
+        from predictionio_tpu_torch.ops import fused_topk
+        dep = self.deployment
+        devices = sorted({str(m.device) for m in dep.models
+                          if hasattr(m, "device")})
+        with self._stats_lock:
+            stats = {"requests": self.request_count,
+                     "avg_serving_sec": self.avg_serving_sec,
+                     "last_serving_sec": self.last_serving_sec}
+        return {"status": "alive",
+                "algorithms": [type(a).__name__ for a in dep.algos],
+                "devices": devices,
+                "kernel_launches": {"fused_topk": fused_topk.LAUNCHES},
+                "batch_sizes": {str(k): v for k, v in
+                                sorted(self.batcher.batch_sizes().items())},
+                **stats}
+
+
+def _handler_for(server: PredictionServer):
+    class Handler(BaseHTTPRequestHandler):
+        server_version = "pio-torch"
+
+        def log_message(self, fmt, *args):   # no per-request stderr lines
+            pass
+
+        def _reply(self, status: int, body: Any,
+                   headers: Optional[Dict[str, str]] = None) -> None:
+            data = json.dumps(body).encode("utf-8")
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):
+            if self.path.split("?", 1)[0] != "/":
+                self._reply(404, {"message": f"no route {self.path}"})
+                return
+            self._reply(200, server.status())
+
+        def do_POST(self):
+            if self.path.split("?", 1)[0] != "/queries.json":
+                self._reply(404, {"message": f"no route {self.path}"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length") or 0)
+                payload = json.loads(self.rfile.read(length) or b"{}")
+            except ValueError as e:
+                self._reply(400, {"message": f"malformed JSON body: {e}"})
+                return
+            try:
+                self._reply(200, server.serve_query(payload))
+            except ParamsError as e:
+                self._reply(400, {"message": str(e)})
+            except OverloadedError as e:
+                self._reply(503, {"message": str(e)},
+                            {"Retry-After": f"{e.retry_after:.3f}"})
+            except DeadlineExceeded as e:
+                self._reply(504, {"message": str(e)})
+            except Exception as e:  # noqa: BLE001 — request boundary
+                _log.exception("query_failed")
+                self._reply(500, {"message": f"{type(e).__name__}: {e}"})
+
+    return Handler

@@ -1,0 +1,121 @@
+"""Import and device rules of the port: `predictionio_tpu_torch` loads
+neither jax nor any module of `predictionio_tpu`; its entry points run
+on CUDA unless asked for the CPU and raise without CUDA; the fused-kernel
+wrapper never answers a non-CPU request with the plain version."""
+
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import predictionio_tpu_torch
+from predictionio_tpu_torch import device as pdev
+from predictionio_tpu_torch.ops import als as pals
+from predictionio_tpu_torch.ops import fused_topk
+from predictionio_tpu_torch.ops import topk as pt
+
+pytestmark = pytest.mark.torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        predictionio_tpu_torch.__path__, "predictionio_tpu_torch."))
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    mods = _modules()
+    assert "predictionio_tpu_torch.ops.fused_topk" in mods
+    assert "predictionio_tpu_torch.serving.server" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {[m for m in mods if not m.endswith('__main__')]!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' "
+        "or n.startswith('jax.') or n == 'predictionio_tpu' "
+        "or n.startswith('predictionio_tpu.'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pdev.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pdev.resolve_device("cuda:0")
+    assert pdev.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_refuse_to_carry_on_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.ones((2, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pals.als_model_from_numpy(x, x, ["a", "b"], ["c", "d"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.BucketedTopK(x, k=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.topk_scores(x, x, np.ones((2, 2), bool), k=1)
+
+
+def test_wrapper_never_runs_plain_version_off_cpu(monkeypatch):
+    def forbidden(*a, **kw):
+        raise AssertionError("plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(fused_topk, "fused_topk_reference", forbidden)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_topk.fused_topk(torch.empty((1, 4), **meta),
+                              torch.empty((8, 4), **meta),
+                              torch.empty((1, 2), dtype=torch.int32, **meta),
+                              k=2, n_valid=8)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(fused_topk, "DEFAULT_CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(fused_topk, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(fused_topk, "_LIB", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fused_topk.load_library()
+    assert not (tmp_path / "build").exists()
+
+
+def test_kernel_build_failure_raises(monkeypatch, tmp_path):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'error: bad kernel' >&2\nexit 2\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(fused_topk, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed with code 2"):
+        fused_topk.build_library()
+    logs = list((tmp_path / "build").glob("*.log"))
+    assert len(logs) == 1 and "bad kernel" in logs[0].read_text()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(k=65), "outside 1..64"),
+    (dict(n_valid=9), "outside 0..n_rows"),
+    (dict(vecs_dtype=torch.float64), "float32"),
+    (dict(bucket=129), "outside 1..128"),
+])
+def test_wrapper_checks_before_launch(bad, match):
+    b = bad.get("bucket", 2)
+    vecs = torch.zeros((b, 4), dtype=bad.get("vecs_dtype", torch.float32))
+    factors = torch.zeros((8, 4))
+    banned = torch.zeros((b, 2), dtype=torch.int32)
+    with pytest.raises((ValueError, TypeError), match=match):
+        fused_topk._check(vecs, factors, banned, bad.get("k", 2),
+                          bad.get("n_valid", 8))
