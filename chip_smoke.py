@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (`predictionio_tpu_torch`).
 
     python3 chip_smoke.py [--seed 0] [--requests 320]
+                          [--sharded-requests 160] [--tiered-queries 64]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -23,9 +24,48 @@ the result line:
               checked against the plain version on the card, and the
               kernel's launch count over the run must equal the bucket
               calls the plan made (warmup + one per drained batch chunk).
-  5. timing   kernel, plain-version and library-chain times (CUDA events)
+  5. parity_sharded
+              the kernel's sharded form (K2, `shard_local_candidates`)
+              vs its plain version on shard slices of a 20,037-row
+              catalog split 3 and 4 ways: n_valid of per_shard,
+              per_shard - 1, 5 < k, 0 and the shard's own, local bans
+              over the 128-row tiles, the filler per_shard, an
+              all-banned row; bit-identical on integer factors. Then the
+              whole `ShardedBucketedTopK` at 3 shards on one card vs the
+              plain version over the unsharded catalog: bit-identical on
+              integer factors with ties across shard edges; on phase 4's
+              real-valued 500,000 x 64 catalog within TOL of the plain
+              version and bit-identical to the single-device kernel.
+  6. serve_sharded
+              phase 4's model and request mix deployed through
+              `cli.main.deploy(model, mesh=ServeMesh((cuda:0,) * 3,
+              forced=True))`: per_shard 166,667 with one padding row;
+              the deploy must move the model's item master to host RAM.
+              Every answer is checked against the plain version over the
+              whole catalog, and the kernel's launches must equal
+              n_shards x (warmed buckets + drained batch chunks), all of
+              them K2's. With two or more cards, the same again with one
+              shard per card.
+  7. serve_tiered
+              the same model with its item master in host RAM, deployed
+              through `cli.main.deploy` under PIO_SERVE_TIER=on,
+              PIO_TIER_HOT_FRAC=0.25: a 125,000-item hot slab through
+              the kernel (the only catalog bytes the deploy adds on the
+              card), the cold items on the host. /queries.json requests
+              in two halves, checked as above, with one page pass
+              (`PageManager.tick`: fold + `rebalance()`) between them
+              that must swap the slab without launching or warming
+              anything; GET / must show the tiered plan and stop() must
+              join the page thread.
+  8. timing   kernel, plain-version and library-chain times (CUDA events)
               at 500,000 x 64, k=10, W=64, buckets 1 and 64, beside the
-              card's bound max(bytes / HBM rate, flops / fp32 rate).
+              card's bound max(bytes / HBM rate, flops / fp32 rate); K2
+              the same on the last 166,667-row shard (n_valid 166,666),
+              with the whole 3-shard plan call on device tensors (ban
+              translation, 3 shard launches, the merge), its host
+              enqueue time and a `torch.profiler` trace of it (device
+              time by kernel, the card's busy share), and the
+              single-device kernel on the same inputs.
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -154,24 +194,25 @@ def phase_parity(torch, ft, dev, rng) -> float:
     return err
 
 
-def phase_serve(torch, ft, dev, rng, n_requests: int) -> dict:
-    from predictionio_tpu_torch.cli.main import deploy
+def make_model(torch, rng):
+    """Phase 4's model: normal / sqrt(rank) factors, as bench.py's
+    large-catalog serving case, on the card."""
     from predictionio_tpu_torch.ops.als import als_model_from_numpy
-    from predictionio_tpu_torch.ops.topk import NEG_INF
-
     t0 = time.perf_counter()
-    # normal / sqrt(rank), as bench.py's large-catalog serving case
     model = als_model_from_numpy(
         rng.standard_normal((N_USERS, RANK), dtype=np.float32) / 8.0,
         rng.standard_normal((N_ITEMS, RANK), dtype=np.float32) / 8.0,
         [f"u{n}" for n in range(N_USERS)], [f"i{n}" for n in range(N_ITEMS)],
         device="cuda")
-    setup_s = time.perf_counter() - t0
+    return model, time.perf_counter() - t0
 
+
+def make_queries(torch, ft, dev, rng, model, n_requests: int):
+    """The request mix: num 1..K; a quarter of the queries ban their own
+    top items (the bans must change the answer) plus random ones, a
+    quarter a random span of up to WIDTH ids."""
     users = rng.integers(0, N_USERS, n_requests)
     nums = rng.integers(1, K + 1, n_requests)
-    # a quarter of the queries ban their own top items (the bans must
-    # change the answer), others random spans of up to WIDTH ids
     rows = torch.from_numpy(users).to(dev)
     none = torch.full((n_requests, 1), N_ITEMS, dtype=torch.int32,
                       device=dev)
@@ -190,12 +231,69 @@ def phase_serve(torch, ft, dev, rng, n_requests: int) -> dict:
             q["blackList"] = [f"i{x}" for x in
                               range(lo, lo + int(rng.integers(1, WIDTH)))]
         queries.append(q)
+    return queries
 
-    ft.LAUNCHES = 0          # the count covers the main path only
+
+def check_answers(torch, ft, dev, model, queries, item_scores) -> float:
+    """Every answer (a list of {"item", "score"}) against the plain
+    version over the whole catalog; returns the max |score diff|."""
+    from predictionio_tpu_torch.ops.topk import NEG_INF
+    n = len(queries)
+    rows = torch.tensor([int(q["user"][1:]) for q in queries], device=dev)
+    banned = np.full((n, WIDTH), N_ITEMS, np.int32)
+    for r, q in enumerate(queries):
+        ids = [int(x[1:]) for x in q.get("blackList", ())]
+        banned[r, :len(ids)] = ids
+    bad = 0
+    max_err = 0.0
+    for lo in range(0, n, 64):
+        sl = slice(lo, lo + 64)
+        rs, ri = ft.fused_topk_reference(
+            model.user_factors[rows[sl]], model.item_factors,
+            torch.from_numpy(banned[sl]).to(dev), k=K, n_valid=N_ITEMS)
+        rs, ri = rs.double().cpu().numpy(), ri.cpu().numpy()
+        for j, r in enumerate(range(lo, min(lo + 64, n))):
+            got = item_scores[r]
+            keep = [c for c in range(K) if rs[j, c] > NEG_INF / 2][
+                :queries[r]["num"]]
+            if len(got) != len(keep):
+                bad += 1
+                continue
+            ks = np.array([[g["score"] for g in got]])
+            ki = np.array([[int(g["item"][1:]) for g in got]])
+            exact = exact_scores(torch, model.user_factors[rows[r:r + 1]],
+                                 model.item_factors, ki)
+            max_err = max(max_err, agree(ks, ki, rs[j:j + 1, :len(got)],
+                                         ri[j:j + 1, :len(got)], exact))
+    if bad:
+        fail(f"{bad} of {n} answers have the wrong length")
+    return max_err
+
+
+def device_bytes(torch) -> int:
+    """Bytes allocated by this process on every card."""
+    return sum(torch.cuda.memory_allocated(d)
+               for d in range(torch.cuda.device_count()))
+
+
+def run_server(torch, ft, model, queries, mesh=None, midway=None) -> dict:
+    """Deploy `model` (over `mesh`), send `queries` from 64 client
+    threads, stop the server; the kernel counts are set to 0 just before
+    the deploy and read just after the last answer. With `midway`, the
+    queries go in two halves and `midway(server)` runs between them."""
+    from predictionio_tpu_torch.cli.main import deploy
+    from predictionio_tpu_torch.models.recommendation import Query
+
+    before_bytes = device_bytes(torch)
+    ft.LAUNCHES = 0          # the counts cover this path only
+    ft.SHARD_LAUNCHES = 0
     t0 = time.perf_counter()
-    server = deploy(model, port=0, batch_max=64)
+    server = deploy(model, port=0, batch_max=64, mesh=mesh)
     warm_s = time.perf_counter() - t0
+    added_bytes = device_bytes(torch) - before_bytes
     plan = server.deployment.algos[0]._serve_plan
+    pager = server._pager
+    pager_thread = pager._thread if pager is not None else None
     # host time inside the drainer's scoring calls, for the breakdown
     batch_s = []
     predict = server.deployment.predict_batch
@@ -219,12 +317,20 @@ def phase_serve(torch, ft, dev, rng, n_requests: int) -> dict:
             body = json.loads(resp.read())
         return body, time.perf_counter() - t
 
+    halves = [queries] if midway is None else [
+        queries[:len(queries) // 2], queries[len(queries) // 2:]]
+    answers, wall_s, mid = [], 0.0, None
     try:
-        t0 = time.perf_counter()
         with ThreadPoolExecutor(64) as pool:
-            answers = list(pool.map(post, queries))
-        wall_s = time.perf_counter() - t0
-        launches, plan_calls = ft.LAUNCHES, plan.calls
+            for h, part in enumerate(halves):
+                if h:
+                    mid = midway(server)
+                t0 = time.perf_counter()
+                answers += list(pool.map(post, part))
+                wall_s += time.perf_counter() - t0
+        pager_alive = pager_thread is not None and pager_thread.is_alive()
+        launches, shard_launches = ft.LAUNCHES, ft.SHARD_LAUNCHES
+        plan_calls = plan.calls
         sizes = server.batcher.batch_sizes()
         with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/",
                                     timeout=60) as resp:
@@ -232,67 +338,295 @@ def phase_serve(torch, ft, dev, rng, n_requests: int) -> dict:
     finally:
         server.stop()
         server.deployment.predict_batch = predict
+    if pager_thread is not None and (server._pager is not None
+                                     or pager_thread.is_alive()):
+        fail("stop() left the page thread running")
     # the same scoring call without the HTTP threads around it: 50
     # sequential batches of 5 queries
-    from predictionio_tpu_torch.models.recommendation import Query
     batch = [Query(**q) for q in queries[:5]]
     predict(batch)
     t0 = time.perf_counter()
     for _ in range(50):
         predict(batch)
     alone_ms = 1e3 * (time.perf_counter() - t0) / 50
+    if sum(n * c for n, c in sizes.items()) != len(queries):
+        fail(f"batches {sizes} do not add up to {len(queries)} requests")
     expected = len(plan.buckets) + sum(
         c * -(-n // plan.max_bucket) for n, c in sizes.items())
-    if not (launches == plan_calls == expected):
-        fail(f"kernel launches {launches}, plan calls {plan_calls}, "
-             f"expected {expected} (warmup + drained batch chunks)")
-    if sum(n * c for n, c in sizes.items()) != n_requests:
-        fail(f"batches {sizes} do not add up to {n_requests} requests")
-
-    # every answer against the plain version on the card
-    banned = np.full((n_requests, WIDTH), N_ITEMS, np.int32)
-    for r, q in enumerate(queries):
-        ids = [int(x[1:]) for x in q.get("blackList", ())]
-        banned[r, :len(ids)] = ids
-    bad = 0
-    max_err = 0.0
-    for lo in range(0, n_requests, 64):
-        sl = slice(lo, lo + 64)
-        rs, ri = ft.fused_topk_reference(
-            model.user_factors[rows[sl]], model.item_factors,
-            torch.from_numpy(banned[sl]).to(dev), k=K, n_valid=N_ITEMS)
-        rs, ri = rs.double().cpu().numpy(), ri.cpu().numpy()
-        for j, r in enumerate(range(lo, min(lo + 64, n_requests))):
-            got = answers[r][0]["itemScores"]
-            keep = [c for c in range(K) if rs[j, c] > NEG_INF / 2][:nums[r]]
-            if len(got) != len(keep):
-                bad += 1
-                continue
-            ks = np.array([[g["score"] for g in got]])
-            ki = np.array([[int(g["item"][1:]) for g in got]])
-            exact = exact_scores(torch, model.user_factors[rows[r:r + 1]],
-                                 model.item_factors, ki)
-            max_err = max(max_err, agree(ks, ki, rs[j:j + 1, :len(got)],
-                                         ri[j:j + 1, :len(got)], exact))
-    if bad:
-        fail(f"{bad} of {n_requests} answers have the wrong length")
     lat = np.sort([t for _, t in answers])
-    out = {"phase": "serve", "users": N_USERS, "items": N_ITEMS,
-           "rank": RANK, "requests": n_requests, "answers_checked":
-           n_requests, "max_abs_err": max_err,
-           "batch_sizes": {str(n): c for n, c in sorted(sizes.items())},
-           "drained_batches": sum(sizes.values()),
-           "warmed_buckets": list(plan.buckets), "launches": launches,
-           "plan_calls": plan_calls,
-           "status_kernel_launches": status["kernel_launches"],
-           "model_setup_s": setup_s,
-           "deploy_warm_s": warm_s, "wall_s": wall_s,
-           "predict_batch_s": {"sum": sum(batch_s),
-                               "mean": sum(batch_s) / len(batch_s)},
-           "predict_batch_alone_ms": alone_ms,
-           "qps": n_requests / wall_s,
-           "latency_ms": {"p50": 1e3 * lat[len(lat) // 2],
-                          "p99": 1e3 * lat[int(0.99 * (len(lat) - 1))]}}
+    return {"plan": plan, "answers": [b["itemScores"] for b, _ in answers],
+            "expected_calls": expected, "launches": launches,
+            "shard_launches": shard_launches, "plan_calls": plan_calls,
+            "sizes": sizes, "status": status, "warm_s": warm_s,
+            "wall_s": wall_s, "batch_s": batch_s, "alone_ms": alone_ms,
+            "lat": lat, "added_bytes": added_bytes, "midway": mid,
+            "pager_alive": pager_alive}
+
+
+def serve_summary(run: dict, n_requests: int, max_err: float) -> dict:
+    sizes, batch_s, lat = run["sizes"], run["batch_s"], run["lat"]
+    plan = run["plan"]
+    return {"users": N_USERS, "items": N_ITEMS, "rank": RANK,
+            "requests": n_requests, "answers_checked": n_requests,
+            "max_abs_err": max_err,
+            "batch_sizes": {str(n): c for n, c in sorted(sizes.items())},
+            "drained_batches": sum(sizes.values()),
+            "warmed_buckets": list(plan.buckets),
+            "launches": run["launches"],
+            "shard_launches": run["shard_launches"],
+            "plan_calls": run["plan_calls"],
+            "status_kernel_launches": run["status"]["kernel_launches"],
+            "deploy_warm_s": run["warm_s"],
+            "device_bytes_added_by_deploy": run["added_bytes"],
+            "wall_s": run["wall_s"],
+            "predict_batch_s": {"sum": sum(batch_s),
+                                "mean": sum(batch_s) / len(batch_s)},
+            "predict_batch_alone_ms": run["alone_ms"],
+            "qps": n_requests / run["wall_s"],
+            "latency_ms": {"p50": 1e3 * lat[len(lat) // 2],
+                           "p99": 1e3 * lat[int(0.99 * (len(lat) - 1))]}}
+
+
+def phase_serve(torch, ft, dev, rng, model, setup_s: float,
+                n_requests: int) -> dict:
+    queries = make_queries(torch, ft, dev, rng, model, n_requests)
+    run = run_server(torch, ft, model, queries)
+    launches, plan_calls = run["launches"], run["plan_calls"]
+    if not (launches == plan_calls == run["expected_calls"]):
+        fail(f"kernel launches {launches}, plan calls {plan_calls}, "
+             f"expected {run['expected_calls']} (warmup + drained batch "
+             "chunks)")
+    max_err = check_answers(torch, ft, dev, model, queries, run["answers"])
+    out = {"phase": "serve", **serve_summary(run, n_requests, max_err),
+           "model_setup_s": setup_s}
+    emit(out)
+    return out
+
+
+def phase_parity_sharded(torch, ft, dev, rng, model) -> float:
+    from predictionio_tpu_torch.ops.topk_sharded import (
+        ServeMesh, ShardedBucketedTopK)
+    from predictionio_tpu_torch.parallel.mesh import shard_put
+
+    def k2(fac, vecs, ban, n_valid):
+        vt, bt = torch.from_numpy(vecs).to(dev), torch.from_numpy(ban).to(dev)
+        s, i = ft.shard_local_candidates(vt, fac, bt, k=K, n_valid=n_valid)
+        torch.cuda.synchronize()
+        rs, ri = ft.fused_topk_reference(vt, fac, bt, k=K, n_valid=n_valid)
+        torch.cuda.synchronize()
+        if not (torch.equal(i, ri) and torch.equal(s, rs)):
+            fail(f"K2 not bit-identical: per_shard={fac.shape[0]} "
+                 f"bucket={vecs.shape[0]} n_valid={n_valid}")
+
+    n = 20_037
+    host = rng.integers(-4, 5, (n, RANK)).astype(np.float32)
+    cases = 0
+    for n_shards in (3, 4):
+        shards = shard_put(host, [dev] * n_shards)
+        per = shards[0].shape[0]
+        # local bans: none, spans over tile edges, the shard's end,
+        # single ids on both sides of edges; the filler `per` pads
+        local = [[], list(range(120, 136)), list(range(250, 262)),
+                 list(range(per - 40, per)), [127, 128, 255, 256, 511, 512]]
+        for idx in (0, n_shards - 1):
+            own = min(max(n - idx * per, 0), per)
+            for n_valid in sorted({per, per - 1, 5, 0, own}):
+                for b in (1, 8, 64):
+                    vecs = rng.integers(-4, 5, (b, RANK)).astype(np.float32)
+                    ban = np.full((b, WIDTH), per, np.int32)
+                    for row in range(b):
+                        ids = local[row % len(local)]
+                        ban[row, :len(ids)] = ids
+                    k2(shards[idx], vecs, ban, n_valid)
+                    cases += 1
+    # an all-banned row: 150 rows split 3 ways (per_shard 50 <= WIDTH)
+    small = rng.integers(-4, 5, (150, 10)).astype(np.float32)
+    for fac in shard_put(small, [dev] * 3):
+        ban = np.full((2, WIDTH), 50, np.int32)
+        ban[0, :50] = np.arange(50)
+        k2(fac, rng.integers(-4, 5, (2, 10)).astype(np.float32), ban, 50)
+        cases += 1
+
+    # the whole plan at 3 shards on one card, integer factors with six
+    # equal items straddling each shard edge
+    mesh = ServeMesh((dev,) * 3, forced=True)
+    f = rng.integers(-2, 3, (n, RANK)).astype(np.float32)
+    per = -(-n // 3)
+    for e in (per, 2 * per):
+        f[e - 3:e + 3] = f[e - 3]
+    plan = ShardedBucketedTopK(f, k=K, buckets=(1, 8, 64),
+                               banned_width=WIDTH, mesh=mesh)
+    plan.warm()
+    full = torch.from_numpy(f).to(dev)
+    bans_cycle = [[], [per - 2, per + 1], list(range(2 * per - 40,
+                                                     2 * per + 20)),
+                  [0, n - 1], [per - 3, 2 * per + 2]]
+    plan_cases = 0
+    for b in (1, 5, 64):
+        vecs = rng.integers(-2, 3, (b, RANK)).astype(np.float32)
+        vecs[0] = f[per - 3]                    # the tie group on top
+        if b > 1:
+            vecs[1] = f[2 * per - 3]
+        bans = [bans_cycle[r % len(bans_cycle)] for r in range(b)]
+        s, i = plan(vecs, bans)
+        ban = np.full((b, WIDTH), n, np.int32)
+        for row, bl in enumerate(bans):
+            ban[row, :len(bl)] = bl
+        rs, ri = ft.fused_topk_reference(
+            torch.from_numpy(vecs).to(dev), full,
+            torch.from_numpy(ban).to(dev), k=K, n_valid=n)
+        if not (np.array_equal(i, ri.cpu().numpy())
+                and np.array_equal(s, rs.cpu().numpy())):
+            fail(f"sharded plan not bit-identical to the plain version "
+                 f"over the whole catalog at bucket {b}")
+        plan_cases += 1
+
+    # the whole plan on the real-valued 500,000 x 64 catalog
+    plan = ShardedBucketedTopK(model.item_factors, k=K, buckets=(64,),
+                               banned_width=WIDTH, mesh=mesh)
+    plan.warm()
+    if (plan.per_shard, plan.n_pad) != (-(-N_ITEMS // 3),
+                                        3 * -(-N_ITEMS // 3)):
+        fail(f"per_shard {plan.per_shard}, padded rows {plan.n_pad}")
+    rows = torch.from_numpy(rng.integers(0, N_USERS, 64)).to(dev)
+    vecs = model.user_factors[rows]
+    ban = np.stack([rng.choice(N_ITEMS, WIDTH, replace=False)
+                    for _ in range(64)]).astype(np.int32)
+    ban[:8, :8] = np.arange(2 * plan.per_shard - 4, 2 * plan.per_shard + 4)
+    s, i = plan(vecs, [r.tolist() for r in ban])
+    bt = torch.from_numpy(ban).to(dev)
+    rs, ri = ft.fused_topk_reference(vecs, model.item_factors, bt, k=K,
+                                     n_valid=N_ITEMS)
+    err = agree(s, i, rs.double().cpu().numpy(), ri.cpu().numpy(),
+                exact_scores(torch, vecs, model.item_factors, i))
+    ks, ki = ft.fused_topk(vecs.contiguous(), model.item_factors, bt, k=K,
+                           n_valid=N_ITEMS)
+    same_as_k1 = bool(np.array_equal(i, ki.cpu().numpy())
+                      and np.array_equal(s, ks.cpu().numpy()))
+    if not same_as_k1:
+        fail("sharded plan differs from the single-device kernel on the "
+             "real-valued catalog (the per-item FMA order is the same)")
+    emit({"phase": "parity_sharded", "k2_integer_cases": cases,
+          "plan_integer_cases": plan_cases, "bit_identical": True,
+          "real_valued": {"n_items": N_ITEMS, "rank": RANK, "bucket": 64,
+                          "n_shards": 3, "per_shard": plan.per_shard,
+                          "max_abs_err": err, "tol": TOL,
+                          "bit_identical_to_single_device": same_as_k1}})
+    return err
+
+
+def phase_serve_sharded(torch, ft, dev, rng, model,
+                        n_requests: int) -> dict:
+    from predictionio_tpu_torch.ops.als import ALSModel
+    from predictionio_tpu_torch.ops.topk_sharded import (
+        ServeMesh, ShardedBucketedTopK)
+    queries = make_queries(torch, ft, dev, rng, model, n_requests)
+    meshes = [("one_card", ServeMesh((dev,) * 3, forced=True))]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        meshes.append(("one_shard_per_card", ServeMesh(
+            tuple(torch.device("cuda", c) for c in range(min(count, 3))),
+            forced=True)))
+    out = {}
+    for name, mesh in meshes:
+        # a model object of its own over the same tensors: the sharded
+        # plan takes the device state and the deploy moves this model's
+        # item master to host RAM
+        smodel = ALSModel(model.user_factors, model.item_factors,
+                          model.users, model.items)
+        run = run_server(torch, ft, smodel, queries, mesh=mesh)
+        if smodel.item_factors.device.type != "cpu":
+            fail(f"{name}: the deployed model's item master stayed on "
+                 f"{smodel.item_factors.device} beside the shards")
+        plan = run["plan"]
+        if not isinstance(plan, ShardedBucketedTopK) \
+                or plan.n_shards != mesh.n_shards:
+            fail(f"{name}: deploy built {type(plan).__name__}, not a "
+                 f"{mesh.n_shards}-shard plan")
+        calls, want = run["plan_calls"], run["expected_calls"]
+        if not (calls == want and run["shard_launches"] == run["launches"]
+                == plan.n_shards * calls):
+            fail(f"{name}: K2 launches {run['shard_launches']}, kernel "
+                 f"launches {run['launches']}, plan calls {calls}, expected "
+                 f"{plan.n_shards} x {want} (warmup + drained batch chunks)")
+        max_err = check_answers(torch, ft, dev, model, queries,
+                                run["answers"])
+        row = {"phase": "serve_sharded", "mesh": name,
+               "devices": [str(d) for d in plan.devices],
+               "n_shards": plan.n_shards, "per_shard": plan.per_shard,
+               "padding_rows": plan.n_pad - N_ITEMS,
+               "item_master": str(smodel.item_factors.device),
+               **serve_summary(run, n_requests, max_err)}
+        emit(row)
+        out[name] = row
+    return out["one_card"]
+
+
+def phase_serve_tiered(torch, ft, dev, rng, model, n_queries: int) -> dict:
+    import os
+    from predictionio_tpu_torch.ops.als import ALSModel
+    from predictionio_tpu_torch.ops.topk_tiered import TieredTopK
+
+    hot = N_ITEMS // 4
+    queries = make_queries(torch, ft, dev, rng, model, n_queries)
+    for r in range(0, n_queries, 4):     # bans on both sides of the slab
+        queries[r]["blackList"] = [f"i{x}" for x in range(hot - 10,
+                                                           hot + 10)]
+    # the item master in host RAM, as `items_device="cpu"` loads it: the
+    # plan pins only the hot slab on the card
+    tmodel = ALSModel(model.user_factors, model.item_factors.cpu(),
+                      model.users, model.items)
+
+    def midway(server):
+        """One page pass (fold + rebalance) through the server's pager:
+        it must swap the slab without launching or warming anything."""
+        plan = server.deployment.algos[0]._serve_plan
+        before = (ft.LAUNCHES, plan.calls, set(plan._hot._warm))
+        gids = plan.slot_gids
+        t0 = time.perf_counter()
+        promoted = server._pager.tick()
+        page = {"promoted": promoted, "seconds": time.perf_counter() - t0}
+        if promoted <= 0 or np.array_equal(gids, plan.slot_gids):
+            fail("rebalance promoted nothing")
+        if (ft.LAUNCHES, plan.calls, set(plan._hot._warm)) != before:
+            fail("rebalance launched or warmed the kernel")
+        return page
+
+    # the pager's own ticks are an hour apart: the one rebalance of the
+    # run is `midway`'s
+    knobs = {"PIO_SERVE_TIER": "on", "PIO_TIER_HOT_FRAC": "0.25",
+             "PIO_TIER_PAGE_INTERVAL_S": "3600"}
+    saved = {v: os.environ.get(v) for v in knobs}
+    os.environ.update(knobs)
+    try:
+        run = run_server(torch, ft, tmodel, queries, midway=midway)
+    finally:
+        for v, val in saved.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+    plan = run["plan"]
+    if not isinstance(plan, TieredTopK) or plan.hot_items != hot:
+        fail(f"deploy built {type(plan).__name__}, not a {hot}-item "
+             "tiered plan")
+    if run["status"]["plans"] != ["TieredTopK"] or not run["pager_alive"]:
+        fail(f"GET / shows plans {run['status']['plans']}, page thread "
+             f"alive {run['pager_alive']}")
+    catalog = N_ITEMS * RANK * 4
+    if run["added_bytes"] >= catalog // 2:
+        fail(f"the tiered deploy added {run['added_bytes']} bytes on the "
+             f"card, not just its {hot * RANK * 4}-byte slab")
+    calls, want = run["plan_calls"], run["expected_calls"]
+    if not (run["launches"] == calls == want) or run["shard_launches"]:
+        fail(f"tiered: kernel launches {run['launches']}, hot-slab calls "
+             f"{calls}, expected {want} (warmup + drained batch chunks)")
+    max_err = check_answers(torch, ft, dev, model, queries, run["answers"])
+    out = {"phase": "serve_tiered", "hot_items": plan.hot_items,
+           "slab_bytes": hot * RANK * 4, "item_master": "cpu",
+           "rebalance": run["midway"], "hit_ratio": plan.hit_ratio(),
+           "pager_thread_alive_while_serving": run["pager_alive"],
+           **serve_summary(run, n_queries, max_err)}
     emit(out)
     return out
 
@@ -349,10 +683,113 @@ def phase_timing(torch, ft, dev, rng, card: str) -> dict:
     return out
 
 
+def phase_timing_sharded(torch, ft, dev, rng, model, card: str) -> dict:
+    from predictionio_tpu_torch.ops.topk import NEG_INF
+    from predictionio_tpu_torch.ops.topk_sharded import (
+        ServeMesh, ShardedBucketedTopK)
+    bw, fl = peaks(card)
+    plan = ShardedBucketedTopK(model.item_factors, k=K, buckets=(1, 64),
+                               banned_width=WIDTH,
+                               mesh=ServeMesh((dev,) * 3, forced=True))
+    plan.warm()
+    per, fac = plan.per_shard, plan.factors[-1]
+    n_valid = N_ITEMS - 2 * per               # the last shard's own
+    kk = plan.k_shard
+    out = {}
+    for b in (1, 64):
+        vecs = torch.from_numpy(
+            rng.standard_normal((b, RANK), dtype=np.float32)).to(dev)
+        local = torch.from_numpy(np.stack(
+            [rng.choice(n_valid, WIDTH, replace=False) for _ in range(b)]
+        ).astype(np.int32)).to(dev)
+        local64 = local.long()
+        glob = torch.from_numpy(np.stack(
+            [rng.choice(N_ITEMS, WIDTH, replace=False) for _ in range(b)]
+        ).astype(np.int32)).to(dev)
+
+        def library():
+            s = torch.matmul(vecs, fac.T)
+            s.scatter_(1, local64, NEG_INF)
+            s[:, n_valid:] = NEG_INF
+            return torch.topk(s, kk)
+
+        kernel_ms = time_ms(torch, lambda: ft.shard_local_candidates(
+            vecs, fac, local, k=kk, n_valid=n_valid), 50)
+        plain_ms = time_ms(torch, lambda: ft.fused_topk_reference(
+            vecs, fac, local, k=kk, n_valid=n_valid), 20)
+        library_ms = time_ms(torch, library, 20)
+        plan_ms = time_ms(torch, lambda: plan._launch(vecs, glob), 50)
+        # the host's enqueue time for the same calls: when it matches
+        # plan_ms, the card waits on the host between launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            plan._launch(vecs, glob)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 50
+        torch.cuda.synchronize()
+        single_ms = time_ms(torch, lambda: ft.fused_topk(
+            vecs, model.item_factors, glob, k=K, n_valid=N_ITEMS), 50)
+        nbytes = 4 * (per * RANK + b * RANK + b * WIDTH) + 8 * b * kk
+        flops = 2 * b * per * RANK
+        t_bytes, t_ops = nbytes / bw, flops / fl
+        row = {"bucket": b, "per_shard": per, "n_valid": n_valid,
+               "ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops,
+               "plan_call_ms": plan_ms, "plan_call_host_ms": host_ms,
+               "n_shards": plan.n_shards,
+               "single_device_kernel_ms": single_ms}
+        row["profile"] = profile_calls(
+            torch, lambda: plan._launch(vecs, glob), 20)
+        emit({"phase": "timing_sharded", "card": card, **row})
+        out[b] = row
+    return out
+
+
+def profile_calls(torch, fn, iters: int) -> dict:
+    """Device time per call by kernel name under `torch.profiler`, and
+    the device's busy share of the wall time (the profiler's own host
+    cost inflates the wall time, so the share is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / iters
+    from torch.autograd import DeviceType
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue     # host ops carry their kernels' time as well
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels.append({"name": ev.key[:80], "ms": us / 1e3 / iters,
+                            "count": ev.count / iters})
+    kernels.sort(key=lambda r: -r["ms"])
+    device_ms = sum(r["ms"] for r in kernels)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "kernels": kernels[:12]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=320)
+    ap.add_argument("--sharded-requests", type=int, default=160)
+    ap.add_argument("--tiered-queries", type=int, default=64)
+    ap.add_argument("--only", choices=("serve_sharded",),
+                    help="run only the build and this phase (for a "
+                         "machine with several cards), no kernels line")
     args = ap.parse_args()
 
     import torch
@@ -362,7 +799,7 @@ def main() -> int:
         return 2
     from predictionio_tpu_torch.ops import fused_topk as ft
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # exact fp32 products
     torch.backends.cudnn.allow_tf32 = False
     card = smi_line()
@@ -381,11 +818,27 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]})
 
     rng = np.random.default_rng(args.seed)
+    if args.only == "serve_sharded":
+        model, _ = make_model(torch, rng)
+        phase_serve_sharded(torch, ft, dev, rng, model,
+                            args.sharded_requests)
+        print(smi_line(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     err = phase_parity(torch, ft, dev, rng)
-    serve = phase_serve(torch, ft, dev, rng, args.requests)
+    model, setup_s = make_model(torch, rng)
+    serve = phase_serve(torch, ft, dev, rng, model, setup_s, args.requests)
+    err_sh = phase_parity_sharded(torch, ft, dev, rng, model)
+    serve_sh = phase_serve_sharded(torch, ft, dev, rng, model,
+                                   args.sharded_requests)
+    tiered = phase_serve_tiered(torch, ft, dev, rng, model,
+                                args.tiered_queries)
     timing = phase_timing(torch, ft, dev, rng, card)
+    timing_sh = phase_timing_sharded(torch, ft, dev, rng, model, card)
 
-    main_row = timing[64]
+    main_row, shard_row = timing[64], timing_sh[64]
     emit({"kernels": [{
         "name": "fused_topk", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
@@ -395,7 +848,19 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "bucket": 64,
-        "by_bucket": {str(b): r for b, r in timing.items()}}]})
+        "tiered_launches": tiered["launches"],
+        "by_bucket": {str(b): r for b, r in timing.items()}}, {
+        "name": "shard_local_candidates", "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
+        "replaces": "predictionio_tpu/ops/fused_topk.py:176",
+        "launches": serve_sh["shard_launches"],
+        "max_abs_err": max(err_sh, serve_sh["max_abs_err"]),
+        "ms": shard_row["ms"], "plain_ms": shard_row["plain_ms"],
+        "bound_ms": shard_row["bound_ms"],
+        "bound_by": shard_row["bound_by"],
+        "library_ms": shard_row["library_ms"], "bucket": 64,
+        "per_shard": shard_row["per_shard"],
+        "by_bucket": {str(b): r for b, r in timing_sh.items()}}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """Command line of the port: `deploy` a recommendation model.
 
     python -m predictionio_tpu_torch.cli deploy --model m.npz --port 8000 \
-        [--device cpu] [--batch-max 64]
+        [--device cpu] [--batch-max 64] [--items-on-host]
 
 The model file is an `.npz` written by `ops.als.ALSModel.save_npz` (two
 factor matrices and both id lists). The server runs on CUDA unless
 `--device cpu` is given, and refuses to start without CUDA otherwise.
+`--items-on-host` keeps the item master in host RAM, so that a catalog
+past the card's budget tiers (or, over two or more cards, shards)
+instead of being loaded whole onto one card.
 """
 
 from __future__ import annotations
@@ -25,12 +28,20 @@ from predictionio_tpu_torch.serving.server import (PredictionServer,
 
 
 def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
-           batch_max: int = 64, window_s: float = 0.002) -> PredictionServer:
+           batch_max: int = 64, window_s: float = 0.002,
+           mesh=None) -> PredictionServer:
     """Warm `model` for serving (kernel built, every bucket up to
     `batch_max` launched once) and start a `PredictionServer` on it in a
-    background thread; returns the running server."""
+    background thread; returns the running server. `mesh`, an
+    `ops.topk_sharded.ServeMesh`, shards the catalog over its devices
+    (`ServeMesh((torch.device("cuda", 0),) * 3, forced=True)` serves
+    three shards from one card); None shards only over two or more
+    local cards, as `serve_mesh_from_conf` decides. A sharded or tiered
+    plan takes the device state: `model.item_factors` is moved to host
+    RAM (`ALSAlgorithm.warm_serving`)."""
     algos, models, serving = prepare_deploy(
-        RecommendationEngine.apply(), [model], warm_batch_max=batch_max)
+        RecommendationEngine.apply(), [model], warm_batch_max=batch_max,
+        mesh=mesh)
     server = PredictionServer(_Deployment(algos, models, serving),
                               host=host, port=port, batch_max=batch_max,
                               window_s=window_s)
@@ -48,11 +59,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dep.add_argument("--device", default=None,
                      help="torch device (default cuda)")
     dep.add_argument("--batch-max", type=int, default=64)
+    dep.add_argument("--items-on-host", action="store_true",
+                     help="keep the item factors in host RAM; the serving "
+                          "plan places what it needs on the device")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
 
-    model = load_npz(args.model, device=args.device)
+    model = load_npz(args.model, device=args.device,
+                     items_device="cpu" if args.items_on_host else None)
     server = deploy(model, host=args.ip, port=args.port,
                     batch_max=args.batch_max)
     print(f"serving {args.model} on http://{args.ip}:{server.port} "

@@ -48,10 +48,12 @@ class Algorithm(_Component):
         device-batched inference override this."""
         return [(i, self.predict(model, q)) for i, q in queries]
 
-    def warm_serving(self, model: Any, buckets: Sequence[int]) -> int:
-        """Deploy-time warmup: pin model state on the device and launch
-        the serve kernels once for each batch-size bucket. Returns how
-        many buckets were warmed; the default does nothing."""
+    def warm_serving(self, model: Any, buckets: Sequence[int],
+                     mesh: Any = None) -> int:
+        """Deploy-time warmup: pin model state on the device (or shard it
+        over `mesh`, a `ops.topk_sharded.ServeMesh` or `ShardSlice`) and
+        launch the serve kernels once for each batch-size bucket. Returns
+        how many buckets were warmed; the default does nothing."""
         return 0
 
 

@@ -26,14 +26,17 @@ _log = logging.getLogger("pio.torch.workflow")
 def prepare_deploy(engine: Engine, models: Sequence[Any],
                    engine_params: Optional[EngineParams] = None, *,
                    warm_batch_max: Optional[int] = None,
-                   observed_sizes: Optional[Dict[int, int]] = None
-                   ) -> Tuple[List[Algorithm], List[Any], Serving]:
+                   observed_sizes: Optional[Dict[int, int]] = None,
+                   mesh=None) -> Tuple[List[Algorithm], List[Any], Serving]:
     """Instantiate the serving components for `models` (one per
     algorithm) and warm them; returns (algorithms, models, serving).
 
     `warm_batch_max` caps the batch buckets warmed through each
     algorithm's `warm_serving` (the server passes its micro-batcher
-    `batch_max`); None skips warmup."""
+    `batch_max`); None skips warmup. `mesh` (a `ServeMesh` or
+    `ShardSlice`) is the serving mesh; None takes
+    `serve_mesh_from_conf()`, which shards only over two or more local
+    CUDA cards."""
     algos, serving = engine.make_components(engine_params or EngineParams())
     models = list(models)
     if len(models) != len(algos):
@@ -44,7 +47,11 @@ def prepare_deploy(engine: Engine, models: Sequence[Any],
         if callable(check):
             check()
     if warm_batch_max is not None:
-        warm_deploy(algos, models, warm_batch_max,
+        if mesh is None:
+            from predictionio_tpu_torch.ops.topk_sharded import (
+                serve_mesh_from_conf)
+            mesh = serve_mesh_from_conf()
+        warm_deploy(algos, models, warm_batch_max, mesh=mesh,
                     observed_sizes=observed_sizes)
     return algos, models, serving
 
@@ -79,16 +86,17 @@ def derive_warm_buckets(warm_batch_max: int,
 
 
 def warm_deploy(algos: Sequence[Algorithm], models: Sequence[Any],
-                warm_batch_max: int,
+                warm_batch_max: int, mesh=None,
                 observed_sizes: Optional[Dict[int, int]] = None) -> int:
     """Warm every algorithm's serve plan for the pow2 batch buckets up
-    to `warm_batch_max`, pinning model state on the device; returns the
-    number of buckets warmed. Raises on any warmup failure."""
+    to `warm_batch_max`, pinning model state on the device or sharding
+    it over `mesh`; returns the number of buckets warmed. Raises on any
+    warmup failure."""
     buckets = derive_warm_buckets(warm_batch_max, observed_sizes)
     t0 = time.perf_counter()
     warmed = 0
     for algo, model in zip(algos, models):
-        warmed += int(algo.warm_serving(model, buckets) or 0)
+        warmed += int(algo.warm_serving(model, buckets, mesh=mesh) or 0)
     _log.info("serve_warmup buckets=%s warmed=%d seconds=%.3f", buckets,
               warmed, time.perf_counter() - t0)
     return warmed

@@ -8,10 +8,13 @@ The port of `predictionio_tpu/models/recommendation.py` (parity target
   - wire format: query `{"user": "1", "num": 4}` ->
     `{"itemScores": [{"item": "i", "score": s}]}`.
 
-A deployment serves blackList queries through the warmed `BucketedTopK`
-plan, that is through the fused CUDA kernel; whiteList queries and
-queries past the plan (num > 10, more than 64 bans) take the generic
-paths. Training comes with a later slice.
+A deployment serves blackList queries through the warmed plan that
+`ops.topk_sharded.serve_plan` picks (single-device, sharded, tiered or
+a fleet slice), that is through the fused CUDA kernel; whiteList
+queries and queries past the plan (num > 10, more than 64 bans) take
+the generic paths: on the card over a single-device plan's factors,
+in host RAM over the item master when a sharded or tiered plan holds
+the card's copy. Training comes with a later slice.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ from predictionio_tpu_torch.core.params import Params
 from predictionio_tpu_torch.models.common import resolve_item_mask
 from predictionio_tpu_torch.ops.als import ALSModel
 from predictionio_tpu_torch.ops.topk import (NEG_INF, BucketedTopK,
-                                             topk_scores,
+                                             _off_host, topk_scores,
                                              topk_scores_filtered)
+from predictionio_tpu_torch.ops.topk_sharded import serve_plan
 
 
 @dataclass(frozen=True)
@@ -68,7 +72,7 @@ class ALSAlgorithm(Algorithm):
 
     def __init__(self, params: Optional[Params] = None):
         super().__init__(params)
-        self._serve_plan: Optional[BucketedTopK] = None
+        self._serve_plan = None   # the plan warm_serving built
 
     def train(self, ctx, pd) -> ALSModel:
         raise NotImplementedError(
@@ -79,14 +83,36 @@ class ALSAlgorithm(Algorithm):
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         return self.batch_predict(model, [(0, query)])[0][1]
 
-    def warm_serving(self, model: ALSModel, buckets) -> int:
-        """Deploy warmup: pin the item factors on the model's device and
-        launch the fused kernel once per bucket (blackList queries are the
-        common case; whiteList queries use the dense-mask path)."""
-        self._serve_plan = BucketedTopK(
+    def warm_serving(self, model: ALSModel, buckets, mesh=None) -> int:
+        """Deploy warmup: build the serving plan `serve_plan` picks (the
+        item factors pinned on the model's device; sharded over `mesh`
+        when it is forced or the catalog exceeds one device; tiered past
+        the device budget when the item master lies in host RAM) and
+        launch the fused kernel once per bucket (blackList queries are
+        the common case; whiteList queries use the dense-mask path).
+
+        A sharded, tiered or slice plan holds its own device state, so
+        the model's item master moves to host RAM here (it serves the
+        generic paths from there): no whole copy of the catalog stays
+        on a card beside the plan's."""
+        plan = serve_plan(
             model.item_factors, k=Query(user="").num, buckets=buckets,
-            banned_width=self.SERVE_BANNED_WIDTH, device=model.device)
-        return self._serve_plan.warm()
+            banned_width=self.SERVE_BANNED_WIDTH, mesh=mesh,
+            device=model.device)
+        if not isinstance(plan, BucketedTopK) \
+                and _off_host(model.item_factors):
+            model.item_factors = model.item_factors.cpu()
+        self._serve_plan = plan
+        return plan.warm()
+
+    def _generic_factors(self, model: ALSModel) -> torch.Tensor:
+        """The item factors the generic (non-plan) paths score against:
+        a single-device plan's resident copy, else the model's master
+        (in host RAM once a sharded or tiered plan owns the card's)."""
+        plan = self._serve_plan
+        if isinstance(plan, BucketedTopK):
+            return plan.factors
+        return model.item_factors
 
     def batch_predict(self, model: ALSModel,
                       queries: Sequence[Tuple[int, Query]]
@@ -113,14 +139,17 @@ class ALSAlgorithm(Algorithm):
                     max_banned=max(map(len, banned), default=0), k=k):
                 scores, ixs = plan(vecs, banned)
             else:
+                items = self._generic_factors(model)
                 scores, ixs = topk_scores_filtered(
-                    vecs, model.item_factors, banned, k=k)
+                    vecs.to(items.device), items, banned, k=k)
         else:
             mask = np.concatenate(
                 [resolve_item_mask(model.items, white_list=q.whiteList,
                                    black_list=q.blackList or ())
                  for _, q, _ in live], axis=0)
-            scores, ixs = topk_scores(vecs, model.item_factors, mask, k=k)
+            items = self._generic_factors(model)
+            scores, ixs = topk_scores(vecs.to(items.device), items, mask,
+                                      k=k)
         for row, (i, q, _) in enumerate(live):
             items = []
             for s, ix in zip(scores[row], ixs[row]):

@@ -1,7 +1,12 @@
 """ALS model, serving side.
 
 The port of `ALSModel` from `predictionio_tpu/ops/als.py`: the factor
-matrices as tensors on the serving device plus the id maps. Training,
+matrices as tensors plus the id maps. The user factors live on the
+serving device. The item factors (the item master) live there too, or
+in host RAM when they are loaded with `items_device="cpu"`: a catalog
+that a serving plan shards over several cards or tiers (a hot slab on
+the card, the rest on the host) is never placed whole on one card.
+Training,
 fold-in and RMSE come with the training slice. A model trained by the
 JAX package is carried over as numpy arrays (`als_model_from_numpy`) or
 through an `.npz` file (`save_npz` / `load_npz`), which holds the two
@@ -31,7 +36,9 @@ class ALSModel:
 
     @property
     def device(self) -> torch.device:
-        return self.item_factors.device
+        """The serving device: that of the user factors. The item master
+        may lie in host RAM while a serving plan holds the device copy."""
+        return self.user_factors.device
 
     def sanity_check(self) -> None:
         if self.user_factors.dim() != 2 or self.item_factors.dim() != 2:
@@ -58,26 +65,32 @@ class ALSModel:
 
 def als_model_from_numpy(user_factors: np.ndarray, item_factors: np.ndarray,
                          user_ids: Sequence[str], item_ids: Sequence[str],
-                         device=None) -> ALSModel:
+                         device=None, items_device=None) -> ALSModel:
     """An `ALSModel` on `device` (None = cuda) from host factors and the
     ids of their rows, e.g. the arrays and BiMap keys of a model the JAX
-    package trained."""
+    package trained. `items_device` places the item master (None = the
+    same device); `"cpu"` keeps it in host RAM, so that the deploy's
+    `serve_plan` can shard or tier a catalog past one card's budget."""
     dev = resolve_device(device)
+    item_dev = dev if items_device is None else resolve_device(items_device)
     users = BiMap.from_keys(str(u) for u in user_ids)
     items = BiMap.from_keys(str(i) for i in item_ids)
     if len(users) != len(user_ids) or len(items) != len(item_ids):
         raise ValueError("als_model_from_numpy: duplicate ids")
     model = ALSModel(
         torch.tensor(user_factors, dtype=torch.float32, device=dev),
-        torch.tensor(item_factors, dtype=torch.float32, device=dev),
+        torch.tensor(item_factors, dtype=torch.float32, device=item_dev),
         users, items)
     model.sanity_check()
     return model
 
 
-def load_npz(path: Union[str, Path], device=None) -> ALSModel:
-    """Read a `save_npz` file onto `device` (None = cuda)."""
+def load_npz(path: Union[str, Path], device=None,
+             items_device=None) -> ALSModel:
+    """Read a `save_npz` file onto `device` (None = cuda), the item
+    master onto `items_device` (as in `als_model_from_numpy`)."""
     with np.load(path, allow_pickle=False) as z:
         return als_model_from_numpy(
             z["user_factors"], z["item_factors"],
-            z["user_ids"].tolist(), z["item_ids"].tolist(), device=device)
+            z["user_ids"].tolist(), z["item_ids"].tolist(), device=device,
+            items_device=items_device)

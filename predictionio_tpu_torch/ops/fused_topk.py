@@ -12,6 +12,12 @@ candidates, then a per-row merge), built with nvcc at first use into
     has no counterpart here.
   - `LAUNCHES`, a count of wrapper calls that launched the kernel, so a
     run can show that its serving path went through it.
+  - `shard_local_candidates`, the sharded form (the JAX package's
+    `_kernel_dynamic`): the same kernel launched on one shard's rows
+    with that shard's `n_valid`, counted in `LAUNCHES` and, for that
+    call site alone, in `SHARD_LAUNCHES`. The two TPU kernels share one
+    body and differ only in where `n_valid` comes from; the launcher
+    takes it at run time, so K2 is a call site, not a second kernel.
 
 Semantics (both versions): `scores = vecs @ factors^T` in exact fp32;
 ids >= `n_valid` and each row's banned ids score `NEG_INF`, out-of-range
@@ -50,6 +56,7 @@ MAX_BUCKET = 128
 _MAX_SMEM = 227 * 1024
 
 LAUNCHES = 0
+SHARD_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
@@ -113,6 +120,30 @@ def fused_topk(vecs: torch.Tensor, factors: torch.Tensor,
     with _LAUNCH_LOCK:
         LAUNCHES += 1
     return out_s, out_i
+
+
+def shard_local_candidates(vecs: torch.Tensor, factors_local: torch.Tensor,
+                           banned_local: torch.Tensor, *, k: int,
+                           n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's top-`k` candidates for `ShardedBucketedTopK`: the
+    rows of `factors_local [per_shard, rank]` scored against `vecs`,
+    rows at or past `n_valid` and the LOCAL ids in `banned_local` at
+    NEG_INF (the filler `per_shard` matches nothing), ranked by (score
+    desc, local id asc). Returns (scores [b, k], local ids [b, k]) on
+    the shard's device. Translating the global bans and merging across
+    shards stay with the caller. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (counted) or raise."""
+    if k > factors_local.shape[0]:
+        raise ValueError(
+            f"shard_local_candidates: k={k} above the shard's "
+            f"{factors_local.shape[0]} rows; pass min(k, per_shard)")
+    out = fused_topk(vecs, factors_local, banned_local, k=k,
+                     n_valid=n_valid)
+    if vecs.device.type == "cuda":
+        global SHARD_LAUNCHES
+        with _LAUNCH_LOCK:
+            SHARD_LAUNCHES += 1
+    return out
 
 
 def _check(vecs, factors, banned, k: int, n_valid: int):

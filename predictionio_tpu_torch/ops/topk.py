@@ -24,6 +24,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -39,7 +40,7 @@ HOST_CROSSOVER_CELLS = int(os.environ.get(
     "PIO_TOPK_HOST_CROSSOVER_CELLS", 4 << 20))
 
 # calls by the path that served them; plain ints under the GIL
-DISPATCH_COUNTS = {"host": 0, "device": 0, "fused": 0}
+DISPATCH_COUNTS = {"host": 0, "device": 0, "fused": 0, "sharded": 0}
 
 # below this many cells the policy never promotes to the device
 PROMOTE_FLOOR_CELLS = int(os.environ.get(
@@ -146,6 +147,32 @@ def _record_dispatch(path: str, cells: int,
                      seconds: Optional[float] = None) -> None:
     DISPATCH_COUNTS[path] += 1
     DISPATCH_POLICY.observe(path, cells, seconds)
+
+
+# Live serving plans with device-pinned factor state, weakly held: the
+# capacity checks in ops/topk_sharded subtract these bytes before
+# deciding whether a NEW catalog still fits one device; without the
+# subtraction a second deploy of a near-capacity catalog passes the
+# check against an empty card while the first plan is still pinned.
+_RESIDENT_PLANS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def register_resident_plan(plan) -> None:
+    """Track a plan whose factor state is device-resident. Weak
+    references only: a dropped deployment's plan leaves the accounting
+    as soon as it is garbage-collected."""
+    _RESIDENT_PLANS.add(plan)
+
+
+def plan_resident_bytes() -> float:
+    """Per-device bytes currently pinned by live serving plans."""
+    total = 0.0
+    for plan in list(_RESIDENT_PLANS):
+        try:
+            total += float(plan.resident_per_device_bytes())
+        except Exception:   # noqa: BLE001 — accounting is best-effort
+            continue
+    return total
 
 
 def _topk_host(scores: np.ndarray, k: int):
@@ -317,6 +344,11 @@ class BucketedTopK:
         # bucket calls made by this plan (warmup included): one kernel
         # call each on a CUDA device
         self.calls = 0
+        register_resident_plan(self)
+
+    def resident_per_device_bytes(self) -> float:
+        """Bytes this plan pins on its device: the whole factor block."""
+        return float(self.factors.numel() * self.factors.element_size())
 
     def warm(self) -> int:
         """Build the kernel library (CUDA) and launch every bucket once;
@@ -404,6 +436,19 @@ class BucketedTopK:
         _record_dispatch("fused", bucket * self.n_items,
                          time.perf_counter() - t0)
         return scores[:b], ixs[:b]
+
+
+def _host_f32(a: ArrayLike) -> np.ndarray:
+    """`a` (host array or tensor on any device) as a C-contiguous fp32
+    numpy array."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
+def _off_host(a: ArrayLike) -> bool:
+    """Whether `a` is a tensor outside host RAM (on a card)."""
+    return isinstance(a, torch.Tensor) and a.device.type != "cpu"
 
 
 def _pin(item_factors: ArrayLike, device: torch.device) -> torch.Tensor:

@@ -8,10 +8,14 @@ micro-batcher that coalesces concurrent requests into device batches
 
   POST /queries.json   {"user", "num", "blackList"?, "whiteList"?}
                        -> {"itemScores": [{"item", "score"}]}
-  GET  /               status JSON, with the fused kernel's launch count
+  GET  /               status JSON, with the fused kernel's launch counts
+                       and the serving plans' kinds
 
-Tenancy, fleet, tracing, SLO and quality accounting, the selector wire
-and the binary frame are not ported yet (ROADMAP.md, Queue 1).
+A deployment whose plan is tiered (`ops/topk_tiered.TieredTopK`, bare
+or inside a fleet slice) gets a `serving.paging.PageManager` thread for
+the server's lifetime. Tenancy, fleet, tracing, SLO and quality
+accounting, the selector wire and the binary frame are not ported yet
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -236,25 +240,37 @@ class PredictionServer:
         self.last_serving_sec = 0.0
         self._httpd = _HTTPServer((host, port), _handler_for(self))
         self._thread: Optional[threading.Thread] = None
+        self._pager = None
 
     @property
     def port(self) -> int:
         return self._httpd.server_address[1]
 
     def start(self) -> int:
-        """Serve in a background thread; returns the bound port."""
+        """Serve in a background thread (and page tiered plans in
+        another); returns the bound port."""
+        plans = _tiered_plans(self.deployment)
+        if plans:
+            from predictionio_tpu_torch.serving.paging import PageManager
+            self._pager = PageManager()
+            self._pager.bind(plans)
+            self._pager.start()
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="pio-torch-http", daemon=True)
         self._thread.start()
         return self.port
 
     def stop(self, timeout: float = 10.0) -> None:
-        """Drain accepted requests, then close the socket."""
+        """Drain accepted requests, then close the socket and stop the
+        page thread."""
         self.batcher.close(timeout)
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout)
+        if self._pager is not None:
+            self._pager.stop()
+            self._pager = None
 
     def serve_query(self, payload: Any) -> Any:
         t0 = time.perf_counter()
@@ -279,13 +295,30 @@ class PredictionServer:
             stats = {"requests": self.request_count,
                      "avg_serving_sec": self.avg_serving_sec,
                      "last_serving_sec": self.last_serving_sec}
+        plans = [type(getattr(a, "_serve_plan", None)).__name__
+                 for a in dep.algos]
         return {"status": "alive",
                 "algorithms": [type(a).__name__ for a in dep.algos],
+                "plans": plans,
                 "devices": devices,
-                "kernel_launches": {"fused_topk": fused_topk.LAUNCHES},
+                "kernel_launches": {
+                    "fused_topk": fused_topk.LAUNCHES,
+                    "shard_local_candidates": fused_topk.SHARD_LAUNCHES},
                 "batch_sizes": {str(k): v for k, v in
                                 sorted(self.batcher.batch_sizes().items())},
                 **stats}
+
+
+def _tiered_plans(dep: _Deployment) -> List[Any]:
+    """The deployment's tiered (demand-paged) serving plans, unwrapping
+    one fleet-slice layer, where a giant slice tiers itself."""
+    out: List[Any] = []
+    for algo in dep.algos:
+        plan = getattr(algo, "_serve_plan", None)
+        plan = getattr(plan, "_inner", plan)
+        if hasattr(plan, "fold_accesses") and plan not in out:
+            out.append(plan)
+    return out
 
 
 def _handler_for(server: PredictionServer):

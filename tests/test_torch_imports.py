@@ -1,7 +1,8 @@
 """Import and device rules of the port: `predictionio_tpu_torch` loads
 neither jax nor any module of `predictionio_tpu`; its entry points run
 on CUDA unless asked for the CPU and raise without CUDA; the fused-kernel
-wrapper never answers a non-CPU request with the plain version."""
+wrapper and the sharded plan never answer a non-CPU request with the
+plain version."""
 
 import json
 import pkgutil
@@ -33,6 +34,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
     assert "predictionio_tpu_torch.ops.fused_topk" in mods
     assert "predictionio_tpu_torch.serving.server" in mods
+    for required in ("ops.topk_sharded", "ops.topk_tiered",
+                     "parallel.mesh", "serving.paging"):
+        assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
         f"mods = {[m for m in mods if not m.endswith('__main__')]!r}\n"
@@ -78,6 +82,30 @@ def test_wrapper_never_runs_plain_version_off_cpu(monkeypatch):
                               torch.empty((8, 4), **meta),
                               torch.empty((1, 2), dtype=torch.int32, **meta),
                               k=2, n_valid=8)
+
+
+def test_sharded_plan_never_runs_plain_version_off_cpu(monkeypatch):
+    """A shard on a device the kernel does not serve raises; nothing
+    routes the sharded plan around the kernel."""
+    from predictionio_tpu_torch.ops import topk_sharded as ps
+
+    def forbidden(*a, **kw):
+        raise AssertionError("plain version ran for a non-CPU tensor")
+
+    monkeypatch.setattr(fused_topk, "fused_topk_reference", forbidden)
+    plan = ps.ShardedBucketedTopK(
+        np.ones((10, 4), np.float32), k=2, buckets=(1,), banned_width=2,
+        mesh=ps.ServeMesh(("meta",) * 2, forced=True))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        plan.warm()
+    before = fused_topk.SHARD_LAUNCHES
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_topk.shard_local_candidates(
+            torch.empty((1, 4), device="meta"),
+            torch.empty((8, 4), device="meta"),
+            torch.empty((1, 2), dtype=torch.int32, device="meta"),
+            k=2, n_valid=8)
+    assert fused_topk.SHARD_LAUNCHES == before
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -20,6 +20,9 @@ from predictionio_tpu_torch.core import workflow as pwf
 from predictionio_tpu_torch.models import recommendation as prec
 from predictionio_tpu_torch.ops import als as pals
 from predictionio_tpu_torch.ops import fused_topk
+from predictionio_tpu_torch.ops import topk as pt
+from predictionio_tpu_torch.ops import topk_sharded as ps
+from predictionio_tpu_torch.ops import topk_tiered as ptt
 
 pytestmark = pytest.mark.torch
 
@@ -108,6 +111,55 @@ def test_batch_predict_matches_jax(factors, batch):
              exact=factors == "integer")
 
 
+@pytest.mark.parametrize("batch", sorted(BATCHES))
+@pytest.mark.parametrize("kind", ["sharded", "tiered"])
+def test_batch_predict_behind_every_plan_matches_jax(kind, batch,
+                                                     monkeypatch):
+    """Behind a sharded or a tiered plan, blackList batches go through the
+    plan and the generic paths (whiteList, num > 10, unknown users) score
+    against the model's item master; every answer is the JAX
+    single-device template's, bit for bit on integer factors."""
+    x, y = _integer()
+    jalgo, jmodel = _jax_algo(x, y)
+    pmodel = pals.als_model_from_numpy(x, y, USERS, ITEMS, device="cpu")
+    mesh = None
+    if kind == "sharded":
+        mesh = ps.ServeMesh(("cpu",) * 3, forced=True)
+    else:
+        monkeypatch.setenv("PIO_SERVE_TIER", "on")
+        monkeypatch.setenv("PIO_TIER_HOT_FRAC", "0.5")
+    palgo = prec.ALSAlgorithm()
+    assert palgo.warm_serving(pmodel, [1, 2, 4, 8], mesh=mesh) == 4
+    plan_class = (ps.ShardedBucketedTopK if kind == "sharded"
+                  else ptt.TieredTopK)
+    assert isinstance(palgo._serve_plan, plan_class)
+    assert palgo._generic_factors(pmodel) is pmodel.item_factors
+    _compare(_predict(jalgo, jmodel, jrec.Query, BATCHES[batch]),
+             _predict(palgo, pmodel, prec.Query, BATCHES[batch]), exact=True)
+
+
+def test_host_master_auto_shards_past_one_device(monkeypatch):
+    """An item master in host RAM lets the deploy shard on its own: over
+    an un-forced mesh, a catalog past one device's budget shards, and one
+    within it stays on a single device, whose resident copy the generic
+    paths then use."""
+    x, y = _integer()
+    monkeypatch.setattr(pt, "plan_resident_bytes", lambda: 0.0)
+    mesh = ps.ServeMesh(("cpu",) * 3)
+    for hbm, plan_class in ((y.nbytes, ps.ShardedBucketedTopK),
+                            (100 * y.nbytes, pt.BucketedTopK)):
+        monkeypatch.setenv("PIO_DEVICE_HBM_BYTES", str(hbm))
+        model = pals.als_model_from_numpy(x, y, USERS, ITEMS, device="cpu",
+                                          items_device="cpu")
+        algos, _, _ = pwf.prepare_deploy(prec.RecommendationEngine.apply(),
+                                         [model], warm_batch_max=4,
+                                         mesh=mesh)
+        palgo = algos[0]
+        assert isinstance(palgo._serve_plan, plan_class)
+        if plan_class is pt.BucketedTopK:
+            assert palgo._generic_factors(model) is palgo._serve_plan.factors
+
+
 def test_blacklist_batches_go_through_the_plan():
     x, y = _integer()
     pmodel = pals.als_model_from_numpy(x, y, USERS, ITEMS, device="cpu")
@@ -134,6 +186,22 @@ def test_npz_round_trip(tmp_path):
     for batch in BATCHES.values():
         _compare(_predict(jalgo, jmodel, jrec.Query, batch),
                  _predict(palgo, back, prec.Query, batch), exact=False)
+
+
+def test_items_device_places_the_master(tmp_path):
+    """`items_device` puts the item master apart from the user factors;
+    the model's serving device is that of its user factors."""
+    x, y = _integer()
+    path = tmp_path / "model.npz"
+    pals.als_model_from_numpy(x, y, USERS, ITEMS,
+                              device="cpu").save_npz(path)
+    back = pals.load_npz(path, device="cpu", items_device="cpu")
+    assert back.item_factors.device.type == "cpu"
+    assert torch.equal(back.item_factors, torch.from_numpy(y))
+    split = pals.ALSModel(back.user_factors,
+                          torch.empty(y.shape, device="meta"),
+                          back.users, back.items)
+    assert split.device == torch.device("cpu")
 
 
 def test_model_checks():
