@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--requests 320]
                           [--sharded-requests 160] [--tiered-queries 64]
+                          [--only serve_sharded]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -10,13 +11,21 @@ the result line:
 
   1. env      torch / CUDA versions and the card (nvidia-smi name, power
               limit).
-  2. build    nvcc builds the fused top-k kernel from csrc/ (sm_90a).
+  2. build    nvcc builds the fused top-k kernel from csrc/ (sm_90a);
+              prints the launch plan per timed bucket (SM count, blocks
+              per SM, ring stages, grid, shared bytes, items per tile)
+              and ptxas's registers and spills.
   3. parity   kernel vs its plain PyTorch version on the card:
-              bit-identical on integer-valued factors (rank 10 and 64,
-              buckets 1/8/64, bans straddling tiles, an all-banned row,
-              n_valid < n_items); on real-valued factors at 500,000 x 64
-              the scores agree to rtol=atol=1e-5 (fp32 summation order
-              differs) and ids agree except inside such near-ties.
+              bit-identical on integer-valued factors: rank 10 and 64,
+              buckets 1/2/8/64/128, bans straddling tiles, n_valid <
+              n_items; a 60-item catalog (one tile, one block) with an
+              all-banned row; k = 64 at buckets 1/8/128; a 300,007-row
+              catalog whose tile count is no multiple of the persistent
+              grid, with bans on the first and last item of every
+              block's range; all-equal scores across block edges (the
+              lowest ids must win). On real-valued factors at 500,000 x
+              64 the scores agree to rtol=atol=1e-5 (fp32 summation
+              order differs) and ids agree except inside such near-ties.
   4. serve    the serving path at full width: a 162,541-user x
               500,000-item rank-64 ALS model made from --seed, deployed
               through `cli.main.deploy` (the code `cli deploy` runs) and
@@ -30,7 +39,10 @@ the result line:
               catalog split 3 and 4 ways: n_valid of per_shard,
               per_shard - 1, 5 < k, 0 and the shard's own, local bans
               over the 128-row tiles, the filler per_shard, an
-              all-banned row; bit-identical on integer factors. Then the
+              all-banned row; bit-identical on integer factors. K2 as
+              the plan launches it, with GLOBAL bans straddling every
+              shard edge and the shard's `id_base`, must equal K2 on the
+              translated local bans with its ids offset. Then the
               whole `ShardedBucketedTopK` at 3 shards on one card vs the
               plain version over the unsharded catalog: bit-identical on
               integer factors with ties across shard edges; on phase 4's
@@ -58,14 +70,18 @@ the result line:
               anything; GET / must show the tiered plan and stop() must
               join the page thread.
   8. timing   kernel, plain-version and library-chain times (CUDA events)
-              at 500,000 x 64, k=10, W=64, buckets 1 and 64, beside the
-              card's bound max(bytes / HBM rate, flops / fp32 rate); K2
-              the same on the last 166,667-row shard (n_valid 166,666),
-              with the whole 3-shard plan call on device tensors (ban
-              translation, 3 shard launches, the merge), its host
-              enqueue time and a `torch.profiler` trace of it (device
-              time by kernel, the card's busy share), and the
-              single-device kernel on the same inputs.
+              at 500,000 x 64, k=10, W=64, buckets 1, 8 and 64, beside
+              the card's bound max(bytes / HBM rate, flops / fp32
+              rate); K2 the same at buckets 1 and 64 on the last
+              166,667-row shard (n_valid 166,666, global bans, id_base
+              333,334), with the whole 3-shard plan call on device
+              tensors (3 shard launches, the merge), its host enqueue
+              time and a `torch.profiler` trace of it (device time by
+              kernel, device operations per call, the card's busy
+              share), and the single-device kernel on the same inputs.
+
+`--only serve_sharded` runs the build and phase 6 alone (for a machine
+with several cards), without the kernels line.
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -89,6 +105,7 @@ RANK = 64
 K = 10               # the recommendation template's plan k
 WIDTH = 64           # its banned width
 TOL = 1e-5
+TIMED_BUCKETS = (1, 8, 64)   # the serve run drains batches of 1-7
 
 # (HBM bytes/s, fp32 CUDA-core FLOP/s) from NVIDIA's data sheets, dense,
 # at the part's full power limit; matched on the nvidia-smi name
@@ -147,17 +164,35 @@ def exact_scores(torch, vecs, factors, ids):
         -1).cpu().numpy()
 
 
+def block_edges(ft, n: int, rank: int, b: int, k: int) -> list:
+    """The first and last item of every block's tile range in the
+    kernel's persistent grid for these shapes (`launch_plan`)."""
+    plan = ft.launch_plan(b, rank, k, n)
+    tile, grid = plan["tile_items"], plan["grid"]
+    n_tiles = -(-n // tile)
+    share, extra = divmod(n_tiles, grid)
+    edges = []
+    for blk in range(grid):
+        t0 = blk * share + min(blk, extra)
+        t1 = t0 + share + (blk < extra)
+        edges += [t0 * tile, min(t1 * tile, n) - 1]
+    return edges
+
+
 def phase_parity(torch, ft, dev, rng) -> float:
-    def run(n, rank, b, k, n_valid, bans, integer):
-        if integer:
-            f = rng.integers(-4, 5, (n, rank)).astype(np.float32)
-            v = rng.integers(-4, 5, (b, rank)).astype(np.float32)
-        else:
-            f = rng.standard_normal((n, rank), dtype=np.float32)
-            v = rng.standard_normal((b, rank), dtype=np.float32)
-        ban = np.full((b, WIDTH), n, np.int32)
+    def run(n, rank, b, k, n_valid, bans, integer, f=None, v=None):
+        if f is None:
+            f = (rng.integers(-4, 5, (n, rank)).astype(np.float32)
+                 if integer else
+                 rng.standard_normal((n, rank), dtype=np.float32))
+        if v is None:
+            v = (rng.integers(-4, 5, (b, rank)).astype(np.float32)
+                 if integer else
+                 rng.standard_normal((b, rank), dtype=np.float32))
+        width = max(WIDTH, max(len(x) for x in bans))
+        ban = np.full((b, width), n, np.int32)
         for row in range(b):
-            ids = bans[row % len(bans)][:WIDTH]
+            ids = bans[row % len(bans)]
             ban[row, :len(ids)] = ids
         ft_, vt, bt = (torch.from_numpy(x).to(dev) for x in (f, v, ban))
         s, i = ft.fused_topk(vt, ft_, bt, k=k, n_valid=n_valid)
@@ -167,8 +202,12 @@ def phase_parity(torch, ft, dev, rng) -> float:
         s, i, rs, ri = (x.cpu().numpy() for x in (s, i, rs, ri))
         if integer:
             if not (np.array_equal(i, ri) and np.array_equal(s, rs)):
+                bad = int(np.nonzero((i != ri).any(axis=1)
+                                     | (s != rs).any(axis=1))[0][0])
                 fail(f"not bit-identical: n={n} rank={rank} bucket={b} "
-                     f"k={k} n_valid={n_valid}")
+                     f"k={k} n_valid={n_valid}; row {bad}: kernel "
+                     f"{i[bad].tolist()} {s[bad].tolist()} plain "
+                     f"{ri[bad].tolist()} {rs[bad].tolist()}")
             return 0.0
         return agree(s, i, rs.astype(np.float64), ri,
                      exact_scores(torch, vt, ft_, i))
@@ -178,17 +217,49 @@ def phase_parity(torch, ft, dev, rng) -> float:
                 list(range(n - 40, n)), [127, 128, 255, 256, 511, 512]]
     cases = 0
     for rank in (10, 64):
-        for b in (1, 8, 64):
+        for b in (1, 2, 8, 64, 128):
             for n_valid in (n, n - 1000, 5):
                 run(n, rank, b, K, n_valid, straddle, True)
                 cases += 1
-    run(60, 10, 8, K, 60, [list(range(60)), []], True)   # all-banned row
-    run(n, 64, 64, 64, n, straddle, True)                # the largest k
-    cases += 2
+    for b in (1, 8, 64):   # one 60-item tile: one block, the rest idle
+        run(60, 10, b, K, 60, [list(range(60)), [], [0, 59]], True)
+        cases += 1
+    for b in (1, 8, 128):  # the largest k
+        run(n, 64, b, 64, n, straddle, True)
+        cases += 1
+    # a catalog whose tile count is no multiple of the grid; bans on the
+    # first and last item of every block's range, which score highest
+    big = 300_007
+    uneven = []
+    for rank in (10, 64):
+        for b in (1, 8, 64, 128):
+            plan = ft.launch_plan(b, rank, K, big)
+            n_tiles = -(-big // plan["tile_items"])
+            uneven.append([b, rank, n_tiles, plan["grid"]])
+            if n_tiles <= plan["grid"] or n_tiles % plan["grid"] == 0:
+                fail(f"{big} rows make {n_tiles} tiles: not more than the "
+                     f"grid {plan['grid']} and no multiple of it")
+            edges = block_edges(ft, big, rank, b, K)
+            f = rng.integers(-4, 5, (big, rank)).astype(np.float32)
+            f[edges] = 4.0
+            v = rng.integers(1, 5, (b, rank)).astype(np.float32)
+            bans = [edges[:WIDTH], [], edges[-WIDTH:], edges[1::2][:WIDTH]]
+            run(big, rank, b, K, big, bans, True, f=f, v=v)
+            cases += 1
+    # all-equal scores across block boundaries: the lowest ids win, past
+    # the banned ones
+    for b in (1, 8, 64):
+        for k in (K, 64):
+            run(big, 64, b, k, big, [[], [0, 3, 5], list(range(64))], True,
+                f=np.ones((big, 64), np.float32),
+                v=np.ones((b, 64), np.float32))
+            cases += 1
     err = run(N_ITEMS, RANK, 64, K, N_ITEMS,
               [sorted(rng.choice(N_ITEMS, WIDTH, replace=False).tolist())],
               False)
     emit({"phase": "parity", "integer_cases": cases, "bit_identical": True,
+          "uneven_grid": [dict(zip(("bucket", "rank", "tiles", "grid"), u))
+                          for u in uneven],
           "real_valued": {"n_items": N_ITEMS, "rank": RANK, "bucket": 64,
                           "max_abs_err": err, "tol": TOL}})
     return err
@@ -408,15 +479,19 @@ def phase_parity_sharded(torch, ft, dev, rng, model) -> float:
         ServeMesh, ShardedBucketedTopK)
     from predictionio_tpu_torch.parallel.mesh import shard_put
 
-    def k2(fac, vecs, ban, n_valid):
+    def k2(fac, vecs, ban, n_valid, id_base=0):
         vt, bt = torch.from_numpy(vecs).to(dev), torch.from_numpy(ban).to(dev)
-        s, i = ft.shard_local_candidates(vt, fac, bt, k=K, n_valid=n_valid)
+        s, i = ft.shard_local_candidates(vt, fac, bt, k=K, n_valid=n_valid,
+                                         id_base=id_base)
         torch.cuda.synchronize()
-        rs, ri = ft.fused_topk_reference(vt, fac, bt, k=K, n_valid=n_valid)
+        rs, ri = ft.fused_topk_reference(vt, fac, bt, k=K, n_valid=n_valid,
+                                         id_base=id_base)
         torch.cuda.synchronize()
         if not (torch.equal(i, ri) and torch.equal(s, rs)):
             fail(f"K2 not bit-identical: per_shard={fac.shape[0]} "
-                 f"bucket={vecs.shape[0]} n_valid={n_valid}")
+                 f"bucket={vecs.shape[0]} n_valid={n_valid} "
+                 f"id_base={id_base}")
+        return s, i
 
     n = 20_037
     host = rng.integers(-4, 5, (n, RANK)).astype(np.float32)
@@ -439,6 +514,35 @@ def phase_parity_sharded(torch, ft, dev, rng, model) -> float:
                         ban[row, :len(ids)] = ids
                     k2(shards[idx], vecs, ban, n_valid)
                     cases += 1
+    # K2 as the plan launches it: GLOBAL bans straddling every shard
+    # edge, the filler n and other shards' ids, with the shard's base;
+    # the same answer as local bans without a base, ids offset
+    base_cases = 0
+    for n_shards in (3, 4):
+        shards = shard_put(host, [dev] * n_shards)
+        per = shards[0].shape[0]
+        edges = [e for s in range(1, n_shards)
+                 for e in range(s * per - 3, s * per + 3)]
+        glob = [[], edges, [0, per - 1, per, n - 1],
+                list(range(per - 20, per + 20)), edges[::-1]]
+        for idx in range(n_shards):
+            base = idx * per
+            own = min(max(n - base, 0), per)
+            for b in (1, 8, 64):
+                vecs = rng.integers(-4, 5, (b, RANK)).astype(np.float32)
+                ban = np.full((b, WIDTH), n, np.int32)
+                loc = np.full((b, WIDTH), per, np.int32)
+                for row in range(b):
+                    ids = glob[row % len(glob)]
+                    ban[row, :len(ids)] = ids
+                    mine = [g - base for g in ids if 0 <= g - base < per]
+                    loc[row, :len(mine)] = mine
+                s, i = k2(shards[idx], vecs, ban, own, id_base=base)
+                ls, li = k2(shards[idx], vecs, loc, own)
+                if not (torch.equal(s, ls) and torch.equal(i, li + base)):
+                    fail(f"K2 with global bans and id_base {base} differs "
+                         "from local bans with ids offset")
+                base_cases += 1
     # an all-banned row: 150 rows split 3 ways (per_shard 50 <= WIDTH)
     small = rng.integers(-4, 5, (150, 10)).astype(np.float32)
     for fac in shard_put(small, [dev] * 3):
@@ -507,6 +611,7 @@ def phase_parity_sharded(torch, ft, dev, rng, model) -> float:
         fail("sharded plan differs from the single-device kernel on the "
              "real-valued catalog (the per-item FMA order is the same)")
     emit({"phase": "parity_sharded", "k2_integer_cases": cases,
+          "k2_global_ban_cases": base_cases,
           "plan_integer_cases": plan_cases, "bit_identical": True,
           "real_valued": {"n_items": N_ITEMS, "rank": RANK, "bucket": 64,
                           "n_shards": 3, "per_shard": plan.per_shard,
@@ -651,7 +756,7 @@ def phase_timing(torch, ft, dev, rng, card: str) -> dict:
     factors = torch.from_numpy(
         rng.standard_normal((N_ITEMS, RANK), dtype=np.float32)).to(dev)
     out = {}
-    for b in (1, 64):
+    for b in TIMED_BUCKETS:
         vecs = torch.from_numpy(
             rng.standard_normal((b, RANK), dtype=np.float32)).to(dev)
         banned = torch.from_numpy(np.stack(
@@ -699,13 +804,14 @@ def phase_timing_sharded(torch, ft, dev, rng, model, card: str) -> dict:
     for b in (1, 64):
         vecs = torch.from_numpy(
             rng.standard_normal((b, RANK), dtype=np.float32)).to(dev)
+        base = N_ITEMS - n_valid                  # 2 * per
+        # global bans on this shard's rows: the library chain takes them
+        # as local ids
         local = torch.from_numpy(np.stack(
             [rng.choice(n_valid, WIDTH, replace=False) for _ in range(b)]
         ).astype(np.int32)).to(dev)
         local64 = local.long()
-        glob = torch.from_numpy(np.stack(
-            [rng.choice(N_ITEMS, WIDTH, replace=False) for _ in range(b)]
-        ).astype(np.int32)).to(dev)
+        glob = local + base
 
         def library():
             s = torch.matmul(vecs, fac.T)
@@ -714,9 +820,9 @@ def phase_timing_sharded(torch, ft, dev, rng, model, card: str) -> dict:
             return torch.topk(s, kk)
 
         kernel_ms = time_ms(torch, lambda: ft.shard_local_candidates(
-            vecs, fac, local, k=kk, n_valid=n_valid), 50)
+            vecs, fac, glob, k=kk, n_valid=n_valid, id_base=base), 50)
         plain_ms = time_ms(torch, lambda: ft.fused_topk_reference(
-            vecs, fac, local, k=kk, n_valid=n_valid), 20)
+            vecs, fac, glob, k=kk, n_valid=n_valid, id_base=base), 20)
         library_ms = time_ms(torch, library, 20)
         plan_ms = time_ms(torch, lambda: plan._launch(vecs, glob), 50)
         # the host's enqueue time for the same calls: when it matches
@@ -749,8 +855,9 @@ def phase_timing_sharded(torch, ft, dev, rng, model, card: str) -> dict:
 
 
 def profile_calls(torch, fn, iters: int) -> dict:
-    """Device time per call by kernel name under `torch.profiler`, and
-    the device's busy share of the wall time (the profiler's own host
+    """Device time per call by kernel name under `torch.profiler`, the
+    device operations (kernels, copies, memsets) per call, and the
+    device's busy share of the wall time (the profiler's own host
     cost inflates the wall time, so the share is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -778,6 +885,7 @@ def profile_calls(torch, fn, iters: int) -> dict:
     device_ms = sum(r["ms"] for r in kernels)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
+            "kernels_per_call": sum(r["count"] for r in kernels),
             "kernels": kernels[:12]}
 
 
@@ -814,6 +922,8 @@ def main() -> int:
     log = lib.with_suffix(".log").read_text()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": lib.name,
+          "grid": {str(b): ft.launch_plan(b, RANK, K, N_ITEMS)
+                   for b in TIMED_BUCKETS},
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})
 

@@ -11,19 +11,19 @@ its stream):
     multiple of the shard count and placed once, one contiguous
     `[per_shard, rank]` block per device (`parallel.mesh.shard_put`).
     A call uploads the query block and the GLOBAL banned ids to each
-    device, and for every shard, on its device: translates the bans to
-    local ids (out-of-shard ids and the `n_items` filler routed to the
-    filler `per_shard` before anything indexes), sets the shard's
-    `n_valid = clip(n_items - base, 0, per_shard)` and launches the
-    fused kernel's sharded form (`fused_topk.shard_local_candidates`,
-    the JAX package's `_kernel_dynamic`) for `min(k, per_shard)`
-    candidates. The candidates gather on `devices[0]` in shard-major
-    order with each shard's base added, and a stable sort takes the
-    global top-k. That is bit-identical to the single-device plan, ties
-    included: shard-major order is global-id order for equal scores,
-    and any item of the global top-k has fewer than k items above it
-    globally, hence fewer in its own shard, hence is among its shard's
-    candidates.
+    device, and for every shard, on its device: launches the fused
+    kernel's sharded form (`fused_topk.shard_local_candidates`, the JAX
+    package's `_kernel_dynamic`) with the shard's first global row
+    `base` and `n_valid = clip(n_items - base, 0, per_shard)` for
+    `min(k, per_shard)` candidates. The kernel reads the GLOBAL bans
+    (an id matches only when it falls on the shard, so other shards'
+    ids and the `n_items` filler match nothing) and emits global ids.
+    The candidates gather on `devices[0]` in shard-major order, and a
+    stable sort takes the global top-k. That is bit-identical to the
+    single-device plan, ties included: shard-major order is global-id
+    order for equal scores, and any item of the global top-k has fewer
+    than k items above it globally, hence fewer in its own shard, hence
+    is among its shard's candidates.
   - `ShardSliceTopK`: a fleet member's plan over its own contiguous
     row block, with an inner plan chosen by `serve_plan` (no mesh) and
     global ids out.
@@ -344,17 +344,14 @@ class ShardedBucketedTopK:
                 inputs[dev] = (vecs.to(dev), banned.to(dev))
             v, ban = inputs[dev]
             base = s * per
-            # global -> local ids; out-of-shard ids and the filler go to
-            # the filler `per` BEFORE anything indexes (a bare
-            # `ban - base` would be negative for earlier shards' ids)
-            loc = ban - base
-            loc = torch.where((loc >= 0) & (loc < per) & (ban < n_items),
-                              loc, per)
-            n_valid = min(max(n_items - base, 0), per)
+            # the kernel reads the global bans against its base and
+            # emits global ids: the filler and other shards' ids match
+            # nothing
             sc, ix = fused_topk.shard_local_candidates(
-                v, fac, loc, k=self.k_shard, n_valid=n_valid)
+                v, fac, ban, k=self.k_shard,
+                n_valid=min(max(n_items - base, 0), per), id_base=base)
             scores.append(sc.to(dev0))
-            gids.append((ix + base).to(dev0))
+            gids.append(ix.to(dev0))
         # shard-major concatenation = global-id order for equal scores
         s_cat = torch.cat(scores, dim=1)
         g_cat = torch.cat(gids, dim=1)

@@ -163,3 +163,94 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
               torch.from_numpy(vecs), torch.from_numpy(factors),
               torch.from_numpy(banned), k=5, n_valid=130)))
     assert fused_topk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("k", [10, 64])
+def test_all_equal_scores_lowest_ids_win(k, monkeypatch):
+    """Every item scores the same: the lowest unbanned ids come out, in
+    order, past the banned ones (the running lists compare the whole
+    (score, id) pair, not the score alone)."""
+    n = 700
+    factors = np.ones((n, 8), np.float32)
+    vecs = np.ones((3, 8), np.float32)
+    banned = np.full((3, 64), n, np.int32)
+    banned[1, :3] = [0, 3, 5]
+    banned[2, :64] = np.arange(64)
+    port = _port(vecs, factors, banned, k=k, n_valid=n)
+    np.testing.assert_array_equal(port[1][0], np.arange(k))
+    np.testing.assert_array_equal(
+        port[1][1], [i for i in range(k + 3) if i not in (0, 3, 5)][:k])
+    np.testing.assert_array_equal(port[1][2], np.arange(64, 64 + k))
+    assert (port[0] == np.float32(8.0)).all()
+    _same(port, _jax_kernel(vecs, factors, banned, k=k, n_valid=n,
+                            tile=128, monkeypatch=monkeypatch))
+
+
+@pytest.mark.parametrize("bucket,k", [(128, 10), (8, 64), (128, 64)])
+def test_largest_bucket_and_k_match_jax_kernel(bucket, k, monkeypatch):
+    factors = _int((N_ITEMS, 10), seed=51)
+    vecs = _int((bucket, 10), seed=52)
+    banned = _bans(bucket, N_ITEMS, WIDTH)
+    port = _port(vecs, factors, banned, k=k, n_valid=N_ITEMS - 7)
+    _same(port, _jax_kernel(vecs, factors, banned, k=k,
+                            n_valid=N_ITEMS - 7, tile=128,
+                            monkeypatch=monkeypatch))
+
+
+@pytest.mark.parametrize("id_base", [0, 1, 640, 10**6])
+def test_id_base_offsets_bans_and_ids(id_base):
+    """With `id_base`, bans name rows by row + id_base and ids come back
+    as row + id_base; ids outside the rows (below the base, past the
+    last row, the filler) match nothing. The same answer as the local
+    bans without a base, ids offset."""
+    factors = _int((N_ITEMS, 6), seed=61)
+    vecs = _int((5, 6), seed=62)
+    local = _bans(5, N_ITEMS, WIDTH)
+    local[:, -1] = N_ITEMS
+    glob = np.where(local < N_ITEMS, local + id_base, 2**31 - 1)
+    glob[:, -1] = id_base - 1 if id_base else N_ITEMS + 5  # no row
+    glob = glob.astype(np.int32)
+    s, i = fused_topk.fused_topk(torch.from_numpy(vecs),
+                                 torch.from_numpy(factors),
+                                 torch.from_numpy(glob), k=10,
+                                 n_valid=N_ITEMS - 3, id_base=id_base)
+    ref = _port(vecs, factors, local, k=10, n_valid=N_ITEMS - 3)
+    np.testing.assert_array_equal(s.numpy(), ref[0])
+    np.testing.assert_array_equal(i.numpy(), ref[1] + id_base)
+
+
+@pytest.mark.parametrize("b,rank,k,fits", [
+    (1, 64, 10, True), (64, 64, 10, True), (128, 64, 64, True),
+    (128, 200, 64, False), (8, 2000, 10, False)])
+def test_shared_memory_budget(b, rank, k, fits):
+    """The wrapper refuses, before any launch, the shapes whose ring of
+    two factor stages, queries and (warp, row) lists overflow a block's
+    shared memory: the kernel's own formula (`smem_bytes`)."""
+    need = fused_topk._smem_bytes(b, rank, k, fused_topk.MIN_STAGES)
+    assert (need <= fused_topk._MAX_SMEM) == fits
+    args = (torch.zeros((b, rank)), torch.zeros((300, rank)),
+            torch.zeros((b, 4), dtype=torch.int32))
+    if fits:
+        fused_topk._check(*args, k, 300)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_topk._check(*args, k, 300)
+
+
+def test_id_base_past_int32_refused():
+    args = (torch.zeros((1, 4)), torch.zeros((300, 4)),
+            torch.zeros((1, 4), dtype=torch.int32))
+    fused_topk._check(*args, 5, 300, 2**31 - 301)
+    with pytest.raises(ValueError, match="past int32"):
+        fused_topk._check(*args, 5, 300, 2**31 - 300)
+
+
+@pytest.mark.parametrize("name", ["kernel", "count", "product", "no_bound",
+                                  "bound_every_tile"])
+def test_kernel_variant_patches_apply(name):
+    """The design probes patch the kernel's source by exact anchors;
+    each must still find its anchor in the source as it is."""
+    from predictionio_tpu_torch.tools import kernel_variants as kv
+    src = kv.variant_source(name)
+    assert (src == fused_topk.SOURCE.read_text()) == (name == "kernel")
+    assert "score_blocks" in src and "merge_blocks" in src

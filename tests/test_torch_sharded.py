@@ -107,6 +107,48 @@ def test_shard_local_candidates_bit_identical_to_jax_k2(
         assert (masked >= k - n_valid).all()
 
 
+@pytest.mark.parametrize("bucket", [1, 8])
+@pytest.mark.parametrize("n_shards", [3, 4])
+def test_global_bans_with_id_base_bit_identical_to_jax_k2(
+        n_shards, bucket, monkeypatch):
+    """K2 as `ShardedBucketedTopK` launches it: the GLOBAL bans and the
+    shard's first global row as `id_base`, global ids out. Held against
+    the JAX `_kernel_dynamic` fed the bans translated to local ids, its
+    ids + base: bans straddling every shard edge, the `n_items` filler,
+    another shard's ids, an all-banned shard."""
+    n_items, rank, k, width = 700, 10, 10, 256
+    per = pmesh.pad_to_multiple(n_items, n_shards) // n_shards
+    parts = pmesh.shard_put(_int((n_items, rank), seed=50 + n_shards),
+                            [torch.device("cpu")] * n_shards)
+    vecs = _int((bucket, rank), seed=60 + bucket)
+    edges = [e for s in range(1, n_shards)
+             for e in range(s * per - 3, s * per + 3)]
+    cases = [[], edges, [0, per - 1, per, n_items - 1, n_items],
+             list(range(per)), list(range(per, 2 * per)), edges[::-1]]
+    glob = np.full((bucket, width), n_items, np.int32)
+    for row in range(bucket):
+        ids = cases[row % len(cases)]
+        glob[row, :len(ids)] = ids
+    monkeypatch.setenv("PIO_FUSED_TILE_ITEMS", "128")
+    call = jax.jit(jax_fused._pallas_topk(
+        per, rank, k=k, bucket=bucket, banned_width=width, n_valid=None,
+        interpret=True))
+    for idx, fac in enumerate(parts):
+        base = idx * per
+        n_valid = min(max(n_items - base, 0), per)
+        s, i = fused_topk.shard_local_candidates(
+            torch.from_numpy(vecs), fac, torch.from_numpy(glob), k=k,
+            n_valid=n_valid, id_base=base)
+        local = np.full((bucket, width), per, np.int32)
+        for row in range(bucket):
+            mine = [g - base for g in glob[row] if 0 <= g - base < per]
+            local[row, :len(mine)] = mine
+        rs, ri = jax.device_get(call(np.array([n_valid], np.int32), vecs,
+                                     fac.numpy(), local))
+        np.testing.assert_array_equal(i.numpy(), ri + base)
+        np.testing.assert_array_equal(s.numpy(), rs)
+
+
 def test_shard_local_candidates_refuses_k_above_the_shard():
     with pytest.raises(ValueError, match="above the shard"):
         fused_topk.shard_local_candidates(
