@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--requests 320]
                           [--sharded-requests 160] [--tiered-queries 64]
-                          [--only serve_sharded]
+                          [--trained-requests 64]
+                          [--only serve_sharded | --only train]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -79,9 +80,41 @@ the result line:
               time and a `torch.profiler` trace of it (device time by
               kernel, device operations per call, the card's busy
               share), and the single-device kernel on the same inputs.
+  9. train_parity
+              ALS training on 4,000 users x 3,000 items with 200,000
+              planted ratings: the port's user half-steps (`ops.als.
+              half_step`), explicit and implicit, at rank 10 (batched
+              Cholesky) and rank 64 (CG in f32, 128 steps), against a
+              float64 per-row np.linalg.solve at rtol=atol=2e-3; then a
+              default 10-iteration bf16 training at rank 64 whose RMSE
+              must lie within 1e-2 of the oracle's from the same init,
+              with a solver residual below 1e-2.
+ 10. train    the MovieLens-25M shape (bench.py's generator: 162,541 x
+              59,047, 25,000,000 ratings, 0.4% held out) trained at rank
+              64, 10 iterations, lambda 0.05, bf16, through
+              `cli.main.train` (the function `cli train` runs), which
+              writes the model .npz. Gates: held-out RMSE below 1.0,
+              solver residual below 1e-2, zero factors on unrated rows.
+              Prints the phase timings, peak device bytes, padded
+              entries and slabs, the port's `iteration_flops`, the
+              per-iteration bound max(bytes / HBM rate, Gram flops /
+              bf16 tensor-core rate + other flops / fp32 rate), where
+              the bytes are the iteration's inputs read once and its
+              outputs written once (the gathered opposite rows come
+              from a table the L2 holds), and the loop's anatomy on the
+              same slabs: per-iteration CUDA-event and host-enqueue ms,
+              eager (as training runs it) and as a CUDA graph, each with
+              a `torch.profiler` pass (device time by op, operations per
+              iteration, busy share), and CG's batched matvec timed as
+              p^T A (the port's) and as A p.
+ 11. serve_trained
+              that model file through `load_npz` and `cli.main.deploy`:
+              /queries.json requests over its 59,047 items, checked as
+              phase 4 checks them; K1's launches must equal plan calls.
 
 `--only serve_sharded` runs the build and phase 6 alone (for a machine
-with several cards), without the kernels line.
+with several cards), `--only train` the build and phases 9-11; neither
+prints the kernels line.
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -93,9 +126,11 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -107,10 +142,12 @@ WIDTH = 64           # its banned width
 TOL = 1e-5
 TIMED_BUCKETS = (1, 8, 64)   # the serve run drains batches of 1-7
 
-# (HBM bytes/s, fp32 CUDA-core FLOP/s) from NVIDIA's data sheets, dense,
-# at the part's full power limit; matched on the nvidia-smi name
-PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+# (HBM bytes/s, fp32 CUDA-core FLOP/s, bf16 tensor-core FLOP/s) from
+# NVIDIA's data sheets, dense, at the part's full power limit; matched on
+# the nvidia-smi name
+PEAKS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12))
 
 
 def emit(obj) -> None:
@@ -130,9 +167,9 @@ def smi_line() -> str:
 
 
 def peaks(name: str):
-    for key, bw, fl in PEAKS:
+    for key, bw, fl, bf16 in PEAKS:
         if key in name:
-            return bw, fl
+            return bw, fl, bf16
     fail(f"no published peak rates for card {name!r}")
 
 
@@ -278,40 +315,44 @@ def make_model(torch, rng):
     return model, time.perf_counter() - t0
 
 
-def make_queries(torch, ft, dev, rng, model, n_requests: int):
-    """The request mix: num 1..K; a quarter of the queries ban their own
-    top items (the bans must change the answer) plus random ones, a
-    quarter a random span of up to WIDTH ids."""
+def make_queries(torch, ft, dev, rng, model, n_requests: int,
+                 n_items: int = N_ITEMS):
+    """The request mix over a catalog of `n_items`: num 1..K; a quarter
+    of the queries ban their own top items (the bans must change the
+    answer) plus random ones, a quarter a random span of up to WIDTH
+    ids."""
     users = rng.integers(0, N_USERS, n_requests)
     nums = rng.integers(1, K + 1, n_requests)
     rows = torch.from_numpy(users).to(dev)
-    none = torch.full((n_requests, 1), N_ITEMS, dtype=torch.int32,
+    none = torch.full((n_requests, 1), n_items, dtype=torch.int32,
                       device=dev)
     _, top = ft.fused_topk_reference(model.user_factors[rows],
                                      model.item_factors, none, k=K,
-                                     n_valid=N_ITEMS)
+                                     n_valid=n_items)
     top = top.cpu().numpy()
     queries = []
     for r in range(n_requests):
         q = {"user": f"u{users[r]}", "num": int(nums[r])}
         if r % 4 == 1:
-            extra = rng.choice(N_ITEMS, WIDTH - 5, replace=False)
+            extra = rng.choice(n_items, WIDTH - 5, replace=False)
             q["blackList"] = [f"i{x}" for x in [*top[r, :5], *extra]]
         elif r % 4 == 2:
-            lo = int(rng.integers(0, N_ITEMS - WIDTH))
+            lo = int(rng.integers(0, n_items - WIDTH))
             q["blackList"] = [f"i{x}" for x in
                               range(lo, lo + int(rng.integers(1, WIDTH)))]
         queries.append(q)
     return queries
 
 
-def check_answers(torch, ft, dev, model, queries, item_scores) -> float:
+def check_answers(torch, ft, dev, model, queries, item_scores,
+                  n_items: int = N_ITEMS) -> float:
     """Every answer (a list of {"item", "score"}) against the plain
-    version over the whole catalog; returns the max |score diff|."""
+    version over the whole catalog of `n_items`; returns the max |score
+    diff|."""
     from predictionio_tpu_torch.ops.topk import NEG_INF
     n = len(queries)
     rows = torch.tensor([int(q["user"][1:]) for q in queries], device=dev)
-    banned = np.full((n, WIDTH), N_ITEMS, np.int32)
+    banned = np.full((n, WIDTH), n_items, np.int32)
     for r, q in enumerate(queries):
         ids = [int(x[1:]) for x in q.get("blackList", ())]
         banned[r, :len(ids)] = ids
@@ -321,7 +362,7 @@ def check_answers(torch, ft, dev, model, queries, item_scores) -> float:
         sl = slice(lo, lo + 64)
         rs, ri = ft.fused_topk_reference(
             model.user_factors[rows[sl]], model.item_factors,
-            torch.from_numpy(banned[sl]).to(dev), k=K, n_valid=N_ITEMS)
+            torch.from_numpy(banned[sl]).to(dev), k=K, n_valid=n_items)
         rs, ri = rs.double().cpu().numpy(), ri.cpu().numpy()
         for j, r in enumerate(range(lo, min(lo + 64, n))):
             got = item_scores[r]
@@ -752,7 +793,7 @@ def time_ms(torch, fn, iters: int) -> float:
 
 def phase_timing(torch, ft, dev, rng, card: str) -> dict:
     from predictionio_tpu_torch.ops.topk import NEG_INF
-    bw, fl = peaks(card)
+    bw, fl, _ = peaks(card)
     factors = torch.from_numpy(
         rng.standard_normal((N_ITEMS, RANK), dtype=np.float32)).to(dev)
     out = {}
@@ -792,7 +833,7 @@ def phase_timing_sharded(torch, ft, dev, rng, model, card: str) -> dict:
     from predictionio_tpu_torch.ops.topk import NEG_INF
     from predictionio_tpu_torch.ops.topk_sharded import (
         ServeMesh, ShardedBucketedTopK)
-    bw, fl = peaks(card)
+    bw, fl, _ = peaks(card)
     plan = ShardedBucketedTopK(model.item_factors, k=K, buckets=(1, 64),
                                banned_width=WIDTH,
                                mesh=ServeMesh((dev,) * 3, forced=True))
@@ -854,7 +895,7 @@ def phase_timing_sharded(torch, ft, dev, rng, model, card: str) -> dict:
     return out
 
 
-def profile_calls(torch, fn, iters: int) -> dict:
+def profile_calls(torch, fn, iters: int, top: int = 12) -> dict:
     """Device time per call by kernel name under `torch.profiler`, the
     device operations (kernels, copies, memsets) per call, and the
     device's busy share of the wall time (the profiler's own host
@@ -886,7 +927,294 @@ def profile_calls(torch, fn, iters: int) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "kernels_per_call": sum(r["count"] for r in kernels),
-            "kernels": kernels[:12]}
+            "kernels": kernels[:top]}
+
+
+# the training phases: MovieLens-25M's shape (bench.py:315-333)
+ML25M_USERS, ML25M_ITEMS, ML25M_N = 162_541, 59_047, 25_000_000
+TRAIN_RANK, TRAIN_ITERS, TRAIN_REG = 64, 10, 0.05
+HELD_OUT = 0.004
+TRAIN_TOL = 2e-3     # half-step parity against the float64 oracle
+
+
+def planted(n_users: int, n_items: int, n: int, seed: int):
+    """bench.py's `synthetic_ml25m` at any size: uniform users,
+    Zipf(0.5) item popularity, planted rank-8 structure quantized to
+    1-5 stars."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, n, dtype=np.int64).astype(np.int32)
+    pop = np.arange(1, n_items + 1, dtype=np.float64) ** -0.5
+    cdf = np.cumsum(pop / pop.sum())
+    i = np.searchsorted(cdf, rng.random(n)).astype(np.int32)
+    np.clip(i, 0, n_items - 1, out=i)
+    xu = rng.standard_normal((n_users, 8), np.float32)
+    yi = rng.standard_normal((n_items, 8), np.float32)
+    r = np.empty(n, np.float32)
+    for s in range(0, n, 5_000_000):   # chunked: bounds host RAM
+        e = min(s + 5_000_000, n)
+        raw = (xu[u[s:e]] * yi[i[s:e]]).sum(1) / 2.8 + 3.0
+        r[s:e] = np.clip(np.round(raw), 1, 5)
+    return u, i, r
+
+
+def oracle_half_step(y, row_ix, col_ix, val, n_rows: int, reg: float,
+                     implicit: bool = False, alpha: float = 1.0):
+    """One half-step in float64 by per-row normal equations and
+    np.linalg.solve (ALS-WR; implicit: Hu-Koren-Volinsky on positive
+    ratings). Rows without ratings stay zero."""
+    y = np.asarray(y, np.float64)
+    rank = y.shape[1]
+    order = np.argsort(row_ix, kind="stable")
+    c, v = col_ix[order], val[order].astype(np.float64)
+    bounds = np.searchsorted(row_ix[order], np.arange(n_rows + 1))
+    yty = y.T @ y if implicit else np.zeros((rank, rank))
+    live = np.nonzero(np.diff(bounds))[0]
+    a = np.empty((len(live), rank, rank))
+    b = np.empty((len(live), rank))
+    for j, row in enumerate(live):
+        lo, hi = bounds[row], bounds[row + 1]
+        yu = y[c[lo:hi]]
+        w = alpha * v[lo:hi] if implicit else np.ones(hi - lo)
+        a[j] = yty + (yu * w[:, None]).T @ yu + reg * (hi - lo) * np.eye(rank)
+        b[j] = yu.T @ ((1.0 + w) if implicit else v[lo:hi])
+    x = np.zeros((n_rows, rank))
+    x[live] = np.linalg.solve(a, b[..., None])[..., 0]
+    return x
+
+
+def phase_train_parity(torch, dev, seed: int) -> dict:
+    """The port's user half-steps (exact Cholesky at rank 10, CG at rank
+    64 in f32 with 128 iterations, explicit and implicit) against the
+    float64 oracle, and a default bf16 training against the oracle's
+    training from the same init."""
+    from predictionio_tpu_torch.ops import als
+    n_users, n_items, n = 4_000, 3_000, 200_000
+    u, i, r = planted(n_users, n_items, n, seed + 2)
+    rng = np.random.default_rng(seed + 3)
+    half_steps = []
+    for rank in (10, TRAIN_RANK):
+        side = als._pack_side(u, i, r, n_users, rank)
+        slabs = als.device_slabs(side, torch.float32, dev)
+        y = np.abs(rng.standard_normal((n_items, rank))) / np.sqrt(rank)
+        x0 = np.abs(rng.standard_normal((n_users, rank))) / np.sqrt(rank)
+        for implicit in (False, True):
+            alpha = 2.0 if implicit else 1.0
+            t0 = time.perf_counter()
+            x, res = als.half_step(
+                torch.tensor(x0, dtype=torch.float32, device=dev),
+                torch.tensor(y, dtype=torch.float32, device=dev), slabs,
+                TRAIN_REG, alpha, implicit=implicit, cg_iters=128)
+            torch.cuda.synchronize()
+            port_s = time.perf_counter() - t0
+            want = oracle_half_step(y.astype(np.float32), u, i, r, n_users,
+                                    TRAIN_REG, implicit, alpha)
+            got = x.cpu().numpy().astype(np.float64)
+            excess = np.abs(got - want) - (TRAIN_TOL + TRAIN_TOL * np.abs(want))
+            if excess.max() > 0:
+                fail(f"half-step rank {rank} implicit {implicit}: "
+                     f"max |diff| {np.abs(got - want).max()} past rtol=atol="
+                     f"{TRAIN_TOL}")
+            half_steps.append({"rank": rank, "implicit": implicit,
+                               "slabs": len(slabs),
+                               "max_abs_err": float(np.abs(got - want).max()),
+                               "solver_residual": res, "port_s": port_s})
+    # the default training (bf16 gather, 8 CG steps) against the oracle
+    tm = {}
+    x, y = als.als_train((u, i, r), n_users, n_items, rank=TRAIN_RANK,
+                         iterations=TRAIN_ITERS, reg=TRAIN_REG, seed=seed,
+                         timings=tm, device=dev)
+    _, y0 = als.init_factors(n_users, n_items, TRAIN_RANK, seed,
+                             np.bincount(u, minlength=n_users) > 0,
+                             np.bincount(i, minlength=n_items) > 0)
+    yo = y0.astype(np.float64)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_ITERS):
+        xo = oracle_half_step(yo, u, i, r, n_users, TRAIN_REG)
+        yo = oracle_half_step(xo, i, u, r, n_items, TRAIN_REG)
+    oracle_s = time.perf_counter() - t0
+    port_rmse = als.rmse(x, y, u, i, r)
+    pred = np.einsum("nr,nr->n", xo[u], yo[i])
+    oracle_rmse = float(np.sqrt(np.mean((pred - r) ** 2)))
+    if not abs(port_rmse - oracle_rmse) < 1e-2:
+        fail(f"bf16 training RMSE {port_rmse} vs oracle {oracle_rmse}")
+    if not tm["solver_residual"] < 1e-2:
+        fail(f"bf16 training solver residual {tm['solver_residual']}")
+    out = {"phase": "train_parity", "users": n_users, "items": n_items,
+           "ratings": n, "tol": TRAIN_TOL, "half_steps": half_steps,
+           "training": {"rank": TRAIN_RANK, "iterations": TRAIN_ITERS,
+                        "precision": "bf16", "rmse": port_rmse,
+                        "oracle_rmse": oracle_rmse, "oracle_s": oracle_s,
+                        "timings": tm}}
+    emit(out)
+    return out
+
+
+def phase_train(torch, dev, card: str, seed: int, workdir) -> dict:
+    """The ML-25M shape trained through `cli.main.train` (the function
+    `cli train` runs), gated on held-out RMSE, the solver residual and
+    zero factors on unrated rows; then the loop again on the same slabs
+    for its anatomy: per-iteration CUDA-event ms and host enqueue ms,
+    as the training runs it (eagerly) and captured as a CUDA graph, and
+    a `torch.profiler` pass over one iteration of each."""
+    from predictionio_tpu_torch.cli.main import train
+    from predictionio_tpu_torch.ingest.arrays import RatingColumns
+    from predictionio_tpu_torch.ingest.bimap import BiMap
+    from predictionio_tpu_torch.ops import als, linalg
+
+    t0 = time.perf_counter()
+    u, i, r = planted(ML25M_USERS, ML25M_ITEMS, ML25M_N, seed)
+    test = np.random.default_rng(seed + 1).random(ML25M_N) < HELD_OUT
+    keep = ~test
+    cols = RatingColumns(u[keep], i[keep], r[keep],
+                         np.zeros(int(keep.sum()), np.int64),
+                         BiMap.from_keys(f"u{n}" for n in range(ML25M_USERS)),
+                         BiMap.from_keys(f"i{n}" for n in range(ML25M_ITEMS)))
+    ratings_path = workdir / "ratings.npz"
+    model_path = workdir / "model.npz"
+    cols.save_npz(ratings_path)
+    data_s = time.perf_counter() - t0
+    variant = {"algorithms": [{"name": "als", "params": {
+        "rank": TRAIN_RANK, "num_iterations": TRAIN_ITERS,
+        "lambda_": TRAIN_REG, "seed": seed}}]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model, tm = train(ratings_path, model_path, variant=variant, device=dev)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base_bytes
+    heldout = als.rmse(model.user_factors, model.item_factors, u[test],
+                       i[test], r[test])
+    if not heldout < 1.0:
+        fail(f"held-out RMSE {heldout} is not below 1.0")
+    if not tm["solver_residual"] < 1e-2:
+        fail(f"solver residual {tm['solver_residual']} is not below 1e-2")
+    unrated = []
+    for f, ix, n_rows in ((model.user_factors, cols.user_ix, ML25M_USERS),
+                          (model.item_factors, cols.item_ix, ML25M_ITEMS)):
+        absent = torch.from_numpy(np.bincount(ix, minlength=n_rows) == 0)
+        rows = f[absent.to(dev)]
+        if rows.numel() and bool(rows.abs().max() > 0):
+            fail("a row without ratings has nonzero factors")
+        unrated.append(int(absent.sum()))
+    if not model_path.exists():
+        fail("train wrote no model file")
+
+    # the same loop again, on the trained factors, for its anatomy
+    t0 = time.perf_counter()
+    packed = als.pack_ratings(cols.user_ix, cols.item_ix, cols.rating,
+                              ML25M_USERS, ML25M_ITEMS, TRAIN_RANK)
+    repack_s = time.perf_counter() - t0
+    val_dt = (torch.bfloat16 if als._bf16_exact(packed.user_side.val)
+              else torch.float32)
+    slabs = [als.device_slabs(packed.user_side, val_dt, dev),
+             als.device_slabs(packed.item_side, val_dt, dev)]
+    it = als._Iteration(model.user_factors.clone(),
+                        model.item_factors.clone(), slabs[0], slabs[1],
+                        TRAIN_REG, 1.0, implicit=False, rank=TRAIN_RANK,
+                        cast=torch.bfloat16)
+
+    def enqueue_ms(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            out.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        return out
+
+    eager_ms = time_ms(torch, it, 3)
+    eager_enqueue = enqueue_ms(it, 3)
+    eager_prof = profile_calls(torch, it, 1, top=15)
+    # the iteration as a CUDA graph, to see what the host's enqueue costs
+    # the loop; the first iteration on the capture stream sets up the
+    # libraries' per-stream state
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        it()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        it()
+    graph_ms = time_ms(torch, graph.replay, 5)
+    graph_enqueue = enqueue_ms(graph.replay, 3)
+    graph_prof = profile_calls(torch, graph.replay, 3, top=15)
+
+    # CG's matvec in both orientations on the user side's normal
+    # matrices (one CG batch): the port computes p^T A
+    n_mv = sum(len(rows) for rows in packed.user_side.rows)
+    a_mv = torch.randn(n_mv, TRAIN_RANK, TRAIN_RANK, device=dev)
+    p_mv = torch.randn(n_mv, TRAIN_RANK, device=dev)
+    matvec = {"rows": n_mv,
+              "pT_A_ms": time_ms(torch, lambda: linalg._matvec(a_mv, p_mv), 5),
+              "A_p_ms": time_ms(torch, lambda: torch.bmm(a_mv, p_mv[..., None]),
+                                5)}
+    del a_mv, p_mv
+
+    # the bound: each input of an iteration read once (index and value
+    # columns, slab row ids, both factor tables) and each output written
+    # once (both tables). The gathered opposite rows are not counted:
+    # they come from a table of 7.5 MB (items) or 20.8 MB (users) in
+    # bf16, which the card's 50 MB L2 holds
+    bw, fl, bf16 = peaks(card)
+    pad = als.padded_entries(packed)
+    gram = sum(2 * len(rows) * k * TRAIN_RANK ** 2
+               for side_ in (packed.user_side, packed.item_side)
+               for rows, k in zip(side_.rows, side_.caps))
+    flops = als.iteration_flops(packed)
+    val_bytes = 2 if val_dt == torch.bfloat16 else 4
+    slab_rows = sum(len(rows) for side_ in (packed.user_side,
+                                            packed.item_side)
+                    for rows in side_.rows)
+    nbytes = (pad * (4 + val_bytes) + slab_rows * 4
+              + 2 * (ML25M_USERS + ML25M_ITEMS) * TRAIN_RANK * 4)
+    t_bytes, t_ops = nbytes / bw, gram / bf16 + (flops - gram) / fl
+    out = {"phase": "train", "card": card, "users": ML25M_USERS,
+           "items": ML25M_ITEMS, "ratings": ML25M_N,
+           "train_ratings": cols.n, "held_out": int(test.sum()),
+           "rank": TRAIN_RANK, "iterations": TRAIN_ITERS, "reg": TRAIN_REG,
+           "precision": "bf16", "value_dtype": str(val_dt),
+           "data_s": data_s, "train_s": train_s, "timings": tm,
+           "heldout_rmse": heldout, "unrated_rows": unrated,
+           "peak_device_bytes": peak,
+           "slabs": [len(packed.user_side.rows), len(packed.item_side.rows)],
+           "padded_entries": pad, "iteration_flops": flops,
+           "gram_flops": gram, "bytes": nbytes,
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "repack_s": repack_s, "matvec": matvec,
+           "eager": {"iteration_ms": eager_ms, "enqueue_ms": eager_enqueue,
+                     "profile": eager_prof},
+           "graph": {"iteration_ms": graph_ms, "enqueue_ms": graph_enqueue,
+                     "profile": graph_prof}}
+    emit(out)
+    return out
+
+
+def phase_serve_trained(torch, ft, dev, rng, model_path,
+                        n_requests: int) -> dict:
+    """The model `train` wrote, loaded with `load_npz` and deployed
+    through `cli.main.deploy`: /queries.json requests through K1,
+    checked against the plain version."""
+    from predictionio_tpu_torch.ops.als import load_npz
+    model = load_npz(model_path, device=dev)
+    n_items = model.item_factors.shape[0]
+    queries = make_queries(torch, ft, dev, rng, model, n_requests, n_items)
+    run = run_server(torch, ft, model, queries)
+    launches, plan_calls = run["launches"], run["plan_calls"]
+    if not (launches == plan_calls == run["expected_calls"]):
+        fail(f"trained model: kernel launches {launches}, plan calls "
+             f"{plan_calls}, expected {run['expected_calls']}")
+    max_err = check_answers(torch, ft, dev, model, queries, run["answers"],
+                            n_items)
+    out = {"phase": "serve_trained", "model": model_path.name,
+           **serve_summary(run, n_requests, max_err),
+           "users": model.user_factors.shape[0], "items": n_items,
+           "rank": model.user_factors.shape[1]}
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -895,9 +1223,12 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=320)
     ap.add_argument("--sharded-requests", type=int, default=160)
     ap.add_argument("--tiered-queries", type=int, default=64)
-    ap.add_argument("--only", choices=("serve_sharded",),
-                    help="run only the build and this phase (for a "
-                         "machine with several cards), no kernels line")
+    ap.add_argument("--trained-requests", type=int, default=64)
+    ap.add_argument("--only", choices=("serve_sharded", "train"),
+                    help="run only the build and these phases (serve_sharded"
+                         " for a machine with several cards; train for "
+                         "train_parity, train and serve_trained), no "
+                         "kernels line")
     args = ap.parse_args()
 
     import torch
@@ -928,10 +1259,24 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]})
 
     rng = np.random.default_rng(args.seed)
-    if args.only == "serve_sharded":
-        model, _ = make_model(torch, rng)
-        phase_serve_sharded(torch, ft, dev, rng, model,
-                            args.sharded_requests)
+
+    def train_phases():
+        phase_train_parity(torch, dev, args.seed)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            tmp = Path(tmp)
+            trained = phase_train(torch, dev, card, args.seed, tmp)
+            served = phase_serve_trained(torch, ft, dev, rng,
+                                         tmp / "model.npz",
+                                         args.trained_requests)
+        return trained, served
+
+    if args.only is not None:
+        if args.only == "serve_sharded":
+            model, _ = make_model(torch, rng)
+            phase_serve_sharded(torch, ft, dev, rng, model,
+                                args.sharded_requests)
+        else:
+            train_phases()
         print(smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -947,6 +1292,8 @@ def main() -> int:
                                 args.tiered_queries)
     timing = phase_timing(torch, ft, dev, rng, card)
     timing_sh = phase_timing_sharded(torch, ft, dev, rng, model, card)
+    del model
+    _, served = train_phases()
 
     main_row, shard_row = timing[64], timing_sh[64]
     emit({"kernels": [{
@@ -959,6 +1306,7 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "bucket": 64,
         "tiered_launches": tiered["launches"],
+        "trained_model_launches": served["launches"],
         "by_bucket": {str(b): r for b, r in timing.items()}}, {
         "name": "shard_local_candidates", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",

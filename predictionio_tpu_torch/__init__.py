@@ -6,6 +6,7 @@ points run on CUDA unless the caller passes `device="cpu"`; each kernel
 the JAX package wrote in Pallas is a hand-written Hopper kernel under
 `csrc/`, built with nvcc at first use.
 
-Ported so far: the recommendation template's serving path (deploy ->
+Ported so far: the recommendation template's training (cli train ->
+Engine.train -> ops.als.als_train) and its serving path (deploy ->
 /queries.json) through the fused top-k kernel. See ROADMAP.md.
 """

@@ -1,1 +1,1 @@
-"""DASE core, serving side: params, component contracts, Engine, deploy."""
+"""DASE core: params, component contracts, Engine (train), deploy."""

@@ -1,8 +1,7 @@
-"""DASE component contracts, serving side: Algorithm, Serving,
-FirstServing.
+"""DASE component contracts: DataSource, Preparator, Algorithm, Serving.
 
-The port of the serving half of `predictionio_tpu/core/base.py`. Every
-component is constructed with one Params dataclass.
+The port of `predictionio_tpu/core/base.py`. Every component is
+constructed with one Params dataclass.
 """
 
 from __future__ import annotations
@@ -28,8 +27,29 @@ class _Component:
         return f"{type(self).__name__}({self.params!r})"
 
 
+class DataSource(_Component):
+    """Reads training data (BaseDataSource.scala:37-54)."""
+
+    def read_training(self, ctx: Any) -> Any:
+        raise NotImplementedError
+
+
+class Preparator(_Component):
+    """TD -> PD (BasePreparator.scala:36)."""
+
+    def prepare(self, ctx: Any, td: Any) -> Any:
+        raise NotImplementedError
+
+
+class IdentityPreparator(Preparator):
+    """PD = TD passthrough (controller/IdentityPreparator.scala:29-93)."""
+
+    def prepare(self, ctx: Any, td: Any) -> Any:
+        return td
+
+
 class Algorithm(_Component):
-    """Answer queries from a model (BaseAlgorithm.scala:58-125).
+    """Train a model and answer queries from it (BaseAlgorithm.scala:58-125).
 
     `query_class` is the dataclass the server extracts incoming JSON
     into via `extract_params`; None = raw dict passthrough."""
@@ -73,3 +93,11 @@ class FirstServing(Serving):
 
     def serve(self, query, predictions):
         return predictions[0]
+
+
+def sanity_check(obj: Any) -> None:
+    """Run an object's sanity_check hook if present (SanityCheck trait;
+    called from Engine.train, Engine.scala:652-690)."""
+    hook = getattr(obj, "sanity_check", None)
+    if callable(hook):
+        hook()

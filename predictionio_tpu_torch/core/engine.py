@@ -1,16 +1,23 @@
-"""Engine: named maps of the serving components.
+"""Engine: named maps of the DASE component classes.
 
-The port of the part of `predictionio_tpu/core/engine.py` that deploy
-needs: the algorithm and serving class maps and `make_components`.
-Data sources, preparators, train and eval come with the training slice.
+The port of `predictionio_tpu/core/engine.py`: the component class maps,
+`make_components`, `train` (the sequential per-algorithm loop with phase
+timings and sanity checks, Engine.scala:643-708) and the engine.json
+variant -> `EngineParams` extraction (Engine.scala:357-420). Eval comes
+with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple, Type
+import json
+import time
+from typing import Any, Dict, List, Mapping, Tuple, Type
 
-from predictionio_tpu_torch.core.base import Algorithm, Serving
-from predictionio_tpu_torch.core.params import EngineParams, Params
+from predictionio_tpu_torch.core.base import (
+    Algorithm, DataSource, Preparator, Serving, sanity_check)
+from predictionio_tpu_torch.core.params import (EngineParams, Params,
+                                                ParamsError, extract_params)
+from predictionio_tpu_torch.core.runtime import RuntimeContext
 
 
 class Engine:
@@ -18,8 +25,12 @@ class Engine:
     class instead of a map and it is registered under ''."""
 
     def __init__(self,
+                 data_source: "Mapping[str, Type[DataSource]] | Type[DataSource]",
+                 preparator: "Mapping[str, Type[Preparator]] | Type[Preparator]",
                  algorithms: "Mapping[str, Type[Algorithm]] | Type[Algorithm]",
                  serving: "Mapping[str, Type[Serving]] | Type[Serving]"):
+        self.data_source_classes = self._as_map(data_source)
+        self.preparator_classes = self._as_map(preparator)
         self.algorithm_classes = self._as_map(algorithms)
         self.serving_classes = self._as_map(serving)
 
@@ -40,14 +51,102 @@ class Engine:
         return table[name](params)
 
     def make_components(self, engine_params: EngineParams
-                        ) -> Tuple[List[Algorithm], Serving]:
+                        ) -> Tuple[DataSource, Preparator, List[Algorithm],
+                                   Serving]:
+        ds = self._doer(self.data_source_classes, "DataSource",
+                        engine_params.data_source_params)
+        prep = self._doer(self.preparator_classes, "Preparator",
+                          engine_params.preparator_params)
         algos = [self._doer(self.algorithm_classes, "Algorithm", ap)
                  for ap in engine_params.algorithm_params_list]
         if not algos:
             raise ValueError("EngineParams specifies no algorithms")
         serving = self._doer(self.serving_classes, "Serving",
                              engine_params.serving_params)
-        return algos, serving
+        return ds, prep, algos, serving
+
+    def train(self, ctx: RuntimeContext,
+              engine_params: EngineParams) -> List[Any]:
+        """Read, prepare, then train each algorithm in turn; returns one
+        model per algorithm. `ctx.phase_timings` gets read_s, prepare_s
+        and train_algo{i}_s beside what the trainers record there."""
+        ds, prep, algos, _ = self.make_components(engine_params)
+        tm = ctx.phase_timings
+        tm.clear()   # a reused context must not leak a previous run's
+        # phases into this run's record
+        t0 = time.perf_counter()
+        td = ds.read_training(ctx)
+        tm["read_s"] = round(time.perf_counter() - t0, 4)
+        sanity_check(td)
+        t0 = time.perf_counter()
+        pd = prep.prepare(ctx, td)
+        tm["prepare_s"] = round(time.perf_counter() - t0, 4)
+        sanity_check(pd)
+        models = []
+        for i, algo in enumerate(algos):
+            t0 = time.perf_counter()
+            model = algo.train(ctx, pd)
+            tm[f"train_algo{i}_s"] = round(time.perf_counter() - t0, 4)
+            sanity_check(model)
+            models.append(model)
+        return models
+
+    def engine_params_from_variant(self, variant: "Mapping | str"
+                                   ) -> EngineParams:
+        """An engine.json variant (parsed, or its JSON text) as
+        `EngineParams`; unknown keys and unregistered names raise
+        `ParamsError`."""
+        if isinstance(variant, str):
+            variant = json.loads(variant)
+        known_top = {"id", "description", "engineFactory", "engine_factory",
+                     "datasource", "preparator", "algorithms", "serving",
+                     "sparkConf", "runtimeConf", "runtime_conf"}
+        unknown_top = set(variant) - known_top
+        if unknown_top:
+            raise ParamsError(
+                f"$: unknown engine variant key(s) {sorted(unknown_top)}; "
+                f"known: {sorted(known_top)}")
+
+        def one(table, kind, node) -> Tuple[str, Params]:
+            if node is None:
+                name = ""
+                params_json: Any = {}
+            else:
+                bad = set(node) - {"name", "params"}
+                if bad:
+                    raise ParamsError(
+                        f"$.{kind.lower()}: unknown key(s) {sorted(bad)}; "
+                        "component nodes take only 'name' and 'params'")
+                name = node.get("name", "")
+                params_json = node.get("params", {})
+            if name not in table:
+                if len(table) == 1 and name == "":
+                    name = next(iter(table))
+                else:
+                    raise ParamsError(
+                        f"{kind} '{name}' not registered; "
+                        f"available: {sorted(table)}")
+            cls = table[name]
+            pcls = getattr(cls, "params_class", None)
+            if pcls is None:
+                raise ParamsError(f"{kind} {cls.__name__} has no params_class")
+            return name, extract_params(pcls, params_json, f"$.{kind.lower()}")
+
+        algo_nodes = variant.get("algorithms") or []
+        if not algo_nodes:
+            # a single unnamed algorithm with default params
+            algo_nodes = [{"name": "", "params": {}}]
+        return EngineParams(
+            data_source_params=one(self.data_source_classes, "Datasource",
+                                   variant.get("datasource")),
+            preparator_params=one(self.preparator_classes, "Preparator",
+                                  variant.get("preparator")),
+            algorithm_params_list=tuple(
+                one(self.algorithm_classes, "Algorithm", n)
+                for n in algo_nodes),
+            serving_params=one(self.serving_classes, "Serving",
+                               variant.get("serving")),
+        )
 
 
 class EngineFactory:

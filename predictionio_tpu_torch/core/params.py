@@ -1,9 +1,9 @@
-"""Typed parameter classes and JSON extraction (serving half).
+"""Typed parameter classes and JSON extraction.
 
 The port of `predictionio_tpu/core/params.py`: the `Params` marker,
 `EmptyParams`, the strict dataclass-driven `extract_params` that turns a
-query JSON into the template's `Query`, and the named component params
-deploy needs.
+query JSON into the template's `Query` and an engine.json variant into
+component params, and `EngineParams`.
 """
 
 from __future__ import annotations
@@ -149,9 +149,11 @@ def _coerce(tp, value: Any, path: str) -> Any:
 
 @dataclasses.dataclass(frozen=True)
 class EngineParams:
-    """Named component params of the serving components
+    """Named component params for one engine variant
     (EngineParams.scala:25-65): (component name, params) pairs. An
     `EmptyParams` placeholder means "that component's default params"."""
+    data_source_params: Tuple[str, Params] = ("", EmptyParams())
+    preparator_params: Tuple[str, Params] = ("", EmptyParams())
     algorithm_params_list: Sequence[Tuple[str, Params]] = (
         ("", EmptyParams()),)
     serving_params: Tuple[str, Params] = ("", EmptyParams())

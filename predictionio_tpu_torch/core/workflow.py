@@ -37,7 +37,8 @@ def prepare_deploy(engine: Engine, models: Sequence[Any],
     `ShardSlice`) is the serving mesh; None takes
     `serve_mesh_from_conf()`, which shards only over two or more local
     CUDA cards."""
-    algos, serving = engine.make_components(engine_params or EngineParams())
+    _, _, algos, serving = engine.make_components(
+        engine_params or EngineParams())
     models = list(models)
     if len(models) != len(algos):
         raise ValueError(

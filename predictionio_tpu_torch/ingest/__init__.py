@@ -1,1 +1,1 @@
-"""Entity id maps."""
+"""Entity id maps and rating columns."""

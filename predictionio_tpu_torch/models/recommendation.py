@@ -1,8 +1,13 @@
-"""Recommendation template, serving side: ALS top-N with blacklist and
-whitelist filtering.
+"""Recommendation template: explicit ALS with blacklist and whitelist
+filtering.
 
 The port of `predictionio_tpu/models/recommendation.py` (parity target
 `examples/scala-parallel-recommendation/blacklist-items/`):
+  - the data source reads the rating columns that the run context
+    carries (`cli train` loads them from an `.npz`; the event store is
+    not ported yet);
+  - ALSAlgorithm.train wraps `ops.als.als_train` (MLlib explicit ALS,
+    `ALSAlgorithm.scala:51-93`) on the context's device;
   - predict = top-N with blacklist filter, empty result for unknown
     users (`ALSAlgorithm.scala:96-112`);
   - wire format: query `{"user": "1", "num": 4}` ->
@@ -14,7 +19,7 @@ a fleet slice), that is through the fused CUDA kernel; whiteList
 queries and queries past the plan (num > 10, more than 64 bans) take
 the generic paths: on the card over a single-device plan's factors,
 in host RAM over the item master when a sharded or tiered plan holds
-the card's copy. Training comes with a later slice.
+the card's copy.
 """
 
 from __future__ import annotations
@@ -25,11 +30,15 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.core.base import Algorithm, FirstServing
+from predictionio_tpu_torch.core.base import (Algorithm, DataSource,
+                                              FirstServing,
+                                              IdentityPreparator)
 from predictionio_tpu_torch.core.engine import Engine, EngineFactory
 from predictionio_tpu_torch.core.params import Params
+from predictionio_tpu_torch.core.runtime import RuntimeContext
+from predictionio_tpu_torch.ingest.arrays import RatingColumns
 from predictionio_tpu_torch.models.common import resolve_item_mask
-from predictionio_tpu_torch.ops.als import ALSModel
+from predictionio_tpu_torch.ops.als import ALSModel, als_train
 from predictionio_tpu_torch.ops.topk import (NEG_INF, BucketedTopK,
                                              _off_host, topk_scores,
                                              topk_scores_filtered)
@@ -56,6 +65,35 @@ class PredictedResult:
 
 
 @dataclass(frozen=True)
+class EvalParams(Params):
+    """(DataSourceEvalParams, DataSource.scala:30); read by eval, which
+    is not ported yet."""
+    k_fold: int = 3
+    query_num: int = 10
+
+
+@dataclass(frozen=True)
+class DataSourceParams(Params):
+    """The JAX template's data source params, so that the same
+    engine.json parses. The port's data source reads the run context's
+    ratings, so app_name, channel and buy_rating select nothing yet."""
+    app_name: str = "default"
+    channel: Optional[str] = None
+    buy_rating: float = 4.0
+    eval_params: Optional[EvalParams] = None
+
+
+class RecommendationDataSource(DataSource):
+    params_class = DataSourceParams
+
+    def read_training(self, ctx: RuntimeContext) -> RatingColumns:
+        if ctx.ratings is None:
+            raise ValueError("the run context carries no ratings (cli "
+                             "train reads them from --ratings)")
+        return ctx.ratings
+
+
+@dataclass(frozen=True)
 class ALSAlgorithmParams(Params):
     rank: int = 10
     num_iterations: int = 10
@@ -74,11 +112,19 @@ class ALSAlgorithm(Algorithm):
         super().__init__(params)
         self._serve_plan = None   # the plan warm_serving built
 
-    def train(self, ctx, pd) -> ALSModel:
-        raise NotImplementedError(
-            "ALS training is not ported yet (Queue 1 item 4 of ROADMAP.md: "
-            "ops/als.py over ops/linalg.py); train with predictionio_tpu "
-            "and carry the model over with ops.als.als_model_from_numpy")
+    def train(self, ctx: RuntimeContext, pd: RatingColumns) -> ALSModel:
+        """Explicit ALS on `ctx.device` (None = cuda); the solver phases
+        and `solver_residual` go into `ctx.phase_timings`."""
+        p = self.params
+        if pd.n == 0:
+            raise ValueError(
+                "No rating events found; check appName and event import "
+                "(parity: ALSAlgorithm.scala:56-61 require non-empty)")
+        x, y = als_train(
+            pd, rank=p.rank, iterations=p.num_iterations, reg=p.lambda_,
+            seed=p.seed if p.seed is not None else 0,
+            timings=ctx.phase_timings, device=ctx.device)
+        return ALSModel(x, y, pd.users, pd.items)
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         return self.batch_predict(model, [(0, query)])[0][1]
@@ -164,5 +210,7 @@ class ALSAlgorithm(Algorithm):
 class RecommendationEngine(EngineFactory):
     @classmethod
     def apply(cls) -> Engine:
-        return Engine(algorithms={"als": ALSAlgorithm, "": ALSAlgorithm},
+        return Engine(data_source=RecommendationDataSource,
+                      preparator=IdentityPreparator,
+                      algorithms={"als": ALSAlgorithm, "": ALSAlgorithm},
                       serving=FirstServing)

@@ -1,1 +1,2 @@
-"""Device ops: top-k serving plans, the fused top-k kernel, ALS model."""
+"""Device ops: ALS training and model, the batched solvers, top-k
+serving plans, the fused top-k kernel."""

@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert "predictionio_tpu_torch.ops.fused_topk" in mods
     assert "predictionio_tpu_torch.serving.server" in mods
     for required in ("ops.topk_sharded", "ops.topk_tiered",
-                     "parallel.mesh", "serving.paging"):
+                     "parallel.mesh", "serving.paging", "ops.linalg",
+                     "ingest.arrays", "core.runtime"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"

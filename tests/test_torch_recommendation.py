@@ -216,9 +216,28 @@ def test_model_checks():
         pals.als_model_from_numpy(x, bad, USERS, ITEMS, device="cpu")
 
 
-def test_train_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        prec.ALSAlgorithm().train(None, None)
+def test_train_then_serve_on_the_cpu():
+    """The template trains (the port's `als_train`, on the CPU) and the
+    model it returns warms and answers like any carried-over model."""
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    from predictionio_tpu_torch.ingest.arrays import RatingColumns
+    from predictionio_tpu_torch.ingest.bimap import BiMap as PBiMap
+    rng = np.random.default_rng(0)
+    cols = RatingColumns(rng.integers(0, N_USERS, 400).astype(np.int32),
+                         rng.integers(0, N_ITEMS, 400).astype(np.int32),
+                         rng.integers(1, 6, 400).astype(np.float32),
+                         np.zeros(400, np.int64), PBiMap.from_keys(USERS),
+                         PBiMap.from_keys(ITEMS))
+    algo = prec.ALSAlgorithm(prec.ALSAlgorithmParams(rank=8,
+                                                     num_iterations=4))
+    model = algo.train(RuntimeContext(device="cpu"), cols)
+    assert model.user_factors.shape == (N_USERS, 8)
+    assert model.users == cols.users and model.items == cols.items
+    assert algo.warm_serving(model, [1, 2, 4, 8]) == 4
+    out = _predict(algo, model, prec.Query, BATCHES["blacklist"])
+    assert [s.item for s in out[0].itemScores if s.item in ("i0", "i3")] \
+        == []
+    assert len(out[1].itemScores) == 10 and out[2].itemScores == ()
 
 
 @pytest.mark.parametrize("batch_max,observed", [
