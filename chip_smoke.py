@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--requests 320]
                           [--sharded-requests 160] [--tiered-queries 64]
-                          [--trained-requests 64]
-                          [--only serve_sharded | --only train]
+                          [--trained-requests 64] [--lifecycle-requests 320]
+                          [--only serve_sharded | train | lifecycle]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -23,7 +23,9 @@ the result line:
               all-banned row; k = 64 at buckets 1/8/128; a 300,007-row
               catalog whose tile count is no multiple of the persistent
               grid, with bans on the first and last item of every
-              block's range; all-equal scores across block edges (the
+              block's range; MovieLens-1M's 3,706-item catalog, whose
+              few tiles shrink the grid to one tile per block, banned
+              alike; all-equal scores across block edges (the
               lowest ids must win). On real-valued factors at 500,000 x
               64 the scores agree to rtol=atol=1e-5 (fp32 summation
               order differs) and ids agree except inside such near-ties.
@@ -92,29 +94,50 @@ the result line:
  10. train    the MovieLens-25M shape (bench.py's generator: 162,541 x
               59,047, 25,000,000 ratings, 0.4% held out) trained at rank
               64, 10 iterations, lambda 0.05, bf16, through
-              `cli.main.train` (the function `cli train` runs), which
-              writes the model .npz. Gates: held-out RMSE below 1.0,
-              solver residual below 1e-2, zero factors on unrated rows.
-              Prints the phase timings, peak device bytes, padded
-              entries and slabs, the port's `iteration_flops`, the
-              per-iteration bound max(bytes / HBM rate, Gram flops /
-              bf16 tensor-core rate + other flops / fp32 rate), where
-              the bytes are the iteration's inputs read once and its
-              outputs written once (the gathered opposite rows come
-              from a table the L2 holds), and the loop's anatomy on the
-              same slabs: per-iteration CUDA-event and host-enqueue ms,
+              `CoreWorkflow.run_train` (what `cli train` runs) into a MEM
+              store, from an engine whose data source hands out the
+              generated columns (no import of over an hour). Gates: the
+              instance COMPLETED with its blob stored; on the model read
+              back from the store, held-out RMSE below 1.0, solver
+              residual below 1e-2, zero factors on unrated rows. Prints
+              the phase timings (blob bytes and store seconds among
+              them), peak device bytes, padded entries and slabs, the
+              port's `iteration_flops`, the per-iteration bound
+              max(bytes / HBM rate, Gram flops / bf16 tensor-core rate +
+              other flops / fp32 rate), where the bytes are the
+              iteration's inputs read once and its outputs written once
+              (the gathered opposite rows come from a table the L2
+              holds), and the loop's anatomy on the slabs of the run's
+              own packing: per-iteration CUDA-event and host-enqueue ms,
               eager (as training runs it) and as a CUDA graph, each with
               a `torch.profiler` pass (device time by op, operations per
               iteration, busy share), and CG's batched matvec timed as
               p^T A (the port's) and as A p.
  11. serve_trained
-              that model file through `load_npz` and `cli.main.deploy`:
+              that instance deployed through `cli.main.deploy_instance`
+              (`CoreWorkflow.prepare_deploy(engine, instance, ctx)`):
               /queries.json requests over its 59,047 items, checked as
               phase 4 checks them; K1's launches must equal plan calls.
+ 12. lifecycle
+              PredictionIO's lifecycle at MovieLens-1M's shape (6,040 x
+              3,706, 1,000,209 planted ratings, 0.4% held out) through
+              `python -m predictionio_tpu_torch.cli` subprocesses over
+              one sqlite store in a temporary directory: app new, import
+              of the ratings as API-JSON rate events, build, train (rank
+              64, 10 iterations, lambda 0.05), deploy, 320 HTTP
+              requests. Gates: the instance COMPLETED, held-out RMSE
+              below 1.0, every answer right against the plain version on
+              the factors read back from the store, K1 launches equal to
+              plan calls and to the warmed buckets plus one per drained
+              batch chunk, on the server's `GET /`. Prints import events/s,
+              the read split into scan and build, pack, transfer, solve,
+              the blob's bytes and store seconds, the deploy's load,
+              place and warm seconds, and the serve summary.
 
 `--only serve_sharded` runs the build and phase 6 alone (for a machine
-with several cards), `--only train` the build and phases 9-11; neither
-prints the kernels line.
+with several cards), `--only train` the build and phases 9-11,
+`--only lifecycle` the build and phases 3 and 12; none prints the
+kernels line.
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -141,6 +164,8 @@ K = 10               # the recommendation template's plan k
 WIDTH = 64           # its banned width
 TOL = 1e-5
 TIMED_BUCKETS = (1, 8, 64)   # the serve run drains batches of 1-7
+# the lifecycle phase: GroupLens MovieLens-1M's shape
+ML1M_USERS, ML1M_ITEMS, ML1M_N = 6_040, 3_706, 1_000_209
 
 # (HBM bytes/s, fp32 CUDA-core FLOP/s, bf16 tensor-core FLOP/s) from
 # NVIDIA's data sheets, dense, at the part's full power limit; matched on
@@ -283,6 +308,27 @@ def phase_parity(torch, ft, dev, rng) -> float:
             bans = [edges[:WIDTH], [], edges[-WIDTH:], edges[1::2][:WIDTH]]
             run(big, rank, b, K, big, bans, True, f=f, v=v)
             cases += 1
+    # MovieLens-1M's catalog (the lifecycle phase's): fewer tiles than
+    # the persistent grid could hold, so the grid shrinks to one tile per
+    # block; bans on the first and last item of every block
+    ml1m = []
+    for rank in (10, 64):
+        for b in (1, 8, 64):
+            plan = ft.launch_plan(b, rank, K, ML1M_ITEMS)
+            n_tiles = -(-ML1M_ITEMS // plan["tile_items"])
+            ml1m.append([b, rank, n_tiles, plan["grid"]])
+            if not (n_tiles < plan["sms"] * plan["blocks_per_sm"]
+                    and plan["grid"] == n_tiles):
+                fail(f"{ML1M_ITEMS} rows make {n_tiles} tiles on a grid of "
+                     f"{plan['grid']}: not the small-catalog case")
+            edges = block_edges(ft, ML1M_ITEMS, rank, b, K)
+            f = rng.integers(-4, 5, (ML1M_ITEMS, rank)).astype(np.float32)
+            f[edges] = 4.0
+            v = rng.integers(1, 5, (b, rank)).astype(np.float32)
+            run(ML1M_ITEMS, rank, b, K, ML1M_ITEMS,
+                [edges[:WIDTH], [], edges[-WIDTH:], edges[1::2][:WIDTH]],
+                True, f=f, v=v)
+            cases += 1
     # all-equal scores across block boundaries: the lowest ids win, past
     # the banned ones
     for b in (1, 8, 64):
@@ -297,6 +343,8 @@ def phase_parity(torch, ft, dev, rng) -> float:
     emit({"phase": "parity", "integer_cases": cases, "bit_identical": True,
           "uneven_grid": [dict(zip(("bucket", "rank", "tiles", "grid"), u))
                           for u in uneven],
+          "small_catalog": [dict(zip(("bucket", "rank", "tiles", "grid"), u))
+                            for u in ml1m],
           "real_valued": {"n_items": N_ITEMS, "rank": RANK, "bucket": 64,
                           "max_abs_err": err, "tol": TOL}})
     return err
@@ -321,7 +369,7 @@ def make_queries(torch, ft, dev, rng, model, n_requests: int,
     of the queries ban their own top items (the bans must change the
     answer) plus random ones, a quarter a random span of up to WIDTH
     ids."""
-    users = rng.integers(0, N_USERS, n_requests)
+    users = rng.integers(0, model.user_factors.shape[0], n_requests)
     nums = rng.integers(1, K + 1, n_requests)
     rows = torch.from_numpy(users).to(dev)
     none = torch.full((n_requests, 1), n_items, dtype=torch.int32,
@@ -330,15 +378,16 @@ def make_queries(torch, ft, dev, rng, model, n_requests: int,
                                      model.item_factors, none, k=K,
                                      n_valid=n_items)
     top = top.cpu().numpy()
+    user_id, item_id = model.users.inverse, model.items.inverse
     queries = []
     for r in range(n_requests):
-        q = {"user": f"u{users[r]}", "num": int(nums[r])}
+        q = {"user": user_id(int(users[r])), "num": int(nums[r])}
         if r % 4 == 1:
             extra = rng.choice(n_items, WIDTH - 5, replace=False)
-            q["blackList"] = [f"i{x}" for x in [*top[r, :5], *extra]]
+            q["blackList"] = [item_id(int(x)) for x in [*top[r, :5], *extra]]
         elif r % 4 == 2:
             lo = int(rng.integers(0, n_items - WIDTH))
-            q["blackList"] = [f"i{x}" for x in
+            q["blackList"] = [item_id(x) for x in
                               range(lo, lo + int(rng.integers(1, WIDTH)))]
         queries.append(q)
     return queries
@@ -351,10 +400,11 @@ def check_answers(torch, ft, dev, model, queries, item_scores,
     diff|."""
     from predictionio_tpu_torch.ops.topk import NEG_INF
     n = len(queries)
-    rows = torch.tensor([int(q["user"][1:]) for q in queries], device=dev)
+    rows = torch.tensor([model.users(q["user"]) for q in queries],
+                        device=dev)
     banned = np.full((n, WIDTH), n_items, np.int32)
     for r, q in enumerate(queries):
-        ids = [int(x[1:]) for x in q.get("blackList", ())]
+        ids = [model.items(x) for x in q.get("blackList", ())]
         banned[r, :len(ids)] = ids
     bad = 0
     max_err = 0.0
@@ -372,7 +422,7 @@ def check_answers(torch, ft, dev, model, queries, item_scores,
                 bad += 1
                 continue
             ks = np.array([[g["score"] for g in got]])
-            ki = np.array([[int(g["item"][1:]) for g in got]])
+            ki = np.array([[model.items(g["item"]) for g in got]])
             exact = exact_scores(torch, model.user_factors[rows[r:r + 1]],
                                  model.item_factors, ki)
             max_err = max(max_err, agree(ks, ki, rs[j:j + 1, :len(got)],
@@ -388,19 +438,24 @@ def device_bytes(torch) -> int:
                for d in range(torch.cuda.device_count()))
 
 
-def run_server(torch, ft, model, queries, mesh=None, midway=None) -> dict:
-    """Deploy `model` (over `mesh`), send `queries` from 64 client
-    threads, stop the server; the kernel counts are set to 0 just before
-    the deploy and read just after the last answer. With `midway`, the
-    queries go in two halves and `midway(server)` runs between them."""
+def run_server(torch, ft, model, queries, mesh=None, midway=None,
+               start=None) -> dict:
+    """Deploy `model` (over `mesh`; or whatever `start()` deploys and
+    returns the server of), send `queries` from 64 client threads, stop
+    the server; the kernel counts are set to 0 just before the deploy
+    and read just after the last answer. With `midway`, the queries go
+    in two halves and `midway(server)` runs between them."""
     from predictionio_tpu_torch.cli.main import deploy
     from predictionio_tpu_torch.models.recommendation import Query
 
+    if start is None:
+        def start():
+            return deploy(model, port=0, batch_max=64, mesh=mesh)
     before_bytes = device_bytes(torch)
     ft.LAUNCHES = 0          # the counts cover this path only
     ft.SHARD_LAUNCHES = 0
     t0 = time.perf_counter()
-    server = deploy(model, port=0, batch_max=64, mesh=mesh)
+    server = start()
     warm_s = time.perf_counter() - t0
     added_bytes = device_bytes(torch) - before_bytes
     plan = server.deployment.algos[0]._serve_plan
@@ -466,7 +521,8 @@ def run_server(torch, ft, model, queries, mesh=None, midway=None) -> dict:
     expected = len(plan.buckets) + sum(
         c * -(-n // plan.max_bucket) for n, c in sizes.items())
     lat = np.sort([t for _, t in answers])
-    return {"plan": plan, "answers": [b["itemScores"] for b, _ in answers],
+    return {"plan": plan, "model": server.deployment.models[0],
+            "answers": [b["itemScores"] for b, _ in answers],
             "expected_calls": expected, "launches": launches,
             "shard_launches": shard_launches, "plan_calls": plan_calls,
             "sizes": sizes, "status": status, "warm_s": warm_s,
@@ -1049,14 +1105,41 @@ def phase_train_parity(torch, dev, seed: int) -> dict:
     return out
 
 
-def phase_train(torch, dev, card: str, seed: int, workdir) -> dict:
-    """The ML-25M shape trained through `cli.main.train` (the function
-    `cli train` runs), gated on held-out RMSE, the solver residual and
-    zero factors on unrated rows; then the loop again on the same slabs
-    for its anatomy: per-iteration CUDA-event ms and host enqueue ms,
-    as the training runs it (eagerly) and captured as a CUDA graph, and
-    a `torch.profiler` pass over one iteration of each."""
-    from predictionio_tpu_torch.cli.main import train
+def generated_engine(cols):
+    """The recommendation template with its data source swapped for one
+    that hands out `cols`, the way a user's engine plugs in its own
+    source: the ML-25M shape's 25 M generated ratings skip a store
+    import of over an hour, while training, persistence and the
+    instance lifecycle run as `cli train` runs them."""
+    from predictionio_tpu_torch.core.base import (DataSource, FirstServing,
+                                                  IdentityPreparator)
+    from predictionio_tpu_torch.core.engine import Engine
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+
+    class GeneratedRatings(DataSource):
+        def read_training(self, ctx):
+            return cols
+
+    return Engine(GeneratedRatings, IdentityPreparator,
+                  {"als": ALSAlgorithm}, FirstServing)
+
+
+def phase_train(torch, dev, card: str, seed: int):
+    """The ML-25M shape trained through `CoreWorkflow.run_train` (what
+    `cli train` runs) into a MEM store: the instance must be COMPLETED
+    with its model blob stored; the model read back from the store is
+    gated on held-out RMSE, the solver residual and zero factors on
+    unrated rows. Then the loop again on the slabs of that run's own
+    packing for its anatomy: per-iteration CUDA-event ms and host
+    enqueue ms, as the training runs it (eagerly) and captured as a
+    CUDA graph, and a `torch.profiler` pass over one iteration of each.
+    Returns the phase's line, the engine, the instance, its registry and
+    the model read back."""
+    from predictionio_tpu_torch.core.persistence import deserialize_models
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    from predictionio_tpu_torch.core.workflow import CoreWorkflow
+    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
+                                                     StorageRegistry)
     from predictionio_tpu_torch.ingest.arrays import RatingColumns
     from predictionio_tpu_torch.ingest.bimap import BiMap
     from predictionio_tpu_torch.ops import als, linalg
@@ -1069,20 +1152,44 @@ def phase_train(torch, dev, card: str, seed: int, workdir) -> dict:
                          np.zeros(int(keep.sum()), np.int64),
                          BiMap.from_keys(f"u{n}" for n in range(ML25M_USERS)),
                          BiMap.from_keys(f"i{n}" for n in range(ML25M_ITEMS)))
-    ratings_path = workdir / "ratings.npz"
-    model_path = workdir / "model.npz"
-    cols.save_npz(ratings_path)
     data_s = time.perf_counter() - t0
-    variant = {"algorithms": [{"name": "als", "params": {
-        "rank": TRAIN_RANK, "num_iterations": TRAIN_ITERS,
-        "lambda_": TRAIN_REG, "seed": seed}}]}
+    engine = generated_engine(cols)
+    params = engine.engine_params_from_variant(
+        {"algorithms": [{"name": "als", "params": {
+            "rank": TRAIN_RANK, "num_iterations": TRAIN_ITERS,
+            "lambda_": TRAIN_REG, "seed": seed}}]})
+    registry = StorageRegistry({"PIO_STORAGE_SOURCES_MEM_TYPE": "MEM"})
+    ctx = RuntimeContext(registry=registry, device=dev)
+    # the anatomy below reuses this run's packing: keep the two sides
+    # the trainer packs
+    sides = []
+    pack_side = als._pack_side
+
+    def recording(*a, **kw):
+        sides.append(pack_side(*a, **kw))
+        return sides[-1]
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base_bytes = torch.cuda.memory_allocated(dev)
+    als._pack_side = recording
     t0 = time.perf_counter()
-    model, tm = train(ratings_path, model_path, variant=variant, device=dev)
+    try:
+        instance = CoreWorkflow.run_train(engine, params, ctx,
+                                          engine_variant="ml25m")
+    finally:
+        als._pack_side = pack_side
     train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base_bytes
+    tm = dict(ctx.phase_timings)
+    if instance.status != EngineInstanceStatus.COMPLETED:
+        fail(f"the training instance is {instance.status}")
+    t0 = time.perf_counter()
+    model, = deserialize_models(
+        registry.get_model_data_models().get(instance.id).models,
+        instance.id, [None], ctx, retrain=None)
+    model = model.to(dev)
+    load_s = time.perf_counter() - t0
     heldout = als.rmse(model.user_factors, model.item_factors, u[test],
                        i[test], r[test])
     if not heldout < 1.0:
@@ -1097,14 +1204,12 @@ def phase_train(torch, dev, card: str, seed: int, workdir) -> dict:
         if rows.numel() and bool(rows.abs().max() > 0):
             fail("a row without ratings has nonzero factors")
         unrated.append(int(absent.sum()))
-    if not model_path.exists():
-        fail("train wrote no model file")
 
     # the same loop again, on the trained factors, for its anatomy
-    t0 = time.perf_counter()
-    packed = als.pack_ratings(cols.user_ix, cols.item_ix, cols.rating,
-                              ML25M_USERS, ML25M_ITEMS, TRAIN_RANK)
-    repack_s = time.perf_counter() - t0
+    if len(sides) != 2:
+        fail(f"the training packed {len(sides)} sides, not 2")
+    packed = als.PackedRatings(sides[0], sides[1], ML25M_USERS, ML25M_ITEMS,
+                               TRAIN_RANK)
     val_dt = (torch.bfloat16 if als._bf16_exact(packed.user_side.val)
               else torch.float32)
     slabs = [als.device_slabs(packed.user_side, val_dt, dev),
@@ -1184,35 +1289,237 @@ def phase_train(torch, dev, card: str, seed: int, workdir) -> dict:
            "gram_flops": gram, "bytes": nbytes,
            "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "repack_s": repack_s, "matvec": matvec,
+           "instance": {"status": instance.status,
+                        "blob_bytes": tm["blob_bytes"],
+                        "store_s": tm["store_s"], "load_s": load_s},
+           "matvec": matvec,
            "eager": {"iteration_ms": eager_ms, "enqueue_ms": eager_enqueue,
                      "profile": eager_prof},
            "graph": {"iteration_ms": graph_ms, "enqueue_ms": graph_enqueue,
                      "profile": graph_prof}}
     emit(out)
-    return out
+    return out, engine, instance, registry, model
 
 
-def phase_serve_trained(torch, ft, dev, rng, model_path,
+def phase_serve_trained(torch, ft, dev, rng, trained,
                         n_requests: int) -> dict:
-    """The model `train` wrote, loaded with `load_npz` and deployed
-    through `cli.main.deploy`: /queries.json requests through K1,
-    checked against the plain version."""
-    from predictionio_tpu_torch.ops.als import load_npz
-    model = load_npz(model_path, device=dev)
+    """The instance `run_train` recorded, deployed through
+    `cli.main.deploy_instance` (`CoreWorkflow.prepare_deploy(engine,
+    instance, ctx)`: the blob read back from the store onto the card):
+    /queries.json requests through K1, checked against the plain
+    version on the model phase train read back."""
+    from predictionio_tpu_torch.cli.main import deploy_instance
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    _, engine, instance, registry, model = trained
+    ctx = RuntimeContext(registry=registry, device=dev)
     n_items = model.item_factors.shape[0]
     queries = make_queries(torch, ft, dev, rng, model, n_requests, n_items)
-    run = run_server(torch, ft, model, queries)
+    run = run_server(torch, ft, None, queries, start=lambda: deploy_instance(
+        engine, instance, ctx, port=0, batch_max=64))
     launches, plan_calls = run["launches"], run["plan_calls"]
     if not (launches == plan_calls == run["expected_calls"]):
         fail(f"trained model: kernel launches {launches}, plan calls "
              f"{plan_calls}, expected {run['expected_calls']}")
+    served = run["model"]
+    if run["status"]["engineInstanceId"] != instance.id or not (
+            torch.equal(served.user_factors, model.user_factors)
+            and torch.equal(served.item_factors, model.item_factors)):
+        fail("the deploy served another model than the instance's")
     max_err = check_answers(torch, ft, dev, model, queries, run["answers"],
                             n_items)
-    out = {"phase": "serve_trained", "model": model_path.name,
+    out = {"phase": "serve_trained", "engine_instance": instance.id,
+           "deploy_timings": run["status"]["deploy_timings"],
            **serve_summary(run, n_requests, max_err),
            "users": model.user_factors.shape[0], "items": n_items,
            "rank": model.user_factors.shape[1]}
+    emit(out)
+    return out
+
+
+def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
+    """PredictionIO's lifecycle at MovieLens-1M's shape, through the
+    port's command line in subprocesses over one sqlite store in a
+    temporary directory: `app new`, `import` of the ratings as API-JSON
+    `rate` events (0.4% held out, not imported), `build`, `train` (rank
+    64, 10 iterations, lambda 0.05), `deploy`, then `n_requests` HTTP
+    requests to /queries.json. Gates: the instance is COMPLETED, the
+    held-out RMSE is below 1.0, every answer checks against the plain
+    version on the factors read back from the model store (the port's
+    registry and `deserialize_models`), and the server's `GET /` shows
+    K1's launches equal to its plan calls (the deploy process counts
+    from 0)."""
+    import os
+    import signal
+    from predictionio_tpu_torch.core.persistence import deserialize_models
+    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
+                                                     StorageRegistry)
+    from predictionio_tpu_torch.ops import als
+
+    repo = str(Path(__file__).resolve().parent)
+    u, i, r = planted(ML1M_USERS, ML1M_ITEMS, ML1M_N, seed + 5)
+    test = np.random.default_rng(seed + 6).random(ML1M_N) < HELD_OUT
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lifecycle_") as tmp:
+        tmp = Path(tmp)
+        config = {"PIO_STORAGE_SOURCES_PIO_TYPE": "SQLITE",
+                  "PIO_STORAGE_SOURCES_PIO_PATH": str(tmp / "pio.db")}
+        env = {**os.environ, **config, "PYTHONPATH": repo}
+        # distinct event times, one millisecond apart, from 2020-01-01
+        t0 = time.perf_counter()
+        base_ms = 1_577_836_800_000
+        ul, il, rl = u.tolist(), i.tolist(), r.tolist()
+        with open(tmp / "events.jsonl", "w") as f:
+            for n in np.nonzero(~test)[0].tolist():
+                f.write('{"event":"rate","entityType":"user","entityId":'
+                        f'"u{ul[n]}","targetEntityType":"item",'
+                        f'"targetEntityId":"i{il[n]}","properties":'
+                        f'{{"rating":{rl[n]}}},"eventTime":{base_ms + n}}}'
+                        '\n')
+        write_s = time.perf_counter() - t0
+        (tmp / "engine.json").write_text(json.dumps({
+            "id": "ml1m", "engineFactory": "recommendation",
+            "datasource": {"params": {"app_name": "ml1m"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": TRAIN_RANK, "num_iterations": TRAIN_ITERS,
+                "lambda_": TRAIN_REG, "seed": seed}}]}))
+
+        def cli(*args):
+            t = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "predictionio_tpu_torch.cli", *args],
+                cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=900)
+            if out.returncode != 0:
+                fail(f"cli {' '.join(args)} exited {out.returncode}: "
+                     f"{out.stderr[-3000:]}")
+            return json.loads(out.stdout), time.perf_counter() - t
+
+        app, _ = cli("app", "new", "ml1m")
+        imported, import_wall_s = cli("import", "--appid", str(app["id"]),
+                                      "--input", "events.jsonl")
+        n_train = int((~test).sum())
+        if imported["imported"] != n_train:
+            fail(f"imported {imported['imported']} of {n_train} events")
+        cli("build")
+        report, train_wall_s = cli("train")
+        if report["status"] != EngineInstanceStatus.COMPLETED:
+            fail(f"the lifecycle instance is {report['status']}")
+        iid = report["engineInstanceId"]
+
+        # the model as the store holds it, read back through the port
+        registry = StorageRegistry(config)
+        row = registry.get_meta_data_engine_instances().get(iid)
+        if row is None or row.status != EngineInstanceStatus.COMPLETED:
+            fail(f"the store holds instance {iid} as "
+                 f"{row.status if row else 'missing'}")
+        model, = deserialize_models(
+            registry.get_model_data_models().get(iid).models, iid, [None],
+            None, retrain=None)
+        model = model.to(dev)
+        registry.close()
+        uu = [model.users.get(f"u{x}") for x in u[test]]
+        ii = [model.items.get(f"i{x}") for x in i[test]]
+        seen = np.array([a is not None and b is not None
+                         for a, b in zip(uu, ii)])
+        heldout = als.rmse(
+            model.user_factors, model.item_factors,
+            np.array([a for a, s_ in zip(uu, seen) if s_]),
+            np.array([b for b, s_ in zip(ii, seen) if s_]), r[test][seen])
+        if not heldout < 1.0:
+            fail(f"lifecycle held-out RMSE {heldout} is not below 1.0")
+        n_items = model.item_factors.shape[0]
+        queries = make_queries(torch, ft, dev, rng, model, n_requests,
+                               n_items)
+
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", "deploy",
+             "--port", "0", "--batch-max", "64"],
+            cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            line = proc.stdout.readline()
+            deploy_wall_s = time.perf_counter() - t0
+            if not line.startswith(f"serving engine instance {iid} on "):
+                proc.kill()
+                fail(f"deploy did not come up: {line!r} "
+                     f"{proc.stderr.read()[-3000:]}")
+            port = int(line.split("http://127.0.0.1:")[1].split()[0])
+
+            def post(q):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/queries.json",
+                    data=json.dumps(q).encode(), method="POST",
+                    headers={"Content-Type": "application/json"})
+                t = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    body = json.loads(resp.read())
+                return body, time.perf_counter() - t
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(64) as pool:
+                answers = list(pool.map(post, queries))
+            wall_s = time.perf_counter() - t0
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                        timeout=60) as resp:
+                status = json.loads(resp.read())
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                code = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                code = proc.wait()
+        if code != 0:
+            fail(f"the deploy process exited {code}")
+    launches = status["kernel_launches"]["fused_topk"]
+    sizes = {int(k): v for k, v in status["batch_sizes"].items()}
+    if status["engineInstanceId"] != iid or status["plans"] != [
+            "BucketedTopK"]:
+        fail(f"GET / shows instance {status['engineInstanceId']}, plans "
+             f"{status['plans']}")
+    if sum(n * c for n, c in sizes.items()) != n_requests:
+        fail(f"batches {sizes} do not add up to {n_requests} requests")
+    buckets, = status["plan_buckets"]
+    expected = len(buckets) + sum(c * -(-n // max(buckets))
+                                  for n, c in sizes.items())
+    if not (launches == status["plan_calls"] == expected):
+        fail(f"lifecycle: K1 launches {launches}, plan calls "
+             f"{status['plan_calls']}, expected {expected} (warmup + "
+             "drained batch chunks)")
+    max_err = check_answers(torch, ft, dev, model, queries,
+                            [b["itemScores"] for b, _ in answers], n_items)
+    lat = np.sort([t for _, t in answers])
+    tm = report["phaseTimings"]
+    out = {"phase": "lifecycle", "users": len(model.users),
+           "items": n_items, "events": n_train,
+           "held_out": int(test.sum()), "rank": TRAIN_RANK,
+           "iterations": TRAIN_ITERS, "reg": TRAIN_REG,
+           "engine_instance": iid, "status": report["status"],
+           "heldout_rmse": heldout, "events_file_s": write_s,
+           "import": {"seconds": imported["seconds"],
+                      "events_per_s": n_train / imported["seconds"],
+                      "command_wall_s": import_wall_s},
+           "train": {"command_wall_s": train_wall_s,
+                     "read_s": tm["read_s"], "scan_s": tm["ingest_scan_s"],
+                     "build_s": tm["ingest_build_s"],
+                     "pack_s": tm["pack_s"], "transfer_s": tm["transfer_s"],
+                     "solve_s": tm["solve_s"],
+                     "solver_residual": tm["solver_residual"],
+                     "blob_bytes": tm["blob_bytes"],
+                     "store_s": tm["store_s"]},
+           "deploy": {"command_to_serving_s": deploy_wall_s,
+                      **status["deploy_timings"]},
+           "serve": {"requests": n_requests, "answers_checked": n_requests,
+                     "max_abs_err": max_err, "launches": launches,
+                     "plan_calls": status["plan_calls"],
+                     "expected_calls": expected,
+                     "warmed_buckets": buckets,
+                     "batch_sizes": status["batch_sizes"],
+                     "drained_batches": sum(sizes.values()),
+                     "wall_s": wall_s, "qps": n_requests / wall_s,
+                     "latency_ms": {
+                         "p50": 1e3 * lat[len(lat) // 2],
+                         "p99": 1e3 * lat[int(0.99 * (len(lat) - 1))]}}}
     emit(out)
     return out
 
@@ -1224,11 +1531,12 @@ def main() -> int:
     ap.add_argument("--sharded-requests", type=int, default=160)
     ap.add_argument("--tiered-queries", type=int, default=64)
     ap.add_argument("--trained-requests", type=int, default=64)
-    ap.add_argument("--only", choices=("serve_sharded", "train"),
+    ap.add_argument("--lifecycle-requests", type=int, default=320)
+    ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
-                         "train_parity, train and serve_trained), no "
-                         "kernels line")
+                         "train_parity, train and serve_trained; lifecycle "
+                         "for parity and lifecycle), no kernels line")
     args = ap.parse_args()
 
     import torch
@@ -1262,21 +1570,22 @@ def main() -> int:
 
     def train_phases():
         phase_train_parity(torch, dev, args.seed)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            tmp = Path(tmp)
-            trained = phase_train(torch, dev, card, args.seed, tmp)
-            served = phase_serve_trained(torch, ft, dev, rng,
-                                         tmp / "model.npz",
-                                         args.trained_requests)
-        return trained, served
+        trained = phase_train(torch, dev, card, args.seed)
+        served = phase_serve_trained(torch, ft, dev, rng, trained,
+                                     args.trained_requests)
+        return trained[0], served
 
     if args.only is not None:
         if args.only == "serve_sharded":
             model, _ = make_model(torch, rng)
             phase_serve_sharded(torch, ft, dev, rng, model,
                                 args.sharded_requests)
-        else:
+        elif args.only == "train":
             train_phases()
+        else:
+            phase_parity(torch, ft, dev, rng)
+            phase_lifecycle(torch, ft, dev, rng, args.seed,
+                            args.lifecycle_requests)
         print(smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -1294,6 +1603,8 @@ def main() -> int:
     timing_sh = phase_timing_sharded(torch, ft, dev, rng, model, card)
     del model
     _, served = train_phases()
+    lifecycle = phase_lifecycle(torch, ft, dev, rng, args.seed,
+                                args.lifecycle_requests)
 
     main_row, shard_row = timing[64], timing_sh[64]
     emit({"kernels": [{
@@ -1307,6 +1618,7 @@ def main() -> int:
         "library_ms": main_row["library_ms"], "bucket": 64,
         "tiered_launches": tiered["launches"],
         "trained_model_launches": served["launches"],
+        "lifecycle_launches": lifecycle["serve"]["launches"],
         "by_bucket": {str(b): r for b, r in timing.items()}}, {
         "name": "shard_local_candidates", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",

@@ -1,20 +1,27 @@
-"""Command line of the port: `train` and `deploy` a recommendation model.
+"""Command line of the port: PredictionIO's lifecycle.
 
-    python -m predictionio_tpu_torch.cli train --ratings r.npz \
-        --model-out m.npz [--variant engine.json] [--device cpu]
-    python -m predictionio_tpu_torch.cli deploy --model m.npz --port 8000 \
-        [--device cpu] [--batch-max 64] [--items-on-host]
+    python -m predictionio_tpu_torch.cli app new MyApp
+    python -m predictionio_tpu_torch.cli import --appid 1 --input events.jsonl
+    python -m predictionio_tpu_torch.cli build [--engine-json engine.json]
+    python -m predictionio_tpu_torch.cli train [--engine-json engine.json] \
+        [--stop-after-read | --stop-after-prepare] [--skip-sanity-check] \
+        [--device cpu]
+    python -m predictionio_tpu_torch.cli deploy [--engine-instance-id ID] \
+        [--port 8000] [--batch-max 64] [--items-on-host] [--device cpu]
 
-The ratings file is an `.npz` written by
-`ingest.arrays.RatingColumns.save_npz` (the stand-in for the event store
-until it is ported); `--variant` is an engine.json whose algorithm
-params set rank, iterations, lambda_ and seed. The model file is an
-`.npz` written by `ops.als.ALSModel.save_npz` (two factor matrices and
-both id lists). Both commands run on CUDA unless `--device cpu` is
-given, and refuse to start without CUDA otherwise. `--items-on-host`
-keeps the item master in host RAM, so that a catalog past the card's
-budget tiers (or, over two or more cards, shards) instead of being
-loaded whole onto one card.
+Storage comes from `PIO_STORAGE_*` (or a `pio-env` file); without any,
+one sqlite file at `./.pio_store/pio.db`, the JAX package's default.
+`train` reads the app's events, trains the engine.json variant and
+records an engine instance with its model blob; it prints the instance
+id, status, times and phase timings as JSON on stdout. `deploy` serves
+the latest COMPLETED instance of the variant (or the one named) on
+`/queries.json`; `GET /` shows the instance id and the kernel's launch
+counts. `deploy --model m.npz` serves a model file
+(`ops.als.ALSModel.save_npz`) instead. `train` and `deploy` run on CUDA
+unless `--device cpu` is given, and refuse to start without CUDA
+otherwise. `--items-on-host` keeps the item master in host RAM, so that
+a catalog past the card's budget tiers (or, over two or more cards,
+shards) instead of being loaded whole onto one card.
 """
 
 from __future__ import annotations
@@ -25,35 +32,20 @@ import logging
 import signal
 import sys
 import threading
-from pathlib import Path
-from typing import Mapping, Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence
 
-from predictionio_tpu_torch.core.params import EngineParams
+from predictionio_tpu_torch.cli import ops
+from predictionio_tpu_torch.core.base import TrainingInterrupted
 from predictionio_tpu_torch.core.runtime import RuntimeContext
-from predictionio_tpu_torch.core.workflow import prepare_deploy
-from predictionio_tpu_torch.ingest.arrays import RatingColumns
+from predictionio_tpu_torch.core.workflow import CoreWorkflow, prepare_deploy
 from predictionio_tpu_torch.models.recommendation import RecommendationEngine
 from predictionio_tpu_torch.ops.als import ALSModel, load_npz
 from predictionio_tpu_torch.serving.server import (PredictionServer,
                                                    _Deployment)
 
 
-def train(ratings: Union[str, Path], model_out: Union[str, Path], *,
-          variant: Optional[Mapping] = None, device=None
-          ) -> Tuple[ALSModel, dict]:
-    """Train the recommendation engine on the ratings file `ratings`
-    through `Engine.train` (params from the engine.json `variant`, a
-    parsed mapping; None = the defaults) on `device` (None = cuda), and
-    write the model to `model_out` with `ALSModel.save_npz`. Returns the
-    model and the run's phase timings."""
-    engine = RecommendationEngine.apply()
-    params = (engine.engine_params_from_variant(variant)
-              if variant is not None else EngineParams())
-    ctx = RuntimeContext(device=device,
-                         ratings=RatingColumns.load_npz(ratings))
-    model, = engine.train(ctx, params)
-    model.save_npz(model_out)
-    return model, dict(ctx.phase_timings)
+def _emit(obj) -> None:
+    print(json.dumps(obj, indent=2, default=str), flush=True)
 
 
 def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
@@ -71,61 +63,182 @@ def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
     algos, models, serving = prepare_deploy(
         RecommendationEngine.apply(), [model], warm_batch_max=batch_max,
         mesh=mesh)
-    server = PredictionServer(_Deployment(algos, models, serving),
-                              host=host, port=port, batch_max=batch_max,
+    return _start(_Deployment(algos, models, serving), host, port,
+                  batch_max, window_s)
+
+
+def deploy_instance(engine, instance, ctx: RuntimeContext, *,
+                    host: str = "127.0.0.1", port: int = 8000,
+                    batch_max: int = 64, window_s: float = 0.002,
+                    items_device=None) -> PredictionServer:
+    """Serve an engine instance: its models read back from the model
+    store (`CoreWorkflow.prepare_deploy`) onto `ctx.device`, warmed as
+    `deploy` warms a model, behind a started `PredictionServer`, whose
+    `GET /` shows the instance id and the deploy's load, place and warm
+    seconds."""
+    timings: dict = {}
+    algos, models, serving = CoreWorkflow.prepare_deploy(
+        engine, instance, ctx, warm_batch_max=batch_max,
+        items_device=items_device, timings=timings)
+    return _start(_Deployment(algos, models, serving, instance_id=instance.id,
+                              timings=timings),
+                  host, port, batch_max, window_s)
+
+
+def _start(dep: _Deployment, host: str, port: int, batch_max: int,
+           window_s: float) -> PredictionServer:
+    server = PredictionServer(dep, host=host, port=port, batch_max=batch_max,
                               window_s=window_s)
     server.start()
     return server
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    parser = argparse.ArgumentParser(prog="predictionio_tpu_torch.cli")
-    sub = parser.add_subparsers(dest="command", required=True)
-    tr = sub.add_parser("train", help="train a model on a ratings file")
-    tr.add_argument("--ratings", required=True, help="ratings .npz file")
-    tr.add_argument("--model-out", required=True, help="model .npz to write")
-    tr.add_argument("--variant", default=None,
-                    help="engine.json with the algorithm params")
-    tr.add_argument("--device", default=None,
-                    help="torch device (default cuda)")
-    dep = sub.add_parser("deploy", help="serve /queries.json for a model")
-    dep.add_argument("--model", required=True, help="model .npz file")
-    dep.add_argument("--ip", default="127.0.0.1")
-    dep.add_argument("--port", type=int, default=8000)
-    dep.add_argument("--device", default=None,
-                     help="torch device (default cuda)")
-    dep.add_argument("--batch-max", type=int, default=64)
-    dep.add_argument("--items-on-host", action="store_true",
-                     help="keep the item factors in host RAM; the serving "
-                          "plan places what it needs on the device")
-    args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
-    if args.command == "train":
-        variant = (json.loads(Path(args.variant).read_text())
-                   if args.variant else None)
-        model, timings = train(args.ratings, args.model_out,
-                               variant=variant, device=args.device)
-        print(json.dumps({"model": args.model_out,
-                          "users": len(model.users),
-                          "items": len(model.items),
-                          "rank": model.user_factors.shape[1],
-                          "device": str(model.device),
-                          "timings": timings}), flush=True)
-        return 0
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="predictionio_tpu_torch.cli")
+    sub = p.add_subparsers(dest="command", required=True)
+    app = sub.add_parser("app", help="manage apps").add_subparsers(
+        dest="app_command", required=True)
+    x = app.add_parser("new")
+    x.add_argument("name")
+    x.add_argument("--description")
+    x.add_argument("--access-key", default="")
+    app.add_parser("list")
+    x = app.add_parser("show")
+    x.add_argument("name")
+    x = app.add_parser("delete")
+    x.add_argument("name")
+    x.add_argument("--force", "-f", action="store_true")
+    ak = sub.add_parser("accesskey", help="manage access keys"
+                        ).add_subparsers(dest="ak_command", required=True)
+    x = ak.add_parser("new")
+    x.add_argument("app_name")
+    x.add_argument("--key", default="")
+    x.add_argument("--events", nargs="*", default=[])
+    x = ak.add_parser("list")
+    x.add_argument("app_name", nargs="?")
+    x = sub.add_parser("import", help="import API-JSON event lines")
+    x.add_argument("--appid", type=int, required=True)
+    x.add_argument("--channel", type=int, default=None)
+    x.add_argument("--input", required=True)
+    x = sub.add_parser("build", help="validate the engine variant")
+    x.add_argument("--engine-json", default="engine.json")
+    x = sub.add_parser("train", help="train and record an engine instance")
+    x.add_argument("--engine-json", default="engine.json")
+    x.add_argument("--engine-factory")
+    x.add_argument("--batch", default="")
+    x.add_argument("--skip-sanity-check", action="store_true")
+    x.add_argument("--stop-after-read", action="store_true")
+    x.add_argument("--stop-after-prepare", action="store_true")
+    x.add_argument("--device", default=None,
+                   help="torch device (default cuda)")
+    x = sub.add_parser("deploy", help="serve /queries.json")
+    x.add_argument("--engine-instance-id")
+    x.add_argument("--engine-json", default="engine.json")
+    x.add_argument("--engine-factory")
+    x.add_argument("--model", help="serve this model .npz file instead of "
+                                   "an engine instance")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--device", default=None,
+                   help="torch device (default cuda)")
+    x.add_argument("--batch-max", type=int, default=64)
+    x.add_argument("--items-on-host", action="store_true",
+                   help="keep the item factors in host RAM; the serving "
+                        "plan places what it needs on the device")
+    return p
 
-    model = load_npz(args.model, device=args.device,
-                     items_device="cpu" if args.items_on_host else None)
-    server = deploy(model, host=args.ip, port=args.port,
-                    batch_max=args.batch_max)
-    print(f"serving {args.model} on http://{args.ip}:{server.port} "
-          f"({model.device})", flush=True)
+
+def _registry():
+    from predictionio_tpu_torch.data.storage import storage
+    return storage()
+
+
+def _app(args) -> None:
+    registry = _registry()
+    c = args.app_command
+    if c == "new":
+        _emit(ops.app_new(registry, args.name, description=args.description,
+                          access_key=args.access_key))
+    elif c == "list":
+        _emit(ops.app_list(registry))
+    elif c == "show":
+        _emit(ops.app_show(registry, args.name))
+    else:
+        ops.app_delete(registry, args.name, force=args.force)
+        _emit({"message": f"App {args.name} deleted"})
+
+
+def _deploy(args) -> int:
+    items_device = "cpu" if args.items_on_host else None
+    if args.model:
+        model = load_npz(args.model, device=args.device,
+                         items_device=items_device)
+        server = deploy(model, host=args.ip, port=args.port,
+                        batch_max=args.batch_max)
+        what, dev = args.model, model.device
+    else:
+        registry = _registry()
+        engine, inst = ops.deploy_target(
+            registry, engine_instance_id=args.engine_instance_id,
+            engine_json=args.engine_json, engine_factory=args.engine_factory)
+        server = deploy_instance(
+            engine, inst, RuntimeContext(registry=registry,
+                                         device=args.device),
+            host=args.ip, port=args.port, batch_max=args.batch_max,
+            items_device=items_device)
+        what = f"engine instance {inst.id}"
+        dev = ", ".join(sorted({str(m.device)
+                                for m in server.deployment.models
+                                if hasattr(m, "device")}))
+    print(f"serving {what} on http://{args.ip}:{server.port} ({dev})",
+          flush=True)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     stop.wait()
     server.stop()
     return 0
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    cmd = args.command
+    try:
+        if cmd == "app":
+            _app(args)
+        elif cmd == "accesskey":
+            if args.ak_command == "new":
+                _emit(ops.accesskey_new(_registry(), args.app_name,
+                                        key=args.key, events=args.events))
+            else:
+                _emit(ops.accesskey_list(_registry(), args.app_name))
+        elif cmd == "import":
+            _emit(ops.import_events(_registry(), app_id=args.appid,
+                                    input_path=args.input,
+                                    channel_id=args.channel))
+        elif cmd == "build":
+            _emit(ops.build(args.engine_json))
+        elif cmd == "train":
+            try:
+                _emit(ops.train(
+                    _registry(), engine_json=args.engine_json,
+                    engine_factory=args.engine_factory, batch=args.batch,
+                    skip_sanity_check=args.skip_sanity_check,
+                    stop_after_read=args.stop_after_read,
+                    stop_after_prepare=args.stop_after_prepare,
+                    device=args.device))
+            except TrainingInterrupted as e:
+                # the reference ends a stop-after run normally; the
+                # instance stays FAILED, so deploy never serves it
+                _emit({"interrupted": type(e).__name__})
+        else:
+            return _deploy(args)
+        return 0
+    except (ValueError, OSError) as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

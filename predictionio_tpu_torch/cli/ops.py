@@ -1,0 +1,208 @@
+"""Command implementations of the port's CLI.
+
+The port of the lifecycle commands of `predictionio_tpu/cli/ops.py`
+(commands/{App,AccessKey,Engine,Import}.scala): `app new|list|show|
+delete`, `accesskey new|list`, `import` of API-JSON event lines, and the
+engine.json plumbing of `build`, `train` and `deploy`. Every function
+takes the storage registry it works on.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence
+
+from predictionio_tpu_torch.data.event import Event, format_time
+from predictionio_tpu_torch.data.storage import AccessKey, App
+
+IMPORT_BATCH = 500
+
+
+def app_new(registry, name: str, *, description: Optional[str] = None,
+            access_key: str = "") -> Dict[str, Any]:
+    """A new app, its default event table and its default access key."""
+    apps = registry.get_meta_data_apps()
+    if apps.get_by_name(name) is not None:
+        raise ValueError(f"App {name} already exists. Aborting.")
+    app_id = apps.insert(App(0, name, description))
+    registry.get_events().init(app_id)
+    key = registry.get_meta_data_access_keys().insert(
+        AccessKey(access_key, app_id, ()))
+    return {"name": name, "id": app_id, "accessKey": key}
+
+
+def _require_app(registry, name: str) -> App:
+    app = registry.get_meta_data_apps().get_by_name(name)
+    if app is None:
+        raise ValueError(f"App {name} does not exist. Aborting.")
+    return app
+
+
+def app_list(registry) -> List[Dict[str, Any]]:
+    keys = registry.get_meta_data_access_keys()
+    return [{"name": app.name, "id": app.id,
+             "accessKeys": [k.key for k in keys.get_by_appid(app.id)]}
+            for app in sorted(registry.get_meta_data_apps().get_all(),
+                              key=lambda a: a.name)]
+
+
+def app_show(registry, name: str) -> Dict[str, Any]:
+    app = _require_app(registry, name)
+    keys = registry.get_meta_data_access_keys().get_by_appid(app.id)
+    channels = registry.get_meta_data_channels().get_by_appid(app.id)
+    return {
+        "name": app.name, "id": app.id, "description": app.description,
+        "accessKeys": [{"key": k.key, "events": list(k.events) or "(all)"}
+                       for k in keys],
+        "channels": [{"id": c.id, "name": c.name} for c in channels],
+    }
+
+
+def app_delete(registry, name: str, *, force: bool = False) -> None:
+    """Delete an app with its channels, events and access keys."""
+    app = _require_app(registry, name)
+    if not force:
+        raise ValueError("Pass force=True (CLI: --force) to delete")
+    events = registry.get_events()
+    channels = registry.get_meta_data_channels()
+    for ch in channels.get_by_appid(app.id):
+        events.remove(app.id, ch.id)
+        channels.delete(ch.id)
+    events.remove(app.id)
+    keys = registry.get_meta_data_access_keys()
+    for k in keys.get_by_appid(app.id):
+        keys.delete(k.key)
+    registry.get_meta_data_apps().delete(app.id)
+
+
+def accesskey_new(registry, app_name: str, *, key: str = "",
+                  events: Sequence[str] = ()) -> Dict[str, Any]:
+    app = _require_app(registry, app_name)
+    new_key = registry.get_meta_data_access_keys().insert(
+        AccessKey(key, app.id, tuple(events)))
+    return {"accessKey": new_key, "app": app_name, "events": list(events)}
+
+
+def accesskey_list(registry, app_name: Optional[str] = None
+                   ) -> List[Dict[str, Any]]:
+    dao = registry.get_meta_data_access_keys()
+    keys = (dao.get_by_appid(_require_app(registry, app_name).id)
+            if app_name is not None else dao.get_all())
+    return [{"accessKey": k.key, "appid": k.appid, "events": list(k.events)}
+            for k in keys]
+
+
+def import_events(registry, *, app_id: int, input_path: str,
+                  channel_id: Optional[int] = None) -> Dict[str, Any]:
+    """One API-JSON event per line -> the event store, in batches of
+    `IMPORT_BATCH` (imprt/FileToEvents.scala:40-106); returns the count
+    and the seconds it took."""
+    t0 = time.perf_counter()
+    store = registry.get_events()
+    store.init(app_id, channel_id)
+    n = 0
+    batch: List[Event] = []
+    with open(input_path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            batch.append(Event.from_api_json(json.loads(line)))
+            if len(batch) >= IMPORT_BATCH:
+                store.insert_batch(batch, app_id, channel_id)
+                n += len(batch)
+                batch = []
+    if batch:
+        store.insert_batch(batch, app_id, channel_id)
+        n += len(batch)
+    return {"imported": n, "seconds": time.perf_counter() - t0}
+
+
+def load_variant(path: str) -> Dict[str, Any]:
+    p = Path(path)
+    if not p.is_file():
+        raise ValueError(f"Engine variant file {path} not found")
+    return json.loads(p.read_text())
+
+
+def resolve_factory_name(variant: Dict[str, Any],
+                         engine_factory: Optional[str],
+                         engine_json: str) -> str:
+    factory = engine_factory or variant.get("engineFactory")
+    if not factory:
+        raise ValueError(f"No engineFactory in {engine_json} and none "
+                         "given (--engine-factory)")
+    return factory
+
+
+def build(engine_json: str = "engine.json") -> Dict[str, Any]:
+    """Check that engine.json names a known engine and parses into its
+    params."""
+    from predictionio_tpu_torch.core.workflow import resolve_engine
+    variant = load_variant(engine_json)
+    factory = resolve_factory_name(variant, None, engine_json)
+    resolve_engine(factory).engine_params_from_variant(variant)
+    return {"message": "Engine variant is valid", "engineFactory": factory}
+
+
+def train(registry, *, engine_json: str = "engine.json",
+          engine_factory: Optional[str] = None, batch: str = "",
+          skip_sanity_check: bool = False, stop_after_read: bool = False,
+          stop_after_prepare: bool = False, device=None) -> Dict[str, Any]:
+    """pio train (commands/Engine.scala:177-188): the engine.json
+    variant trained through `CoreWorkflow.run_train` on `device` (None
+    = cuda), recorded as an engine instance with its model blob."""
+    from predictionio_tpu_torch.core.runtime import (RuntimeContext,
+                                                     WorkflowParams)
+    from predictionio_tpu_torch.core.workflow import (CoreWorkflow,
+                                                      resolve_engine)
+    variant = load_variant(engine_json)
+    factory = resolve_factory_name(variant, engine_factory, engine_json)
+    engine = resolve_engine(factory)
+    ctx = RuntimeContext(
+        registry=registry, device=device,
+        workflow_params=WorkflowParams(
+            batch=batch, skip_sanity_check=skip_sanity_check,
+            stop_after_read=stop_after_read,
+            stop_after_prepare=stop_after_prepare))
+    row = CoreWorkflow.run_train(
+        engine, engine.engine_params_from_variant(variant), ctx,
+        engine_factory=factory, engine_variant=variant.get("id", "default"))
+    return {"engineInstanceId": row.id, "status": row.status,
+            "startTime": format_time(row.start_time),
+            "endTime": format_time(row.end_time),
+            "phaseTimings": dict(ctx.phase_timings)}
+
+
+def latest_completed(registry, variant_id: str):
+    """The instance `deploy` serves: the newest COMPLETED one of the
+    variant (commands/Engine.scala:235-236)."""
+    inst = registry.get_meta_data_engine_instances().get_latest_completed(
+        "default", "default", variant_id)
+    if inst is None:
+        raise ValueError(
+            "No valid engine instance found for this engine. Try running "
+            "'train' before 'deploy' (commands/Engine.scala:235-236)")
+    return inst
+
+
+def deploy_target(registry, *, engine_instance_id: Optional[str] = None,
+                  engine_json: str = "engine.json",
+                  engine_factory: Optional[str] = None):
+    """(engine, instance) that `deploy` serves: the instance named by
+    id, else the latest COMPLETED instance of engine.json's variant."""
+    from predictionio_tpu_torch.core.workflow import resolve_engine
+    if engine_instance_id:
+        inst = registry.get_meta_data_engine_instances().get(
+            engine_instance_id)
+        if inst is None:
+            raise ValueError(
+                f"Engine instance {engine_instance_id} does not exist")
+        factory = engine_factory or inst.engine_factory
+    else:
+        variant = load_variant(engine_json)
+        factory = resolve_factory_name(variant, engine_factory, engine_json)
+        inst = latest_completed(registry, variant.get("id", "default"))
+    return resolve_engine(factory), inst

@@ -11,6 +11,19 @@ from typing import Any, List, Optional, Sequence, Tuple, Type
 from predictionio_tpu_torch.core.params import EmptyParams, Params
 
 
+class TrainingInterrupted(Exception):
+    """Base of the stop-after-* interruptions (WorkflowUtils.scala:
+    388-392)."""
+
+
+class StopAfterReadInterruption(TrainingInterrupted):
+    pass
+
+
+class StopAfterPrepareInterruption(TrainingInterrupted):
+    pass
+
+
 class _Component:
     """Shared ctor: every DASE component takes one Params dataclass."""
 

@@ -2,9 +2,10 @@
 
 The port of `predictionio_tpu/core/engine.py`: the component class maps,
 `make_components`, `train` (the sequential per-algorithm loop with phase
-timings and sanity checks, Engine.scala:643-708) and the engine.json
-variant -> `EngineParams` extraction (Engine.scala:357-420). Eval comes
-with a later slice.
+timings, the sanity checks and the stop-after flags of the run's
+`WorkflowParams`, Engine.scala:643-708) and the engine.json variant ->
+`EngineParams` extraction (Engine.scala:357-420). Eval comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -14,10 +15,12 @@ import time
 from typing import Any, Dict, List, Mapping, Tuple, Type
 
 from predictionio_tpu_torch.core.base import (
-    Algorithm, DataSource, Preparator, Serving, sanity_check)
+    Algorithm, DataSource, Preparator, Serving, StopAfterPrepareInterruption,
+    StopAfterReadInterruption, sanity_check)
 from predictionio_tpu_torch.core.params import (EngineParams, Params,
                                                 ParamsError, extract_params)
 from predictionio_tpu_torch.core.runtime import RuntimeContext
+from predictionio_tpu_torch.ingest.pipeline import take_phase_timings
 
 
 class Engine:
@@ -68,26 +71,38 @@ class Engine:
     def train(self, ctx: RuntimeContext,
               engine_params: EngineParams) -> List[Any]:
         """Read, prepare, then train each algorithm in turn; returns one
-        model per algorithm. `ctx.phase_timings` gets read_s, prepare_s
-        and train_algo{i}_s beside what the trainers record there."""
+        model per algorithm. `ctx.phase_timings` gets read_s (split into
+        the ingest stages when the data source scanned the store),
+        prepare_s and train_algo{i}_s beside what the trainers record
+        there. The run's `WorkflowParams` may skip the sanity checks or
+        stop after the read or the prepare (`StopAfterReadInterruption`,
+        `StopAfterPrepareInterruption`)."""
         ds, prep, algos, _ = self.make_components(engine_params)
+        wp = ctx.workflow_params
+        check = (lambda obj: None) if wp.skip_sanity_check else sanity_check
         tm = ctx.phase_timings
         tm.clear()   # a reused context must not leak a previous run's
         # phases into this run's record
+        take_phase_timings()   # nor a previous read's ingest stages
         t0 = time.perf_counter()
         td = ds.read_training(ctx)
         tm["read_s"] = round(time.perf_counter() - t0, 4)
-        sanity_check(td)
+        tm.update({k: round(v, 4) for k, v in take_phase_timings().items()})
+        check(td)
+        if wp.stop_after_read:
+            raise StopAfterReadInterruption()
         t0 = time.perf_counter()
         pd = prep.prepare(ctx, td)
         tm["prepare_s"] = round(time.perf_counter() - t0, 4)
-        sanity_check(pd)
+        check(pd)
+        if wp.stop_after_prepare:
+            raise StopAfterPrepareInterruption()
         models = []
         for i, algo in enumerate(algos):
             t0 = time.perf_counter()
             model = algo.train(ctx, pd)
             tm[f"train_algo{i}_s"] = round(time.perf_counter() - t0, 4)
-            sanity_check(model)
+            check(model)
             models.append(model)
         return models
 

@@ -1,19 +1,21 @@
 """Rating columns: COO triples with the BiMaps of their ids.
 
-The numpy part of `RatingColumns` from `predictionio_tpu/ingest/arrays.py`:
-the fields, `n`, and an `.npz` file of the fields plus both id lists,
-which stands in for the event store until that slice is ported (the
-port has no `shard`, `from_store` or `from_events` yet).
+The numpy part of `RatingColumns` from `predictionio_tpu/ingest/arrays.py`
+(the per-template `RDD[Rating]` of DataSource.scala:43-72): the fields,
+`from_events` over an Event stream, `from_store` (the columnar scan of
+`ingest.pipeline`, equal array for array) and `default_rating_of`.
+Device columns (`shard`) are not ported: the trainer uploads what it
+packs.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from pathlib import Path
-from typing import Union
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
+from predictionio_tpu_torch.data.event import Event, to_millis
 from predictionio_tpu_torch.ingest.bimap import BiMap
 
 
@@ -31,35 +33,68 @@ class RatingColumns:
     def n(self) -> int:
         return self.user_ix.shape[0]
 
-    def save_npz(self, path: Union[str, Path]) -> None:
-        """Write the four columns and both id lists (index order)."""
-        np.savez(path, user_ix=self.user_ix, item_ix=self.item_ix,
-                 rating=self.rating, t_millis=self.t_millis,
-                 user_ids=np.array(self.users.keys(), dtype=str),
-                 item_ids=np.array(self.items.keys(), dtype=str))
+    @staticmethod
+    def from_events(events: Iterable[Event], *,
+                    rating_of: Optional[Callable[[Event], Optional[float]]] = None,
+                    users: Optional[BiMap] = None,
+                    items: Optional[BiMap] = None,
+                    dedup_last_wins: bool = False) -> "RatingColumns":
+        """Rating triples from events. `rating_of` maps an event to its
+        rating (None = skip; default `default_rating_of`); rows whose id
+        a fixed `users` / `items` BiMap lacks drop. `dedup_last_wins`
+        keeps one row per (user, item), the latest by event time, at the
+        pair's first position (the `.reduceByKey` of the ALS
+        templates)."""
+        rating_of = rating_of or default_rating_of
+        rows: list = []
+        for e in events:
+            r = rating_of(e)
+            if r is None or e.entity_id is None or e.target_entity_id is None:
+                continue
+            rows.append((e.entity_id, e.target_entity_id, float(r),
+                         to_millis(e.event_time)))
+        u_map = users if users is not None else BiMap.from_keys(
+            r[0] for r in rows)
+        i_map = items if items is not None else BiMap.from_keys(
+            r[1] for r in rows)
+        kept: list = []
+        for uid, iid, r, t in rows:
+            u, i = u_map.get(uid), i_map.get(iid)
+            if u is None or i is None:   # unseen under a fixed BiMap: drop
+                continue
+            kept.append((u, i, r, t))
+        if dedup_last_wins:
+            by_key: Dict[Tuple[int, int], Tuple[int, int, float, int]] = {}
+            for row in kept:
+                k = (row[0], row[1])
+                if k not in by_key or row[3] >= by_key[k][3]:
+                    by_key[k] = row
+            kept = list(by_key.values())
+        if kept:
+            u_ix, i_ix, rs, ts = (np.array(x) for x in zip(*kept))
+        else:
+            u_ix = i_ix = np.zeros(0, np.int32)
+            rs, ts = np.zeros(0, np.float32), np.zeros(0, np.int64)
+        return RatingColumns(u_ix.astype(np.int32), i_ix.astype(np.int32),
+                             rs.astype(np.float32), ts.astype(np.int64),
+                             u_map, i_map)
 
     @staticmethod
-    def load_npz(path: Union[str, Path]) -> "RatingColumns":
-        """Read a `save_npz` file; raises ValueError when the columns
-        disagree in length, an id repeats, or an index lies outside its
-        id list."""
-        with np.load(path, allow_pickle=False) as z:
-            user_ids, item_ids = z["user_ids"].tolist(), z["item_ids"].tolist()
-            cols = RatingColumns(
-                z["user_ix"].astype(np.int32), z["item_ix"].astype(np.int32),
-                z["rating"].astype(np.float32),
-                z["t_millis"].astype(np.int64),
-                BiMap.from_keys(user_ids), BiMap.from_keys(item_ids))
-        if (len(cols.users), len(cols.items)) != (len(user_ids),
-                                                  len(item_ids)):
-            raise ValueError(f"{path}: duplicate ids")
-        n = cols.n
-        if not (cols.item_ix.shape[0] == cols.rating.shape[0]
-                == cols.t_millis.shape[0] == n):
-            raise ValueError(f"{path}: rating columns differ in length")
-        for ix, ids, name in ((cols.user_ix, cols.users, "user"),
-                              (cols.item_ix, cols.items, "item")):
-            if n and (ix.min() < 0 or ix.max() >= len(ids)):
-                raise ValueError(f"{path}: a {name} index lies outside the "
-                                 f"{len(ids)} {name} ids")
-        return cols
+    def from_store(store, app_id: int, channel_id=None,
+                   **kwargs) -> "RatingColumns":
+        """`from_events(store.find(...))` on the columnar path (no Event
+        objects); `kwargs` go to `ingest.pipeline.
+        rating_columns_from_store`, whose `value_spec` stands for
+        `rating_of`."""
+        from predictionio_tpu_torch.ingest.pipeline import (
+            rating_columns_from_store)
+        return rating_columns_from_store(store, app_id, channel_id, **kwargs)
+
+
+def default_rating_of(e: Event) -> Optional[float]:
+    """`rate` events (and any carrying a `rating` property) use that
+    property; other events (buy, view, like) count as 1.0."""
+    if e.event == "rate" or "rating" in e.properties:
+        v = e.properties.get_opt("rating")
+        return float(v) if v is not None else None
+    return 1.0

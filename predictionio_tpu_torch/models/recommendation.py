@@ -3,9 +3,10 @@ filtering.
 
 The port of `predictionio_tpu/models/recommendation.py` (parity target
 `examples/scala-parallel-recommendation/blacklist-items/`):
-  - the data source reads the rating columns that the run context
-    carries (`cli train` loads them from an `.npz`; the event store is
-    not ported yet);
+  - the data source reads `rate` events (rating property) and `buy`
+    events (`buy_rating`) of the app and channel through the columnar
+    store read (`data.store.rating_columns`, last rating per (user,
+    item) wins), as DataSource.scala:43-72 does;
   - ALSAlgorithm.train wraps `ops.als.als_train` (MLlib explicit ALS,
     `ALSAlgorithm.scala:51-93`) on the context's device;
   - predict = top-N with blacklist filter, empty result for unknown
@@ -36,6 +37,8 @@ from predictionio_tpu_torch.core.base import (Algorithm, DataSource,
 from predictionio_tpu_torch.core.engine import Engine, EngineFactory
 from predictionio_tpu_torch.core.params import Params
 from predictionio_tpu_torch.core.runtime import RuntimeContext
+from predictionio_tpu_torch.core.workflow import register_engine
+from predictionio_tpu_torch.data import store
 from predictionio_tpu_torch.ingest.arrays import RatingColumns
 from predictionio_tpu_torch.models.common import resolve_item_mask
 from predictionio_tpu_torch.ops.als import ALSModel, als_train
@@ -74,9 +77,6 @@ class EvalParams(Params):
 
 @dataclass(frozen=True)
 class DataSourceParams(Params):
-    """The JAX template's data source params, so that the same
-    engine.json parses. The port's data source reads the run context's
-    ratings, so app_name, channel and buy_rating select nothing yet."""
     app_name: str = "default"
     channel: Optional[str] = None
     buy_rating: float = 4.0
@@ -87,10 +87,17 @@ class RecommendationDataSource(DataSource):
     params_class = DataSourceParams
 
     def read_training(self, ctx: RuntimeContext) -> RatingColumns:
-        if ctx.ratings is None:
-            raise ValueError("the run context carries no ratings (cli "
-                             "train reads them from --ratings)")
-        return ctx.ratings
+        """The app's ratings from the run context's registry: the same
+        columns as `RatingColumns.from_events` with rating_of {rate ->
+        properties.rating, buy -> buy_rating} (DataSource.scala:61-66),
+        scanned without Event objects."""
+        p = self.params
+        return store.rating_columns(
+            ctx.registry, p.app_name, p.channel,
+            event_names=["rate", "buy"],
+            value_spec={"rate": ("prop", "rating"),
+                        "buy": float(p.buy_rating)},
+            dedup_last_wins=True)
 
 
 @dataclass(frozen=True)
@@ -214,3 +221,6 @@ class RecommendationEngine(EngineFactory):
                       preparator=IdentityPreparator,
                       algorithms={"als": ALSAlgorithm, "": ALSAlgorithm},
                       serving=FirstServing)
+
+
+register_engine("recommendation", RecommendationEngine)

@@ -753,6 +753,18 @@ class ALSModel:
                 and torch.isfinite(self.item_factors).all()):
             raise ValueError("ALSModel has non-finite factors")
 
+    def to(self, device=None, items_device=None) -> "ALSModel":
+        """This model with its user factors on `device` (None = cuda;
+        raises without CUDA) and its item master on `items_device`
+        (None = the same device, "cpu" = host RAM), as
+        `als_model_from_numpy` places them; the id maps are shared."""
+        dev = resolve_device(device)
+        item_dev = dev if items_device is None else resolve_device(
+            items_device)
+        return ALSModel(self.user_factors.to(dev),
+                        self.item_factors.to(item_dev), self.users,
+                        self.items)
+
     def save_npz(self, path: Union[str, Path]) -> None:
         """Write factors and id lists (row order) to an `.npz`."""
         np.savez(path,

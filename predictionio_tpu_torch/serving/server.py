@@ -8,8 +8,9 @@ micro-batcher that coalesces concurrent requests into device batches
 
   POST /queries.json   {"user", "num", "blackList"?, "whiteList"?}
                        -> {"itemScores": [{"item", "score"}]}
-  GET  /               status JSON, with the fused kernel's launch counts
-                       and the serving plans' kinds
+  GET  /               status JSON: the engine instance served, the
+                       fused kernel's launch counts, the serving plans'
+                       kinds and their calls
 
 A deployment whose plan is tiered (`ops/topk_tiered.TieredTopK`, bare
 or inside a fleet slice) gets a `serving.paging.PageManager` thread for
@@ -63,9 +64,14 @@ def to_jsonable(obj: Any) -> Any:
 
 
 class _Deployment:
-    """One loaded (algorithms, models, serving) set."""
+    """One loaded (algorithms, models, serving) set, the engine instance
+    it came from (None for a model in hand) and the deploy's timings."""
 
-    def __init__(self, algos, models, serving):
+    def __init__(self, algos, models, serving,
+                 instance_id: Optional[str] = None,
+                 timings: Optional[Dict[str, float]] = None):
+        self.instance_id = instance_id
+        self.timings = dict(timings or {})
         self.algos = list(algos)
         self.models = list(models)
         self.serving = serving
@@ -295,11 +301,15 @@ class PredictionServer:
             stats = {"requests": self.request_count,
                      "avg_serving_sec": self.avg_serving_sec,
                      "last_serving_sec": self.last_serving_sec}
-        plans = [type(getattr(a, "_serve_plan", None)).__name__
-                 for a in dep.algos]
+        plans = [getattr(a, "_serve_plan", None) for a in dep.algos]
         return {"status": "alive",
+                "engineInstanceId": dep.instance_id,
+                "deploy_timings": dep.timings,
                 "algorithms": [type(a).__name__ for a in dep.algos],
-                "plans": plans,
+                "plans": [type(p).__name__ for p in plans],
+                "plan_calls": sum(getattr(p, "calls", 0) for p in plans),
+                "plan_buckets": [list(getattr(p, "buckets", ()))
+                                 for p in plans],
                 "devices": devices,
                 "kernel_launches": {
                     "fused_topk": fused_topk.LAUNCHES,

@@ -36,7 +36,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert "predictionio_tpu_torch.serving.server" in mods
     for required in ("ops.topk_sharded", "ops.topk_tiered",
                      "parallel.mesh", "serving.paging", "ops.linalg",
-                     "ingest.arrays", "core.runtime"):
+                     "ingest.arrays", "core.runtime", "data.event",
+                     "data.integrity", "data.store", "data.storage.base",
+                     "data.storage.columns", "data.storage.memory",
+                     "data.storage.sqlite", "data.storage.registry",
+                     "ingest.pipeline", "core.persistence", "cli.ops"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
