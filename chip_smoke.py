@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--seed 0] [--requests 320]
                           [--sharded-requests 160] [--tiered-queries 64]
                           [--trained-requests 64] [--lifecycle-requests 320]
-                          [--only serve_sharded | train | lifecycle]
+                          [--streaming-requests 320]
+                          [--only serve_sharded | train | lifecycle |
+                                  streaming]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -36,6 +38,10 @@ the result line:
               checked against the plain version on the card, and the
               kernel's launch count over the run must equal the bucket
               calls the plan made (warmup + one per drained batch chunk).
+              Between the two halves of the requests a new 500,000 x 64
+              table goes into the live plan by `swap_factors` (ms per
+              swap from a device tensor and from host RAM); the second
+              half is checked against the new table.
   5. parity_sharded
               the kernel's sharded form (K2, `shard_local_candidates`)
               vs its plain version on shard slices of a 20,037-row
@@ -112,7 +118,10 @@ the result line:
               eager (as training runs it) and as a CUDA graph, each with
               a `torch.profiler` pass (device time by op, operations per
               iteration, busy share), and CG's batched matvec timed as
-              p^T A (the port's) and as A p.
+              p^T A (the port's) and as A p. Then `fold_in_rows` for 512
+              users of the training ratings against the trained item
+              factors (CUDA-event and host ms, the slabs it gathers),
+              held against the float64 oracle at rtol=atol=2e-3.
  11. serve_trained
               that instance deployed through `cli.main.deploy_instance`
               (`CoreWorkflow.prepare_deploy(engine, instance, ctx)`):
@@ -133,11 +142,32 @@ the result line:
               the read split into scan and build, pack, transfer, solve,
               the blob's bytes and store seconds, the deploy's load,
               place and warm seconds, and the serve summary.
+ 13. streaming
+              the same shape and split over SQLITE metadata and PEVLOG
+              events (the scan on 4 spawned workers): app new, import
+              (events/s beside phase 12's sqlite figure), build, train,
+              `deploy --refresh-interval 2`, 320 requests; once GET /
+              shows the refresher's baseline, a drip of rate events (64
+              existing users x 3 existing items) through the port's
+              PEVLOG DAO in one call and, after its fold, the requests
+              again, twice (the second fold extends the first's
+              history by its delta); then one deleted event and a full
+              rebuild under client load. Gates: one baseline, two
+              folds, nothing rolled back, failed or rebuilt before the
+              delete; every answer after a fold against this process's
+              own fold on the card (the template's `fold_in` between
+              the watermarks around the drip); untouched users' answers
+              unchanged on untouched items, bit for bit; untouched
+              factor rows bit-identical; K1 launches = plan calls =
+              warmed buckets + drained chunks, with no re-warm; the
+              full rebuild with no failed request; the native journal
+              in use. Prints each fold tick's seconds (scan, fold,
+              swap, publish) and freshness_s.
 
 `--only serve_sharded` runs the build and phase 6 alone (for a machine
 with several cards), `--only train` the build and phases 9-11,
-`--only lifecycle` the build and phases 3 and 12; none prints the
-kernels line.
+`--only lifecycle` the build and phases 3 and 12, `--only streaming`
+the build and phases 3 and 13; none prints the kernels line.
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -146,6 +176,7 @@ Then the kernels line, the nvidia-smi line and, last,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -166,6 +197,7 @@ TOL = 1e-5
 TIMED_BUCKETS = (1, 8, 64)   # the serve run drains batches of 1-7
 # the lifecycle phase: GroupLens MovieLens-1M's shape
 ML1M_USERS, ML1M_ITEMS, ML1M_N = 6_040, 3_706, 1_000_209
+ML1M_BASE_MS = 1_577_836_800_000     # its first event time, 2020-01-01
 
 # (HBM bytes/s, fp32 CUDA-core FLOP/s, bf16 tensor-core FLOP/s) from
 # NVIDIA's data sheets, dense, at the part's full power limit; matched on
@@ -557,16 +589,51 @@ def serve_summary(run: dict, n_requests: int, max_err: float) -> dict:
 
 def phase_serve(torch, ft, dev, rng, model, setup_s: float,
                 n_requests: int) -> dict:
+    """Requests in two halves; between them a new 500,000 x 64 table
+    goes into the live K1 plan by `swap_factors` (the refresher's
+    commit), timed from a device tensor (what a fold hands it) and from
+    host RAM. The second half's answers are checked against the new
+    table, the first half's against the model's."""
     queries = make_queries(torch, ft, dev, rng, model, n_requests)
-    run = run_server(torch, ft, model, queries)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    new = torch.randn(N_ITEMS, RANK, device=dev, generator=gen) / 8.0
+    new_host = new.cpu().numpy()
+
+    def swap(server):
+        plan = server.deployment.algos[0]._serve_plan
+        out = {}
+        for name, table in (("host", new_host), ("device", new)):
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                prev = plan.swap_factors(table)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t))
+                plan.swap_factors(prev)
+            out[f"{name}_ms"] = ms
+        plan.swap_factors(new)
+        if plan.factors.data_ptr() != new.data_ptr():
+            fail("swap_factors copied a device table of the right shape")
+        return out
+
+    run = run_server(torch, ft, model, queries, midway=swap)
     launches, plan_calls = run["launches"], run["plan_calls"]
     if not (launches == plan_calls == run["expected_calls"]):
         fail(f"kernel launches {launches}, plan calls {plan_calls}, "
              f"expected {run['expected_calls']} (warmup + drained batch "
              "chunks)")
-    max_err = check_answers(torch, ft, dev, model, queries, run["answers"])
+    half = len(queries) // 2
+    swapped = model.__class__(model.user_factors, new, model.users,
+                              model.items)
+    max_err = max(
+        check_answers(torch, ft, dev, model, queries[:half],
+                      run["answers"][:half]),
+        check_answers(torch, ft, dev, swapped, queries[half:],
+                      run["answers"][half:]))
     out = {"phase": "serve", **serve_summary(run, n_requests, max_err),
-           "model_setup_s": setup_s}
+           "model_setup_s": setup_s,
+           "swap": {"items": N_ITEMS, "rank": RANK, **run["midway"]}}
     emit(out)
     return out
 
@@ -1124,6 +1191,63 @@ def generated_engine(cols):
                   {"als": ALSAlgorithm}, FirstServing)
 
 
+FOLD_USERS = 512   # PIO_FOLD_MAX_TOUCHED's default
+
+
+def fold_timing(torch, dev, model, cols, seed: int) -> dict:
+    """`ops.als.fold_in_rows` on the card for FOLD_USERS users of the
+    training ratings against the trained item factors (CG from zero at
+    rank 64), held against the float64 oracle at rtol=atol=TRAIN_TOL:
+    CUDA-event ms and host ms (the host packing and transfer included),
+    and the degree-bucketed slabs it gathers."""
+    from predictionio_tpu_torch.ops import als
+    rng = np.random.default_rng(seed + 9)
+    users = rng.choice(np.unique(cols.user_ix), FOLD_USERS, replace=False)
+    order = np.argsort(cols.user_ix, kind="stable")
+    bounds = np.searchsorted(cols.user_ix[order], users)
+    ends = np.searchsorted(cols.user_ix[order], users, side="right")
+    hist = [(cols.item_ix[order[a:b]], cols.rating[order[a:b]])
+            for a, b in zip(bounds, ends)]
+    y = model.item_factors
+
+    def fold():
+        return als.fold_in_rows(y, hist, reg=TRAIN_REG, device=dev)
+
+    got = fold()                           # warm: cuBLAS handles, caches
+    ms = time_ms(torch, fold, 3)
+    host_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fold()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t))
+    lens = np.array([len(h[0]) for h in hist])
+    row_ix = np.repeat(np.arange(FOLD_USERS), lens)
+    col_ix = np.concatenate([h[0] for h in hist])
+    val = np.concatenate([h[1] for h in hist])
+    want = oracle_half_step(y.cpu().numpy(), row_ix, col_ix, val,
+                            FOLD_USERS, TRAIN_REG)
+    err = np.abs(got.cpu().numpy().astype(np.float64) - want)
+    if (err - (TRAIN_TOL + TRAIN_TOL * np.abs(want))).max() > 0:
+        fail(f"fold_in_rows vs the float64 oracle: max |diff| {err.max()} "
+             f"past rtol=atol={TRAIN_TOL}")
+    side = als._pack_side(row_ix.astype(np.int32), col_ix.astype(np.int32),
+                          val, FOLD_USERS)
+    slabs = [(int((rows != als._FILL_ROW).sum()), cap)
+             for rows, cap in zip(side.rows, side.caps)]
+    padded = sum(len(rows) * cap for rows, cap in zip(side.rows, side.caps))
+    return {"users": FOLD_USERS, "ratings": int(lens.sum()),
+            "longest_history": int(lens.max()), "ms": ms,
+            "host_ms": host_ms, "max_abs_err": float(err.max()),
+            "tol": TRAIN_TOL, "slabs": len(slabs),
+            "largest_slab": max(slabs, key=lambda x: x[0] * x[1]),
+            "padded_entries": padded,
+            "gather_bytes": padded * y.shape[1] * 4,
+            "one_padded_slab_bytes": FOLD_USERS * int(
+                1 << (int(lens.max()) - 1).bit_length()) * y.shape[1] * 4}
+
+
 def phase_train(torch, dev, card: str, seed: int):
     """The ML-25M shape trained through `CoreWorkflow.run_train` (what
     `cli train` runs) into a MEM store: the instance must be COMPLETED
@@ -1204,6 +1328,8 @@ def phase_train(torch, dev, card: str, seed: int):
         if rows.numel() and bool(rows.abs().max() > 0):
             fail("a row without ratings has nonzero factors")
         unrated.append(int(absent.sum()))
+
+    fold = fold_timing(torch, dev, model, cols, seed)
 
     # the same loop again, on the trained factors, for its anatomy
     if len(sides) != 2:
@@ -1296,7 +1422,8 @@ def phase_train(torch, dev, card: str, seed: int):
            "eager": {"iteration_ms": eager_ms, "enqueue_ms": eager_enqueue,
                      "profile": eager_prof},
            "graph": {"iteration_ms": graph_ms, "enqueue_ms": graph_enqueue,
-                     "profile": graph_prof}}
+                     "profile": graph_prof},
+           "fold_in": fold}
     emit(out)
     return out, engine, instance, registry, model
 
@@ -1336,6 +1463,170 @@ def phase_serve_trained(torch, ft, dev, rng, trained,
     return out
 
 
+def write_ml1m_project(tmp: Path, u, i, r, test, seed: int) -> float:
+    """The lifecycle's inputs in `tmp`: the training ratings as API-JSON
+    `rate` events (distinct event times, one millisecond apart, from
+    2020-01-01) and the engine.json (rank 64, 10 iterations, lambda
+    0.05); returns the seconds the events file took."""
+    t0 = time.perf_counter()
+    ul, il, rl = u.tolist(), i.tolist(), r.tolist()
+    with open(tmp / "events.jsonl", "w") as f:
+        for n in np.nonzero(~test)[0].tolist():
+            f.write('{"event":"rate","entityType":"user","entityId":'
+                    f'"u{ul[n]}","targetEntityType":"item",'
+                    f'"targetEntityId":"i{il[n]}","properties":'
+                    f'{{"rating":{rl[n]}}},"eventTime":{ML1M_BASE_MS + n}}}'
+                    '\n')
+    (tmp / "engine.json").write_text(json.dumps({
+        "id": "ml1m", "engineFactory": "recommendation",
+        "datasource": {"params": {"app_name": "ml1m"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": TRAIN_RANK, "num_iterations": TRAIN_ITERS,
+            "lambda_": TRAIN_REG, "seed": seed}}]}))
+    return time.perf_counter() - t0
+
+
+def cli_runner(tmp: Path, config: dict, **env_extra):
+    """`cli(*args)` runs `python -m predictionio_tpu_torch.cli *args` in
+    `tmp` over the store `config`, fails the smoke on a non-zero exit,
+    and returns (its JSON output, wall seconds)."""
+    import os
+    repo = str(Path(__file__).resolve().parent)
+    env = {**os.environ, **config, **env_extra, "PYTHONPATH": repo}
+
+    def cli(*args):
+        t = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", *args],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            fail(f"cli {' '.join(args)} exited {out.returncode}: "
+                 f"{out.stderr[-3000:]}")
+        return json.loads(out.stdout), time.perf_counter() - t
+
+    cli.env = env
+    return cli
+
+
+def http_post(port: int, q):
+    """POST one query; (body, seconds)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/queries.json",
+        data=json.dumps(q).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        body = json.loads(resp.read())
+    return body, time.perf_counter() - t
+
+
+def serve_http(port: int, queries) -> list:
+    """`queries` from 64 client threads; [(body, seconds)] in order."""
+    with ThreadPoolExecutor(64) as pool:
+        return list(pool.map(lambda q: http_post(port, q), queries))
+
+
+def http_status(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def read_model(config: dict, iid: str, dev):
+    """The model of instance `iid` as the store holds it, read back
+    through the port's registry and `deserialize_models`, on `dev`."""
+    from predictionio_tpu_torch.core.persistence import deserialize_models
+    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
+                                                     StorageRegistry)
+    registry = StorageRegistry(config)
+    row = registry.get_meta_data_engine_instances().get(iid)
+    if row is None or row.status != EngineInstanceStatus.COMPLETED:
+        fail(f"the store holds instance {iid} as "
+             f"{row.status if row else 'missing'}")
+    model, = deserialize_models(
+        registry.get_model_data_models().get(iid).models, iid, [None],
+        None, retrain=None)
+    registry.close()
+    return model.to(dev), row
+
+
+def heldout_rmse(model, u, i, r, test) -> float:
+    from predictionio_tpu_torch.ops import als
+    uu = [model.users.get(f"u{x}") for x in u[test]]
+    ii = [model.items.get(f"i{x}") for x in i[test]]
+    seen = np.array([a is not None and b is not None
+                     for a, b in zip(uu, ii)])
+    return als.rmse(
+        model.user_factors, model.item_factors,
+        np.array([a for a, s_ in zip(uu, seen) if s_]),
+        np.array([b for b, s_ in zip(ii, seen) if s_]), r[test][seen])
+
+
+def start_deploy(tmp: Path, cli, iid: str, *extra):
+    """`cli deploy --port 0 --batch-max 64 *extra` in the background;
+    returns (process, port, seconds until it serves)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli", "deploy",
+         "--port", "0", "--batch-max", "64", *extra],
+        cwd=tmp, env=cli.env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if not line.startswith(f"serving engine instance {iid} on "):
+        proc.kill()
+        fail(f"deploy did not come up: {line!r} "
+             f"{proc.stderr.read()[-3000:]}")
+    port = int(line.split("http://127.0.0.1:")[1].split()[0])
+    return proc, port, time.perf_counter() - t0
+
+
+def stop_deploy(proc) -> None:
+    """SIGTERM the deploy process; it must exit 0."""
+    import signal
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        code = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        code = proc.wait()
+    if code != 0:
+        fail(f"the deploy process exited {code}: "
+             f"{proc.stderr.read()[-3000:]}")
+
+
+def launch_gate(what: str, status: dict, n_requests: int,
+                straddle: int = 0) -> dict:
+    """K1's launches on the server's `GET /` must equal its plan calls
+    and the warmed buckets plus one per drained batch chunk. A drained
+    batch whose requests took two deployments (a publish while they
+    queued) is two plan calls: `straddle` allows up to that many."""
+    launches = status["kernel_launches"]["fused_topk"]
+    sizes = {int(k): v for k, v in status["batch_sizes"].items()}
+    if sum(n * c for n, c in sizes.items()) != n_requests:
+        fail(f"{what}: batches {sizes} do not add up to {n_requests} "
+             "requests")
+    buckets, = status["plan_buckets"]
+    expected = len(buckets) + sum(c * -(-n // max(buckets))
+                                  for n, c in sizes.items())
+    if not (launches == status["plan_calls"]
+            and expected <= launches <= expected + straddle):
+        fail(f"{what}: K1 launches {launches}, plan calls "
+             f"{status['plan_calls']}, expected {expected} (warmup + "
+             f"drained batch chunks, + up to {straddle} straddling a "
+             "publish)")
+    return {"launches": launches, "plan_calls": status["plan_calls"],
+            "expected_calls": expected, "warmed_buckets": buckets,
+            "batch_sizes": status["batch_sizes"],
+            "drained_batches": sum(sizes.values())}
+
+
+def latency_ms(answers) -> dict:
+    lat = np.sort([t for _, t in answers])
+    return {"p50": 1e3 * lat[len(lat) // 2],
+            "p99": 1e3 * lat[int(0.99 * (len(lat) - 1))]}
+
+
 def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
     """PredictionIO's lifecycle at MovieLens-1M's shape, through the
     port's command line in subprocesses over one sqlite store in a
@@ -1348,51 +1639,16 @@ def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
     registry and `deserialize_models`), and the server's `GET /` shows
     K1's launches equal to its plan calls (the deploy process counts
     from 0)."""
-    import os
-    import signal
-    from predictionio_tpu_torch.core.persistence import deserialize_models
-    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
-                                                     StorageRegistry)
-    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.data.storage import EngineInstanceStatus
 
-    repo = str(Path(__file__).resolve().parent)
     u, i, r = planted(ML1M_USERS, ML1M_ITEMS, ML1M_N, seed + 5)
     test = np.random.default_rng(seed + 6).random(ML1M_N) < HELD_OUT
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lifecycle_") as tmp:
         tmp = Path(tmp)
         config = {"PIO_STORAGE_SOURCES_PIO_TYPE": "SQLITE",
                   "PIO_STORAGE_SOURCES_PIO_PATH": str(tmp / "pio.db")}
-        env = {**os.environ, **config, "PYTHONPATH": repo}
-        # distinct event times, one millisecond apart, from 2020-01-01
-        t0 = time.perf_counter()
-        base_ms = 1_577_836_800_000
-        ul, il, rl = u.tolist(), i.tolist(), r.tolist()
-        with open(tmp / "events.jsonl", "w") as f:
-            for n in np.nonzero(~test)[0].tolist():
-                f.write('{"event":"rate","entityType":"user","entityId":'
-                        f'"u{ul[n]}","targetEntityType":"item",'
-                        f'"targetEntityId":"i{il[n]}","properties":'
-                        f'{{"rating":{rl[n]}}},"eventTime":{base_ms + n}}}'
-                        '\n')
-        write_s = time.perf_counter() - t0
-        (tmp / "engine.json").write_text(json.dumps({
-            "id": "ml1m", "engineFactory": "recommendation",
-            "datasource": {"params": {"app_name": "ml1m"}},
-            "algorithms": [{"name": "als", "params": {
-                "rank": TRAIN_RANK, "num_iterations": TRAIN_ITERS,
-                "lambda_": TRAIN_REG, "seed": seed}}]}))
-
-        def cli(*args):
-            t = time.perf_counter()
-            out = subprocess.run(
-                [sys.executable, "-m", "predictionio_tpu_torch.cli", *args],
-                cwd=tmp, env=env, capture_output=True, text=True,
-                timeout=900)
-            if out.returncode != 0:
-                fail(f"cli {' '.join(args)} exited {out.returncode}: "
-                     f"{out.stderr[-3000:]}")
-            return json.loads(out.stdout), time.perf_counter() - t
-
+        write_s = write_ml1m_project(tmp, u, i, r, test, seed)
+        cli = cli_runner(tmp, config)
         app, _ = cli("app", "new", "ml1m")
         imported, import_wall_s = cli("import", "--appid", str(app["id"]),
                                       "--input", "events.jsonl")
@@ -1404,91 +1660,28 @@ def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
         if report["status"] != EngineInstanceStatus.COMPLETED:
             fail(f"the lifecycle instance is {report['status']}")
         iid = report["engineInstanceId"]
-
-        # the model as the store holds it, read back through the port
-        registry = StorageRegistry(config)
-        row = registry.get_meta_data_engine_instances().get(iid)
-        if row is None or row.status != EngineInstanceStatus.COMPLETED:
-            fail(f"the store holds instance {iid} as "
-                 f"{row.status if row else 'missing'}")
-        model, = deserialize_models(
-            registry.get_model_data_models().get(iid).models, iid, [None],
-            None, retrain=None)
-        model = model.to(dev)
-        registry.close()
-        uu = [model.users.get(f"u{x}") for x in u[test]]
-        ii = [model.items.get(f"i{x}") for x in i[test]]
-        seen = np.array([a is not None and b is not None
-                         for a, b in zip(uu, ii)])
-        heldout = als.rmse(
-            model.user_factors, model.item_factors,
-            np.array([a for a, s_ in zip(uu, seen) if s_]),
-            np.array([b for b, s_ in zip(ii, seen) if s_]), r[test][seen])
+        model, _ = read_model(config, iid, dev)
+        heldout = heldout_rmse(model, u, i, r, test)
         if not heldout < 1.0:
             fail(f"lifecycle held-out RMSE {heldout} is not below 1.0")
         n_items = model.item_factors.shape[0]
         queries = make_queries(torch, ft, dev, rng, model, n_requests,
                                n_items)
-
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "predictionio_tpu_torch.cli", "deploy",
-             "--port", "0", "--batch-max", "64"],
-            cwd=tmp, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
+        proc, port, deploy_wall_s = start_deploy(tmp, cli, iid)
         try:
-            line = proc.stdout.readline()
-            deploy_wall_s = time.perf_counter() - t0
-            if not line.startswith(f"serving engine instance {iid} on "):
-                proc.kill()
-                fail(f"deploy did not come up: {line!r} "
-                     f"{proc.stderr.read()[-3000:]}")
-            port = int(line.split("http://127.0.0.1:")[1].split()[0])
-
-            def post(q):
-                req = urllib.request.Request(
-                    f"http://127.0.0.1:{port}/queries.json",
-                    data=json.dumps(q).encode(), method="POST",
-                    headers={"Content-Type": "application/json"})
-                t = time.perf_counter()
-                with urllib.request.urlopen(req, timeout=120) as resp:
-                    body = json.loads(resp.read())
-                return body, time.perf_counter() - t
-
             t0 = time.perf_counter()
-            with ThreadPoolExecutor(64) as pool:
-                answers = list(pool.map(post, queries))
+            answers = serve_http(port, queries)
             wall_s = time.perf_counter() - t0
-            with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
-                                        timeout=60) as resp:
-                status = json.loads(resp.read())
+            status = http_status(port)
         finally:
-            proc.send_signal(signal.SIGTERM)
-            try:
-                code = proc.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                code = proc.wait()
-        if code != 0:
-            fail(f"the deploy process exited {code}")
-    launches = status["kernel_launches"]["fused_topk"]
-    sizes = {int(k): v for k, v in status["batch_sizes"].items()}
+            stop_deploy(proc)
     if status["engineInstanceId"] != iid or status["plans"] != [
             "BucketedTopK"]:
         fail(f"GET / shows instance {status['engineInstanceId']}, plans "
              f"{status['plans']}")
-    if sum(n * c for n, c in sizes.items()) != n_requests:
-        fail(f"batches {sizes} do not add up to {n_requests} requests")
-    buckets, = status["plan_buckets"]
-    expected = len(buckets) + sum(c * -(-n // max(buckets))
-                                  for n, c in sizes.items())
-    if not (launches == status["plan_calls"] == expected):
-        fail(f"lifecycle: K1 launches {launches}, plan calls "
-             f"{status['plan_calls']}, expected {expected} (warmup + "
-             "drained batch chunks)")
+    gate = launch_gate("lifecycle", status, n_requests)
     max_err = check_answers(torch, ft, dev, model, queries,
                             [b["itemScores"] for b, _ in answers], n_items)
-    lat = np.sort([t for _, t in answers])
     tm = report["phaseTimings"]
     out = {"phase": "lifecycle", "users": len(model.users),
            "items": n_items, "events": n_train,
@@ -1510,16 +1703,351 @@ def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
            "deploy": {"command_to_serving_s": deploy_wall_s,
                       **status["deploy_timings"]},
            "serve": {"requests": n_requests, "answers_checked": n_requests,
-                     "max_abs_err": max_err, "launches": launches,
-                     "plan_calls": status["plan_calls"],
-                     "expected_calls": expected,
-                     "warmed_buckets": buckets,
-                     "batch_sizes": status["batch_sizes"],
-                     "drained_batches": sum(sizes.values()),
+                     "max_abs_err": max_err, **gate,
                      "wall_s": wall_s, "qps": n_requests / wall_s,
-                     "latency_ms": {
-                         "p50": 1e3 * lat[len(lat) // 2],
-                         "p99": 1e3 * lat[int(0.99 * (len(lat) - 1))]}}}
+                     "latency_ms": latency_ms(answers)}}
+    emit(out)
+    return out
+
+
+STREAM_INTERVAL_S = 2.0     # the deploy's --refresh-interval
+DRIP_USERS, DRIP_PER_USER = 64, 3
+HAMMER_CLIENTS = 8          # client threads during the full rebuild
+
+
+def wait_status(port: int, proc, what: str, ok, timeout_s: float) -> dict:
+    """Poll the server's `GET /` until `ok(status)`; fail after
+    `timeout_s` or when the deploy process died."""
+    t_end = time.perf_counter() + timeout_s
+    while True:
+        status = http_status(port)
+        if ok(status):
+            return status
+        if proc.poll() is not None or time.perf_counter() > t_end:
+            fail(f"{what}: not reached in {timeout_s} s; refresher "
+                 f"{status.get('refresh')}")
+        time.sleep(0.05)
+
+
+def drip_events(model, rng, now_s: float):
+    """DRIP_USERS existing users rating DRIP_PER_USER existing items
+    each, stamped within the last second before `now_s`, all in one day
+    (one PEVLOG segment, so one append covers them)."""
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from datetime import datetime, timezone
+    users = rng.choice(len(model.users), DRIP_USERS, replace=False)
+    n = DRIP_USERS * DRIP_PER_USER
+    end_us = int(now_s * 1e6)
+    day_us = 86_400 * 10**6
+    if (end_us - n * 1000) // day_us != end_us // day_us:
+        end_us = (end_us // day_us) * day_us + n * 1000
+    out = []
+    for k, ux in enumerate(users.tolist()):
+        for j, ix in enumerate(rng.choice(len(model.items), DRIP_PER_USER,
+                                          replace=False).tolist()):
+            t_us = end_us - (n - (k * DRIP_PER_USER + j)) * 1000
+            out.append(Event(
+                "rate", "user", model.users.inverse(ux), "item",
+                model.items.inverse(ix),
+                DataMap({"rating": float(rng.integers(1, 6))}),
+                datetime.fromtimestamp(t_us / 1e6, tz=timezone.utc)))
+    return out
+
+
+class Hammer:
+    """HAMMER_CLIENTS client threads that post `queries` in turn for as
+    long as the `with` block lasts, recording each request's seconds and
+    every failure."""
+
+    def __init__(self, port: int, queries):
+        self.port, self.queries = port, queries
+        self.seconds, self.failures = [], []
+        self._stop = False
+        self._pool = ThreadPoolExecutor(HAMMER_CLIENTS)
+        self._futs = []
+
+    def _client(self, n: int) -> None:
+        while not self._stop:
+            q = self.queries[n % len(self.queries)]
+            n += HAMMER_CLIENTS
+            try:
+                self.seconds.append(http_post(self.port, q)[1])
+            except Exception as e:  # noqa: BLE001 — counted, reported
+                self.failures.append(repr(e))
+
+    def __enter__(self):
+        self._futs = [self._pool.submit(self._client, n)
+                      for n in range(HAMMER_CLIENTS)]
+        return self
+
+    def __exit__(self, *exc):
+        self._stop = True
+        for f in self._futs:
+            f.result()
+        self._pool.shutdown()
+
+    def summary(self) -> dict:
+        return {"requests": len(self.seconds),
+                "failed_requests": len(self.failures),
+                "latency_ms": latency_ms([(None, t) for t in self.seconds])}
+
+
+def phase_streaming(torch, ft, dev, rng, seed: int, n_requests: int,
+                    sqlite_events_per_s=None) -> dict:
+    """Streaming fold-in at MovieLens-1M's shape (the lifecycle's
+    generator and held-out split) over SQLITE metadata and PEVLOG events
+    in a temporary directory: `app new`, `import`, `build`, `train`
+    through the command line, `deploy --refresh-interval 2`, requests;
+    once `GET /` shows the refresher's `baseline`, a drip batch of rate
+    events (64 existing users x 3 existing items) goes in through the
+    port's PEVLOG DAO in one call and, after its fold, the requests
+    again; twice, so that the second fold extends the first one's
+    history; then one event is deleted and the next tick must rebuild
+    in full while clients keep hammering. Gates: one baseline, two folds
+    and no rolled_back, failed or full_rebuild before the delete; every
+    answer after a fold against this process's own fold on the card
+    (the template's `fold_in` on the instance's model, then on its first
+    fold, between the watermarks before and after each drip);
+    untouched users' answers bit-identical on untouched items and
+    untouched factor rows bit-identical; K1 launches = plan calls =
+    warmed buckets + drained chunks with the warmed buckets unchanged
+    (no re-warm); a `full_rebuild` with no failed request; the native
+    journal in use."""
+    from predictionio_tpu_torch.core.workflow import (
+        engine_params_from_instance)
+    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
+                                                     StorageRegistry)
+    from predictionio_tpu_torch.models.recommendation import (
+        RecommendationEngine)
+    from predictionio_tpu_torch.native.eventlog import EventLog
+    from predictionio_tpu_torch.streaming import scan_delta
+    from predictionio_tpu_torch.streaming.updaters import FoldContext
+
+    u, i, r = planted(ML1M_USERS, ML1M_ITEMS, ML1M_N, seed + 5)
+    test = np.random.default_rng(seed + 6).random(ML1M_N) < HELD_OUT
+    n_train = int((~test).sum())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_streaming_") as tmp:
+        tmp = Path(tmp)
+        config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+                  "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db"),
+                  "PIO_STORAGE_SOURCES_PEV_TYPE": "PEVLOG",
+                  "PIO_STORAGE_SOURCES_PEV_PATH": str(tmp / "pevlog"),
+                  "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+                  "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PEV",
+                  "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"}
+        write_s = write_ml1m_project(tmp, u, i, r, test, seed)
+        cli = cli_runner(tmp, config, PIO_INGEST_WORKERS="4")
+        uses_native = EventLog(str(tmp / "probe.log")).uses_native
+        if not uses_native:
+            fail("the event journal is not the native (g++) build")
+        app, _ = cli("app", "new", "ml1m")
+        app_id = app["id"]
+        imported, import_wall_s = cli("import", "--appid", str(app_id),
+                                      "--input", "events.jsonl")
+        if imported["imported"] != n_train:
+            fail(f"imported {imported['imported']} of {n_train} events")
+        cli("build")
+        report, train_wall_s = cli("train")
+        if report["status"] != EngineInstanceStatus.COMPLETED:
+            fail(f"the streaming instance is {report['status']}")
+        iid = report["engineInstanceId"]
+        model, row = read_model(config, iid, dev)
+        heldout = heldout_rmse(model, u, i, r, test)
+        if not heldout < 1.0:
+            fail(f"streaming held-out RMSE {heldout} is not below 1.0")
+        n_items = model.item_factors.shape[0]
+        queries = make_queries(torch, ft, dev, rng, model, n_requests,
+                               n_items)
+        registry = StorageRegistry(config)
+        events = registry.get_events()
+        engine = RecommendationEngine.apply()
+        _, _, (algo,), _ = engine.make_components(
+            engine_params_from_instance(engine, row))
+
+        own = [model]
+        own_fold_s = []
+
+        def own_fold(rd):
+            rd["delta"] = scan_delta(events, app_id, None, rd["since"],
+                                     rd["upto"])
+            fctx = FoldContext(store=events, app_id=app_id, channel_id=None,
+                               since=rd["since"], upto=rd["upto"],
+                               ds_params={"app_name": "ml1m"})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            own.append(algo.fold_in(own[-1], rd["delta"], fctx))
+            torch.cuda.synchronize()
+            own_fold_s.append(time.perf_counter() - t0)
+
+        proc, port, deploy_wall_s = start_deploy(
+            tmp, cli, iid, "--refresh-interval", str(STREAM_INTERVAL_S))
+        try:
+            st0 = wait_status(port, proc, "the refresher's baseline",
+                              lambda s: s["refresh"]["ticks"].get(
+                                  "baseline"), 120)
+            answers0 = serve_http(port, queries)
+            # the same client load with nothing else happening, as the
+            # reference for the latency during the second fold and the
+            # rebuild
+            with Hammer(port, queries) as quiet:
+                time.sleep(2 * STREAM_INTERVAL_S)
+            # two drips, each one insert_batch (one append, one watermark
+            # step); the second fold extends the first one's history and
+            # runs under client load
+            rounds, loads = [], [quiet]
+            for rnd in (1, 2):
+                with Hammer(port, queries) if rnd == 2 else \
+                        contextlib.nullcontext() as load:
+                    wm_before = events.ingest_watermark(app_id)
+                    drip = drip_events(model, rng, time.time())
+                    t_drip = time.perf_counter()
+                    drip_ids = events.insert_batch(drip, app_id)
+                    wm_after = events.ingest_watermark(app_id)
+                    st = wait_status(
+                        port, proc, f"fold {rnd}",
+                        lambda s, n=rnd: s["refresh"]["ticks"].get(
+                            "folded", 0) >= n, 120)
+                    seen_s = time.perf_counter() - t_drip
+                if load is not None:
+                    loads.append(load)
+                rounds.append({"since": wm_before, "upto": wm_after,
+                               "events": len(drip), "status": st,
+                               "seen_s": seen_s,
+                               "answers": serve_http(port, queries),
+                               "after": http_status(port)})
+                # this process's own fold of the same delta, on the card,
+                # before anything else lands in the store (a fold reads
+                # the store's current rows)
+                own_fold(rounds[-1])
+            # the delete (of a drip event: its user and item keep their
+            # other ratings, so no shape changes): the next tick rebuilds
+            # in full while clients keep asking
+            with Hammer(port, queries) as load:
+                if not events.delete(drip_ids[0], app_id):
+                    fail("the delete found no event")
+                t_del = time.perf_counter()
+                st3 = wait_status(port, proc, "a full rebuild",
+                                  lambda s: s["refresh"]["ticks"].get(
+                                      "full_rebuild"), 300)
+                rebuild_seen_s = time.perf_counter() - t_del
+            loads.append(load)
+            answers3 = serve_http(port, queries)
+            st4 = http_status(port)
+        finally:
+            stop_deploy(proc)
+
+        registry.close()
+
+    ticks1 = rounds[-1]["status"]["refresh"]["ticks"]
+    if ticks1.get("baseline") != 1 or ticks1.get("folded") != 2 or any(
+            ticks1.get(k) for k in ("rolled_back", "failed",
+                                    "full_rebuild")):
+        fail(f"refresher ticks before the delete: {ticks1}")
+    prev_answers, max_err, untouched, unchanged = answers0, 0.0, 0, 0
+    for rd, before, folded in zip(rounds, own, own[1:]):
+        delta = rd["delta"]
+        if rd["after"]["refresh"]["watermark"] != rd["upto"]:
+            fail("the served model's watermark is not the drip's")
+        if folded.user_factors.device != dev:
+            fail(f"the fold ran on {folded.user_factors.device}, not the "
+                 "card")
+        touched_u = {folded.users.get(x) for x in delta.touched_users}
+        touched_i = {folded.items.get(x) for x in delta.touched_items}
+        keep_u = torch.tensor([x for x in range(len(before.users))
+                               if x not in touched_u], device=dev)
+        keep_i = torch.tensor([x for x in range(n_items)
+                               if x not in touched_i], device=dev)
+        if not (torch.equal(folded.user_factors[keep_u],
+                            before.user_factors[keep_u])
+                and torch.equal(folded.item_factors[keep_i],
+                                before.item_factors[keep_i])):
+            fail("a fold changed untouched factor rows")
+        items = [b["itemScores"] for b, _ in rd["answers"]]
+        max_err = max(max_err, check_answers(torch, ft, dev, folded,
+                                             queries, items, n_items))
+        # an untouched user's answers on untouched items: the same
+        # scores, bit for bit, in the same order (touched items may
+        # enter or leave)
+        touched_names = set(delta.touched_items)
+        for q, (b1, _), a2 in zip(queries, prev_answers, items):
+            if q["user"] in delta.touched_users:
+                continue
+            untouched += 1
+            s1 = [(x["item"], x["score"]) for x in b1["itemScores"]
+                  if x["item"] not in touched_names]
+            s2 = [(x["item"], x["score"]) for x in a2
+                  if x["item"] not in touched_names]
+            m = min(len(s1), len(s2))
+            if s1[:m] != s2[:m]:
+                fail(f"untouched user {q['user']}: {s1} before, {s2} "
+                     "after")
+            unchanged += b1["itemScores"] == a2
+        prev_answers = rd["answers"]
+    st0_buckets = st0["plan_buckets"]
+    for n, rd in enumerate(rounds, 1):
+        if rd["after"]["plan_buckets"] != st0_buckets or rd["after"][
+                "plans"] != ["BucketedTopK"]:
+            fail(f"fold {n} re-warmed: buckets {st0_buckets} -> "
+                 f"{rd['after']['plan_buckets']}")
+    for load in loads:
+        if load.failures:
+            fail(f"{len(load.failures)} requests failed under load: "
+                 f"{load.failures[:3]}")
+    gate_fold = launch_gate(
+        "streaming after the folds", rounds[-1]["after"],
+        3 * n_requests + len(loads[0].seconds) + len(loads[1].seconds),
+        straddle=HAMMER_CLIENTS)
+    ticks3 = st3["refresh"]["ticks"]
+    if any(ticks3.get(k) for k in ("rolled_back", "failed")):
+        fail(f"refresher ticks after the delete: {ticks3}")
+    gate_rebuild = launch_gate(
+        "streaming after the rebuild", st4,
+        4 * n_requests + sum(len(x.seconds) for x in loads),
+        straddle=2 * HAMMER_CLIENTS)
+    for b, _ in answers3:
+        if not b["itemScores"] or not all(
+                np.isfinite(x["score"]) for x in b["itemScores"]):
+            fail(f"after the rebuild: answer {b}")
+    tm = report["phaseTimings"]
+    out = {"phase": "streaming", "users": len(model.users),
+           "items": n_items, "events": n_train, "rank": TRAIN_RANK,
+           "engine_instance": iid, "heldout_rmse": heldout,
+           "uses_native": uses_native, "events_file_s": write_s,
+           "import": {"seconds": imported["seconds"],
+                      "events_per_s": n_train / imported["seconds"],
+                      "sqlite_events_per_s": sqlite_events_per_s,
+                      "command_wall_s": import_wall_s},
+           "train": {"command_wall_s": train_wall_s,
+                     "read_s": tm["read_s"],
+                     "scan_s": tm.get("ingest_scan_s"),
+                     "build_s": tm.get("ingest_build_s"),
+                     "solve_s": tm["solve_s"]},
+           "deploy": {"command_to_serving_s": deploy_wall_s,
+                      **st0["deploy_timings"]},
+           "refresh_interval_s": STREAM_INTERVAL_S,
+           "folds": [{"events": rd["events"],
+                      "touched_users": len(rd["delta"].touched_users),
+                      "touched_items": len(rd["delta"].touched_items),
+                      "seen_folded_after_s": rd["seen_s"],
+                      "tick_s": rd["status"]["refresh"]["last_ticks"][
+                          "folded"],
+                      "freshness_s": rd["status"]["refresh"]["freshness_s"],
+                      "own_fold_s": s_}
+                     for rd, s_ in zip(rounds, own_fold_s)],
+           "answers_checked": 2 * n_requests, "max_abs_err": max_err,
+           "untouched_answers": untouched,
+           "untouched_answers_identical": unchanged,
+           "serve_after_folds": {**gate_fold, "latency_ms": latency_ms(
+               rounds[-1]["answers"])},
+           "load": {"clients": HAMMER_CLIENTS,
+                    "quiet": loads[0].summary(),
+                    "during_second_fold": loads[1].summary(),
+                    "during_rebuild": loads[2].summary()},
+           "rebuild": {"seen_after_s": rebuild_seen_s,
+                       "tick_s": st3["refresh"]["last_ticks"][
+                           "full_rebuild"],
+                       "ticks": st4["refresh"]["ticks"], **gate_rebuild},
+           "launches": gate_rebuild["launches"]}
     emit(out)
     return out
 
@@ -1532,11 +2060,14 @@ def main() -> int:
     ap.add_argument("--tiered-queries", type=int, default=64)
     ap.add_argument("--trained-requests", type=int, default=64)
     ap.add_argument("--lifecycle-requests", type=int, default=320)
-    ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle"),
+    ap.add_argument("--streaming-requests", type=int, default=320)
+    ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle",
+                                       "streaming"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
-                         "for parity and lifecycle), no kernels line")
+                         "for parity and lifecycle; streaming for parity "
+                         "and streaming), no kernels line")
     args = ap.parse_args()
 
     import torch
@@ -1582,10 +2113,14 @@ def main() -> int:
                                 args.sharded_requests)
         elif args.only == "train":
             train_phases()
-        else:
+        elif args.only == "lifecycle":
             phase_parity(torch, ft, dev, rng)
             phase_lifecycle(torch, ft, dev, rng, args.seed,
                             args.lifecycle_requests)
+        else:
+            phase_parity(torch, ft, dev, rng)
+            phase_streaming(torch, ft, dev, rng, args.seed,
+                            args.streaming_requests)
         print(smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -1605,6 +2140,9 @@ def main() -> int:
     _, served = train_phases()
     lifecycle = phase_lifecycle(torch, ft, dev, rng, args.seed,
                                 args.lifecycle_requests)
+    streaming = phase_streaming(torch, ft, dev, rng, args.seed,
+                                args.streaming_requests,
+                                lifecycle["import"]["events_per_s"])
 
     main_row, shard_row = timing[64], timing_sh[64]
     emit({"kernels": [{
@@ -1619,6 +2157,7 @@ def main() -> int:
         "tiered_launches": tiered["launches"],
         "trained_model_launches": served["launches"],
         "lifecycle_launches": lifecycle["serve"]["launches"],
+        "streaming_launches": streaming["launches"],
         "by_bucket": {str(b): r for b, r in timing.items()}}, {
         "name": "shard_local_candidates", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",

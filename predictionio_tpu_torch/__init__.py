@@ -6,7 +6,10 @@ points run on CUDA unless the caller passes `device="cpu"`; each kernel
 the JAX package wrote in Pallas is a hand-written Hopper kernel under
 `csrc/`, built with nvcc at first use.
 
-Ported so far: the recommendation template's training (cli train ->
-Engine.train -> ops.als.als_train) and its serving path (deploy ->
-/queries.json) through the fused top-k kernel. See ROADMAP.md.
+Ported so far: the recommendation template's lifecycle (app new ->
+import -> train -> deploy over the MEM, SQLITE, EVLOG and PEVLOG
+stores), its training (Engine.train -> ops.als.als_train), its serving
+path (/queries.json) through the fused top-k kernel, and the streaming
+fold-in that keeps a deployment fresh (streaming.Refresher). See
+ROADMAP.md.
 """

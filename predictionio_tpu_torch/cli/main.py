@@ -7,7 +7,8 @@
         [--stop-after-read | --stop-after-prepare] [--skip-sanity-check] \
         [--device cpu]
     python -m predictionio_tpu_torch.cli deploy [--engine-instance-id ID] \
-        [--port 8000] [--batch-max 64] [--items-on-host] [--device cpu]
+        [--port 8000] [--batch-max 64] [--items-on-host] [--device cpu] \
+        [--refresh-interval SECONDS]
 
 Storage comes from `PIO_STORAGE_*` (or a `pio-env` file); without any,
 one sqlite file at `./.pio_store/pio.db`, the JAX package's default.
@@ -22,6 +23,11 @@ unless `--device cpu` is given, and refuse to start without CUDA
 otherwise. `--items-on-host` keeps the item master in host RAM, so that
 a catalog past the card's budget tiers (or, over two or more cards,
 shards) instead of being loaded whole onto one card.
+`--refresh-interval` (seconds, default 0 = off) keeps a deployed
+instance fresh: a refresher thread folds the events appended since the
+last tick into the served model (a delta-capable event store, PEVLOG,
+is needed; SQLITE retrains in full on a change) and swaps the new item
+factors into the warmed plan.
 """
 
 from __future__ import annotations
@@ -70,25 +76,27 @@ def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
 def deploy_instance(engine, instance, ctx: RuntimeContext, *,
                     host: str = "127.0.0.1", port: int = 8000,
                     batch_max: int = 64, window_s: float = 0.002,
-                    items_device=None) -> PredictionServer:
+                    items_device=None, refresh_interval_s: float = 0.0
+                    ) -> PredictionServer:
     """Serve an engine instance: its models read back from the model
     store (`CoreWorkflow.prepare_deploy`) onto `ctx.device`, warmed as
     `deploy` warms a model, behind a started `PredictionServer`, whose
     `GET /` shows the instance id and the deploy's load, place and warm
-    seconds."""
+    seconds. `refresh_interval_s` > 0 runs the streaming refresher."""
     timings: dict = {}
     algos, models, serving = CoreWorkflow.prepare_deploy(
         engine, instance, ctx, warm_batch_max=batch_max,
         items_device=items_device, timings=timings)
-    return _start(_Deployment(algos, models, serving, instance_id=instance.id,
-                              timings=timings),
-                  host, port, batch_max, window_s)
+    return _start(_Deployment(algos, models, serving, engine=engine,
+                              instance=instance, timings=timings),
+                  host, port, batch_max, window_s, ctx=ctx,
+                  refresh_interval_s=refresh_interval_s)
 
 
 def _start(dep: _Deployment, host: str, port: int, batch_max: int,
-           window_s: float) -> PredictionServer:
+           window_s: float, **kw) -> PredictionServer:
     server = PredictionServer(dep, host=host, port=port, batch_max=batch_max,
-                              window_s=window_s)
+                              window_s=window_s, **kw)
     server.start()
     return server
 
@@ -145,6 +153,9 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--items-on-host", action="store_true",
                    help="keep the item factors in host RAM; the serving "
                         "plan places what it needs on the device")
+    x.add_argument("--refresh-interval", type=float, default=0.0,
+                   help="seconds between streaming fold-in ticks "
+                        "(0 = off)")
     return p
 
 
@@ -185,7 +196,8 @@ def _deploy(args) -> int:
             engine, inst, RuntimeContext(registry=registry,
                                          device=args.device),
             host=args.ip, port=args.port, batch_max=args.batch_max,
-            items_device=items_device)
+            items_device=items_device,
+            refresh_interval_s=args.refresh_interval)
         what = f"engine instance {inst.id}"
         dev = ", ".join(sorted({str(m.device)
                                 for m in server.deployment.models

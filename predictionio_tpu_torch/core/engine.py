@@ -3,9 +3,9 @@
 The port of `predictionio_tpu/core/engine.py`: the component class maps,
 `make_components`, `train` (the sequential per-algorithm loop with phase
 timings, the sanity checks and the stop-after flags of the run's
-`WorkflowParams`, Engine.scala:643-708) and the engine.json variant ->
-`EngineParams` extraction (Engine.scala:357-420). Eval comes with a
-later slice.
+`WorkflowParams`, Engine.scala:643-708), the engine.json variant ->
+`EngineParams` extraction (Engine.scala:357-420) and
+`bind_serving_context`. Eval comes with a later slice.
 """
 
 from __future__ import annotations
@@ -78,6 +78,7 @@ class Engine:
         stop after the read or the prepare (`StopAfterReadInterruption`,
         `StopAfterPrepareInterruption`)."""
         ds, prep, algos, _ = self.make_components(engine_params)
+        bind_serving_context(algos, ctx)
         wp = ctx.workflow_params
         check = (lambda obj: None) if wp.skip_sanity_check else sanity_check
         tm = ctx.phase_timings
@@ -162,6 +163,18 @@ class Engine:
             serving_params=one(self.serving_classes, "Serving",
                                variant.get("serving")),
         )
+
+
+def bind_serving_context(algos, ctx: RuntimeContext) -> None:
+    """Give each algorithm with a `with_serving_context(ctx)` hook the
+    run's context: algorithms that read the event store at serve time
+    (e-commerce constraint events, ECommAlgorithm.scala:331-430) read it
+    through the context they were bound to. Called on every path that
+    runs predict: `Engine.train` and `CoreWorkflow.prepare_deploy`."""
+    for algo in algos:
+        hook = getattr(algo, "with_serving_context", None)
+        if callable(hook):
+            hook(ctx)
 
 
 class EngineFactory:

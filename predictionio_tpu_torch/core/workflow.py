@@ -10,9 +10,10 @@ The port of `predictionio_tpu/core/workflow.py`:
     COMPLETED with the run's phase timings in `runtime_conf`; a failure
     marks the row FAILED and re-raises, so deploy never picks it;
   - `CoreWorkflow.prepare_deploy` (Engine.prepareDeploy, Engine.scala:
-    199-269): an instance's blob back into models (retraining the
-    algorithms that stored a `RetrainMarker`), moved to the context's
-    device, then warmed;
+    199-269): the components made once and bound to the deploy's
+    context, the instance's blob back into models through them
+    (retraining the algorithms that stored a `RetrainMarker`), moved to
+    the context's device, then warmed by the same algorithms;
   - `prepare_deploy` for models in hand (a model loaded from an `.npz`,
     the sharded and tiered deploys), `derive_warm_buckets`,
     `warm_deploy` and `engine_params_from_instance`.
@@ -35,7 +36,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from predictionio_tpu_torch.core.base import Algorithm, Serving
-from predictionio_tpu_torch.core.engine import Engine, EngineFactory
+from predictionio_tpu_torch.core.engine import (Engine, EngineFactory,
+                                               bind_serving_context)
 from predictionio_tpu_torch.core.params import EngineParams
 from predictionio_tpu_torch.core.persistence import (deserialize_models,
                                                      serialize_models)
@@ -218,19 +220,23 @@ class CoreWorkflow:
                        ) -> Tuple[List[Algorithm], List[Any], Serving]:
         """The instance's models, ready to serve: (algorithms, models,
         serving) (Engine.prepareDeploy; CreateServer.scala:186-244),
-        with the params the instance recorded. Models with a `to(device, items_device=...)` method move to
-        `ctx.device` (None = cuda; raises without CUDA), the item master
-        to `items_device` ("cpu" keeps it in host RAM); then
-        `prepare_deploy` checks and warms them as it does models in
-        hand. `timings`, if given, gets the wall seconds of the blob's
-        read (`load_s`), the move to the device (`place_s`) and the
-        check and warmup (`warm_s`)."""
+        with the params the instance recorded. The components are made
+        once and bound to `ctx` (`bind_serving_context`): the algorithms
+        that load the models are the ones that serve them. Models with
+        a `to(device, items_device=...)` method move to `ctx.device`
+        (None = cuda; raises without CUDA), the item master to
+        `items_device` ("cpu" keeps it in host RAM); then they are
+        checked and warmed as `prepare_deploy` does models in hand.
+        `timings`, if given, gets the wall seconds of the blob's read
+        (`load_s`), the move to the device (`place_s`) and the check and
+        warmup (`warm_s`)."""
         if instance.status != EngineInstanceStatus.COMPLETED:
             raise ValueError(f"engine instance {instance.id} is "
                              f"{instance.status}, not COMPLETED")
         t0 = time.perf_counter()
         engine_params = engine_params_from_instance(engine, instance)
-        ds, prep, algos, _ = engine.make_components(engine_params)
+        ds, prep, algos, serving = engine.make_components(engine_params)
+        bind_serving_context(algos, ctx)
         blob_row = ctx.registry.get_model_data_models().get(instance.id)
         if blob_row is None:
             raise ValueError(f"No model blob for instance {instance.id}")
@@ -250,8 +256,7 @@ class CoreWorkflow:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
-        out = prepare_deploy(engine, models, engine_params,
-                             warm_batch_max=warm_batch_max)
+        out = _ready(algos, models, serving, warm_batch_max=warm_batch_max)
         if timings is not None:
             timings.update(load_s=t1 - t0, place_s=t2 - t1,
                            warm_s=time.perf_counter() - t2)
@@ -274,6 +279,15 @@ def prepare_deploy(engine: Engine, models: Sequence[Any],
     CUDA cards."""
     _, _, algos, serving = engine.make_components(
         engine_params or EngineParams())
+    return _ready(algos, models, serving, warm_batch_max=warm_batch_max,
+                  observed_sizes=observed_sizes, mesh=mesh)
+
+
+def _ready(algos: List[Algorithm], models: Sequence[Any], serving: Serving,
+           *, warm_batch_max: Optional[int] = None,
+           observed_sizes: Optional[Dict[int, int]] = None, mesh=None
+           ) -> Tuple[List[Algorithm], List[Any], Serving]:
+    """Check `models` and warm them through `algos` (one per model)."""
     models = list(models)
     if len(models) != len(algos):
         raise ValueError(

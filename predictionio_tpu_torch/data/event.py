@@ -128,6 +128,21 @@ class DataMap:
         _check_json_value(fields, "$")
         self._fields = fields
 
+    @classmethod
+    def _trusted(cls, fields: Optional[dict]) -> "DataMap":
+        """Wrap an already validated dict the caller owns, without a copy
+        or a check: a journal replay's frames were validated at insert
+        and CRC-checked at read, and each `json.loads` hands over a fresh
+        dict. A non-dict (a foreign frame with a scalar "p") goes
+        through the checking constructor and fails where it is decoded."""
+        if fields is None:
+            fields = {}
+        elif not isinstance(fields, dict):
+            return cls(fields)
+        dm = object.__new__(cls)
+        dm._fields = fields
+        return dm
+
     # -- dict-like protocol -------------------------------------------------
     def __getitem__(self, key: str) -> Any:
         return self._fields[key]

@@ -15,13 +15,22 @@ checksummed envelope (little-endian):
 Blobs that do not start with the magic pass through unchanged (stores
 written before the envelope existed). `unwrap` reads either digest,
 since another writer of the store may choose CRC32.
+
+`atomic_write_bytes` is how the file-backed drivers and the prepared-data
+cache write a file whole: a unique temporary file, fsync, rename, fsync
+of the directory, so a crash leaves the old content or the new one,
+never a torn file.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import struct
+import uuid
 import zlib
+from pathlib import Path
+from typing import Union
 
 from predictionio_tpu_torch.data.storage.base import StorageError
 
@@ -76,3 +85,31 @@ def unwrap(blob: bytes) -> bytes:
     if _digest(payload, algo) != blob[_HEADER.size:body_start]:
         raise CorruptBlobError("digest mismatch")
     return payload
+
+
+def atomic_write_bytes(path: Union[str, Path], data: bytes) -> None:
+    """Crash-safe write: unique tmp -> fsync -> rename -> fsync(dir)."""
+    path = Path(path)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{uuid.uuid4().hex}.tmp")
+    try:
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            tmp.unlink()
+        except OSError:
+            pass
+        raise
+    try:
+        fd = os.open(str(path.parent), os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)

@@ -9,12 +9,13 @@ The port of the part of `predictionio_tpu/data/storage/base.py` that the
   - the DAO bases `Apps`, `AccessKeys`, `Channels`, `EngineInstances`,
     `Models` and `EventStore` (LEvents.scala:40-520): `insert` and
     `insert_batch` validate first, `find` has the three-state target
-    filter, and `scan_columns` adapts `find`.
+    filter, `scan_columns` adapts `find`, and `ingest_watermark` /
+    `ingest_cache_dir` are None (no prepared-data cache, no delta).
 
 Evaluation instances, leases, tenant quotas, SLO objectives and
 `aggregate_properties` come with the slices that use them. Drivers
-(`memory.py`, `sqlite.py`) implement these bases and are found by the
-registry (`registry.py`).
+(`memory.py`, `sqlite.py`, `evlog.py`, `pevlog.py`) implement these
+bases and are found by the registry (`registry.py`).
 """
 
 from __future__ import annotations
@@ -249,8 +250,10 @@ _UNSET = object()
 
 
 class DeltaInvalidated(Exception):
-    """A `scan_columns(since=...)` delta cannot be decoded: no driver of
-    the port has a delta path, so the caller falls back to a full scan."""
+    """A `scan_columns(since=...)` delta cannot be decoded exactly (a
+    delete or an external id between the watermarks, a rewritten
+    journal, a span past the budget, or a driver with no delta path):
+    the caller falls back to a full scan."""
 
 
 def match_properties(e: Event, properties: Dict[str, object]) -> bool:
@@ -342,12 +345,16 @@ class EventStore(abc.ABC):
                      target_entity_id: object = _UNSET,
                      properties: Optional[Dict[str, object]] = None,
                      value_spec=None, require_target: bool = True,
-                     since: Optional[Dict[str, int]] = None):
+                     since: Optional[Dict[str, int]] = None,
+                     upto: Optional[Dict[str, int]] = None):
         """Columnar training scan with `find`'s filters: an
         `EventColumns` (interned int32 entity ids, float32 values per
-        `value_spec`, int64 event times) instead of Events. This base
-        adapts `find()`; `since` (a delta scan) raises
-        `DeltaInvalidated`."""
+        `value_spec`, int64 event times) instead of Events. With
+        `since` (an `ingest_watermark` snapshot) only the events
+        appended after it, up to the snapshot `upto`: the streaming
+        delta. This base adapts `find()` and raises `DeltaInvalidated`
+        for a delta."""
+        del upto
         if since is not None:
             raise DeltaInvalidated(
                 f"{type(self).__name__} has no delta scan path")
@@ -361,6 +368,21 @@ class EventStore(abc.ABC):
                       target_entity_id=target_entity_id,
                       properties=properties),
             value_spec, require_target)
+
+    def ingest_watermark(self, app_id: int,
+                         channel_id: Optional[int] = None
+                         ) -> Optional[Dict[str, int]]:
+        """A content fingerprint of the (app, channel) events that any
+        insert or delete changes: the prepared-data cache's key and the
+        refresher's change test. None (this base) means no cache and
+        no streaming fold."""
+        return None
+
+    def ingest_cache_dir(self, app_id: int,
+                         channel_id: Optional[int] = None):
+        """Directory of the prepared-data cache's blobs, or None when the
+        driver has no on-disk home for them."""
+        return None
 
 
 def match_event(e: Event, *,

@@ -1,10 +1,11 @@
 """Columnar event scan: event rows -> numpy column batches.
 
-A copy of `predictionio_tpu/data/storage/columns.py`, less the
-cross-process target encoding (the port scans in one process). The
-training-ingest currency: `scan_columns` decodes matching events
-straight into dense numpy columns with locally interned string tables,
-so a training read builds no `Event` per row.
+A copy of `predictionio_tpu/data/storage/columns.py`. The
+training-ingest currency: `scan_columns` decodes matching events or
+journal frames straight into dense numpy columns with locally interned
+string tables, so a training read builds no `Event` per row. The module
+imports the standard library and numpy only: PEVLOG's spawn-started
+scan workers (`_scanworker.py`) import it.
 
 Value specs, the declarative form of a template's `rating_of`:
 
@@ -28,6 +29,20 @@ import numpy as np
 _UTC = _tz.utc
 _EPOCH = datetime(1970, 1, 1, tzinfo=_UTC)
 _ONE_US = timedelta(microseconds=1)
+
+# the three-state target filter (`base._UNSET`, None, a string) in a
+# form that crosses a process boundary
+TGT_UNSET = ("unset",)
+TGT_NONE = ("none",)
+
+
+def encode_target(v, unset_sentinel) -> tuple:
+    if v is unset_sentinel:
+        return TGT_UNSET
+    if v is None:
+        return TGT_NONE
+    return ("str", str(v))
+
 
 def normalize_value_spec(spec) -> Dict[str, tuple]:
     """Canonical form: name -> ("const", f) | ("prop", key) |

@@ -8,7 +8,10 @@ bind the three data roles to sources. Layers, highest first: an explicit
 dict, the process environment, a `pio-env` file (KEY=VALUE lines) named
 by `$PIO_ENV_FILE` or found at `./pio-env` or `~/.pio_store/pio-env`.
 
-Drivers register in `DRIVERS` (`register_driver`): MEM and SQLITE. With
+Drivers register in `DRIVERS` (`register_driver`): MEM and SQLITE for
+every DAO; EVLOG (a journal per app/channel, `PATH`) and PEVLOG (the
+indexed, delta-capable event store: time-bucketed segment journals,
+`PATH` and `BUCKET_HOURS`, default 24) for events only. With
 no configuration at all, one SQLITE source at `./.pio_store/pio.db`
 holds everything, the JAX package's zero-config default, so that both
 packages run from one directory share one store.
@@ -35,7 +38,8 @@ def register_driver(type_name: str, client_factory: Callable,
 
 
 def _register_builtin_drivers() -> None:
-    from predictionio_tpu_torch.data.storage import memory, sqlite
+    from predictionio_tpu_torch.data.storage import (evlog, memory, pevlog,
+                                                     sqlite)
 
     register_driver("MEM", memory.MemStorageClient, {
         "Apps": memory.MemApps,
@@ -52,6 +56,12 @@ def _register_builtin_drivers() -> None:
         "EngineInstances": sqlite.SQLiteEngineInstances,
         "Models": sqlite.SQLiteModels,
         "Events": sqlite.SQLiteEvents,
+    })
+    register_driver("EVLOG", evlog.EvlogStorageClient, {
+        "Events": evlog.EvlogEvents,
+    })
+    register_driver("PEVLOG", pevlog.PevlogStorageClient, {
+        "Events": pevlog.PevlogEvents,
     })
 
 

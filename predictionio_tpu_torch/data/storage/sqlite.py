@@ -23,7 +23,7 @@ import threading
 import uuid
 from datetime import datetime
 from pathlib import Path
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 from predictionio_tpu_torch.data import integrity
 from predictionio_tpu_torch.data.event import (DataMap, Event, from_millis,
@@ -444,11 +444,34 @@ class SQLiteEvents(base.EventStore):
         pass
 
     def _bump_gen(self, table: str) -> None:
-        # the caller holds the lock and the write's transaction; the JAX
-        # package's prepared-data cache keys on this counter
+        # the caller holds the lock and the write's transaction
         self.c.conn.execute(
             "INSERT INTO events_ingest_gen (tbl, gen) VALUES (?, 1) "
             "ON CONFLICT(tbl) DO UPDATE SET gen = gen + 1", (table,))
+
+    def ingest_watermark(self, app_id: int,
+                         channel_id: Optional[int] = None
+                         ) -> Optional[Dict[str, int]]:
+        """The table's generation counter, bumped inside every write
+        transaction (either package's): the prepared-data cache's key.
+        It carries no offsets, so a delta scan raises
+        `DeltaInvalidated`."""
+        t = event_table_name(app_id, channel_id)
+        with self.c.lock:
+            row = self.c.conn.execute(
+                "SELECT gen FROM events_ingest_gen WHERE tbl=?",
+                (t,)).fetchone()
+        return {"gen": int(row[0]) if row else 0}
+
+    def ingest_cache_dir(self, app_id: int,
+                         channel_id: Optional[int] = None):
+        """`ingest_cache/<table>` beside a file-backed database (the JAX
+        package's place); None for an in-memory one."""
+        path = getattr(self.c, "path", None)
+        if not path or path == ":memory:":
+            return None
+        return str(Path(path).parent / "ingest_cache"
+                   / event_table_name(app_id, channel_id))
 
     def _insert(self, event: Event, app_id: int,
                 channel_id: Optional[int] = None) -> str:
@@ -542,7 +565,7 @@ class SQLiteEvents(base.EventStore):
                      target_entity_id: object = _UNSET,
                      properties=None,
                      value_spec=None, require_target: bool = True,
-                     since=None):
+                     since=None, upto=None):
         """Columnar scan in SQL: a projection of the five columns the
         row stream needs, with `find()`'s filter, in `find()`'s order
         (eventtime, id), so the first-seen interning gives the tables
@@ -559,7 +582,7 @@ class SQLiteEvents(base.EventStore):
             return super().scan_columns(
                 app_id, channel_id, properties=properties,
                 value_spec=value_spec, require_target=require_target,
-                since=since, **filt)
+                since=since, upto=upto, **filt)
         t = self._ensure(app_id, channel_id)
         clauses, params = _where(**filt)
         if require_target:

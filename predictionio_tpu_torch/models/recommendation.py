@@ -12,7 +12,10 @@ The port of `predictionio_tpu/models/recommendation.py` (parity target
   - predict = top-N with blacklist filter, empty result for unknown
     users (`ALSAlgorithm.scala:96-112`);
   - wire format: query `{"user": "1", "num": 4}` ->
-    `{"itemScores": [{"item": "i", "score": s}]}`.
+    `{"itemScores": [{"item": "i", "score": s}]}`;
+  - streaming fold-in (`ALSAlgorithm.fold_in`): the delta's touched
+    users re-solved against fixed item factors, then the touched items
+    against the new user factors, on the serving device.
 
 A deployment serves blackList queries through the warmed plan that
 `ops.topk_sharded.serve_plan` picks (single-device, sharded, tiered or
@@ -166,6 +169,41 @@ class ALSAlgorithm(Algorithm):
         if isinstance(plan, BucketedTopK):
             return plan.factors
         return model.item_factors
+
+    def fold_in(self, model: ALSModel, delta, fctx) -> Optional[ALSModel]:
+        """Streaming fold-in: closed-form ALS half-steps over the delta's
+        touched rows only: touched users re-solved against fixed item
+        factors, then touched items against the new user factors, with
+        the data source's semantics (rate -> rating, buy -> buy_rating,
+        the last rating of a pair wins). Untouched rows stay
+        bit-identical; None when the delta holds no rating of this
+        template. The periodic full retrain stays ground truth."""
+        from predictionio_tpu_torch.streaming.updaters import (
+            fold_als_items, fold_als_users)
+        p = self.params
+        buy_rating = float(fctx.ds_params.get("buy_rating", 4.0))
+        # touched sets under THIS template's events: a user touched only
+        # by a foreign event has no rating history, and folding it would
+        # zero a good row
+        rated = fctx.delta_columns(
+            entity_type="user", event_names=["rate", "buy"],
+            value_spec={"*": 1.0}, require_target=True)
+        if rated.n == 0:
+            return None
+        # the data source's read: rate -> its rating (dropped without
+        # one), buy -> buy_rating, the last rating of a pair wins
+        history = fctx.history_columns(
+            entity_type="user", event_names=["rate", "buy"],
+            value_spec={"rate": ("prop", "rating"), "buy": buy_rating},
+            require_target=True)
+        uf, users2, _ = fold_als_users(
+            history, model.users, model.items, model.user_factors,
+            model.item_factors, list(rated.entities), dedup_last_wins=True,
+            reg=p.lambda_)
+        yf, _ = fold_als_items(
+            history, users2, model.items, uf, model.item_factors,
+            list(rated.targets), dedup_last_wins=True, reg=p.lambda_)
+        return ALSModel(uf, yf, users2, model.items)
 
     def batch_predict(self, model: ALSModel,
                       queries: Sequence[Tuple[int, Query]]

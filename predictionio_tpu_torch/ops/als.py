@@ -29,8 +29,14 @@ explicit and Hu-Koren-Volinsky implicit feedback), single device.
      CUDA graph of the iteration (the counterpart of the JAX package's
      one compiled `fori_loop`) gains nothing measurable (PERF.md).
 
+Streaming fold-in (`fold_in_rows`) re-solves given rows against fixed
+opposite factors: one exact half-step through `_solve_bucket` (batched
+Cholesky at rank <= 16, CG from zero at larger ranks) on the device of
+the opposite factors, the rows bucketed by degree as training buckets
+them.
+
 Not ported yet: the sharded loop (`_run_als_sharded`, `_pack_by_owner`,
-`hbm_footprint`) and streaming fold-in (`fold_in_rows`).
+`hbm_footprint`).
 
 The model: `ALSModel` holds the factor matrices as tensors plus the id
 maps. The user factors live on the serving device. The item factors
@@ -772,6 +778,60 @@ class ALSModel:
                  item_factors=self.item_factors.cpu().numpy(),
                  user_ids=np.array(self.users.keys(), dtype=str),
                  item_ids=np.array(self.items.keys(), dtype=str))
+
+
+# per-row event cap of the fold-in (the newest are kept): bounds the
+# gathered slab
+_FOLD_HISTORY_CAP = 8192
+
+
+def fold_in_rows(opposite: "torch.Tensor | np.ndarray", histories, *,
+                 reg: float, implicit: bool = False, alpha: float = 1.0,
+                 device=None) -> torch.Tensor:
+    """Closed-form least-squares fold-in: re-solve factor rows against
+    FIXED opposite-side factors, one exact ALS half-step (projecting new
+    or updated users into a trained space without a retrain).
+    `histories` holds one `(opposite_ix, value)` array pair per row to
+    solve; returns [len(histories), rank] f32 rows on the device of the
+    solve: `device`, else that of `opposite` (a tensor), else cuda.
+
+    The rows are solved by `_solve_bucket`, with the ALS-WR `reg * n`
+    diagonal and, implicit, confidence c = 1 + alpha*|r| and the Gram of
+    all the opposite rows: a folded row equals that row's training solve
+    by the same solver given the same opposite factors. The rows are
+    bucketed by degree on the training's cap ladder (`_pack_side`), so a
+    long history pads only its own bucket. A history longer than
+    `_FOLD_HISTORY_CAP` keeps its newest events (such rows converge on
+    the next full retrain). A row with no history comes out zero. Only
+    the opposite rows the histories name cross to the solve's device
+    when `opposite` lies elsewhere (an item master in host RAM)."""
+    opp = torch.as_tensor(opposite, dtype=torch.float32)
+    dev = resolve_device(device if device is not None else
+                         (opp.device if isinstance(opposite, torch.Tensor)
+                          else None))
+    rank = opp.shape[1]
+    n_rows = len(histories)
+    out = torch.zeros((n_rows, rank), dtype=torch.float32, device=dev)
+    lens = [min(len(ix), _FOLD_HISTORY_CAP) for ix, _ in histories]
+    if not sum(lens):
+        return out
+    row_ix = np.repeat(np.arange(n_rows, dtype=np.int32), lens)
+    col_ix = np.concatenate([np.asarray(ix, np.int32)[len(ix) - n:]
+                             for (ix, _), n in zip(histories, lens)])
+    val = np.concatenate([np.asarray(v, np.float32)[len(v) - n:]
+                          for (_, v), n in zip(histories, lens)])
+    # the opposite rows the histories name, as a compact table on `dev`
+    used, local = np.unique(col_ix, return_inverse=True)
+    table = opp.index_select(0, torch.from_numpy(used.astype(np.int64)).to(
+        opp.device)).to(dev)
+    yty = (opp.T @ opp).to(dev) if implicit else None
+    side = _pack_side(row_ix, local.astype(np.int32), val, n_rows)
+    for rows, idx, v in device_slabs(side, torch.float32, dev):
+        rows = rows[:int((rows != _FILL_ROW).sum())].long()
+        sol = _solve_bucket(table, idx, v, reg, alpha, yty,
+                            implicit=implicit)
+        out.index_copy_(0, rows, sol[:rows.shape[0]])
+    return out
 
 
 def als_model_from_numpy(user_factors: np.ndarray, item_factors: np.ndarray,

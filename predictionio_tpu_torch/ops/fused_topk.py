@@ -82,8 +82,7 @@ def fused_topk_reference(vecs: torch.Tensor, factors: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the kernel, on any device:
     (scores [b, k] f32, ids + `id_base` [b, k] i32)."""
-    # exact fp32 product, as the kernel: no TF32 on CUDA
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # exact fp32 product, as the kernel: TF32 is off (resolve_device)
     scores = torch.matmul(vecs, factors.T)
     n_rows = factors.shape[0]
     ids = torch.arange(n_rows, device=scores.device)

@@ -10,9 +10,11 @@ gradient, one system per batch element, with exact fp32 matvecs: the
 JAX package's `matvec_precision` chose bf16 passes on the TPU and has no
 counterpart here.
 
-fp32 products on CUDA are exact only with TF32 off; `exact_fp32` turns
-it off around a solve and restores the caller's setting, so the solvers
-do not depend on what another path of the process set.
+fp32 products on CUDA are exact only with TF32 off. The flag is
+process-wide: `device.resolve_device` turns it off once, every entry
+point resolves its device, and no code of the port turns it back on, so
+a solve in one thread never changes it under a product in another.
+`exact_fp32` checks it around a solve and refuses to run with TF32 on.
 """
 
 from __future__ import annotations
@@ -25,14 +27,15 @@ import torch
 
 @contextlib.contextmanager
 def exact_fp32() -> Iterator[None]:
-    """fp32 matrix products without TF32 inside the block (CUDA's
-    cuBLAS may otherwise round their inputs to 10 mantissa bits)."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+    """A block of fp32 matrix products that must be exact: raises when
+    TF32 is on (CUDA's cuBLAS would round their inputs to 10 mantissa
+    bits), and leaves the flag as the caller set it."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "TF32 is on for fp32 matrix products; the port's solves need "
+            "exact fp32 (resolve_device turns it off; do not turn it on "
+            "in a process that trains or folds with the port)")
+    yield
 
 
 def _matvec(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -203,7 +203,7 @@ def _placement(device, *arrays) -> torch.device:
     resolved `device` (None = cuda, raising without it)."""
     for a in arrays:
         if isinstance(a, torch.Tensor):
-            return a.device
+            return resolve_device(a.device)
     return resolve_device(device)
 
 
@@ -261,7 +261,6 @@ def topk_scores(user_vecs: ArrayLike, item_factors: ArrayLike,
                  for a in (user_vecs, item_factors, mask))
     if on_dev or DISPATCH_POLICY.choose(cells) == "device":
         t0 = time.perf_counter()
-        torch.backends.cuda.matmul.allow_tf32 = False   # exact fp32
         scores = torch.matmul(
             torch.as_tensor(user_vecs, dtype=torch.float32, device=dev),
             torch.as_tensor(item_factors, dtype=torch.float32, device=dev).T)

@@ -10,13 +10,16 @@ micro-batcher that coalesces concurrent requests into device batches
                        -> {"itemScores": [{"item", "score"}]}
   GET  /               status JSON: the engine instance served, the
                        fused kernel's launch counts, the serving plans'
-                       kinds and their calls
+                       kinds and their calls, the refresher's ticks
 
 A deployment whose plan is tiered (`ops/topk_tiered.TieredTopK`, bare
 or inside a fleet slice) gets a `serving.paging.PageManager` thread for
-the server's lifetime. Tenancy, fleet, tracing, SLO and quality
-accounting, the selector wire and the binary frame are not ported yet
-(ROADMAP.md, Queue 1).
+the server's lifetime. With `refresh_interval_s` > 0 a
+`streaming.Refresher` thread keeps the deployment fresh: it folds new
+events into the models and publishes a new deployment under
+`_dep_lock` (`publish`); a request holds the deployment it started with.
+Tenancy, fleet, tracing, SLO and quality accounting, the selector wire
+and the binary frame are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -64,13 +67,15 @@ def to_jsonable(obj: Any) -> Any:
 
 
 class _Deployment:
-    """One loaded (algorithms, models, serving) set, the engine instance
-    it came from (None for a model in hand) and the deploy's timings."""
+    """One loaded (algorithms, models, serving) set with the engine and
+    the engine instance it came from (None for a model in hand: the
+    refresher's full rebuild needs both) and the deploy's timings."""
 
-    def __init__(self, algos, models, serving,
-                 instance_id: Optional[str] = None,
-                 timings: Optional[Dict[str, float]] = None):
-        self.instance_id = instance_id
+    def __init__(self, algos, models, serving, *, engine=None,
+                 instance=None, timings: Optional[Dict[str, float]] = None):
+        self.engine = engine
+        self.instance = instance
+        self.instance_id = instance.id if instance is not None else None
         self.timings = dict(timings or {})
         self.algos = list(algos)
         self.models = list(models)
@@ -233,12 +238,22 @@ class _HTTPServer(ThreadingHTTPServer):
 
 class PredictionServer:
     """`/queries.json` over one deployment (CreateServer.scala's
-    MasterActor + ServerActor). `port=0` binds an ephemeral port."""
+    MasterActor + ServerActor). `port=0` binds an ephemeral port. `ctx`
+    (the deploy's `RuntimeContext`: registry and device) serves the
+    refresher, which runs when `refresh_interval_s` > 0."""
 
     def __init__(self, deployment: _Deployment, *, host: str = "127.0.0.1",
                  port: int = 8000, batch_max: int = 64,
-                 window_s: float = 0.002):
+                 window_s: float = 0.002, ctx=None,
+                 refresh_interval_s: float = 0.0):
+        from predictionio_tpu_torch.core.runtime import RuntimeContext
         self.deployment = deployment
+        self._dep_lock = threading.Lock()
+        self.ctx = ctx if ctx is not None else RuntimeContext()
+        self._refresher = None
+        if refresh_interval_s > 0:
+            from predictionio_tpu_torch.streaming import Refresher
+            self._refresher = Refresher(self, refresh_interval_s)
         self.batcher = _MicroBatcher(window_s, batch_max)
         self._stats_lock = threading.Lock()
         self.request_count = 0
@@ -253,8 +268,8 @@ class PredictionServer:
         return self._httpd.server_address[1]
 
     def start(self) -> int:
-        """Serve in a background thread (and page tiered plans in
-        another); returns the bound port."""
+        """Serve in a background thread (page tiered plans and run the
+        refresher in others); returns the bound port."""
         plans = _tiered_plans(self.deployment)
         if plans:
             from predictionio_tpu_torch.serving.paging import PageManager
@@ -264,11 +279,15 @@ class PredictionServer:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="pio-torch-http", daemon=True)
         self._thread.start()
+        if self._refresher is not None:
+            self._refresher.start()
         return self.port
 
     def stop(self, timeout: float = 10.0) -> None:
-        """Drain accepted requests, then close the socket and stop the
-        page thread."""
+        """Stop the refresher, drain accepted requests, then close the
+        socket and stop the page thread."""
+        if self._refresher is not None:
+            self._refresher.stop()
         self.batcher.close(timeout)
         self._httpd.shutdown()
         self._httpd.server_close()
@@ -277,6 +296,20 @@ class PredictionServer:
         if self._pager is not None:
             self._pager.stop()
             self._pager = None
+
+    def publish(self, dep: _Deployment) -> None:
+        """Install `dep` as the deployment new requests go to."""
+        with self._dep_lock:
+            self.deployment = dep
+
+    def _refresh_deployment(self, dep: _Deployment,
+                            new_models: Sequence[Any]) -> _Deployment:
+        """A fold's publish step: the same engine, instance, algorithms
+        and serving with new models. The refresher swaps the device
+        factors first and publishes this after."""
+        return _Deployment(dep.algos, list(new_models), dep.serving,
+                           engine=dep.engine, instance=dep.instance,
+                           timings=dep.timings)
 
     def serve_query(self, payload: Any) -> Any:
         t0 = time.perf_counter()
@@ -316,6 +349,8 @@ class PredictionServer:
                     "shard_local_candidates": fused_topk.SHARD_LAUNCHES},
                 "batch_sizes": {str(k): v for k, v in
                                 sorted(self.batcher.batch_sizes().items())},
+                "refresh": (self._refresher.status()
+                            if self._refresher is not None else None),
                 **stats}
 
 

@@ -40,7 +40,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "data.integrity", "data.store", "data.storage.base",
                      "data.storage.columns", "data.storage.memory",
                      "data.storage.sqlite", "data.storage.registry",
-                     "ingest.pipeline", "core.persistence", "cli.ops"):
+                     "ingest.pipeline", "core.persistence", "cli.ops",
+                     "native", "native.eventlog", "data.storage.evlog",
+                     "data.storage.pevlog", "data.storage._scanworker",
+                     "streaming", "streaming.delta", "streaming.updaters",
+                     "streaming.refresher"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -49,6 +53,25 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "bad = sorted(n for n in sys.modules if n == 'jax' "
         "or n.startswith('jax.') or n == 'predictionio_tpu' "
         "or n.startswith('predictionio_tpu.'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_scan_worker_loads_neither_torch_nor_jax():
+    """PEVLOG's spawn-started scan workers import the worker module and
+    what it reaches when it runs: no torch, no device code, no jax."""
+    code = (
+        "import json, sys\n"
+        "from predictionio_tpu_torch.data.storage import _scanworker\n"
+        "from predictionio_tpu_torch.data.storage.columns import "
+        "BlockBuilder\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('torch', 'jax', 'predictionio_tpu') or n.startswith("
+        "'predictionio_tpu_torch.ops') or n == "
+        "'predictionio_tpu_torch.device')\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -5,7 +5,11 @@ rows: the template's `rate` + `buy` value spec, duplicate pairs (the
 last by event time wins, then the last inserted), events without a
 target, other event names, channels, entity and target types, time
 ranges and fixed `BiMap`s. Both packages read one sqlite file the JAX
-package wrote, and each its own MEM store holding the same events."""
+package wrote, one PEVLOG directory it wrote (serially and on the scan
+worker pool), and each its own MEM store holding the same events. Then
+the prepared-data cache: a blob either package wrote is a hit in the
+other, and its knobs (off, a directory, the newest-N bound) and a
+corrupt blob behave as in the JAX package."""
 
 from datetime import datetime, timedelta, timezone
 
@@ -253,3 +257,163 @@ def test_unknown_app_and_channel_raise():
         pstore.rating_columns(r, "shop", "web")
     empty = pstore.rating_columns(r, "shop", **TEMPLATE)
     assert empty.n == 0 and len(empty.users) == 0
+
+
+# -- PEVLOG ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pevlog_config(tmp_path_factory):
+    """SQLITE metadata and PEVLOG events, written by the JAX package."""
+    root = tmp_path_factory.mktemp("pevlog")
+    config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+              "PIO_STORAGE_SOURCES_DB_PATH": str(root / "pio.db"),
+              "PIO_STORAGE_SOURCES_PEV_TYPE": "PEVLOG",
+              "PIO_STORAGE_SOURCES_PEV_PATH": str(root / "pevlog"),
+              "PIO_STORAGE_SOURCES_PEV_BUCKET_HOURS": "1",
+              "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PEV"}
+    _fill(jst, jev, config).close()
+    return config
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_pevlog_rating_columns_are_bit_identical(pevlog_config, case,
+                                                 monkeypatch):
+    monkeypatch.setenv("PIO_INGEST_CACHE", "off")
+    got = _read("port", pst.StorageRegistry(pevlog_config), case)
+    want = _read("jax", jst.StorageRegistry(pevlog_config), case)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(SCANS))
+def test_pevlog_scan_equals_the_event_path_and_the_jax_scan(pevlog_config,
+                                                            case):
+    """PEVLOG's raw-frame scan gives the base adapter's columns over
+    `find()` and the JAX package's PEVLOG scan, row for row."""
+    kw = dict(SCANS[case])
+    want_channel = kw.pop("channel", False)
+    out = []
+    for mod in (pst, jst):
+        r = mod.StorageRegistry(pevlog_config)
+        app = r.get_meta_data_apps().get_by_name("shop").id
+        channel = (r.get_meta_data_channels().get_by_appid(app)[0].id
+                   if want_channel else None)
+        out.append((r.get_events(), app, channel))
+    (events, app, channel), (jevents, _, _) = out
+    got = events.scan_columns(app, channel, **kw)
+    for want in (pbase.EventStore.scan_columns(events, app, channel, **kw),
+                 jevents.scan_columns(app, channel, **kw)):
+        for f in ("entity_ix", "target_ix", "value", "t_us"):
+            x, y = getattr(got, f), getattr(want, f)
+            assert x.dtype == y.dtype and np.array_equal(x, y), f
+        assert (got.entities, got.targets) == (want.entities, want.targets)
+    assert got.n > 0
+
+
+def test_pevlog_scan_on_the_worker_pool_is_reused(pevlog_config,
+                                                  monkeypatch):
+    """`workers=2` decodes on a spawn-started pool: the same columns as
+    the serial scan, and one pool for both scans."""
+    from predictionio_tpu_torch.data.storage import pevlog as ppev
+    monkeypatch.setattr(ppev, "_SCAN_POOL", None)
+    monkeypatch.setattr(ppev, "_SCAN_POOL_PROCS", 0)
+    monkeypatch.setattr(ppev, "POOL_SPAWNS", 0)
+    r = pst.StorageRegistry(pevlog_config)
+    app = r.get_meta_data_apps().get_by_name("shop").id
+    try:
+        for _ in range(2):
+            events = pst.StorageRegistry(pevlog_config).get_events()
+            pooled = events.scan_columns(app, workers=2,
+                                         **SCANS["template"])
+            serial = events.scan_columns(app, workers=1,
+                                         **SCANS["template"])
+            for f in ("entity_ix", "target_ix", "value", "t_us"):
+                assert np.array_equal(getattr(pooled, f),
+                                      getattr(serial, f))
+        assert ppev.POOL_SPAWNS == 1 and ppev._SCAN_POOL_PROCS == 2
+    finally:
+        if ppev._SCAN_POOL is not None:
+            ppev._SCAN_POOL.shutdown(wait=True)
+
+
+# -- the prepared-data cache ----------------------------------------------------
+
+@pytest.fixture()
+def cached_sqlite(tmp_path, monkeypatch):
+    """A sqlite store the JAX package filled, caching on (default
+    directory: `ingest_cache/<table>` beside the database)."""
+    monkeypatch.delenv("PIO_INGEST_CACHE", raising=False)
+    monkeypatch.delenv("PIO_INGEST_CACHE_MAX", raising=False)
+    config = {"PIO_STORAGE_SOURCES_PIO_TYPE": "SQLITE",
+              "PIO_STORAGE_SOURCES_PIO_PATH": str(tmp_path / "pio.db")}
+    _fill(jst, jev, config).close()
+    from predictionio_tpu.ingest import pipeline as jpipe
+    from predictionio_tpu_torch.ingest import pipeline as ppipe
+    jpipe.take_phase_timings()
+    ppipe.take_phase_timings()
+    return config, tmp_path, {"jax": jpipe, "port": ppipe}
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sqlite_prepared_cache_is_shared_by_the_packages(cached_sqlite,
+                                                         writer):
+    config, root, pipes = cached_sqlite
+    other = "port" if writer == "jax" else "jax"
+    mods = {"jax": jst, "port": pst}
+    first = _read(writer, mods[writer].StorageRegistry(config), "template")
+    assert pipes[writer].take_phase_timings()["ingest_cache_misses"] == 1
+    assert len(list((root / "ingest_cache").rglob("*.pioc"))) == 1
+    r = mods[other].StorageRegistry(config)
+    second = _read(other, r, "template")
+    tm = pipes[other].take_phase_timings()
+    assert tm.get("ingest_cache_hits") == 1 and "ingest_scan_s" not in tm
+    _same(first, second)
+    ev = jev if other == "jax" else pev
+    app = r.get_meta_data_apps().get_by_name("shop").id
+    r.get_events().insert(ev.Event("rate", "user", "u1", "item", "i1",
+                                   ev.DataMap({"rating": 1.0}), T0), app)
+    third = _read(other, r, "template")
+    assert pipes[other].take_phase_timings()["ingest_cache_misses"] == 1
+    assert third.rating.tolist() != first.rating.tolist()
+
+
+@pytest.mark.parametrize("knob", ["off", "directory", "max_entries",
+                                  "corrupt_blob", "mem_store"])
+def test_prepared_cache_knobs(cached_sqlite, knob, monkeypatch, tmp_path):
+    config, root, pipes = cached_sqlite
+    ppipe = pipes["port"]
+    registry = pst.StorageRegistry(config)
+    want = _read("port", registry, "template")   # a miss: the blob
+    ppipe.take_phase_timings()
+    blobs = list((root / "ingest_cache").rglob("*.pioc"))
+    assert len(blobs) == 1
+    if knob == "off":
+        monkeypatch.setenv("PIO_INGEST_CACHE", "off")
+        _same(_read("port", registry, "template"), want)
+        tm = ppipe.take_phase_timings()
+        assert "ingest_cache_hits" not in tm and "ingest_scan_s" in tm
+    elif knob == "directory":
+        where = tmp_path / "elsewhere"
+        monkeypatch.setenv("PIO_INGEST_CACHE", str(where))
+        _same(_read("port", registry, "template"), want)
+        assert len(list(where.glob("*.pioc"))) == 1
+        _same(_read("port", registry, "template"), want)
+        tm = ppipe.take_phase_timings()
+        assert (tm["ingest_cache_misses"], tm["ingest_cache_hits"]) == (1, 1)
+    elif knob == "max_entries":
+        monkeypatch.setenv("PIO_INGEST_CACHE_MAX", "2")
+        for case in ("rate_keep_duplicates", "every_event_counts_one",
+                     "types"):
+            _read("port", registry, case)
+        assert len(list((root / "ingest_cache").rglob("*.pioc"))) == 2
+    elif knob == "corrupt_blob":
+        raw = blobs[0].read_bytes()
+        blobs[0].write_bytes(raw[:-3] + b"XYZ")
+        _same(_read("port", registry, "template"), want)
+        assert ppipe.take_phase_timings()["ingest_cache_misses"] == 1
+        _same(_read("port", registry, "template"), want)
+        assert ppipe.take_phase_timings()["ingest_cache_hits"] == 1
+    else:
+        mem = {"PIO_STORAGE_SOURCES_M_TYPE": "MEM"}
+        _read("port", _fill(pst, pev, mem), "template")
+        tm = ppipe.take_phase_timings()
+        assert "ingest_cache_misses" not in tm and "ingest_scan_s" in tm

@@ -146,11 +146,97 @@ def test_pcg_stays_put_after_convergence():
 
 
 def test_exact_fp32_restores_the_callers_setting():
+    """`exact_fp32` never changes the flag: with TF32 on it refuses to
+    run and the caller's setting stays; with it off the block runs."""
     saved = torch.backends.cuda.matmul.allow_tf32
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="TF32 is on"):
+            with plin.exact_fp32():
+                pass
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        torch.backends.cuda.matmul.allow_tf32 = False
         with plin.exact_fp32():
             assert torch.backends.cuda.matmul.allow_tf32 is False
-        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.backends.cuda.matmul.allow_tf32 is False
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_tf32_is_set_off_where_the_device_is_resolved():
+    """A process that had TF32 on: resolving a device turns it off, and
+    neither a generic `topk_scores` product nor a solve turns it back
+    on."""
+    from predictionio_tpu_torch import device as pdev
+    from predictionio_tpu_torch.ops import topk as pt
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        assert pdev.resolve_device("cpu").type == "cpu"
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        x = torch.ones((2, 3))
+        pt.topk_scores(x, torch.ones((5, 3)), torch.ones((2, 5), dtype=bool),
+                       k=2)
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        a, b = spd_batch(2, 4)
+        port_spd(a, b)
+        plin.pcg_solve(torch.from_numpy(a), torch.from_numpy(b), iters=4)
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_tf32_stays_off_with_a_solve_and_a_product_in_two_threads(
+        monkeypatch):
+    """One thread solves (CG and Cholesky) while another runs the
+    generic product, in a process that had TF32 on before its first
+    entry point: the flag, sampled inside the solve's matvecs and around
+    every product, is never on."""
+    import sys
+    import threading
+
+    from predictionio_tpu_torch import device as pdev
+    from predictionio_tpu_torch.ops import topk as pt
+    seen = []
+    matvec = plin._matvec
+
+    def sampling_matvec(a, v):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return matvec(a, v)
+
+    monkeypatch.setattr(plin, "_matvec", sampling_matvec)
+    a, b = spd_batch(4, 20)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    x, items = torch.ones((3, 8)), torch.ones((40, 8))
+    mask = torch.ones((3, 40), dtype=bool)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    interval = sys.getswitchinterval()
+    stop = threading.Event()
+
+    def solver():
+        while not stop.is_set():
+            plin.pcg_solve(ta, tb, iters=3)
+            plin.spd_solve(ta, tb)
+
+    def product():
+        for _ in range(300):
+            seen.append(torch.backends.cuda.matmul.allow_tf32)
+            pt.topk_scores(x, items, mask, k=3)
+            seen.append(torch.backends.cuda.matmul.allow_tf32)
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        pdev.resolve_device("cpu")
+        sys.setswitchinterval(1e-5)
+        threads = [threading.Thread(target=solver, name="solve"),
+                   threading.Thread(target=product, name="product")]
+        threads[0].start()
+        threads[1].start()
+        threads[1].join(60)
+        stop.set()
+        threads[0].join(60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert len(seen) > 600 and not any(seen)

@@ -1,0 +1,760 @@
+"""The port's PEVLOG driver (`predictionio_tpu_torch.data.storage.
+pevlog`): the JAX package's PEVLOG cases run on the port (segment
+pruning, sidecar indexes and their legacy forms, Bloom growth, index
+rebuilds after a crash or a foreign append, tombstones, external ids,
+the id-encoded fast paths), then the two packages on one directory: a
+PEVLOG directory either package wrote gives the same `find` answers in
+the other and a bit-identical `rating_columns`, its sidecar indexes
+loaded, not rebuilt; a delta scan and a prepared-data cache blob agree
+across the packages too."""
+
+from datetime import datetime, timedelta, timezone
+
+import numpy as np
+import pytest
+
+from predictionio_tpu_torch.data.event import DataMap, Event
+from predictionio_tpu_torch.data.storage.pevlog import (
+    PevlogEvents, PevlogStorageClient,
+)
+
+pytestmark = pytest.mark.torch
+
+T0 = datetime(2022, 1, 1, tzinfo=timezone.utc)
+
+
+@pytest.fixture
+def store(tmp_path):
+    client = PevlogStorageClient({"PATH": str(tmp_path), "BUCKET_HOURS": 24})
+    ev = PevlogEvents(client)
+    ev.init(1)
+    return ev
+
+
+def _mk(day: int, user: str, name: str = "view") -> Event:
+    return Event(event=name, entity_type="user", entity_id=user,
+                 properties=DataMap({}), event_time=T0 + timedelta(days=day))
+
+
+def _to_legacy(obj: dict, drop=()) -> dict:
+    """Convert a current (compressed-key) sidecar dict to the historical
+    raw format, minus `drop`ped keys — simulating sidecars written by
+    older versions."""
+    import zlib
+    from base64 import b64decode, b64encode
+    out = dict(obj)
+    for zk, k in (("zbloom", "bloom"), ("ztbloom", "tbloom"),
+                  ("zpbloom", "pbloom")):
+        if zk in out:
+            out[k] = b64encode(zlib.decompress(b64decode(out.pop(zk)))).decode()
+    for k in drop:
+        out.pop(k, None)
+    return out
+
+
+class TestPruning:
+    def test_time_range_scans_only_overlapping_segments(self, store):
+        # 30 daily buckets, 4 events each
+        store.insert_batch(
+            [_mk(d, f"u{n}") for d in range(30) for n in range(4)], 1)
+        store.c.stats.update(segments_pruned=0, segments_scanned=0)
+        out = list(store.find(
+            1, start_time=T0 + timedelta(days=10),
+            until_time=T0 + timedelta(days=12)))
+        assert len(out) == 8
+        assert store.c.stats["segments_scanned"] <= 3
+        assert store.c.stats["segments_pruned"] >= 27
+
+    def test_entity_bloom_prunes_segments(self, store):
+        # each day a different user: an entity query touches ~1 segment
+        store.insert_batch([_mk(d, f"only-u{d}") for d in range(25)], 1)
+        store.c.stats.update(segments_pruned=0, segments_scanned=0)
+        out = list(store.find(1, entity_type="user", entity_id="only-u7"))
+        assert [e.entity_id for e in out] == ["only-u7"]
+        assert store.c.stats["segments_scanned"] <= 2  # bloom fp slack
+        assert store.c.stats["segments_pruned"] >= 23
+
+    def test_event_name_prunes_segments(self, store):
+        # "buy" events exist on one day only: an event-name find scans
+        # ~1 segment (the ES query-DSL pushdown role)
+        evs = [_mk(d, f"u{d}") for d in range(20)]
+        evs.append(_mk(7, "buyer", name="buy"))
+        store.insert_batch(evs, 1)
+        store.c.stats.update(segments_pruned=0, segments_scanned=0)
+        out = list(store.find(1, event_names=["buy"]))
+        assert [e.entity_id for e in out] == ["buyer"]
+        assert store.c.stats["segments_scanned"] == 1
+        assert store.c.stats["segments_pruned"] == 19
+
+    def test_target_entity_prunes_segments(self, store):
+        from predictionio_tpu_torch.data.event import DataMap, Event
+        evs = [_mk(d, f"u{d}") for d in range(20)]
+        evs.append(Event(
+            event="view", entity_type="user", entity_id="u5",
+            target_entity_type="item", target_entity_id="rare-item",
+            properties=DataMap({}),
+            event_time=T0 + timedelta(days=13)))
+        store.insert_batch(evs, 1)
+        store.c.stats.update(segments_pruned=0, segments_scanned=0)
+        out = list(store.find(1, target_entity_type="item",
+                              target_entity_id="rare-item"))
+        assert len(out) == 1
+        assert store.c.stats["segments_scanned"] <= 2  # bloom fp slack
+        assert store.c.stats["segments_pruned"] >= 18
+
+    def test_legacy_sidecar_without_field_indexes_never_prunes(
+            self, store, tmp_path):
+        # a sidecar written before the field indexes existed: absent
+        # evidence must mean "scan", not "prune"
+        import json as _json
+        store.insert_batch([_mk(0, "u0", name="buy")], 1)
+        store.close()
+        [idx] = tmp_path.glob("app_1/seg_*.idx")
+        obj = _to_legacy(_json.loads(idx.read_text()),
+                         drop=("events", "tbloom", "pbloom"))
+        idx.write_text(_json.dumps(obj))
+        ev2 = PevlogEvents(PevlogStorageClient({"PATH": str(tmp_path),
+                                                "BUCKET_HOURS": 24}))
+        assert [e.event for e in ev2.find(1, event_names=["buy"])] \
+            == ["buy"]
+        out = list(ev2.find(1, target_entity_type="t",
+                            target_entity_id="x"))
+        assert out == []    # matches nothing, but was scanned not pruned
+        assert ev2.c.stats["segments_scanned"] >= 2
+
+    def test_property_value_prunes_segments(self, store):
+        # the ES query-DSL pushdown (ESLEvents.scala:308): a property-
+        # value find must scan FEWER segments than a time-unbounded scan
+        # — only the segment whose property Bloom may contain the pair
+        from predictionio_tpu_torch.data.event import DataMap, Event
+        evs = [_mk(d, f"u{d}") for d in range(20)]
+        evs.append(Event(
+            event="$set", entity_type="item", entity_id="i1",
+            properties=DataMap({"category": "books"}),
+            event_time=T0 + timedelta(days=7)))
+        store.insert_batch(evs, 1)
+        store.c.stats.update(segments_pruned=0, segments_scanned=0)
+        out = list(store.find(1, properties={"category": "books"}))
+        assert [e.entity_id for e in out] == ["i1"]
+        assert store.c.stats["segments_scanned"] <= 2  # bloom fp slack
+        assert store.c.stats["segments_pruned"] >= 18
+        # a pair that exists nowhere prunes everything
+        store.c.stats.update(segments_pruned=0, segments_scanned=0)
+        assert list(store.find(1, properties={"category": "absent"})) == []
+        assert store.c.stats["segments_scanned"] <= 1
+
+    def test_control_characters_in_strings_survive_roundtrip(self, store):
+        # regression: the fast JSON literal path must not embed raw
+        # control characters (a '$'-anchored regex matched before a
+        # trailing newline, corrupting the segment forever)
+        from predictionio_tpu_torch.data.event import DataMap, Event
+        tricky = ["u1\n", "a\tb", 'say "hi"', "back\\slash", "плюс"]
+        ids = store.insert_batch(
+            [Event(event="view", entity_type="user", entity_id=s,
+                   properties=DataMap({}), event_time=T0)
+             for s in tricky], 1)
+        got = sorted(e.entity_id for e in store.find(1))
+        assert got == sorted(tricky)
+        # fresh client: the on-disk frames decode too
+        ev2 = PevlogEvents(PevlogStorageClient(
+            {"PATH": str(store.c.base_dir), "BUCKET_HOURS": 24}))
+        assert sorted(e.entity_id for e in ev2.find(1)) == sorted(tricky)
+        assert ev2.get(ids[0], 1).entity_id == "u1\n"
+
+    def test_property_filter_numeric_type_insensitive(self, store):
+        # regression: 10 == 10.0 == True's 1 under the post-filter's ==,
+        # so the Bloom key must not distinguish them (a typed key falsely
+        # PRUNED the matching segment on this driver only)
+        from predictionio_tpu_torch.data.event import DataMap, Event
+        store.insert_batch([Event(
+            event="$set", entity_type="item", entity_id="i1",
+            properties=DataMap({"price": 10, "flag": True,
+                                "mix": [1, 2.5]}),
+            event_time=T0)], 1)
+        assert [e.entity_id for e in store.find(
+            1, properties={"price": 10.0})] == ["i1"]
+        assert [e.entity_id for e in store.find(
+            1, properties={"flag": 1})] == ["i1"]
+        assert [e.entity_id for e in store.find(
+            1, properties={"mix": [1.0, 2.5]})] == ["i1"]
+
+    def test_property_pruning_survives_sidecar_roundtrip(
+            self, store, tmp_path):
+        from predictionio_tpu_torch.data.event import DataMap, Event
+        store.insert_batch([
+            _mk(0, "u0"),
+            Event(event="$set", entity_type="item", entity_id="i1",
+                  properties=DataMap({"k": [1, {"a": 2}]}),
+                  event_time=T0 + timedelta(days=3))], 1)
+        store.close()
+        ev2 = PevlogEvents(PevlogStorageClient({"PATH": str(tmp_path),
+                                                "BUCKET_HOURS": 24}))
+        out = list(ev2.find(1, properties={"k": [1, {"a": 2}]}))
+        assert [e.entity_id for e in out] == ["i1"]
+
+    def test_pre_property_sidecar_never_prunes_then_heals(
+            self, store, tmp_path):
+        # sidecars written before the property Bloom existed must scan
+        import json as _json
+        from predictionio_tpu_torch.data.event import DataMap, Event
+        store.insert_batch([Event(
+            event="$set", entity_type="item", entity_id="i1",
+            properties=DataMap({"c": "x"}), event_time=T0)], 1)
+        store.close()
+        [idx] = tmp_path.glob("app_1/seg_*.idx")
+        obj = _to_legacy(_json.loads(idx.read_text()), drop=("pbloom",))
+        idx.write_text(_json.dumps(obj))
+        ev2 = PevlogEvents(PevlogStorageClient({"PATH": str(tmp_path),
+                                                "BUCKET_HOURS": 24}))
+        out = list(ev2.find(1, properties={"c": "x"}))
+        assert [e.entity_id for e in out] == ["i1"]
+
+    def test_legacy_sidecar_appends_never_poison_name_pruning(
+            self, store, tmp_path):
+        # upgrade bug regression: a legacy sidecar (no 'events' key)
+        # loads with an empty name set; an append then makes the set
+        # non-empty but INCOMPLETE — it must not become pruning evidence
+        # (queries naming only pre-upgrade events would silently drop),
+        # and the partial set must not be persisted as if exhaustive
+        import json as _json
+        store.insert_batch([_mk(0, "u0", name="view")], 1)
+        store.close()
+        [idx] = tmp_path.glob("app_1/seg_*.idx")
+        obj = _to_legacy(_json.loads(idx.read_text()), drop=("events",))
+        idx.write_text(_json.dumps(obj))
+        ev2 = PevlogEvents(PevlogStorageClient({"PATH": str(tmp_path),
+                                                "BUCKET_HOURS": 24}))
+        ev2.insert_batch([_mk(0, "u1", name="buy")], 1)
+        assert [e.entity_id for e in ev2.find(1, event_names=["view"])] \
+            == ["u0"]
+        ev2.close()   # persists the sidecar: partial set must be omitted
+        obj = _json.loads(idx.read_text())
+        assert "events" not in obj or set(obj["events"]) >= {"view", "buy"}
+        ev3 = PevlogEvents(PevlogStorageClient({"PATH": str(tmp_path),
+                                                "BUCKET_HOURS": 24}))
+        assert [e.entity_id for e in ev3.find(1, event_names=["view"])] \
+            == ["u0"]
+
+    def test_legacy_sidecar_heals_on_bloom_growth(self, store, tmp_path):
+        # with_grown_bloom replays the full segment: the rebuilt index
+        # has a complete name set and may prune again
+        import json as _json
+        from predictionio_tpu_torch.data.storage.pevlog import _SegmentIndex
+        store.insert_batch([_mk(0, "u0", name="view")], 1)
+        store.close()
+        [idx] = tmp_path.glob("app_1/seg_*.idx")
+        obj = _to_legacy(_json.loads(idx.read_text()), drop=("events",))
+        legacy = _SegmentIndex.load(obj)
+        assert legacy.names_incomplete
+        healed = legacy.with_grown_bloom([_mk(0, "u0", name="view")])
+        assert not healed.names_incomplete
+        assert healed.event_names == {"view"}
+        assert not healed.may_contain_event(["buy"])
+
+    def test_stale_sidecar_extends_over_tail_without_full_replay(
+            self, store, tmp_path):
+        # crash-restart path: a sidecar covering a PREFIX of the journal
+        # is caught up by decoding only the tail — and the extended
+        # index still prunes/answers correctly
+        store.insert_batch([_mk(0, f"u{n}") for n in range(300)], 1)
+        store.close()                      # sidecar covers 300 events
+        store.insert_batch([_mk(0, "tail-user", name="tailbuy")], 1)
+        # simulate the crash: drop the in-memory index so the persisted
+        # (now stale) sidecar is what a fresh client sees
+        ev2 = PevlogEvents(PevlogStorageClient({"PATH": str(tmp_path),
+                                                "BUCKET_HOURS": 24}))
+        out = list(ev2.find(1, event_names=["tailbuy"]))
+        assert [e.entity_id for e in out] == ["tail-user"]
+        [seg] = tmp_path.glob("app_1/seg_*.log")
+        ix = ev2._index(seg)
+        assert ix.count == 301
+        assert ix.mem_size == seg.stat().st_size
+        # the extension persisted: a third client loads it clean
+        ev3 = PevlogEvents(PevlogStorageClient({"PATH": str(tmp_path),
+                                                "BUCKET_HOURS": 24}))
+        ix3 = ev3._index(seg)
+        assert ix3.synced == seg.stat().st_size
+        assert "tailbuy" in ix3.event_names
+
+    def test_full_scan_still_correct(self, store):
+        store.insert_batch(
+            [_mk(d, f"u{d % 3}") for d in range(10)], 1)
+        assert len(list(store.find(1))) == 10
+
+
+class TestBloomGrowth:
+    def test_filter_grows_instead_of_saturating(self):
+        from predictionio_tpu_torch.data.storage.pevlog import _SegmentIndex
+        ix = _SegmentIndex(bits=64)
+        evs = [_mk(0, f"user-{n}").with_id(f"e{n}") for n in range(200)]
+        for e in evs:
+            ix.add(e)
+        assert ix.bloom_saturated        # tiny filter saturated
+        old = ix
+        ix = ix.with_grown_bloom(evs)
+        assert old.bits == 64            # original untouched (lock-free
+        assert old.filled > 0            # readers keep a valid filter)
+        assert ix.bits >= 200 * 16       # resized from entity count
+        assert ix.filled * 3 <= ix.bits  # back under the fill bound
+        assert all(ix.may_contain("user", f"user-{n}") for n in range(200))
+        fp = sum(ix.may_contain("user", f"absent-{n}") for n in range(500))
+        assert fp < 50                   # pruning works again
+
+    def test_sidecar_roundtrip_preserves_bits(self):
+        import json as _json
+        from predictionio_tpu_torch.data.storage.pevlog import _SegmentIndex
+        ix = _SegmentIndex(bits=256)
+        ix.add(_mk(0, "a"))
+        ix.mem_size = 123
+        back = _SegmentIndex.load(_json.loads(_json.dumps(ix.dump())))
+        assert back.bits == 256
+        assert back.filled == ix.filled
+        assert back.may_contain("user", "a")
+
+    def test_entity_pruning_survives_large_segments(self, store):
+        # one daily segment with many distinct entities (past the old
+        # fixed filter's saturation point is too slow for unit tests;
+        # this asserts growth triggers on the insert path at all)
+        store.insert_batch(
+            [_mk(0, f"bulk-{n}") for n in range(12000)], 1)
+        seg = next(iter(store.c.index_cache.values()))
+        assert seg.filled * 3 <= seg.bits
+
+
+class TestDurability:
+    def test_index_rebuilds_after_sidecar_loss(self, store, tmp_path):
+        store.insert_batch([_mk(d, f"u{d}") for d in range(5)], 1)
+        store.close()   # flush sidecars
+        for idx in tmp_path.glob("app_1/seg_*.idx"):
+            idx.unlink()
+        # fresh client: indexes rebuild from the journals
+        ev2 = PevlogEvents(PevlogStorageClient({"PATH": str(tmp_path),
+                                                "BUCKET_HOURS": 24}))
+        out = list(ev2.find(1, entity_type="user", entity_id="u3"))
+        assert [e.entity_id for e in out] == ["u3"]
+
+    def test_stale_sidecar_is_rebuilt(self, store, tmp_path):
+        ids = store.insert_batch([_mk(0, "a"), _mk(0, "b")], 1)
+        store.close()
+        # foreign append bypassing the index: stale sidecar
+        from predictionio_tpu_torch.data.storage.evlog import _event_to_payload
+        from predictionio_tpu_torch.native.eventlog import EventLog
+        seg = next(tmp_path.glob("app_1/seg_*.log"))
+        EventLog(str(seg)).append(
+            _event_to_payload(_mk(0, "foreign").with_id("x-y")))
+        ev2 = PevlogEvents(PevlogStorageClient({"PATH": str(tmp_path),
+                                                "BUCKET_HOURS": 24}))
+        out = list(ev2.find(1, entity_type="user", entity_id="foreign"))
+        assert len(out) == 1
+
+    def test_delete_via_tombstone_and_get_fast_path(self, store):
+        [eid] = store.insert_batch([_mk(3, "u")], 1)
+        assert eid.startswith(f"{store._bucket_of(_mk(3, 'u')):016x}-")
+        assert store.get(eid, 1) is not None
+        assert store.delete(eid, 1)
+        assert store.get(eid, 1) is None
+        assert not store.delete(eid, 1)
+        assert list(store.find(1)) == []
+
+    def test_duplicate_id_rejected(self, store):
+        from predictionio_tpu_torch.data.storage.base import StorageWriteError
+        e = _mk(1, "u").with_id("fixed-id")
+        store.insert(e, 1)
+        with pytest.raises(StorageWriteError):
+            store.insert(e, 1)
+
+    def test_duplicate_id_within_batch_rejected(self, store):
+        from predictionio_tpu_torch.data.storage.base import StorageWriteError
+        with pytest.raises(StorageWriteError):
+            store.insert_batch([_mk(1, "a").with_id("same"),
+                                _mk(1, "b").with_id("same")], 1)
+
+    def test_hex_lookalike_external_id_get_delete(self, store):
+        # a standard UUID's head parses as hex: the bucket fast path
+        # misses and must fall back to a full scan
+        eid = "550e8400-e29b-41d4-a716-446655440000"
+        store.insert(_mk(2, "u").with_id(eid), 1)
+        assert store.get(eid, 1) is not None
+        assert store.delete(eid, 1)
+        assert store.get(eid, 1) is None
+
+    def test_duplicate_external_id_across_buckets_rejected(self, store):
+        # same external id, event times in different day buckets: the
+        # ext-index makes the cross-segment dup visible (EVLOG parity)
+        from predictionio_tpu_torch.data.storage.base import StorageWriteError
+        store.insert(_mk(1, "u").with_id("X"), 1)
+        with pytest.raises(StorageWriteError):
+            store.insert(_mk(2, "u").with_id("X"), 1)
+
+    def test_delete_then_reinsert_same_id(self, store):
+        # EVLOG allows delete-then-reinsert; the timed tombstone keeps
+        # the OLD frame dead while the new frame is live
+        from predictionio_tpu_torch.data.storage.base import StorageWriteError
+        store.insert(_mk(1, "old").with_id("E"), 1)
+        assert store.delete("E", 1)
+        store.insert(_mk(2, "new").with_id("E"), 1)   # different bucket
+        got = store.get("E", 1)
+        assert got is not None and got.entity_id == "new"
+        out = [e.entity_id for e in store.find(1)]
+        assert out == ["new"]   # stale day-1 frame stays hidden
+        # and the resurrected id is a duplicate again
+        with pytest.raises(StorageWriteError):
+            store.insert(_mk(3, "x").with_id("E"), 1)
+        # ... until deleted again
+        assert store.delete("E", 1)
+        assert store.get("E", 1) is None
+
+    def test_concurrent_writer_append_forces_index_rebuild(self, store,
+                                                           tmp_path):
+        # a flock'd foreign writer interleaves between this store's index
+        # snapshot and its append: coverage comes from append offsets, a
+        # mismatch rebuilds, and the foreign frames stay findable
+        from predictionio_tpu_torch.data.storage.evlog import _event_to_payload
+        from predictionio_tpu_torch.native.eventlog import EventLog
+        store.insert(_mk(0, "mine-1"), 1)          # index now cached
+        seg = next(tmp_path.glob("app_1/seg_*.log"))
+        EventLog(str(seg)).append(
+            _event_to_payload(_mk(0, "foreign").with_id("f-1")))
+        store.insert(_mk(0, "mine-2"), 1)          # offset mismatch path
+        names = sorted(e.entity_id for e in store.find(
+            1, start_time=T0, until_time=T0 + timedelta(days=1)))
+        assert names == ["foreign", "mine-1", "mine-2"]
+        ix = store._index(seg)
+        assert ix.mem_size == seg.stat().st_size
+
+    def test_get_missing_generated_id_no_full_scan(self, store,
+                                                   monkeypatch):
+        # the fast-path miss on a generated-shape id is authoritative:
+        # no per-segment replay sweep at catalog scale
+        store.insert_batch([_mk(d, f"u{d}") for d in range(20)], 1)
+        calls = []
+        real = store._replay_segment
+
+        def spy(seg):
+            calls.append(str(seg))
+            return real(seg)
+        monkeypatch.setattr(store, "_replay_segment", spy)
+        missing = f"{store._bucket_of(_mk(5, 'u')):016x}-" + "ab" * 16
+        assert store.get(missing, 1) is None
+        assert len(calls) <= 1   # only the prefix segment
+
+    def test_incremental_tail_replay(self, store, monkeypatch):
+        # append-then-find must decode only the journal tail, not the
+        # whole segment (bulk imports would otherwise go quadratic)
+        store.insert_batch([_mk(0, f"w{n}") for n in range(50)], 1)
+        assert len(list(store.find(1))) == 50
+        from predictionio_tpu_torch.native import eventlog as el
+        starts = []
+        real = el.EventLog.scan_from
+
+        def spy(log, start):
+            starts.append((log.path, start))
+            return real(log, start)
+        monkeypatch.setattr(el.EventLog, "scan_from", spy)
+        store.insert_batch([_mk(0, f"x{n}") for n in range(5)], 1)
+        assert len(list(store.find(1))) == 55
+        seg_scans = [s for p, s in starts if "seg_" in p]
+        assert seg_scans and all(s > 0 for s in seg_scans)
+
+    def test_legacy_partition_without_ext_log_full_scans(self, store,
+                                                         tmp_path):
+        # a partition written before external-id recording: fast-path
+        # misses are NOT authoritative there
+        from predictionio_tpu_torch.data.storage.evlog import _event_to_payload
+        from predictionio_tpu_torch.native.eventlog import EventLog
+        part = tmp_path / "app_7"
+        part.mkdir()
+        # a generated-shape id whose prefix bucket does NOT match where
+        # the event physically lives (e.g. exported from a store with
+        # different BUCKET_HOURS)
+        eid = f"{0:016x}-" + "cd" * 16
+        seg = part / f"seg_{store._bucket_of(_mk(9, 'x')):016x}.log"
+        EventLog(str(seg)).append(
+            _event_to_payload(_mk(9, "legacy").with_id(eid)))
+        got = store.get(eid, 7)
+        assert got is not None and got.entity_id == "legacy"
+        assert store.delete(eid, 7)
+        assert store.get(eid, 7) is None
+
+    def test_legacy_partition_upgrade_backfills_ext_index(self, store,
+                                                          tmp_path):
+        # first write to a legacy partition must backfill the ext index
+        # (not just create the marker), or out-of-bucket ids would
+        # become invisible the moment the marker exists
+        from predictionio_tpu_torch.data.storage.base import StorageWriteError
+        from predictionio_tpu_torch.data.storage.evlog import _event_to_payload
+        from predictionio_tpu_torch.native.eventlog import EventLog
+        part = tmp_path / "app_8"
+        part.mkdir()
+        eid = f"{0:016x}-" + "ef" * 16   # prefix bucket 0, lives day-9
+        seg = part / f"seg_{store._bucket_of(_mk(9, 'x')):016x}.log"
+        EventLog(str(seg)).append(
+            _event_to_payload(_mk(9, "old").with_id(eid)))
+        store.insert(_mk(1, "new"), 8)   # triggers the upgrade
+        assert (part / "external_ids.log").exists()
+        got = store.get(eid, 8)          # via backfilled ext index
+        assert got is not None and got.entity_id == "old"
+        # cross-bucket dup detection covers the legacy frame too
+        with pytest.raises(StorageWriteError):
+            store.insert(_mk(3, "dup").with_id(eid), 8)
+        assert store.delete(eid, 8)
+
+    def test_legacy_untimed_tombstone_refuses_reinsert(self, store,
+                                                       tmp_path):
+        # a tombstones.log written before tombstones carried times:
+        # reinserting must fail cleanly, not overflow datetime
+        import json as _json
+        from predictionio_tpu_torch.data.storage.base import StorageWriteError
+        from predictionio_tpu_torch.native.eventlog import EventLog
+        store.insert(_mk(1, "u").with_id("L"), 1)
+        EventLog(str(tmp_path / "app_1" / "tombstones.log")).append(
+            _json.dumps({"$tombstone": "L"}).encode())
+        assert store.get("L", 1) is None      # legacy tombstone hides it
+        with pytest.raises(StorageWriteError):
+            store.insert(_mk(2, "u").with_id("L"), 1)
+
+    def test_append_many_returns_contiguous_range(self, tmp_path):
+        from predictionio_tpu_torch.native.eventlog import (
+            EventLog, framed_size,
+        )
+        log = EventLog(str(tmp_path / "j.log"))
+        payloads = [b"abc", b"defgh"]
+        start, end = log.append_many(payloads)
+        assert start == 0 and end - start == framed_size(payloads)
+        start2, end2 = log.append_many([b"x"])
+        assert start2 == end
+        assert list(log.payloads()) == [b"abc", b"defgh", b"x"]
+
+    def test_migrated_evlog_journal_with_tombstones(self, store, tmp_path):
+        # an evlog-format journal (incl. a tombstone frame) dropped into
+        # a segment must replay without error
+        import json as _json
+        from predictionio_tpu_torch.data.storage.evlog import _event_to_payload
+        from predictionio_tpu_torch.native.eventlog import EventLog
+        part = tmp_path / "app_1"
+        seg = part / f"seg_{store._bucket_of(_mk(0, 'x')):016x}.log"
+        log = EventLog(str(seg))
+        log.append(_event_to_payload(_mk(0, "kept").with_id("k1")))
+        log.append(_event_to_payload(_mk(0, "gone").with_id("g1")))
+        log.append(_json.dumps({"$tombstone": "g1"}).encode())
+        out = list(store.find(1))
+        assert [e.entity_id for e in out] == ["kept"]
+
+
+# -- the two packages on one directory ------------------------------------------
+
+from predictionio_tpu.data import event as jev  # noqa: E402
+from predictionio_tpu.data.storage import evlog as jevlog  # noqa: E402
+from predictionio_tpu.data.storage import pevlog as jpev  # noqa: E402
+from predictionio_tpu.ingest import pipeline as jpipe  # noqa: E402
+from predictionio_tpu_torch.data import event as pev  # noqa: E402
+from predictionio_tpu_torch.data.storage import evlog as pevlog_  # noqa: E402
+from predictionio_tpu_torch.data.storage import pevlog as ppev  # noqa: E402
+from predictionio_tpu_torch.ingest import pipeline as ppipe  # noqa: E402
+
+# (event module, PEVLOG module, ingest pipeline, EVLOG module)
+PKG = {"jax": (jev, jpev, jpipe, jevlog),
+       "torch": (pev, ppev, ppipe, pevlog_)}
+OTHER = {"jax": "torch", "torch": "jax"}
+TEMPLATE = dict(event_names=["rate", "buy"],
+                value_spec={"rate": ("prop", "rating"), "buy": 4.0},
+                dedup_last_wins=True)
+
+
+def _mixed(ev, seed=0, n=400):
+    """rate (most with a rating), buy, view without a target and $set
+    events over six days: repeated (user, item) pairs, ties in time,
+    a few external ids and a string that needs escaping."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        u, i = int(rng.integers(0, 25)), int(rng.integers(0, 30))
+        t = T0 + timedelta(hours=int(rng.integers(0, 6 * 24)),
+                           milliseconds=int(rng.integers(0, 50)) * 10)
+        kind = int(rng.integers(0, 10))
+        eid = f"ext-{k}" if k % 37 == 0 else None
+        if kind < 6:
+            props = {"rating": float(rng.integers(1, 11)) / 2} \
+                if k % 11 else {}
+            out.append(ev.Event("rate", "user", f"u{u}", "item", f"i{i}",
+                                ev.DataMap(props), t, event_id=eid))
+        elif kind < 8:
+            out.append(ev.Event("buy", "user", f"u{u}", "item", f"i{i}",
+                                event_time=t, event_id=eid))
+        elif kind < 9:
+            out.append(ev.Event("view", "user", 'u"q\n' if k == 9
+                                else f"u{u}", event_time=t))
+        else:
+            out.append(ev.Event("$set", "item", f"i{i}",
+                                properties=ev.DataMap({"cat": f"c{i % 3}",
+                                                       "price": i}),
+                                event_time=t))
+    return out
+
+
+def _write(pkg, path, bucket_hours=24):
+    """A PEVLOG directory written by `pkg`: two batches, two deletes
+    (a generated and an external id), sidecars flushed."""
+    ev, pv = PKG[pkg][0], PKG[pkg][1]
+    store = pv.PevlogEvents(pv.PevlogStorageClient(
+        {"PATH": str(path), "BUCKET_HOURS": bucket_hours}))
+    store.init(1)
+    events = _mixed(ev)
+    ids = store.insert_batch(events[:250], 1)
+    ids += store.insert_batch(events[250:], 1)
+    assert store.delete(ids[3], 1) and store.delete("ext-37", 1)
+    store.close()
+    return ids
+
+
+def _open(pkg, path, bucket_hours=24):
+    pv = PKG[pkg][1]
+    return pv.PevlogEvents(pv.PevlogStorageClient(
+        {"PATH": str(path), "BUCKET_HOURS": bucket_hours}))
+
+
+QUERIES = [
+    {},
+    {"start_time": T0 + timedelta(days=1), "until_time": T0 + timedelta(
+        days=3, hours=5)},
+    {"entity_type": "user", "entity_id": "u7"},
+    {"event_names": ["buy", "view"]},
+    {"target_entity_type": "item", "target_entity_id": "i4"},
+    {"target_entity_type": None},
+    {"properties": {"cat": "c1"}},
+    {"entity_type": "user", "event_names": ["rate"], "limit": 7,
+     "reversed": True},
+]
+
+
+def _answers(store, sel):
+    return [[e.to_api_json() for e in store.find(1, **q)] for q in sel]
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_either_package_reads_the_others_directory(writer, tmp_path,
+                                                   monkeypatch):
+    """Same `find` answers (ids, times, properties, order) for every
+    query, a bit-identical `rating_columns`, and the other package loads
+    the writer's sidecar indexes as they are: none rebuilt or
+    rewritten."""
+    monkeypatch.setenv("PIO_INGEST_CACHE", "off")
+    _write(writer, tmp_path)
+    sidecars = {p: p.read_bytes() for p in tmp_path.glob("app_1/*.idx")}
+    assert len(sidecars) >= 6
+    mine, other = _open(writer, tmp_path), _open(OTHER[writer], tmp_path)
+    want = _answers(mine, QUERIES)
+    assert want[0] and all(len(a) for a in want)
+    assert _answers(other, QUERIES) == want
+    for seg in sorted(tmp_path.glob("app_1/seg_*.log")):
+        ix = other._index(seg)
+        # an index built from the journal knows its keys; one loaded
+        # from the sidecar does not
+        assert not ix.digests_complete
+        assert ix.synced == seg.stat().st_size
+    assert {p: p.read_bytes() for p in sidecars} == sidecars
+    cols = [PKG[p][2].rating_columns_from_store(s, 1, **TEMPLATE)
+            for p, s in ((writer, mine), (OTHER[writer], other))]
+    assert cols[0].n > 100
+    for name in ("user_ix", "item_ix", "rating", "t_millis"):
+        a, b = getattr(cols[0], name), getattr(cols[1], name)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert cols[0].users.keys() == cols[1].users.keys()
+    assert cols[0].items.keys() == cols[1].items.keys()
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_delta_scans_and_watermarks_agree(writer, tmp_path):
+    """Both packages take the same watermarks of one directory and
+    decode the same delta rows between them."""
+    ev = PKG[writer][0]
+    _write(writer, tmp_path)
+    w_store = _open(writer, tmp_path)
+    wm1 = w_store.ingest_watermark(1)
+    w_store.insert_batch(
+        [ev.Event("rate", "user", f"u{n}", "item", f"i{n % 4}",
+                  ev.DataMap({"rating": 4.5}),
+                  T0 + timedelta(days=2, seconds=n)) for n in range(9)], 1)
+    wm2 = w_store.ingest_watermark(1)
+    spec = dict(entity_type="user", event_names=["rate"],
+                value_spec={"rate": ("prop", "rating")},
+                require_target=True)
+    out = []
+    for pkg in (writer, OTHER[writer]):
+        store = _open(pkg, tmp_path)
+        assert store.ingest_watermark(1) == wm2
+        out.append(store.scan_columns(1, since=wm1, upto=wm2, **spec))
+    assert out[0].n == out[1].n == 9
+    for name in ("entity_ix", "target_ix", "value", "t_us"):
+        np.testing.assert_array_equal(getattr(out[0], name),
+                                      getattr(out[1], name))
+    assert out[0].entities == out[1].entities
+    assert out[0].targets == out[1].targets
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_prepared_cache_blob_is_a_hit_in_the_other_package(
+        writer, tmp_path, monkeypatch):
+    """The `.pioc` blob one package's training read wrote under the
+    partition's `_prepared/` is a hit in the other, with equal
+    columns; an append moves the watermark and misses."""
+    monkeypatch.delenv("PIO_INGEST_CACHE", raising=False)
+    _write(writer, tmp_path)
+    pipes = PKG[writer][2], PKG[OTHER[writer]][2]
+    for p in pipes:
+        p.take_phase_timings()
+    first = pipes[0].rating_columns_from_store(_open(writer, tmp_path), 1,
+                                               **TEMPLATE)
+    assert pipes[0].take_phase_timings()["ingest_cache_misses"] == 1
+    blobs = list(tmp_path.glob("app_1/_prepared/*.pioc"))
+    assert len(blobs) == 1
+    other = _open(OTHER[writer], tmp_path)
+    second = pipes[1].rating_columns_from_store(other, 1, **TEMPLATE)
+    tm = pipes[1].take_phase_timings()
+    assert tm.get("ingest_cache_hits") == 1 and "ingest_scan_s" not in tm
+    for name in ("user_ix", "item_ix", "rating", "t_millis"):
+        np.testing.assert_array_equal(getattr(first, name),
+                                      getattr(second, name))
+    assert first.users.keys() == second.users.keys()
+    ev = PKG[OTHER[writer]][0]
+    other.insert(ev.Event("rate", "user", "u1", "item", "i1",
+                          ev.DataMap({"rating": 1.0}), T0), 1)
+    pipes[1].rating_columns_from_store(other, 1, **TEMPLATE)
+    assert pipes[1].take_phase_timings()["ingest_cache_misses"] == 1
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_evlog_journal_reads_back_in_the_other_package(writer, tmp_path):
+    ev, evl = PKG[writer][0], PKG[writer][3]
+    store = evl.EvlogEvents(evl.EvlogStorageClient({"PATH": str(tmp_path)}))
+    store.init(1)
+    ids = [store.insert(e, 1) for e in _mixed(ev, n=60)]
+    assert store.delete(ids[5], 1)
+    o = PKG[OTHER[writer]][3]
+    other = o.EvlogEvents(o.EvlogStorageClient({"PATH": str(tmp_path)}))
+    assert _answers(other, QUERIES) == _answers(store, QUERIES)
+    assert other.get(ids[5], 1) is None
+    assert other.get(ids[6], 1).to_api_json() == \
+        store.get(ids[6], 1).to_api_json()
+
+
+def test_native_journal_and_python_framing_write_the_same_bytes(
+        tmp_path, monkeypatch):
+    """The g++-built journal and the Python framing produce identical
+    files, and each reads the other's."""
+    from predictionio_tpu_torch import native
+    from predictionio_tpu_torch.native.eventlog import EventLog
+    payloads = [b"a", b'{"x":1}', b"\x00" * 300]
+    native_log = EventLog(str(tmp_path / "n.log"))
+    assert native_log.uses_native
+    native_log.append_many(payloads[:2])
+    native_log.append(payloads[2])
+    monkeypatch.setattr(native, "load", lambda name: None)
+    py_log = EventLog(str(tmp_path / "p.log"))
+    assert not py_log.uses_native
+    py_log.append_many(payloads[:2])
+    py_log.append(payloads[2])
+    assert (tmp_path / "n.log").read_bytes() == \
+        (tmp_path / "p.log").read_bytes()
+    assert list(EventLog(str(tmp_path / "n.log")).payloads()) == payloads

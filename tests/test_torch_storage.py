@@ -347,3 +347,72 @@ def test_both_writers_give_the_same_store(written):
     answers = [strip(_answers(preg.StorageRegistry(written[w][0]),
                               *written[w][1:])) for w in ("jax", "port")]
     assert answers[0] == answers[1]
+
+
+# -- watermarks and the file-backed event drivers -------------------------------
+
+EVENT_DRIVERS = {
+    "MEM": lambda tmp: {"PIO_STORAGE_SOURCES_S_TYPE": "MEM"},
+    "SQLITE": lambda tmp: _config("SQLITE", tmp),
+    "EVLOG": lambda tmp: {"PIO_STORAGE_SOURCES_S_TYPE": "EVLOG",
+                          "PIO_STORAGE_SOURCES_S_PATH": str(tmp / "ev")},
+    "PEVLOG": lambda tmp: {"PIO_STORAGE_SOURCES_S_TYPE": "PEVLOG",
+                           "PIO_STORAGE_SOURCES_S_PATH": str(tmp / "pev"),
+                           "PIO_STORAGE_SOURCES_S_BUCKET_HOURS": "1"},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(EVENT_DRIVERS))
+def test_ingest_watermark_moves_on_every_write(kind, tmp_path):
+    """SQLITE's generation counter and PEVLOG's journal byte offsets
+    change with every insert and delete (PEVLOG: a delete grows only
+    tombstones.log); MEM and EVLOG have none (no cache, no delta), as
+    in the JAX package. The cache directory follows the driver."""
+    r = preg.StorageRegistry(EVENT_DRIVERS[kind](tmp_path))
+    store = r.get_events()
+    store.init(1)
+    marks = [store.ingest_watermark(1)]
+    e = pev.Event("rate", "user", "u1", "item", "i1",
+                  pev.DataMap({"rating": 2.0}), event_time=T0)
+    eid = store.insert(e, 1)
+    marks.append(store.ingest_watermark(1))
+    store.insert_batch([e, replace(e, event_time=T0 + timedelta(hours=3))],
+                       1)
+    marks.append(store.ingest_watermark(1))
+    assert store.delete(eid, 1)
+    marks.append(store.ingest_watermark(1))
+    cache_dir = store.ingest_cache_dir(1)
+    if kind in ("MEM", "EVLOG"):
+        assert marks == [None] * 4 and cache_dir is None
+    elif kind == "SQLITE":
+        assert [m["gen"] for m in marks] == [0, 1, 2, 3]
+        assert str(cache_dir) == str(tmp_path / "ingest_cache" / "events_1")
+    else:
+        assert len(set(map(str, marks))) == 4
+        segs = sorted(k for k in marks[2] if k.startswith("seg_"))
+        assert len(segs) == 2 and marks[0]["tombstones.log"] == 0
+        assert {k: v for k, v in marks[3].items()
+                if k != "tombstones.log"} == {
+            k: v for k, v in marks[2].items() if k != "tombstones.log"}
+        assert marks[3]["tombstones.log"] > 0
+        assert cache_dir == tmp_path / "pev" / "app_1" / "_prepared"
+    if kind != "PEVLOG":
+        with pytest.raises(pst.base.DeltaInvalidated):
+            store.scan_columns(1, since=marks[0] or {}, upto=marks[1])
+    r.close()
+
+
+def test_pevlog_fsck_finds_and_repairs_a_torn_tail(tmp_path):
+    r = preg.StorageRegistry(EVENT_DRIVERS["PEVLOG"](tmp_path))
+    store = r.get_events()
+    store.insert(pev.Event("view", "user", "u1", event_time=T0), 1)
+    store.close()
+    seg, = (tmp_path / "pev" / "app_1").glob("seg_*.log")
+    with open(seg, "ab") as f:
+        f.write(b"PIOE\x05")
+    found = store.fsck()
+    assert [x["kind"] for x in found] == ["torn_tail", "stale_index"]
+    # the truncation brings the journal back to what the sidecar covers
+    assert [x["kind"] for x in store.fsck(repair=True)] == ["torn_tail"]
+    assert store.fsck() == []
+    assert [e.entity_id for e in store.find(1)] == ["u1"]

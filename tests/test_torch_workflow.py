@@ -3,7 +3,9 @@ instance goes INIT -> TRAINING -> COMPLETED with its blob stored, or
 FAILED on an error, after which deploy refuses it; the stop-after flags
 and the skipped sanity checks; the heartbeat; `engine_params_from_
 instance` equals the variant; engine factories by name; a
-`RetrainMarker` retrains at deploy. On the CPU, with MEM stores."""
+`RetrainMarker` retrains at deploy; deploy makes its components once
+and binds the serving context, so the algorithms that load the models
+serve them, as in the JAX package. On the CPU, with MEM stores."""
 
 import json
 import time
@@ -251,3 +253,75 @@ def test_resolve_engine():
         pwf.resolve_engine("json.JSONDecoder")
     with pytest.raises(ValueError, match="JAX package"):
         pwf.resolve_engine("predictionio_tpu.no_such_module.Factory")
+
+
+class _Contextual(prec.ALSAlgorithm):
+    """The recommendation algorithm with a serve-time context hook that
+    records what it was bound to."""
+    bound: list = []
+
+    def with_serving_context(self, ctx):
+        self.ctx = ctx
+        _Contextual.bound.append((self, ctx))
+
+
+def _contextual_engine():
+    return Engine(prec.RecommendationDataSource, base.IdentityPreparator,
+                  {"als": _Contextual}, base.FirstServing)
+
+
+def test_prepare_deploy_makes_components_once_and_serves_the_loaders(
+        monkeypatch):
+    """The algorithms `deserialize_models` loads the models through are
+    the ones `prepare_deploy` returns to serve, and the engine makes its
+    components once."""
+    registry = _registry()
+    engine, ctx, row = _train(registry)
+    made, loaders = [], []
+    make = engine.make_components
+
+    def counting(params):
+        made.append(params)
+        return make(params)
+
+    deserialize = pwf.deserialize_models
+
+    def recording(blob, iid, algos, ctx_, retrain):
+        loaders.append(list(algos))
+        return deserialize(blob, iid, algos, ctx_, retrain)
+
+    monkeypatch.setattr(engine, "make_components", counting)
+    monkeypatch.setattr(pwf, "deserialize_models", recording)
+    algos, models, _ = pwf.CoreWorkflow.prepare_deploy(
+        engine, row, ctx, warm_batch_max=2)
+    assert len(made) == 1 and len(loaders) == 1
+    assert [id(a) for a in algos] == [id(a) for a in loaders[0]]
+    assert algos[0]._serve_plan is not None      # warmed by the loader
+    assert models[0].users.get("u3") is not None
+
+
+def test_with_serving_context_sees_the_deploys_and_the_trains_context(
+        monkeypatch):
+    """`Engine.train` and `prepare_deploy` bind the run's context to
+    every algorithm with a `with_serving_context` hook: the serving
+    algorithm holds the deploy's context."""
+    monkeypatch.setattr(_Contextual, "bound", [])
+    registry = _registry()
+    engine = _contextual_engine()
+    params = engine.engine_params_from_variant(VARIANT)
+    train_ctx = RuntimeContext(registry=registry, device="cpu")
+    row = pwf.CoreWorkflow.run_train(engine, params, train_ctx)
+    assert [c for _, c in _Contextual.bound] == [train_ctx]
+    deploy_ctx = RuntimeContext(registry=registry, device="cpu")
+    algos, _, _ = pwf.CoreWorkflow.prepare_deploy(
+        engine, row, deploy_ctx, warm_batch_max=1)
+    assert _Contextual.bound[-1] == (algos[0], deploy_ctx)
+    assert algos[0].ctx is deploy_ctx and len(_Contextual.bound) == 2
+    server = cli_main.deploy_instance(engine, row, deploy_ctx, port=0,
+                                      batch_max=1)
+    try:
+        dep = server.deployment
+        assert dep.engine is engine and dep.instance.id == row.id
+        assert dep.algos[0].ctx is deploy_ctx and server.ctx is deploy_ctx
+    finally:
+        server.stop()
