@@ -5,8 +5,9 @@
                           [--sharded-requests 160] [--tiered-queries 64]
                           [--trained-requests 64] [--lifecycle-requests 320]
                           [--streaming-requests 320]
+                          [--quickstart-requests 320]
                           [--only serve_sharded | train | lifecycle |
-                                  streaming]
+                                  streaming | quickstart]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -145,7 +146,8 @@ the result line:
  13. streaming
               the same shape and split over SQLITE metadata and PEVLOG
               events (the scan on 4 spawned workers): app new, import
-              (events/s beside phase 12's sqlite figure), build, train,
+              (events/s beside phase 12's sqlite figure), build, train
+              (one project for phases 13 and 14),
               `deploy --refresh-interval 2`, 320 requests; once GET /
               shows the refresher's baseline, a drip of rate events (64
               existing users x 3 existing items) through the port's
@@ -163,11 +165,41 @@ the result line:
               full rebuild with no failed request; the native journal
               in use. Prints each fold tick's seconds (scan, fold,
               swap, publish) and freshness_s.
+ 14. quickstart
+              the rest of the quickstart on phase 13's store and
+              instance: `cli eventserver --stats` and `deploy
+              --refresh-interval 2 --feedback` in subprocesses; 320
+              requests, whose `predict` events must leave the model
+              alone (a `noop` tick); a drip of 192 rate events over REST
+              (96 to /events.json one by one, 96 to /batch/events.json),
+              folded and checked as phase 13 checks a fold; 20,000 rate
+              events from 8 client processes to /batch/events.json, 50
+              per request, beside 8 paced query clients (events/s and
+              per-request p50/p99 beside the PEVLOG import; every
+              status 201, all 20,000 found in the store and counted by
+              /stats.json, a full rebuild with no failed query); a
+              Segment.io webhook read back by entity and id, then
+              deleted; one `predict` event per served query, none
+              dropped; K1 launches = plan calls. Then `cli eval`
+              (Precision@10 at threshold 4.0, 3 folds, ranks 8 and 64,
+              10 iterations) on the card: the SQLITE evaluation instance
+              EVALCOMPLETED with both scores, rank 8 within 1e-3 of the
+              same evaluation on the CPU in this process; prints a
+              popularity baseline, seconds per fold (read, train,
+              predict) and the card's peak bytes. Then `cli
+              batchpredict` of one query per user (6,040, num 10, half
+              with a blackList): the input's order, every answer checked
+              against the plain version, and the same file through
+              `core.batchpredict`'s deployment in this process: the same
+              lines, K1 launches = plan calls = warmed buckets + one per
+              64 queries of each 1,024-query chunk; queries/s of both.
 
 `--only serve_sharded` runs the build and phase 6 alone (for a machine
 with several cards), `--only train` the build and phases 9-11,
 `--only lifecycle` the build and phases 3 and 12, `--only streaming`
-the build and phases 3 and 13; none prints the kernels line.
+the build and phases 3 and 13, `--only quickstart` the build, phase 3,
+phase 13's import and train, and phase 14; none prints the kernels
+line.
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1562,26 +1594,40 @@ def heldout_rmse(model, u, i, r, test) -> float:
         np.array([b for b, s_ in zip(ii, seen) if s_]), r[test][seen])
 
 
+def start_server(tmp: Path, cli, command: str, *args):
+    """`cli <command> *args` in the background, its stderr into a file
+    of `tmp` (a pipe that nobody reads would block the server once it
+    filled); returns the process and the first line it printed."""
+    log = tmp / f"{command}_{time.monotonic_ns()}.stderr"
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", command,
+             *args], cwd=tmp, env=cli.env, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+    proc.stderr_log = log
+    return proc, proc.stdout.readline()
+
+
+def stderr_tail(proc) -> str:
+    return proc.stderr_log.read_text()[-3000:]
+
+
 def start_deploy(tmp: Path, cli, iid: str, *extra):
     """`cli deploy --port 0 --batch-max 64 *extra` in the background;
     returns (process, port, seconds until it serves)."""
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "predictionio_tpu_torch.cli", "deploy",
-         "--port", "0", "--batch-max", "64", *extra],
-        cwd=tmp, env=cli.env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-    line = proc.stdout.readline()
+    proc, line = start_server(tmp, cli, "deploy", "--port", "0",
+                              "--batch-max", "64", *extra)
     if not line.startswith(f"serving engine instance {iid} on "):
         proc.kill()
-        fail(f"deploy did not come up: {line!r} "
-             f"{proc.stderr.read()[-3000:]}")
+        fail(f"deploy did not come up: {line!r} {stderr_tail(proc)}")
     port = int(line.split("http://127.0.0.1:")[1].split()[0])
     return proc, port, time.perf_counter() - t0
 
 
-def stop_deploy(proc) -> None:
-    """SIGTERM the deploy process; it must exit 0."""
+def stop_deploy(proc, what: str = "deploy") -> None:
+    """SIGTERM a server process (`what`: the deploy or the event
+    server); it must exit 0."""
     import signal
     if proc.poll() is None:
         proc.send_signal(signal.SIGTERM)
@@ -1591,8 +1637,7 @@ def stop_deploy(proc) -> None:
         proc.kill()
         code = proc.wait()
     if code != 0:
-        fail(f"the deploy process exited {code}: "
-             f"{proc.stderr.read()[-3000:]}")
+        fail(f"the {what} process exited {code}: {stderr_tail(proc)}")
 
 
 def launch_gate(what: str, status: dict, n_requests: int,
@@ -1756,11 +1801,11 @@ def drip_events(model, rng, now_s: float):
 
 class Hammer:
     """HAMMER_CLIENTS client threads that post `queries` in turn for as
-    long as the `with` block lasts, recording each request's seconds and
-    every failure."""
+    long as the `with` block lasts, each pausing `pause_s` after every
+    request, recording each request's seconds and every failure."""
 
-    def __init__(self, port: int, queries):
-        self.port, self.queries = port, queries
+    def __init__(self, port: int, queries, pause_s: float = 0.0):
+        self.port, self.queries, self.pause_s = port, queries, pause_s
         self.seconds, self.failures = [], []
         self._stop = False
         self._pool = ThreadPoolExecutor(HAMMER_CLIENTS)
@@ -1774,6 +1819,7 @@ class Hammer:
                 self.seconds.append(http_post(self.port, q)[1])
             except Exception as e:  # noqa: BLE001 — counted, reported
                 self.failures.append(repr(e))
+            time.sleep(self.pause_s)
 
     def __enter__(self):
         self._futs = [self._pool.submit(self._client, n)
@@ -1792,12 +1838,98 @@ class Hammer:
                 "latency_ms": latency_ms([(None, t) for t in self.seconds])}
 
 
-def phase_streaming(torch, ft, dev, rng, seed: int, n_requests: int,
+def pevlog_project(tmp: Path, dev, seed: int) -> dict:
+    """The lifecycle's generator and held-out split over SQLITE metadata
+    and PEVLOG events in `tmp` (the scan on 4 spawned workers), through
+    the command line: `app new`, `import`, `build`, `train`. Gates: the
+    native journal in use, every event imported, the instance COMPLETED,
+    held-out RMSE below 1.0. Returns what phases streaming and
+    quickstart share: the store's config, the `cli` runner, the app, the
+    instance and its model read back on `dev`."""
+    from predictionio_tpu_torch.data.storage import EngineInstanceStatus
+    from predictionio_tpu_torch.native.eventlog import EventLog
+
+    u, i, r = planted(ML1M_USERS, ML1M_ITEMS, ML1M_N, seed + 5)
+    test = np.random.default_rng(seed + 6).random(ML1M_N) < HELD_OUT
+    n_train = int((~test).sum())
+    config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+              "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db"),
+              "PIO_STORAGE_SOURCES_PEV_TYPE": "PEVLOG",
+              "PIO_STORAGE_SOURCES_PEV_PATH": str(tmp / "pevlog"),
+              "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+              "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PEV",
+              "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"}
+    write_s = write_ml1m_project(tmp, u, i, r, test, seed)
+    cli = cli_runner(tmp, config, PIO_INGEST_WORKERS="4")
+    uses_native = EventLog(str(tmp / "probe.log")).uses_native
+    if not uses_native:
+        fail("the event journal is not the native (g++) build")
+    app, _ = cli("app", "new", "ml1m")
+    imported, import_wall_s = cli("import", "--appid", str(app["id"]),
+                                  "--input", "events.jsonl")
+    if imported["imported"] != n_train:
+        fail(f"imported {imported['imported']} of {n_train} events")
+    cli("build")
+    report, train_wall_s = cli("train")
+    if report["status"] != EngineInstanceStatus.COMPLETED:
+        fail(f"the PEVLOG instance is {report['status']}")
+    iid = report["engineInstanceId"]
+    model, row = read_model(config, iid, dev)
+    heldout = heldout_rmse(model, u, i, r, test)
+    if not heldout < 1.0:
+        fail(f"PEVLOG held-out RMSE {heldout} is not below 1.0")
+    return {"tmp": tmp, "config": config, "cli": cli, "app": app,
+            "app_id": app["id"], "iid": iid, "model": model, "row": row,
+            "report": report, "n_train": n_train, "heldout": heldout,
+            "uses_native": uses_native, "write_s": write_s, "seed": seed,
+            "imported": imported, "import_wall_s": import_wall_s,
+            "train_wall_s": train_wall_s}
+
+
+def fold_gates(torch, ft, dev, queries, before, folded, touched_users,
+               touched_items, prev_answers, answers, n_items):
+    """What a fold served must show: it ran on the card; untouched
+    factor rows bit-identical; every answer right against `folded`
+    (this process's own fold); an untouched user's answers on untouched
+    items the same scores, bit for bit, in the same order (touched items
+    may enter or leave). Returns (max abs err, untouched users'
+    answers, of them identical)."""
+    if folded.user_factors.device != dev:
+        fail(f"the fold ran on {folded.user_factors.device}, not the card")
+    touched_u = {folded.users.get(x) for x in touched_users}
+    touched_i = {folded.items.get(x) for x in touched_items}
+    keep_u = torch.tensor([x for x in range(len(before.users))
+                           if x not in touched_u], device=dev)
+    keep_i = torch.tensor([x for x in range(n_items)
+                           if x not in touched_i], device=dev)
+    if not (torch.equal(folded.user_factors[keep_u],
+                        before.user_factors[keep_u])
+            and torch.equal(folded.item_factors[keep_i],
+                            before.item_factors[keep_i])):
+        fail("a fold changed untouched factor rows")
+    items = [b["itemScores"] for b, _ in answers]
+    max_err = check_answers(torch, ft, dev, folded, queries, items, n_items)
+    untouched = unchanged = 0
+    touched_names, users = set(touched_items), set(touched_users)
+    for q, (b1, _), a2 in zip(queries, prev_answers, items):
+        if q["user"] in users:
+            continue
+        untouched += 1
+        s1 = [(x["item"], x["score"]) for x in b1["itemScores"]
+              if x["item"] not in touched_names]
+        s2 = [(x["item"], x["score"]) for x in a2
+              if x["item"] not in touched_names]
+        m = min(len(s1), len(s2))
+        if s1[:m] != s2[:m]:
+            fail(f"untouched user {q['user']}: {s1} before, {s2} after")
+        unchanged += b1["itemScores"] == a2
+    return max_err, untouched, unchanged
+
+
+def phase_streaming(torch, ft, dev, rng, project: dict, n_requests: int,
                     sqlite_events_per_s=None) -> dict:
-    """Streaming fold-in at MovieLens-1M's shape (the lifecycle's
-    generator and held-out split) over SQLITE metadata and PEVLOG events
-    in a temporary directory: `app new`, `import`, `build`, `train`
-    through the command line, `deploy --refresh-interval 2`, requests;
+    """Streaming fold-in at MovieLens-1M's shape over `pevlog_project`'s
+    store: `deploy --refresh-interval 2`, requests;
     once `GET /` shows the refresher's `baseline`, a drip batch of rate
     events (64 existing users x 3 existing items) goes in through the
     port's PEVLOG DAO in one call and, after its fold, the requests
@@ -1811,132 +1943,100 @@ def phase_streaming(torch, ft, dev, rng, seed: int, n_requests: int,
     untouched users' answers bit-identical on untouched items and
     untouched factor rows bit-identical; K1 launches = plan calls =
     warmed buckets + drained chunks with the warmed buckets unchanged
-    (no re-warm); a `full_rebuild` with no failed request; the native
-    journal in use."""
+    (no re-warm); a `full_rebuild` with no failed request."""
     from predictionio_tpu_torch.core.workflow import (
         engine_params_from_instance)
-    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
-                                                     StorageRegistry)
+    from predictionio_tpu_torch.data.storage import StorageRegistry
     from predictionio_tpu_torch.models.recommendation import (
         RecommendationEngine)
-    from predictionio_tpu_torch.native.eventlog import EventLog
     from predictionio_tpu_torch.streaming import scan_delta
     from predictionio_tpu_torch.streaming.updaters import FoldContext
 
-    u, i, r = planted(ML1M_USERS, ML1M_ITEMS, ML1M_N, seed + 5)
-    test = np.random.default_rng(seed + 6).random(ML1M_N) < HELD_OUT
-    n_train = int((~test).sum())
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_streaming_") as tmp:
-        tmp = Path(tmp)
-        config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
-                  "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db"),
-                  "PIO_STORAGE_SOURCES_PEV_TYPE": "PEVLOG",
-                  "PIO_STORAGE_SOURCES_PEV_PATH": str(tmp / "pevlog"),
-                  "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
-                  "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PEV",
-                  "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"}
-        write_s = write_ml1m_project(tmp, u, i, r, test, seed)
-        cli = cli_runner(tmp, config, PIO_INGEST_WORKERS="4")
-        uses_native = EventLog(str(tmp / "probe.log")).uses_native
-        if not uses_native:
-            fail("the event journal is not the native (g++) build")
-        app, _ = cli("app", "new", "ml1m")
-        app_id = app["id"]
-        imported, import_wall_s = cli("import", "--appid", str(app_id),
-                                      "--input", "events.jsonl")
-        if imported["imported"] != n_train:
-            fail(f"imported {imported['imported']} of {n_train} events")
-        cli("build")
-        report, train_wall_s = cli("train")
-        if report["status"] != EngineInstanceStatus.COMPLETED:
-            fail(f"the streaming instance is {report['status']}")
-        iid = report["engineInstanceId"]
-        model, row = read_model(config, iid, dev)
-        heldout = heldout_rmse(model, u, i, r, test)
-        if not heldout < 1.0:
-            fail(f"streaming held-out RMSE {heldout} is not below 1.0")
-        n_items = model.item_factors.shape[0]
-        queries = make_queries(torch, ft, dev, rng, model, n_requests,
-                               n_items)
-        registry = StorageRegistry(config)
-        events = registry.get_events()
-        engine = RecommendationEngine.apply()
-        _, _, (algo,), _ = engine.make_components(
-            engine_params_from_instance(engine, row))
+    tmp, config, cli = project["tmp"], project["config"], project["cli"]
+    app_id, iid, model = project["app_id"], project["iid"], project["model"]
+    n_train, report = project["n_train"], project["report"]
+    n_items = model.item_factors.shape[0]
+    queries = make_queries(torch, ft, dev, rng, model, n_requests,
+                           n_items)
+    registry = StorageRegistry(config)
+    events = registry.get_events()
+    engine = RecommendationEngine.apply()
+    _, _, (algo,), _ = engine.make_components(
+        engine_params_from_instance(engine, project["row"]))
 
-        own = [model]
-        own_fold_s = []
+    own = [model]
+    own_fold_s = []
 
-        def own_fold(rd):
-            rd["delta"] = scan_delta(events, app_id, None, rd["since"],
-                                     rd["upto"])
-            fctx = FoldContext(store=events, app_id=app_id, channel_id=None,
-                               since=rd["since"], upto=rd["upto"],
-                               ds_params={"app_name": "ml1m"})
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            own.append(algo.fold_in(own[-1], rd["delta"], fctx))
-            torch.cuda.synchronize()
-            own_fold_s.append(time.perf_counter() - t0)
+    def own_fold(rd):
+        rd["delta"] = scan_delta(events, app_id, None, rd["since"],
+                                 rd["upto"])
+        fctx = FoldContext(store=events, app_id=app_id, channel_id=None,
+                           since=rd["since"], upto=rd["upto"],
+                           ds_params={"app_name": "ml1m"})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        own.append(algo.fold_in(own[-1], rd["delta"], fctx))
+        torch.cuda.synchronize()
+        own_fold_s.append(time.perf_counter() - t0)
 
-        proc, port, deploy_wall_s = start_deploy(
-            tmp, cli, iid, "--refresh-interval", str(STREAM_INTERVAL_S))
-        try:
-            st0 = wait_status(port, proc, "the refresher's baseline",
+    proc, port, deploy_wall_s = start_deploy(
+        tmp, cli, iid, "--refresh-interval", str(STREAM_INTERVAL_S))
+    try:
+        st0 = wait_status(port, proc, "the refresher's baseline",
+                          lambda s: s["refresh"]["ticks"].get(
+                              "baseline"), 120)
+        answers0 = serve_http(port, queries)
+        # the same client load with nothing else happening, as the
+        # reference for the latency during the second fold and the
+        # rebuild
+        with Hammer(port, queries) as quiet:
+            time.sleep(2 * STREAM_INTERVAL_S)
+        # two drips, each one insert_batch (one append, one watermark
+        # step); the second fold extends the first one's history and
+        # runs under client load
+        rounds, loads = [], [quiet]
+        for rnd in (1, 2):
+            with Hammer(port, queries) if rnd == 2 else \
+                    contextlib.nullcontext() as load:
+                wm_before = events.ingest_watermark(app_id)
+                drip = drip_events(model, rng, time.time())
+                t_drip = time.perf_counter()
+                drip_ids = events.insert_batch(drip, app_id)
+                wm_after = events.ingest_watermark(app_id)
+                st = wait_status(
+                    port, proc, f"fold {rnd}",
+                    lambda s, n=rnd: s["refresh"]["ticks"].get(
+                        "folded", 0) >= n, 120)
+                seen_s = time.perf_counter() - t_drip
+            if load is not None:
+                loads.append(load)
+            rounds.append({"since": wm_before, "upto": wm_after,
+                           "events": len(drip), "status": st,
+                           "seen_s": seen_s,
+                           "answers": serve_http(port, queries),
+                           "after": http_status(port)})
+            # this process's own fold of the same delta, on the card,
+            # before anything else lands in the store (a fold reads
+            # the store's current rows)
+            own_fold(rounds[-1])
+        # the delete (of a drip event: its user and item keep their
+        # other ratings, so no shape changes): the next tick rebuilds
+        # in full while clients keep asking
+        with Hammer(port, queries) as load:
+            if not events.delete(drip_ids[0], app_id):
+                fail("the delete found no event")
+            t_del = time.perf_counter()
+            st3 = wait_status(port, proc, "a full rebuild",
                               lambda s: s["refresh"]["ticks"].get(
-                                  "baseline"), 120)
-            answers0 = serve_http(port, queries)
-            # the same client load with nothing else happening, as the
-            # reference for the latency during the second fold and the
-            # rebuild
-            with Hammer(port, queries) as quiet:
-                time.sleep(2 * STREAM_INTERVAL_S)
-            # two drips, each one insert_batch (one append, one watermark
-            # step); the second fold extends the first one's history and
-            # runs under client load
-            rounds, loads = [], [quiet]
-            for rnd in (1, 2):
-                with Hammer(port, queries) if rnd == 2 else \
-                        contextlib.nullcontext() as load:
-                    wm_before = events.ingest_watermark(app_id)
-                    drip = drip_events(model, rng, time.time())
-                    t_drip = time.perf_counter()
-                    drip_ids = events.insert_batch(drip, app_id)
-                    wm_after = events.ingest_watermark(app_id)
-                    st = wait_status(
-                        port, proc, f"fold {rnd}",
-                        lambda s, n=rnd: s["refresh"]["ticks"].get(
-                            "folded", 0) >= n, 120)
-                    seen_s = time.perf_counter() - t_drip
-                if load is not None:
-                    loads.append(load)
-                rounds.append({"since": wm_before, "upto": wm_after,
-                               "events": len(drip), "status": st,
-                               "seen_s": seen_s,
-                               "answers": serve_http(port, queries),
-                               "after": http_status(port)})
-                # this process's own fold of the same delta, on the card,
-                # before anything else lands in the store (a fold reads
-                # the store's current rows)
-                own_fold(rounds[-1])
-            # the delete (of a drip event: its user and item keep their
-            # other ratings, so no shape changes): the next tick rebuilds
-            # in full while clients keep asking
-            with Hammer(port, queries) as load:
-                if not events.delete(drip_ids[0], app_id):
-                    fail("the delete found no event")
-                t_del = time.perf_counter()
-                st3 = wait_status(port, proc, "a full rebuild",
-                                  lambda s: s["refresh"]["ticks"].get(
-                                      "full_rebuild"), 300)
-                rebuild_seen_s = time.perf_counter() - t_del
-            loads.append(load)
-            answers3 = serve_http(port, queries)
-            st4 = http_status(port)
-        finally:
-            stop_deploy(proc)
+                                  "full_rebuild"), 300)
+            rebuild_seen_s = time.perf_counter() - t_del
+        loads.append(load)
+        answers3 = serve_http(port, queries)
+        st4 = http_status(port)
+    finally:
+        stop_deploy(proc)
 
-        registry.close()
+    registry.close()
 
     ticks1 = rounds[-1]["status"]["refresh"]["ticks"]
     if ticks1.get("baseline") != 1 or ticks1.get("folded") != 2 or any(
@@ -1948,40 +2048,11 @@ def phase_streaming(torch, ft, dev, rng, seed: int, n_requests: int,
         delta = rd["delta"]
         if rd["after"]["refresh"]["watermark"] != rd["upto"]:
             fail("the served model's watermark is not the drip's")
-        if folded.user_factors.device != dev:
-            fail(f"the fold ran on {folded.user_factors.device}, not the "
-                 "card")
-        touched_u = {folded.users.get(x) for x in delta.touched_users}
-        touched_i = {folded.items.get(x) for x in delta.touched_items}
-        keep_u = torch.tensor([x for x in range(len(before.users))
-                               if x not in touched_u], device=dev)
-        keep_i = torch.tensor([x for x in range(n_items)
-                               if x not in touched_i], device=dev)
-        if not (torch.equal(folded.user_factors[keep_u],
-                            before.user_factors[keep_u])
-                and torch.equal(folded.item_factors[keep_i],
-                                before.item_factors[keep_i])):
-            fail("a fold changed untouched factor rows")
-        items = [b["itemScores"] for b, _ in rd["answers"]]
-        max_err = max(max_err, check_answers(torch, ft, dev, folded,
-                                             queries, items, n_items))
-        # an untouched user's answers on untouched items: the same
-        # scores, bit for bit, in the same order (touched items may
-        # enter or leave)
-        touched_names = set(delta.touched_items)
-        for q, (b1, _), a2 in zip(queries, prev_answers, items):
-            if q["user"] in delta.touched_users:
-                continue
-            untouched += 1
-            s1 = [(x["item"], x["score"]) for x in b1["itemScores"]
-                  if x["item"] not in touched_names]
-            s2 = [(x["item"], x["score"]) for x in a2
-                  if x["item"] not in touched_names]
-            m = min(len(s1), len(s2))
-            if s1[:m] != s2[:m]:
-                fail(f"untouched user {q['user']}: {s1} before, {s2} "
-                     "after")
-            unchanged += b1["itemScores"] == a2
+        err, n_u, n_same = fold_gates(
+            torch, ft, dev, queries, before, folded, delta.touched_users,
+            delta.touched_items, prev_answers, rd["answers"], n_items)
+        max_err, untouched, unchanged = (max(max_err, err), untouched + n_u,
+                                         unchanged + n_same)
         prev_answers = rd["answers"]
     st0_buckets = st0["plan_buckets"]
     for n, rd in enumerate(rounds, 1):
@@ -2011,13 +2082,15 @@ def phase_streaming(torch, ft, dev, rng, seed: int, n_requests: int,
     tm = report["phaseTimings"]
     out = {"phase": "streaming", "users": len(model.users),
            "items": n_items, "events": n_train, "rank": TRAIN_RANK,
-           "engine_instance": iid, "heldout_rmse": heldout,
-           "uses_native": uses_native, "events_file_s": write_s,
-           "import": {"seconds": imported["seconds"],
-                      "events_per_s": n_train / imported["seconds"],
+           "engine_instance": iid, "heldout_rmse": project["heldout"],
+           "uses_native": project["uses_native"],
+           "events_file_s": project["write_s"],
+           "import": {"seconds": project["imported"]["seconds"],
+                      "events_per_s": n_train / project["imported"][
+                          "seconds"],
                       "sqlite_events_per_s": sqlite_events_per_s,
-                      "command_wall_s": import_wall_s},
-           "train": {"command_wall_s": train_wall_s,
+                      "command_wall_s": project["import_wall_s"]},
+           "train": {"command_wall_s": project["train_wall_s"],
                      "read_s": tm["read_s"],
                      "scan_s": tm.get("ingest_scan_s"),
                      "build_s": tm.get("ingest_build_s"),
@@ -2052,6 +2125,554 @@ def phase_streaming(torch, ft, dev, rng, seed: int, n_requests: int,
     return out
 
 
+INGEST_EVENTS, INGEST_BATCH, INGEST_CLIENTS = 20_000, 50, 8
+# each query client's pause during phase quickstart's ingest: 8 clients
+# ask at most 16 queries/s, a load whose predict events the feedback
+# worker (one POST each, to an event server busy with the ingest) keeps
+# up with; its queue drops what it cannot (160 queries/s overflowed it
+# beside an NVIDIA H100 80GB HBM3 at 700 W)
+QS_PACE_S = 0.5
+EVAL_FOLDS, EVAL_RANKS = 3, (8, 64)
+# Precision@10 counts an item the user rated 4 or 5 stars in the test
+# fold (`planted` quantizes to 1-5 stars), as the upstream template's
+# Evaluation.scala sets PrecisionAtK(k = 10, ratingThreshold = 4.0)
+EVAL_K, EVAL_THRESHOLD = 10, 4.0
+EVAL_TOL = 1e-3     # rank 8 on the card against the same eval on the CPU
+BP_CHUNK = 1024     # cli batchpredict's --query-partitions default
+
+# One ingest client: POSTs its batches over one kept-alive connection
+# and prints, per request, [start, end, HTTP status, item statuses].
+INGEST_CLIENT = """
+import http.client, json, sys, time
+port, key, path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+out = []
+for body in json.load(open(path)):
+    t0 = time.time()
+    conn.request("POST", "/batch/events.json?accessKey=" + key,
+                 json.dumps(body).encode(),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    reply = json.loads(resp.read())
+    out.append([t0, time.time(), resp.status,
+                [r["status"] for r in reply]])
+print(json.dumps(out))
+"""
+
+# The evaluation `cli eval` runs, written into the project as the
+# upstream template's Evaluation.scala: Precision@10 over 3 folds, one
+# candidate per rank, 10 iterations each.
+EVAL_MODULE = """
+from predictionio_tpu_torch.core.evaluation import (EngineParamsGenerator,
+                                                    Evaluation)
+from predictionio_tpu_torch.core.params import EngineParams
+from predictionio_tpu_torch.models import recommendation as rec
+
+DS = ("", rec.DataSourceParams(app_name="ml1m", eval_params=rec.EvalParams(
+    k_fold={folds}, query_num={k})))
+
+
+def candidate(rank):
+    return EngineParams(data_source_params=DS, algorithm_params_list=(
+        ("als", rec.ALSAlgorithmParams(rank=rank, num_iterations={iters},
+                                       lambda_={reg}, seed={seed})),))
+
+
+QuickstartEvaluation = Evaluation(
+    engine=rec.RecommendationEngine.apply(),
+    metric=rec.PrecisionAtK(k={k}, rating_threshold={threshold}))
+QuickstartParams = EngineParamsGenerator([candidate(r) for r in {ranks}])
+"""
+
+
+class Rest:
+    """A kept-alive connection to the event server, with the access key;
+    a call returns (status, JSON reply). The server closes a connection
+    idle for a minute: a call that finds it closed reconnects once."""
+
+    def __init__(self, port: int, key: str):
+        import http.client
+        self.connect = lambda: http.client.HTTPConnection(
+            "127.0.0.1", port, timeout=120)
+        self.conn, self.key = self.connect(), key
+
+    def __call__(self, method: str, path: str, body=None):
+        import http.client
+        sep = "&" if "?" in path else "?"
+        data = None if body is None else json.dumps(body).encode()
+        for attempt in (0, 1):
+            try:
+                self.conn.request(method, f"{path}{sep}accessKey={self.key}",
+                                  data, {"Content-Type": "application/json"})
+                resp = self.conn.getresponse()
+                return resp.status, json.loads(resp.read())
+            except (http.client.RemoteDisconnected, ConnectionError):
+                self.conn.close()
+                self.conn = self.connect()
+                if attempt:
+                    raise
+
+
+def start_eventserver(tmp: Path, cli):
+    """`cli eventserver --port 0 --stats` in the background; returns
+    (process, port)."""
+    proc, line = start_server(tmp, cli, "eventserver", "--ip", "127.0.0.1",
+                              "--port", "0", "--stats")
+    if not line.startswith("Event server started on 127.0.0.1:"):
+        proc.kill()
+        fail(f"the event server did not come up: {line!r} "
+             f"{stderr_tail(proc)}")
+    return proc, int(line.rsplit(":", 1)[1])
+
+
+def covers(wm, target) -> bool:
+    """True when watermark `wm` reaches `target` in every journal."""
+    return wm is not None and all(wm.get(k, -1) >= v
+                                  for k, v in target.items())
+
+
+class WatermarkLog:
+    """A thread that polls the server's `GET /` while the `with` block
+    lasts and keeps every distinct watermark the served model reflected,
+    in order (each the upper bound of a tick that moved it)."""
+
+    def __init__(self, port: int):
+        import threading
+        self.port, self.seen = port, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            wm = http_status(self.port)["refresh"]["watermark"]
+            if not self.seen or self.seen[-1] != wm:
+                self.seen.append(wm)
+            self._stop.wait(0.02)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def ingest_batches(model, rng, t0_ms: int):
+    """INGEST_EVENTS `rate` events of existing users and items, stamped
+    one millisecond apart from `t0_ms`, in batches of INGEST_BATCH."""
+    from predictionio_tpu_torch.data.event import format_time
+    from datetime import datetime, timezone
+    users = rng.integers(0, len(model.users), INGEST_EVENTS)
+    items = rng.integers(0, len(model.items), INGEST_EVENTS)
+    stars = rng.integers(1, 6, INGEST_EVENTS)
+    evs = [{"event": "rate", "entityType": "user",
+            "entityId": model.users.inverse(int(users[n])),
+            "targetEntityType": "item",
+            "targetEntityId": model.items.inverse(int(items[n])),
+            "properties": {"rating": float(stars[n])},
+            "eventTime": format_time(datetime.fromtimestamp(
+                (t0_ms + n) / 1e3, tz=timezone.utc))}
+           for n in range(INGEST_EVENTS)]
+    return [evs[lo:lo + INGEST_BATCH]
+            for lo in range(0, INGEST_EVENTS, INGEST_BATCH)]
+
+
+def pevlog_insert_ms(tmp: Path, n: int = 200) -> float:
+    """Milliseconds of one `EventStore.insert` of one event into a fresh
+    PEVLOG directory of `tmp` (one fsync'd journal append), alone: the
+    floor under every event the event server stores."""
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    registry = StorageRegistry({
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "MEM",
+        "PIO_STORAGE_SOURCES_PEV_TYPE": "PEVLOG",
+        "PIO_STORAGE_SOURCES_PEV_PATH": str(tmp / "insert_probe"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PEV",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM"})
+    events = registry.get_events()
+    events.init(1)
+    batch = [Event("rate", "user", f"u{k}", "item", f"i{k}",
+                   DataMap({"rating": 3.0})) for k in range(n)]
+    t0 = time.perf_counter()
+    for e in batch:
+        events.insert(e, 1)
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    registry.close()
+    return ms
+
+
+def popularity_precision(folds, metric) -> float:
+    """The metric of recommending each fold's most rated training items
+    to every test user (numpy counts)."""
+    from predictionio_tpu_torch.models.recommendation import (
+        ItemScore, PredictedResult)
+    scores = []
+    for train, _, qa in folds:
+        counts = np.bincount(train.item_ix, minlength=len(train.items))
+        top = np.argsort(-counts, kind="stable")[:metric.k]
+        pred = PredictedResult(tuple(
+            ItemScore(train.items.inverse(int(x)), float(counts[x]))
+            for x in top))
+        scores += [s for s in (metric.calculate_one(q, pred, a)
+                               for q, a in qa) if s is not None]
+    return float(np.mean(scores))
+
+
+def phase_quickstart(torch, ft, dev, rng, project: dict, n_requests: int,
+                     import_events_per_s=None) -> dict:
+    """The rest of the quickstart over `pevlog_project`'s store, the
+    trained instance deployed with `--refresh-interval 2 --feedback`
+    beside `cli eventserver --stats`:
+
+      1. requests; their `predict` events (the feedback) land in the
+         store and the tick over them is `noop`; then a drip of 192
+         `rate` events (64 existing users x 3 existing items, stamped
+         now) over REST, half to /events.json one by one, half to
+         /batch/events.json, right after a tick; the refresher folds it
+         and the answers are checked against this process's own fold
+         between the same watermarks;
+      2. 8 client processes POST 20,000 `rate` events to
+         /batch/events.json, 50 per request, while 8 paced clients
+         query; the refresher rebuilds in full;
+      3. a Segment.io `track` body to /webhooks/segmentio.json, read
+         back by entity and by id, deleted once the deploy stopped;
+      4. one `predict` event per served query, none dropped;
+      5. `cli eval` of Precision@10 over 3 folds, ranks 8 and 64, on the
+         card, its rank-8 score held against the same evaluation on the
+         CPU in this process, beside a popularity baseline;
+      6. `cli batchpredict` of one query per user (num 10, half with a
+         blackList), every answer checked, the order kept, then the same
+         file through `run_batch_predict`'s deployment in this process:
+         K1 launches = plan calls = warmed buckets + one per 64 queries
+         of each 1,024-query chunk."""
+    import importlib
+    from datetime import datetime, timezone
+    from urllib.parse import quote
+    from predictionio_tpu_torch.core.batchpredict import (load_deployment,
+                                                          predict_lines)
+    from predictionio_tpu_torch.core.evaluation import (_eval_with_cache,
+                                                        _PrefixCache)
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    from predictionio_tpu_torch.core.workflow import (
+        engine_params_from_instance)
+    from predictionio_tpu_torch.data.storage import (
+        EvaluationInstanceStatus, StorageRegistry)
+    from predictionio_tpu_torch.models.recommendation import (
+        RecommendationEngine)
+    from predictionio_tpu_torch.streaming import scan_delta
+    from predictionio_tpu_torch.streaming.updaters import FoldContext
+
+    tmp, config, cli = project["tmp"], project["config"], project["cli"]
+    app_id, iid, model = project["app_id"], project["iid"], project["model"]
+    key = project["app"]["accessKey"]
+    n_items = model.item_factors.shape[0]
+    queries = make_queries(torch, ft, dev, rng, model, n_requests, n_items)
+    registry = StorageRegistry(config)
+    events = registry.get_events()
+    engine = RecommendationEngine.apply()
+    _, _, (algo,), _ = engine.make_components(
+        engine_params_from_instance(engine, project["row"]))
+    es_proc, es_port = start_eventserver(tmp, cli)
+    rest = Rest(es_port, key)
+    dep_proc = None
+    try:
+        dep_proc, port, deploy_wall_s = start_deploy(
+            tmp, cli, iid, "--refresh-interval", str(STREAM_INTERVAL_S),
+            "--feedback", "--accesskey", key, "--event-server-ip",
+            "127.0.0.1", "--event-server-port", str(es_port))
+        st0 = wait_status(port, dep_proc, "the refresher's baseline",
+                          lambda s: s["refresh"]["ticks"].get("baseline"),
+                          120)
+        answers0 = serve_http(port, queries)
+        wait_status(port, dep_proc, "the feedback of the first requests",
+                    lambda s: s["feedback"]["sent"]
+                    + s["feedback"]["dropped"] >= s["requests"], 120)
+        wm_pred = events.ingest_watermark(app_id)
+        st_noop = wait_status(
+            port, dep_proc, "a tick over the predict events",
+            lambda s: s["refresh"]["watermark"] == wm_pred, 60)
+        ticks = st_noop["refresh"]["ticks"]
+        if st0["refresh"]["watermark"] == wm_pred or not ticks.get(
+                "noop") or set(ticks) - {"baseline", "noop"}:
+            fail(f"the predict events' tick: ticks {ticks}")
+
+        # 1. the REST drip, posted right after a tick
+        n_ticks = sum(ticks.values())
+        wait_status(port, dep_proc, "the next tick",
+                    lambda s: sum(s["refresh"]["ticks"].values())
+                    > n_ticks, 30)
+        wm_before = events.ingest_watermark(app_id)
+        drip = [{k: v for k, v in e.to_api_json().items()
+                 if k != "creationTime"}
+                for e in drip_events(model, rng, time.time())]
+        half = len(drip) // 2
+        with WatermarkLog(port) as wms:
+            t_drip = time.perf_counter()
+            statuses = [rest("POST", "/events.json", e)[0]
+                        for e in drip[:half]]
+            for lo in range(half, len(drip), 50):
+                code, reply = rest("POST", "/batch/events.json",
+                                   drip[lo:lo + 50])
+                statuses += [r["status"] for r in reply] if code == 200 \
+                    else [code]
+            post_s = time.perf_counter() - t_drip
+            if statuses != [201] * len(drip):
+                fail(f"drip statuses {sorted(set(statuses))}")
+            wm_after = events.ingest_watermark(app_id)
+            st1 = wait_status(
+                port, dep_proc, "the drip's fold",
+                lambda s: s["refresh"]["watermark"] == wm_after, 120)
+            seen_s = time.perf_counter() - t_drip
+        ticks1 = st1["refresh"]["ticks"]
+        # a fold reads the store's rows as they are when it runs, so a
+        # tick inside the drip would fold events past its watermark: the
+        # drip goes in right after a tick, well inside the interval
+        if any(wm not in (wm_before, wm_after) for wm in wms.seen):
+            fail(f"the drip ({post_s:.3f} s of posts) straddled a "
+                 f"refresher tick: {len(wms.seen)} watermarks served")
+        if ticks1.get("folded") != 1 or any(ticks1.get(k) for k in (
+                "full_rebuild", "rolled_back", "failed", "no_hooks")):
+            fail(f"the drip's ticks: {ticks1}")
+        answers1 = serve_http(port, queries)
+        # this process's own fold of the same delta, on the card, before
+        # more ratings land (the predict events of these answers fold
+        # as nothing)
+        delta = scan_delta(events, app_id, None, wm_before, wm_after)
+        fctx = FoldContext(store=events, app_id=app_id, channel_id=None,
+                           since=wm_before, upto=wm_after,
+                           ds_params={"app_name": "ml1m"})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        folded = algo.fold_in(model, delta, fctx)
+        torch.cuda.synchronize()
+        own_fold_s = time.perf_counter() - t0
+        err_drip, untouched, unchanged = fold_gates(
+            torch, ft, dev, queries, model, folded, delta.touched_users,
+            delta.touched_items, answers0, answers1, n_items)
+
+        # 2. sustained ingest beside paced queries
+        t0_ms = int(time.time() * 1e3)
+        paths = []
+        batches = ingest_batches(model, rng, t0_ms)
+        per = len(batches) // INGEST_CLIENTS
+        for c in range(INGEST_CLIENTS):
+            paths.append(tmp / f"ingest_{c}.json")
+            paths[-1].write_text(json.dumps(
+                batches[c * per:(c + 1) * per]))
+        with Hammer(port, queries, pause_s=QS_PACE_S) as load:
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", INGEST_CLIENT, str(es_port), key,
+                 str(path)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True) for path in paths]
+            outs = [p_.communicate(timeout=600) for p_ in procs]
+            if any(p_.returncode for p_ in procs):
+                fail(f"an ingest client failed: {[o[1][-2000:] for o in outs]}")
+            t_ing = time.perf_counter()
+            wm_ingest = events.ingest_watermark(app_id)
+            st2 = wait_status(
+                port, dep_proc, "the refresher past the ingest",
+                lambda s: covers(s["refresh"]["watermark"], wm_ingest), 300)
+            caught_up_s = time.perf_counter() - t_ing
+        reqs = [r for o, _ in outs for r in json.loads(o)]
+        item_statuses = [x for r in reqs for x in r[3]]
+        if len(reqs) != len(batches) or {r[2] for r in reqs} != {200} or \
+                item_statuses != [201] * INGEST_EVENTS:
+            fail(f"ingest statuses {sorted({r[2] for r in reqs})}, items "
+                 f"{sorted(set(item_statuses))}")
+        if load.failures:
+            fail(f"{len(load.failures)} queries failed during the ingest: "
+                 f"{load.failures[:3]}")
+        ticks2 = st2["refresh"]["ticks"]
+        if not ticks2.get("full_rebuild") or any(
+                ticks2.get(k) for k in ("rolled_back", "failed")):
+            fail(f"ticks after the ingest: {ticks2}")
+        ingest_s = max(r[1] for r in reqs) - min(r[0] for r in reqs)
+        lat = np.sort([r[1] - r[0] for r in reqs])
+        start = datetime.fromtimestamp(t0_ms / 1e3, tz=timezone.utc)
+        until = datetime.fromtimestamp((t0_ms + INGEST_EVENTS) / 1e3,
+                                       tz=timezone.utc)
+        stored = sum(1 for _ in events.find(app_id, start_time=start,
+                                            until_time=until,
+                                            event_names=["rate"]))
+        if stored != INGEST_EVENTS:
+            fail(f"the store holds {stored} of {INGEST_EVENTS} events")
+        code, stats = rest("GET", "/stats.json")
+        counted = sum(x["count"] for h in ("previousHour", "currentHour")
+                      for x in stats[h] if x["event"] == "rate"
+                      and x["status"] == 201)
+        if code != 200 or counted != len(drip) + INGEST_EVENTS:
+            fail(f"/stats.json counts {counted} rate events")
+
+        # 3. a webhook and the reads
+        segment = {"type": "track", "user_id": "quickstart-segment-user",
+                   "event": "signup", "properties": {"plan": "pro"},
+                   "timestamp": datetime.now(timezone.utc).isoformat()}
+        code, reply = rest("POST", "/webhooks/segmentio.json", segment)
+        wid = reply.get("eventId")
+        listed = rest("GET", "/events.json?entityType=user&entityId="
+                             "quickstart-segment-user")
+        got = rest("GET", f"/events/{quote(wid or '', safe='')}.json")
+        if code != 201 or listed[0] != 200 or [
+                (e["eventId"], e["event"], e["properties"]["properties"])
+                for e in listed[1]] != [(wid, "track", {"plan": "pro"})] \
+                or got[0] != 200 or got[1]["eventId"] != wid:
+            fail(f"webhook {code} {reply}, listed {listed}, got {got}")
+
+        # 4. the feedback: one predict event per served query
+        st_end = http_status(port)
+        gate = launch_gate("quickstart", st_end, st_end["requests"],
+                           straddle=2 * HAMMER_CLIENTS)
+        stop_deploy(dep_proc)
+        dep_proc = None
+        predicts = list(events.find(app_id, event_names=["predict"]))
+        if len(predicts) != st_end["requests"] or \
+                st_end["feedback"]["dropped"] or any(
+                    e.entity_type != "pio_pr"
+                    or e.properties["engineInstanceId"] != iid
+                    or "user" not in e.properties["query"]
+                    for e in predicts):
+            fail(f"{len(predicts)} predict events for {st_end['requests']} "
+                 f"served queries; feedback {st_end['feedback']}")
+        if rest("DELETE", f"/events/{quote(wid, safe='')}.json") != (
+                200, {"message": "Found"}):
+            fail("the webhook event's delete did not find it")
+    finally:
+        if dep_proc is not None:
+            stop_deploy(dep_proc)
+        stop_deploy(es_proc, "event server")
+
+    # 5. pio eval on the card, rank 8 against the CPU
+    (tmp / "qs_eval.py").write_text(EVAL_MODULE.format(
+        folds=EVAL_FOLDS, k=EVAL_K, iters=TRAIN_ITERS, reg=TRAIN_REG,
+        seed=project["seed"], threshold=EVAL_THRESHOLD,
+        ranks=EVAL_RANKS))
+    printed, eval_wall_s = cli("eval", "qs_eval.QuickstartEvaluation",
+                               "qs_eval.QuickstartParams")
+    inst = registry.get_meta_data_evaluation_instances().get(
+        printed["evaluationInstanceId"])
+    results = json.loads(inst.evaluator_results_json)["results"] \
+        if inst is not None else []
+    if inst is None or inst.status != EvaluationInstanceStatus.COMPLETED \
+            or len(results) != len(EVAL_RANKS):
+        fail(f"the evaluation instance: {inst}")
+    card_scores = [r["score"] for r in results]
+    sys.path.insert(0, str(tmp))
+    mod = importlib.import_module("qs_eval")
+    cache = _PrefixCache()
+    ctx_cpu = RuntimeContext(registry=registry, device="cpu")
+    t0 = time.perf_counter()
+    cpu_score = mod.QuickstartEvaluation.metric.calculate(
+        ctx_cpu, _eval_with_cache(mod.QuickstartEvaluation.engine, ctx_cpu,
+                                  mod.QuickstartParams.engine_params_list[0],
+                                  cache))
+    cpu_eval_s = time.perf_counter() - t0
+    if not abs(cpu_score - card_scores[0]) <= EVAL_TOL:
+        fail(f"rank-8 Precision@{EVAL_K}: card {card_scores[0]}, CPU "
+             f"{cpu_score}")
+    folds = next(iter(cache.folds.values()))
+    popularity = popularity_precision(folds, mod.QuickstartEvaluation.metric)
+    tm = inst.runtime_conf["phase_timings"]
+
+    # 6. pio batchpredict through K1
+    bp_queries = []
+    for ux in range(len(model.users)):
+        q = {"user": model.users.inverse(ux), "num": K}
+        if ux % 2:
+            q["blackList"] = [model.items.inverse(int(x)) for x in rng.choice(
+                n_items, int(rng.integers(1, WIDTH + 1)), replace=False)]
+        bp_queries.append(q)
+    lines = [json.dumps(q) for q in bp_queries]
+    (tmp / "bp_in.jsonl").write_text("\n".join(lines) + "\n")
+    bp, bp_wall_s = cli("batchpredict", "--input", "bp_in.jsonl",
+                        "--output", "bp_out.jsonl")
+    out_lines = (tmp / "bp_out.jsonl").read_text().splitlines()
+    rows = [json.loads(x) for x in out_lines]
+    if bp["predictions"] != len(bp_queries) or bp["engineInstanceId"] != \
+            iid or [r["query"] for r in rows] != bp_queries:
+        fail(f"batchpredict printed {bp}; the output's order is not the "
+             "input's")
+    err_bp = check_answers(torch, ft, dev, model, bp_queries,
+                           [r["prediction"]["itemScores"] for r in rows],
+                           n_items)
+    ft.LAUNCHES = 0
+    dep = load_deployment(engine, project["row"],
+                          RuntimeContext(registry=registry, device=dev))
+    plan = dep.algos[0]._serve_plan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = list(predict_lines(dep, lines, chunk_size=BP_CHUNK))
+    torch.cuda.synchronize()
+    bp_s = time.perf_counter() - t0
+    n = len(lines)
+    expected = len(plan.buckets) + sum(
+        -(-min(BP_CHUNK, n - lo) // max(plan.buckets))
+        for lo in range(0, n, BP_CHUNK))
+    if again != out_lines or not ft.LAUNCHES == plan.calls == expected:
+        fail(f"batchpredict in process: same lines {again == out_lines}, "
+             f"K1 launches {ft.LAUNCHES}, plan calls {plan.calls}, "
+             f"expected {expected}")
+    registry.close()
+
+    out = {"phase": "quickstart", "users": len(model.users),
+           "items": n_items, "engine_instance": iid,
+           "deploy": {"command_to_serving_s": deploy_wall_s,
+                      **st0["deploy_timings"]},
+           "feedback_noop_ticks": ticks,
+           "drip": {"events": len(drip), "single": half,
+                    "batched": len(drip) - half, "post_s": post_s,
+                    "touched_users": len(delta.touched_users),
+                    "touched_items": len(delta.touched_items),
+                    "seen_folded_after_s": seen_s,
+                    "tick_s": st1["refresh"]["last_ticks"]["folded"],
+                    "freshness_s": st1["refresh"]["freshness_s"],
+                    "own_fold_s": own_fold_s, "max_abs_err": err_drip,
+                    "untouched_answers": untouched,
+                    "untouched_answers_identical": unchanged},
+           "ingest": {"events": INGEST_EVENTS, "clients": INGEST_CLIENTS,
+                      "batch": INGEST_BATCH, "requests": len(reqs),
+                      "seconds": ingest_s,
+                      "events_per_s": INGEST_EVENTS / ingest_s,
+                      "request_ms": {"p50": 1e3 * lat[len(lat) // 2],
+                                     "p99": 1e3 * lat[int(0.99 * (
+                                         len(lat) - 1))]},
+                      "pevlog_import_events_per_s": import_events_per_s,
+                      "pevlog_insert_ms_alone": pevlog_insert_ms(tmp),
+                      "drip_ms_per_event": 1e3 * post_s / len(drip),
+                      "stored": stored, "stats_counted": counted,
+                      "refresher_caught_up_after_s": caught_up_s,
+                      "ticks": ticks2,
+                      "last_ticks": st2["refresh"]["last_ticks"],
+                      "queries": load.summary()},
+           "feedback": {"served": st_end["requests"],
+                        "predict_events": len(predicts),
+                        **st_end["feedback"]},
+           "serve": gate,
+           "eval": {"folds": EVAL_FOLDS, "k": EVAL_K,
+                    "threshold": EVAL_THRESHOLD, "ranks": EVAL_RANKS,
+                    "evaluation_instance": inst.id, "status": inst.status,
+                    "scores": card_scores, "best": printed["bestScore"],
+                    "rank8_cpu_score": cpu_score, "cpu_eval_s": cpu_eval_s,
+                    "popularity_score": popularity,
+                    "command_wall_s": eval_wall_s,
+                    "read_s": tm["read_s"], "per_fold": tm["folds"],
+                    "peak_device_bytes": inst.runtime_conf.get(
+                        "peak_device_bytes")},
+           "batchpredict": {"queries": n, "max_abs_err": err_bp,
+                            "command_wall_s": bp_wall_s,
+                            "command_queries_per_s": n / bp_wall_s,
+                            "in_process_s": bp_s,
+                            "in_process_queries_per_s": n / bp_s,
+                            "launches": ft.LAUNCHES,
+                            "plan_calls": plan.calls,
+                            "warmed_buckets": list(plan.buckets)},
+           "launches": {"deploy": gate["launches"],
+                        "batchpredict": ft.LAUNCHES}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2061,13 +2682,15 @@ def main() -> int:
     ap.add_argument("--trained-requests", type=int, default=64)
     ap.add_argument("--lifecycle-requests", type=int, default=320)
     ap.add_argument("--streaming-requests", type=int, default=320)
+    ap.add_argument("--quickstart-requests", type=int, default=320)
     ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle",
-                                       "streaming"),
+                                       "streaming", "quickstart"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
                          "for parity and lifecycle; streaming for parity "
-                         "and streaming), no kernels line")
+                         "and streaming; quickstart for parity and "
+                         "quickstart), no kernels line")
     args = ap.parse_args()
 
     import torch
@@ -2106,6 +2729,21 @@ def main() -> int:
                                      args.trained_requests)
         return trained[0], served
 
+    def pevlog_phases(streaming: bool, quickstart: bool, sqlite_eps=None):
+        """Phases streaming and quickstart over one PEVLOG project: one
+        import and one train for both."""
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pevlog_") as tmp:
+            project = pevlog_project(Path(tmp), dev, args.seed)
+            import_eps = (project["n_train"]
+                          / project["imported"]["seconds"])
+            st = phase_streaming(torch, ft, dev, rng, project,
+                                 args.streaming_requests,
+                                 sqlite_eps) if streaming else None
+            qs = phase_quickstart(torch, ft, dev, rng, project,
+                                  args.quickstart_requests,
+                                  import_eps) if quickstart else None
+        return st, qs
+
     if args.only is not None:
         if args.only == "serve_sharded":
             model, _ = make_model(torch, rng)
@@ -2119,8 +2757,8 @@ def main() -> int:
                             args.lifecycle_requests)
         else:
             phase_parity(torch, ft, dev, rng)
-            phase_streaming(torch, ft, dev, rng, args.seed,
-                            args.streaming_requests)
+            pevlog_phases(args.only == "streaming",
+                          args.only == "quickstart")
         print(smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -2140,9 +2778,8 @@ def main() -> int:
     _, served = train_phases()
     lifecycle = phase_lifecycle(torch, ft, dev, rng, args.seed,
                                 args.lifecycle_requests)
-    streaming = phase_streaming(torch, ft, dev, rng, args.seed,
-                                args.streaming_requests,
-                                lifecycle["import"]["events_per_s"])
+    streaming, quickstart = pevlog_phases(
+        True, True, lifecycle["import"]["events_per_s"])
 
     main_row, shard_row = timing[64], timing_sh[64]
     emit({"kernels": [{
@@ -2158,6 +2795,7 @@ def main() -> int:
         "trained_model_launches": served["launches"],
         "lifecycle_launches": lifecycle["serve"]["launches"],
         "streaming_launches": streaming["launches"],
+        "quickstart_launches": quickstart["launches"],
         "by_bucket": {str(b): r for b, r in timing.items()}}, {
         "name": "shard_local_candidates", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",

@@ -8,7 +8,15 @@
         [--device cpu]
     python -m predictionio_tpu_torch.cli deploy [--engine-instance-id ID] \
         [--port 8000] [--batch-max 64] [--items-on-host] [--device cpu] \
-        [--refresh-interval SECONDS]
+        [--refresh-interval SECONDS] [--feedback --accesskey KEY \
+        [--event-server-ip localhost] [--event-server-port 7070]]
+    python -m predictionio_tpu_torch.cli eventserver [--ip 0.0.0.0] \
+        [--port 7070] [--stats]
+    python -m predictionio_tpu_torch.cli eval my.module.MyEvaluation \
+        [my.module.MyEngineParamsGenerator] [--output-path result.json] \
+        [--device cpu]
+    python -m predictionio_tpu_torch.cli batchpredict [--input queries.json] \
+        [--output predictions.json] [--query-partitions 1024] [--device cpu]
 
 Storage comes from `PIO_STORAGE_*` (or a `pio-env` file); without any,
 one sqlite file at `./.pio_store/pio.db`, the JAX package's default.
@@ -27,7 +35,18 @@ shards) instead of being loaded whole onto one card.
 instance fresh: a refresher thread folds the events appended since the
 last tick into the served model (a delta-capable event store, PEVLOG,
 is needed; SQLITE retrains in full on a change) and swaps the new item
-factors into the warmed plan.
+factors into the warmed plan. `--feedback` posts every served
+prediction back to the event server (`--event-server-ip`,
+`--event-server-port`, `--accesskey`) as a `predict` event.
+
+`eventserver` serves the REST event API (`/events.json`,
+`/batch/events.json`, webhooks, `/stats.json` with `--stats`) over the
+configured event store until SIGTERM. `eval` runs an `Evaluation` over
+its candidates (or those of the `EngineParamsGenerator` named) on the
+card, records an evaluation instance, and prints its id, the result line
+and the best score. `batchpredict` answers a file of JSON queries, one
+per line, with the latest COMPLETED instance of engine.json's variant,
+through the warmed serving plan, into one JSON line per query.
 """
 
 from __future__ import annotations
@@ -46,7 +65,8 @@ from predictionio_tpu_torch.core.runtime import RuntimeContext
 from predictionio_tpu_torch.core.workflow import CoreWorkflow, prepare_deploy
 from predictionio_tpu_torch.models.recommendation import RecommendationEngine
 from predictionio_tpu_torch.ops.als import ALSModel, load_npz
-from predictionio_tpu_torch.serving.server import (PredictionServer,
+from predictionio_tpu_torch.serving.server import (FeedbackConfig,
+                                                   PredictionServer,
                                                    _Deployment)
 
 
@@ -56,7 +76,8 @@ def _emit(obj) -> None:
 
 def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
            batch_max: int = 64, window_s: float = 0.002,
-           mesh=None) -> PredictionServer:
+           mesh=None, feedback: Optional[FeedbackConfig] = None
+           ) -> PredictionServer:
     """Warm `model` for serving (kernel built, every bucket up to
     `batch_max` launched once) and start a `PredictionServer` on it in a
     background thread; returns the running server. `mesh`, an
@@ -65,24 +86,27 @@ def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
     three shards from one card); None shards only over two or more
     local cards, as `serve_mesh_from_conf` decides. A sharded or tiered
     plan takes the device state: `model.item_factors` is moved to host
-    RAM (`ALSAlgorithm.warm_serving`)."""
+    RAM (`ALSAlgorithm.warm_serving`). `feedback` posts every served
+    prediction to an event server."""
     algos, models, serving = prepare_deploy(
         RecommendationEngine.apply(), [model], warm_batch_max=batch_max,
         mesh=mesh)
     return _start(_Deployment(algos, models, serving), host, port,
-                  batch_max, window_s)
+                  batch_max, window_s, feedback=feedback)
 
 
 def deploy_instance(engine, instance, ctx: RuntimeContext, *,
                     host: str = "127.0.0.1", port: int = 8000,
                     batch_max: int = 64, window_s: float = 0.002,
-                    items_device=None, refresh_interval_s: float = 0.0
+                    items_device=None, refresh_interval_s: float = 0.0,
+                    feedback: Optional[FeedbackConfig] = None
                     ) -> PredictionServer:
     """Serve an engine instance: its models read back from the model
     store (`CoreWorkflow.prepare_deploy`) onto `ctx.device`, warmed as
     `deploy` warms a model, behind a started `PredictionServer`, whose
     `GET /` shows the instance id and the deploy's load, place and warm
-    seconds. `refresh_interval_s` > 0 runs the streaming refresher."""
+    seconds. `refresh_interval_s` > 0 runs the streaming refresher;
+    `feedback` posts every served prediction to an event server."""
     timings: dict = {}
     algos, models, serving = CoreWorkflow.prepare_deploy(
         engine, instance, ctx, warm_batch_max=batch_max,
@@ -90,7 +114,7 @@ def deploy_instance(engine, instance, ctx: RuntimeContext, *,
     return _start(_Deployment(algos, models, serving, engine=engine,
                               instance=instance, timings=timings),
                   host, port, batch_max, window_s, ctx=ctx,
-                  refresh_interval_s=refresh_interval_s)
+                  refresh_interval_s=refresh_interval_s, feedback=feedback)
 
 
 def _start(dep: _Deployment, host: str, port: int, batch_max: int,
@@ -156,6 +180,32 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--refresh-interval", type=float, default=0.0,
                    help="seconds between streaming fold-in ticks "
                         "(0 = off)")
+    x.add_argument("--feedback", action="store_true",
+                   help="post every served prediction to the event "
+                        "server as a predict event")
+    x.add_argument("--event-server-ip", default="localhost")
+    x.add_argument("--event-server-port", type=int, default=7070)
+    x.add_argument("--accesskey", default="")
+    x = sub.add_parser("eventserver", help="serve the REST event API")
+    x.add_argument("--ip", default="0.0.0.0")
+    x.add_argument("--port", type=int, default=7070)
+    x.add_argument("--stats", action="store_true")
+    x = sub.add_parser("eval", help="evaluate and tune engine params")
+    x.add_argument("evaluation", help="dotted path to an Evaluation")
+    x.add_argument("params_generator", nargs="?",
+                   help="dotted path to an EngineParamsGenerator")
+    x.add_argument("--output-path")
+    x.add_argument("--device", default=None,
+                   help="torch device (default cuda)")
+    x = sub.add_parser("batchpredict", help="answer a file of queries")
+    x.add_argument("--engine-json", default="engine.json")
+    x.add_argument("--engine-factory")
+    x.add_argument("--input", default="batchpredict-input.json")
+    x.add_argument("--output", default="batchpredict-output.json")
+    x.add_argument("--query-partitions", type=int, default=1024,
+                   help="queries per device batch chunk")
+    x.add_argument("--device", default=None,
+                   help="torch device (default cuda)")
     return p
 
 
@@ -179,13 +229,24 @@ def _app(args) -> None:
         _emit({"message": f"App {args.name} deleted"})
 
 
+def _wait_for_sigterm() -> None:
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait()
+
+
 def _deploy(args) -> int:
     items_device = "cpu" if args.items_on_host else None
+    feedback = FeedbackConfig(
+        event_server_ip=args.event_server_ip,
+        event_server_port=args.event_server_port,
+        access_key=args.accesskey) if args.feedback else None
     if args.model:
         model = load_npz(args.model, device=args.device,
                          items_device=items_device)
         server = deploy(model, host=args.ip, port=args.port,
-                        batch_max=args.batch_max)
+                        batch_max=args.batch_max, feedback=feedback)
         what, dev = args.model, model.device
     else:
         registry = _registry()
@@ -197,18 +258,27 @@ def _deploy(args) -> int:
                                          device=args.device),
             host=args.ip, port=args.port, batch_max=args.batch_max,
             items_device=items_device,
-            refresh_interval_s=args.refresh_interval)
+            refresh_interval_s=args.refresh_interval, feedback=feedback)
         what = f"engine instance {inst.id}"
         dev = ", ".join(sorted({str(m.device)
                                 for m in server.deployment.models
                                 if hasattr(m, "device")}))
     print(f"serving {what} on http://{args.ip}:{server.port} ({dev})",
           flush=True)
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
-    stop.wait()
+    _wait_for_sigterm()
     server.stop()
+    return 0
+
+
+def _eventserver(args) -> int:
+    from predictionio_tpu_torch.data.eventserver import (EventServer,
+                                                         EventServerConfig)
+    server = EventServer(EventServerConfig(ip=args.ip, port=args.port,
+                                           stats=args.stats), _registry())
+    port = server.start()
+    print(f"Event server started on {args.ip}:{port}", flush=True)
+    _wait_for_sigterm()
+    server.shutdown()
     return 0
 
 
@@ -232,6 +302,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                     channel_id=args.channel))
         elif cmd == "build":
             _emit(ops.build(args.engine_json))
+        elif cmd == "eval":
+            _emit(ops.run_eval(_registry(), args.evaluation,
+                               args.params_generator, args.output_path,
+                               device=args.device))
+        elif cmd == "batchpredict":
+            _emit(ops.batchpredict(
+                _registry(), engine_json=args.engine_json,
+                engine_factory=args.engine_factory, input_path=args.input,
+                output_path=args.output, chunk_size=args.query_partitions,
+                device=args.device))
+        elif cmd == "eventserver":
+            return _eventserver(args)
         elif cmd == "train":
             try:
                 _emit(ops.train(

@@ -2,9 +2,9 @@
 
 The port of the lifecycle commands of `predictionio_tpu/cli/ops.py`
 (commands/{App,AccessKey,Engine,Import}.scala): `app new|list|show|
-delete`, `accesskey new|list`, `import` of API-JSON event lines, and the
-engine.json plumbing of `build`, `train` and `deploy`. Every function
-takes the storage registry it works on.
+delete`, `accesskey new|list`, `import` of API-JSON event lines, the
+engine.json plumbing of `build`, `train` and `deploy`, `eval` and
+`batchpredict`. Every function takes the storage registry it works on.
 """
 
 from __future__ import annotations
@@ -206,3 +206,60 @@ def deploy_target(registry, *, engine_instance_id: Optional[str] = None,
         factory = resolve_factory_name(variant, engine_factory, engine_json)
         inst = latest_completed(registry, variant.get("id", "default"))
     return resolve_engine(factory), inst
+
+
+def _resolve_dotted(dotted: str):
+    """The object at 'package.module.attr', called when it is a
+    callable without an `engine` (a factory of the Evaluation or the
+    generator)."""
+    import importlib
+    module_name, _, attr = dotted.rpartition(".")
+    if not module_name:
+        raise ValueError(f"{dotted!r} is not a dotted path module.attr")
+    obj = getattr(importlib.import_module(module_name), attr)
+    return obj() if callable(obj) and not hasattr(obj, "engine") else obj
+
+
+def run_eval(registry, evaluation_path: str,
+             params_generator_path: Optional[str] = None,
+             output_path: Optional[str] = None, *,
+             device=None) -> Dict[str, Any]:
+    """pio eval <Evaluation> [<EngineParamsGenerator>] (Console.scala's
+    eval command) on `device` (None = cuda): every candidate of the
+    generator (else the Evaluation's own) trained and scored per fold,
+    recorded as an evaluation instance."""
+    from predictionio_tpu_torch.core.evaluation import (MetricEvaluator,
+                                                        run_evaluation)
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    evaluation = _resolve_dotted(evaluation_path)
+    engine_params_list = None
+    if params_generator_path:
+        engine_params_list = _resolve_dotted(
+            params_generator_path).engine_params_list
+    evaluator = MetricEvaluator(evaluation.metric, evaluation.other_metrics,
+                                output_path=output_path)
+    row, result = run_evaluation(
+        evaluation, RuntimeContext(registry=registry, device=device),
+        evaluation_class=evaluation_path,
+        engine_params_list=engine_params_list, evaluator=evaluator)
+    return {"evaluationInstanceId": row.id, "result": result.one_liner(),
+            "bestScore": result.best_score.score}
+
+
+def batchpredict(registry, *, engine_json: str = "engine.json",
+                 engine_factory: Optional[str] = None,
+                 input_path: str = "batchpredict-input.json",
+                 output_path: str = "batchpredict-output.json",
+                 chunk_size: int = 1024, device=None) -> Dict[str, Any]:
+    """pio batchpredict (commands/Engine.scala:279-314) with the latest
+    COMPLETED instance of engine.json's variant on `device`."""
+    from predictionio_tpu_torch.core.batchpredict import run_batch_predict
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    engine, instance = deploy_target(registry, engine_json=engine_json,
+                                     engine_factory=engine_factory)
+    n = run_batch_predict(engine, instance,
+                          RuntimeContext(registry=registry, device=device),
+                          input_path=input_path, output_path=output_path,
+                          chunk_size=chunk_size)
+    return {"engineInstanceId": instance.id, "predictions": n,
+            "output": output_path}

@@ -1,7 +1,8 @@
 """DASE component contracts: DataSource, Preparator, Algorithm, Serving.
 
 The port of `predictionio_tpu/core/base.py`. Every component is
-constructed with one Params dataclass.
+constructed with one Params dataclass. `Evaluator` is the base of
+`core.evaluation.MetricEvaluator`.
 """
 
 from __future__ import annotations
@@ -44,6 +45,11 @@ class DataSource(_Component):
     """Reads training data (BaseDataSource.scala:37-54)."""
 
     def read_training(self, ctx: Any) -> Any:
+        raise NotImplementedError
+
+    def read_eval(self, ctx: Any) -> List[Tuple[Any, Any, list]]:
+        """[(training data, eval info, [(query, actual)])] per fold
+        (BaseDataSource.readEvalBase)."""
         raise NotImplementedError
 
 
@@ -106,6 +112,15 @@ class FirstServing(Serving):
 
     def serve(self, query, predictions):
         return predictions[0]
+
+
+class Evaluator(_Component):
+    """Scores the output of `Engine.eval` (BaseEvaluator.scala:37-48);
+    `core.evaluation.MetricEvaluator` is the implementation."""
+
+    def evaluate(self, ctx: Any, engine: Any, engine_params_list: Any,
+                 eval_data_set: Any = None) -> Any:
+        raise NotImplementedError
 
 
 def sanity_check(obj: Any) -> None:

@@ -4,15 +4,15 @@ The port of `predictionio_tpu/core/engine.py`: the component class maps,
 `make_components`, `train` (the sequential per-algorithm loop with phase
 timings, the sanity checks and the stop-after flags of the run's
 `WorkflowParams`, Engine.scala:643-708), the engine.json variant ->
-`EngineParams` extraction (Engine.scala:357-420) and
-`bind_serving_context`. Eval comes with a later slice.
+`EngineParams` extraction (Engine.scala:357-420), `eval` (the folds x
+algorithms loop, Engine.scala:730-820) and `bind_serving_context`.
 """
 
 from __future__ import annotations
 
 import json
 import time
-from typing import Any, Dict, List, Mapping, Tuple, Type
+from typing import Any, Dict, List, Mapping, Sequence, Tuple, Type
 
 from predictionio_tpu_torch.core.base import (
     Algorithm, DataSource, Preparator, Serving, StopAfterPrepareInterruption,
@@ -107,6 +107,28 @@ class Engine:
             models.append(model)
         return models
 
+    def eval(self, ctx: RuntimeContext, engine_params: EngineParams
+             ) -> List[Tuple[Any, Sequence[Tuple[Any, Any, Any]]]]:
+        """[(eval info, [(query, prediction, actual)])] per fold of the
+        data source's `read_eval`: per fold prepare, train every
+        algorithm (on `ctx.device`), `batch_predict` the fold's queries
+        and serve them; predictions joined by query index (union +
+        groupByKey in the reference, Engine.scala:790-796)."""
+        ds, prep, algos, serving = self.make_components(engine_params)
+        bind_serving_context(algos, ctx)
+        out = []
+        for td, eval_info, qa_pairs in ds.read_eval(ctx):
+            pd = prep.prepare(ctx, td)
+            models = [a.train(ctx, pd) for a in algos]
+            queries = [(i, serving.supplement(q))
+                       for i, (q, _) in enumerate(qa_pairs)]
+            per_algo = [dict(a.batch_predict(m, queries))
+                        for a, m in zip(algos, models)]
+            out.append((eval_info, [
+                (q, serving.serve(q, [pa[i] for pa in per_algo]), a)
+                for i, (q, a) in enumerate(qa_pairs)]))
+        return out
+
     def engine_params_from_variant(self, variant: "Mapping | str"
                                    ) -> EngineParams:
         """An engine.json variant (parsed, or its JSON text) as
@@ -170,7 +192,8 @@ def bind_serving_context(algos, ctx: RuntimeContext) -> None:
     run's context: algorithms that read the event store at serve time
     (e-commerce constraint events, ECommAlgorithm.scala:331-430) read it
     through the context they were bound to. Called on every path that
-    runs predict: `Engine.train` and `CoreWorkflow.prepare_deploy`."""
+    runs predict: `Engine.train`, `Engine.eval`, eval's prefix-cached
+    loop and `CoreWorkflow.prepare_deploy`."""
     for algo in algos:
         hook = getattr(algo, "with_serving_context", None)
         if callable(hook):

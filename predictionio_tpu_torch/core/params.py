@@ -3,7 +3,8 @@
 The port of `predictionio_tpu/core/params.py`: the `Params` marker,
 `EmptyParams`, the strict dataclass-driven `extract_params` that turns a
 query JSON into the template's `Query` and an engine.json variant into
-component params, and `EngineParams`.
+component params, `params_to_json` (eval's per-stage cache key) and
+`EngineParams`.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import collections.abc as cabc
 import dataclasses
 import json
 import typing
-from typing import Any, Dict, Mapping, Sequence, Tuple, Type, TypeVar
+from typing import (Any, Dict, Mapping, Optional, Sequence, Tuple, Type,
+                    TypeVar)
 
 
 class Params:
@@ -145,6 +147,13 @@ def _coerce(tp, value: Any, path: str) -> Any:
                 f"{path}: expected string, got {type(value).__name__}")
         return value
     return value
+
+
+def params_to_json(p: Optional[Params]) -> str:
+    """A params dataclass as sorted-key JSON."""
+    if p is None:
+        return "{}"
+    return json.dumps(dataclasses.asdict(p), sort_keys=True)
 
 
 @dataclasses.dataclass(frozen=True)

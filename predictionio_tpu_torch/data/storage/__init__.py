@@ -3,7 +3,8 @@
 
 from predictionio_tpu_torch.data.storage.base import (
     AccessKey, AccessKeys, App, Apps, Channel, Channels, EngineInstance,
-    EngineInstanceStatus, EngineInstances, EventStore, Model, Models,
+    EngineInstanceStatus, EngineInstances, EvaluationInstance,
+    EvaluationInstanceStatus, EvaluationInstances, EventStore, Model, Models,
     StorageError, StorageWriteError,
 )
 from predictionio_tpu_torch.data.storage.registry import (
@@ -13,6 +14,7 @@ from predictionio_tpu_torch.data.storage.registry import (
 __all__ = [
     "AccessKey", "AccessKeys", "App", "Apps", "Channel", "Channels",
     "EngineInstance", "EngineInstanceStatus", "EngineInstances",
+    "EvaluationInstance", "EvaluationInstanceStatus", "EvaluationInstances",
     "EventStore", "Model", "Models", "StorageError", "StorageWriteError",
     "StorageRegistry", "register_driver", "set_default", "storage",
 ]

@@ -4,16 +4,18 @@ The port of the part of `predictionio_tpu/data/storage/base.py` that the
 `pio` lifecycle runs (app new -> import -> train -> deploy):
 
   - the records `App`, `AccessKey`, `Channel`, `EngineInstance` (with
-    `EngineInstanceStatus`) and `Model` (Apps, AccessKeys, Channels,
-    EngineInstances, Models.scala);
+    `EngineInstanceStatus`), `EvaluationInstance` (with
+    `EvaluationInstanceStatus`) and `Model` (Apps, AccessKeys, Channels,
+    EngineInstances, EvaluationInstances, Models.scala);
   - the DAO bases `Apps`, `AccessKeys`, `Channels`, `EngineInstances`,
-    `Models` and `EventStore` (LEvents.scala:40-520): `insert` and
+    `EvaluationInstances`, `Models` and `EventStore` (LEvents.scala:
+    40-520): `insert` and
     `insert_batch` validate first, `find` has the three-state target
     filter, `scan_columns` adapts `find`, and `ingest_watermark` /
     `ingest_cache_dir` are None (no prepared-data cache, no delta).
 
-Evaluation instances, leases, tenant quotas, SLO objectives and
-`aggregate_properties` come with the slices that use them. Drivers
+Leases, tenant quotas, SLO objectives and `aggregate_properties` come
+with the slices that use them. Drivers
 (`memory.py`, `sqlite.py`, `evlog.py`, `pevlog.py`) implement these
 bases and are found by the registry (`registry.py`).
 """
@@ -110,6 +112,32 @@ class EngineInstance:
     heartbeat: Optional[datetime] = None
 
     def with_(self, **kw) -> "EngineInstance":
+        return replace(self, **kw)
+
+
+class EvaluationInstanceStatus:
+    INIT = "EVALINIT"
+    RUNNING = "EVALRUNNING"
+    COMPLETED = "EVALCOMPLETED"
+
+
+@dataclass(frozen=True)
+class EvaluationInstance:
+    """Metadata row of one eval run (EvaluationInstances.scala:25-56)."""
+    id: str = ""
+    status: str = ""
+    start_time: datetime = field(default_factory=utcnow)
+    end_time: datetime = field(default_factory=utcnow)
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: Mapping[str, str] = field(default_factory=dict)
+    runtime_conf: Mapping[str, Any] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+    def with_(self, **kw) -> "EvaluationInstance":
         return replace(self, **kw)
 
 
@@ -230,6 +258,29 @@ class EngineInstances(abc.ABC):
         row = self.get(iid)
         if row is not None:
             self.update(row.with_(heartbeat=ts or utcnow()))
+
+
+class EvaluationInstances(abc.ABC):
+    """Evaluation instance registry (EvaluationInstances.scala:58-84)."""
+
+    @abc.abstractmethod
+    def insert(self, i: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, iid: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> List[EvaluationInstance]:
+        """COMPLETED instances, newest start first."""
+
+    @abc.abstractmethod
+    def update(self, i: EvaluationInstance) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, iid: str) -> None: ...
 
 
 class Models(abc.ABC):

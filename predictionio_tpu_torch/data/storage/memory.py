@@ -1,8 +1,8 @@
 """In-memory storage driver ("MEM" type): the tests' backend.
 
 The port of the DAOs of `predictionio_tpu/data/storage/memory.py` that
-the lifecycle uses (apps, access keys, channels, engine instances,
-models, events). Thread-safe through one lock per client.
+the lifecycle and eval use (apps, access keys, channels, engine and
+evaluation instances, models, events). Thread-safe through one lock per client.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (
-    AccessKey, App, Channel, EngineInstance, Model, _UNSET, match_event)
+    AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
+    _UNSET, match_event)
 
 
 class MemStorageClient:
@@ -29,6 +30,7 @@ class MemStorageClient:
         self.access_keys: Dict[str, AccessKey] = {}
         self.channels: Dict[int, Channel] = {}
         self.engine_instances: Dict[str, EngineInstance] = {}
+        self.evaluation_instances: Dict[str, EvaluationInstance] = {}
         self.models: Dict[str, Model] = {}
         # (app_id, channel_id) -> event_id -> Event
         self.events: Dict[Tuple[int, Optional[int]], Dict[str, Event]] = {}
@@ -165,6 +167,37 @@ class MemEngineInstances(base.EngineInstances):
     def delete(self, iid: str) -> None:
         with self.c.lock:
             self.c.engine_instances.pop(iid, None)
+
+
+class MemEvaluationInstances(base.EvaluationInstances):
+    def __init__(self, client: MemStorageClient):
+        self.c = client
+
+    def insert(self, i: EvaluationInstance) -> str:
+        with self.c.lock:
+            iid = i.id or uuid.uuid4().hex
+            self.c.evaluation_instances[iid] = i.with_(id=iid)
+            return iid
+
+    def get(self, iid: str) -> Optional[EvaluationInstance]:
+        return self.c.evaluation_instances.get(iid)
+
+    def get_all(self) -> List[EvaluationInstance]:
+        return list(self.c.evaluation_instances.values())
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        with self.c.lock:
+            rows = [i for i in self.c.evaluation_instances.values()
+                    if i.status == base.EvaluationInstanceStatus.COMPLETED]
+        return sorted(rows, key=lambda i: i.start_time, reverse=True)
+
+    def update(self, i: EvaluationInstance) -> None:
+        with self.c.lock:
+            self.c.evaluation_instances[i.id] = i
+
+    def delete(self, iid: str) -> None:
+        with self.c.lock:
+            self.c.evaluation_instances.pop(iid, None)
 
 
 class MemModels(base.Models):

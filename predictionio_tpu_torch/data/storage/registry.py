@@ -46,6 +46,7 @@ def _register_builtin_drivers() -> None:
         "AccessKeys": memory.MemAccessKeys,
         "Channels": memory.MemChannels,
         "EngineInstances": memory.MemEngineInstances,
+        "EvaluationInstances": memory.MemEvaluationInstances,
         "Models": memory.MemModels,
         "Events": memory.MemEvents,
     })
@@ -54,6 +55,7 @@ def _register_builtin_drivers() -> None:
         "AccessKeys": sqlite.SQLiteAccessKeys,
         "Channels": sqlite.SQLiteChannels,
         "EngineInstances": sqlite.SQLiteEngineInstances,
+        "EvaluationInstances": sqlite.SQLiteEvaluationInstances,
         "Models": sqlite.SQLiteModels,
         "Events": sqlite.SQLiteEvents,
     })
@@ -194,6 +196,10 @@ class StorageRegistry:
 
     def get_meta_data_engine_instances(self) -> base.EngineInstances:
         return self._repo_dao("METADATA", "EngineInstances")
+
+    def get_meta_data_evaluation_instances(self
+                                           ) -> base.EvaluationInstances:
+        return self._repo_dao("METADATA", "EvaluationInstances")
 
     def get_model_data_models(self) -> base.Models:
         return self._repo_dao("MODELDATA", "Models")

@@ -1,8 +1,8 @@
 """SQLite storage driver ("SQLITE" type), the default persistent backend.
 
 The port of `predictionio_tpu/data/storage/sqlite.py` for the DAOs the
-lifecycle uses: apps, access keys, channels, engine instances, models
-and events (the reference's JDBC driver role, JDBC{LEvents,Models,...}
+lifecycle and eval use: apps, access keys, channels, engine and
+evaluation instances, models and events (the reference's JDBC driver role, JDBC{LEvents,Models,...}
 .scala). The on-disk schema is the JAX package's, table for table and
 column for column: events live in `events_<appId>[_<channelId>]`
 (JDBCUtils.eventTableName), times are epoch milliseconds, model blobs
@@ -30,7 +30,8 @@ from predictionio_tpu_torch.data.event import (DataMap, Event, from_millis,
                                                to_millis)
 from predictionio_tpu_torch.data.storage import base, columns
 from predictionio_tpu_torch.data.storage.base import (
-    AccessKey, App, Channel, EngineInstance, Model, _UNSET, match_properties)
+    AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
+    _UNSET, match_properties)
 
 # The JAX package's metadata tables, verbatim: a store either package
 # creates has the same schema, whichever opens it first.
@@ -331,6 +332,79 @@ class SQLiteEngineInstances(base.EngineInstances):
         with self.c.lock, self.c.conn:
             self.c.conn.execute("DELETE FROM engine_instances WHERE id=?",
                                 (iid,))
+
+
+class SQLiteEvaluationInstances(base.EvaluationInstances):
+    """Rows of the JAX package's `evaluation_instances` table, column for
+    column (its DAO, `sqlite.py:380-445`)."""
+    COLS = ("id, status, starttime, endtime, evaluationclass, "
+            "engineparamsgeneratorclass, batch, env, runtimeconf, "
+            "evaluatorresults, evaluatorresultshtml, evaluatorresultsjson")
+
+    def __init__(self, client: SQLiteStorageClient):
+        self.c = client
+
+    @staticmethod
+    def _to_row(i: EvaluationInstance):
+        return (i.id, i.status, to_millis(i.start_time),
+                to_millis(i.end_time), i.evaluation_class,
+                i.engine_params_generator_class, i.batch,
+                json.dumps(dict(i.env)), json.dumps(dict(i.runtime_conf)),
+                i.evaluator_results, i.evaluator_results_html,
+                i.evaluator_results_json)
+
+    @staticmethod
+    def _from_row(r) -> EvaluationInstance:
+        return EvaluationInstance(
+            id=r[0], status=r[1], start_time=from_millis(r[2]),
+            end_time=from_millis(r[3]), evaluation_class=r[4],
+            engine_params_generator_class=r[5], batch=r[6],
+            env=json.loads(r[7]), runtime_conf=json.loads(r[8]),
+            evaluator_results=r[9], evaluator_results_html=r[10],
+            evaluator_results_json=r[11])
+
+    def insert(self, i: EvaluationInstance) -> str:
+        iid = i.id or uuid.uuid4().hex
+        with self.c.lock, self.c.conn:
+            self.c.conn.execute(
+                f"INSERT INTO evaluation_instances ({self.COLS}) VALUES "
+                "(?,?,?,?,?,?,?,?,?,?,?,?)", self._to_row(i.with_(id=iid)))
+        return iid
+
+    def get(self, iid: str) -> Optional[EvaluationInstance]:
+        with self.c.lock:
+            row = self.c.conn.execute(
+                f"SELECT {self.COLS} FROM evaluation_instances WHERE id=?",
+                (iid,)).fetchone()
+        return self._from_row(row) if row else None
+
+    def get_all(self) -> List[EvaluationInstance]:
+        with self.c.lock:
+            rows = self.c.conn.execute(
+                f"SELECT {self.COLS} FROM evaluation_instances").fetchall()
+        return [self._from_row(r) for r in rows]
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        with self.c.lock:
+            rows = self.c.conn.execute(
+                f"SELECT {self.COLS} FROM evaluation_instances WHERE "
+                "status=? ORDER BY starttime DESC",
+                (base.EvaluationInstanceStatus.COMPLETED,)).fetchall()
+        return [self._from_row(r) for r in rows]
+
+    def update(self, i: EvaluationInstance) -> None:
+        with self.c.lock, self.c.conn:
+            self.c.conn.execute(
+                "UPDATE evaluation_instances SET status=?, starttime=?, "
+                "endtime=?, evaluationclass=?, engineparamsgeneratorclass=?, "
+                "batch=?, env=?, runtimeconf=?, evaluatorresults=?, "
+                "evaluatorresultshtml=?, evaluatorresultsjson=? WHERE id=?",
+                self._to_row(i)[1:] + (i.id,))
+
+    def delete(self, iid: str) -> None:
+        with self.c.lock, self.c.conn:
+            self.c.conn.execute(
+                "DELETE FROM evaluation_instances WHERE id=?", (iid,))
 
 
 class SQLiteModels(base.Models):

@@ -15,7 +15,9 @@ The port of `predictionio_tpu/models/recommendation.py` (parity target
     `{"itemScores": [{"item": "i", "score": s}]}`;
   - streaming fold-in (`ALSAlgorithm.fold_in`): the delta's touched
     users re-solved against fixed item factors, then the touched items
-    against the new user factors, on the serving device.
+    against the new user factors, on the serving device;
+  - eval: the data source's k-fold `read_eval` (DataSource.scala:
+    76-101) and `PrecisionAtK` (the template's Evaluation.scala).
 
 A deployment serves blackList queries through the warmed plan that
 `ops.topk_sharded.serve_plan` picks (single-device, sharded, tiered or
@@ -38,6 +40,7 @@ from predictionio_tpu_torch.core.base import (Algorithm, DataSource,
                                               FirstServing,
                                               IdentityPreparator)
 from predictionio_tpu_torch.core.engine import Engine, EngineFactory
+from predictionio_tpu_torch.core.evaluation import OptionAverageMetric
 from predictionio_tpu_torch.core.params import Params
 from predictionio_tpu_torch.core.runtime import RuntimeContext
 from predictionio_tpu_torch.core.workflow import register_engine
@@ -71,9 +74,14 @@ class PredictedResult:
 
 
 @dataclass(frozen=True)
+class ActualResult:
+    """The test-fold ratings of the query's user (Evaluation.scala)."""
+    ratings: Sequence[Tuple[str, float]] = ()
+
+
+@dataclass(frozen=True)
 class EvalParams(Params):
-    """(DataSourceEvalParams, DataSource.scala:30); read by eval, which
-    is not ported yet."""
+    """(DataSourceEvalParams, DataSource.scala:30)"""
     k_fold: int = 3
     query_num: int = 10
 
@@ -101,6 +109,41 @@ class RecommendationDataSource(DataSource):
             value_spec={"rate": ("prop", "rating"),
                         "buy": float(p.buy_rating)},
             dedup_last_wins=True)
+
+    def read_eval(self, ctx: RuntimeContext):
+        """k folds by rating index modulo k (CrossValidation.scala:26-67
+        splitData): per fold the other folds' ratings to train on and,
+        for each user of the test fold in id order, a query for
+        `query_num` items with the user's test ratings in store order.
+        The lists come from one stable sort of the test ratings by user,
+        equal to the JAX package's per-user scan of every rating."""
+        p = self.params
+        if p.eval_params is None:
+            raise ValueError("eval requires DataSourceParams.eval_params")
+        rc = self.read_training(ctx)
+        k = p.eval_params.k_fold
+        fold_of = np.arange(rc.n) % k
+        folds = []
+        for fold in range(k):
+            test_sel = fold_of == fold
+            train = RatingColumns(
+                rc.user_ix[~test_sel], rc.item_ix[~test_sel],
+                rc.rating[~test_sel], rc.t_millis[~test_sel],
+                rc.users, rc.items)
+            test = np.nonzero(test_sel)[0]
+            test = test[np.argsort(rc.user_ix[test], kind="stable")]
+            users = rc.user_ix[test]
+            starts = np.flatnonzero(np.r_[True, users[1:] != users[:-1]])
+            qa: List[Tuple[Query, ActualResult]] = []
+            for rows in np.split(test, starts[1:]) if test.size else ():
+                ratings = tuple(
+                    (rc.items.inverse(int(i)), float(r))
+                    for i, r in zip(rc.item_ix[rows], rc.rating[rows]))
+                qa.append((Query(user=rc.users.inverse(int(
+                    rc.user_ix[rows[0]])), num=p.eval_params.query_num),
+                           ActualResult(ratings)))
+            folds.append((train, f"fold{fold}", qa))
+        return folds
 
 
 @dataclass(frozen=True)
@@ -250,6 +293,33 @@ class ALSAlgorithm(Algorithm):
                                        float(s)))
             out.append((i, PredictedResult(tuple(items))))
         return out
+
+
+class PrecisionAtK(OptionAverageMetric):
+    """Precision@K with a rating threshold: of the top-K recommended
+    items, the fraction the user rated >= threshold in the test fold,
+    over min(k, |positives|); None (skipped) when the user has no
+    positive item there (`examples/scala-parallel-recommendation/
+    blacklist-items/src/main/scala/Evaluation.scala`)."""
+
+    def __init__(self, k: int = 10, rating_threshold: float = 2.0):
+        self.k = k
+        self.rating_threshold = rating_threshold
+
+    def header(self) -> str:
+        return f"Precision@K (k={self.k}, threshold={self.rating_threshold})"
+
+    def calculate_one(self, q: Query, p: PredictedResult,
+                      a: ActualResult) -> Optional[float]:
+        positives = {item for item, r in a.ratings
+                     if r >= self.rating_threshold}
+        if not positives:
+            return None
+        top = [s.item for s in p.itemScores[:self.k]]
+        if not top:
+            return 0.0
+        hits = sum(1 for item in top if item in positives)
+        return hits / min(self.k, len(positives))
 
 
 class RecommendationEngine(EngineFactory):

@@ -10,7 +10,8 @@ micro-batcher that coalesces concurrent requests into device batches
                        -> {"itemScores": [{"item", "score"}]}
   GET  /               status JSON: the engine instance served, the
                        fused kernel's launch counts, the serving plans'
-                       kinds and their calls, the refresher's ticks
+                       kinds and their calls, the refresher's ticks,
+                       the feedback loop's sent and dropped counts
 
 A deployment whose plan is tiered (`ops/topk_tiered.TieredTopK`, bare
 or inside a fleet slice) gets a `serving.paging.PageManager` thread for
@@ -18,15 +19,30 @@ the server's lifetime. With `refresh_interval_s` > 0 a
 `streaming.Refresher` thread keeps the deployment fresh: it folds new
 events into the models and publishes a new deployment under
 `_dep_lock` (`publish`); a request holds the deployment it started with.
-Tenancy, fleet, tracing, SLO and quality accounting, the selector wire
-and the binary frame are not ported yet (ROADMAP.md, Queue 1).
+
+With a `FeedbackConfig` (`cli deploy --feedback`) every served query
+becomes a `predict` event (entityType `pio_pr`, entityId a fresh prId,
+properties engineInstanceId, prId, query and prediction) on a bounded
+queue that one worker thread POSTs to the event server's `/events.json`
+(CreateServer.scala:506-576): each send retries with backoff and is then
+dropped, and a full queue drops the event instead of stalling the serve
+path. The response carries `prId` only where the prediction has such a
+field.
+
+Tenancy, fleet, tracing, SLO and quality accounting, the feedback
+metrics and watchdog beat, the selector wire and the binary frame are
+not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import http.client
 import json
 import logging
+import queue
+import random
+import string
 import threading
 import time
 from collections import deque
@@ -36,6 +52,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from predictionio_tpu_torch.core.params import ParamsError, extract_params
+from predictionio_tpu_torch.data.event import format_time, utcnow
+from predictionio_tpu_torch.resilience import RetryPolicy, call_with_retry
 
 _log = logging.getLogger("pio.torch.server")
 
@@ -229,6 +247,116 @@ class _MicroBatcher:
                 timeout=timeout)
 
 
+@dataclasses.dataclass(frozen=True)
+class FeedbackConfig:
+    """Where served predictions go back as `predict` events (`cli deploy
+    --feedback --event-server-ip --event-server-port --accesskey`)."""
+    event_server_ip: str = "localhost"
+    event_server_port: int = 7070
+    access_key: str = ""
+
+
+def _gen_pr_id() -> str:
+    return "".join(random.choices(string.ascii_letters + string.digits,
+                                  k=64))
+
+
+class _Feedback:
+    """The feedback loop: a bounded queue of `predict` events and one
+    daemon worker that POSTs them over one kept-alive connection,
+    retrying each send with backoff and dropping it when the attempts
+    run out."""
+
+    QUEUE_MAX = 1024    # the JAX ServerConfig's feedback_queue_max
+    RETRIES = 3         # and feedback_retries: send attempts per event
+
+    def __init__(self, config: FeedbackConfig):
+        self.config = config
+        self._queue: "queue.Queue" = queue.Queue(maxsize=self.QUEUE_MAX)
+        self._lock = threading.Lock()
+        self.sent = 0
+        self.dropped: Dict[str, int] = {"queue_full": 0, "send_failed": 0}
+        self._conn = None   # the worker's connection to the event server
+        self._policy = RetryPolicy(attempts=self.RETRIES,
+                                   base_delay=0.1, max_delay=2.0,
+                                   retryable=(OSError,))
+        threading.Thread(target=self._drain, daemon=True,
+                         name="pio-torch-feedback").start()
+
+    def post(self, dep: "_Deployment", query: Any, prediction: Any,
+             pr_id: str) -> None:
+        data = {"event": "predict", "eventTime": format_time(utcnow()),
+                "entityType": "pio_pr", "entityId": pr_id,
+                "properties": {"engineInstanceId": dep.instance_id,
+                               "prId": pr_id, "query": to_jsonable(query),
+                               "prediction": to_jsonable(prediction)}}
+        try:
+            self._queue.put_nowait(data)
+        except queue.Full:
+            self._count_drop("queue_full")
+            _log.warning("feedback_dropped reason=queue_full")
+
+    def _count_drop(self, reason: str) -> None:
+        with self._lock:
+            self.dropped[reason] += 1
+
+    def _send(self, data: Dict[str, Any]) -> None:
+        """One POST over the worker's kept-alive connection (a new one
+        after any failure); a reply other than 201 raises OSError, so
+        that the retry policy treats a refusing event server as
+        transient."""
+        c = self.config
+        try:
+            if self._conn is None:
+                self._conn = http.client.HTTPConnection(
+                    c.event_server_ip, c.event_server_port, timeout=5)
+            self._conn.request(
+                "POST", f"/events.json?accessKey={c.access_key}",
+                json.dumps(data).encode(),
+                {"Content-Type": "application/json"})
+            resp = self._conn.getresponse()
+            resp.read()
+        except (OSError, http.client.HTTPException) as e:
+            if self._conn is not None:
+                self._conn.close()
+            self._conn = None
+            raise ConnectionError(f"{type(e).__name__}: {e}") from e
+        if resp.status != 201:
+            raise OSError(f"event server replied {resp.status}")
+
+    def _drain(self) -> None:
+        while True:
+            data = self._queue.get()
+            try:
+                call_with_retry(self._send, data, policy=self._policy)
+                with self._lock:
+                    self.sent += 1
+            except Exception as e:  # noqa: BLE001 — best effort: drop
+                self._count_drop("send_failed")
+                _log.warning("feedback_dropped reason=send_failed "
+                             "error=%s: %s", type(e).__name__, e)
+            finally:
+                self._queue.task_done()
+
+    def flush(self, timeout_s: float) -> bool:
+        """Wait up to `timeout_s` for the queue to drain; True if it
+        did."""
+        end = time.perf_counter() + timeout_s
+        while self._queue.unfinished_tasks and time.perf_counter() < end:
+            time.sleep(0.02)
+        left = self._queue.unfinished_tasks
+        if left:
+            _log.warning("stop_feedback_unflushed remaining=%d", left)
+        return not left
+
+    def status(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"sent": self.sent,
+                    "dropped": sum(self.dropped.values()),
+                    "dropped_by_reason": dict(self.dropped),
+                    "queued": self._queue.unfinished_tasks}
+
+
 class _HTTPServer(ThreadingHTTPServer):
     daemon_threads = True
     # listen backlog: bursts of concurrent clients queue here instead of
@@ -240,12 +368,15 @@ class PredictionServer:
     """`/queries.json` over one deployment (CreateServer.scala's
     MasterActor + ServerActor). `port=0` binds an ephemeral port. `ctx`
     (the deploy's `RuntimeContext`: registry and device) serves the
-    refresher, which runs when `refresh_interval_s` > 0."""
+    refresher, which runs when `refresh_interval_s` > 0. `feedback`, a
+    `FeedbackConfig`, posts every served prediction back to an event
+    server."""
 
     def __init__(self, deployment: _Deployment, *, host: str = "127.0.0.1",
                  port: int = 8000, batch_max: int = 64,
                  window_s: float = 0.002, ctx=None,
-                 refresh_interval_s: float = 0.0):
+                 refresh_interval_s: float = 0.0,
+                 feedback: Optional[FeedbackConfig] = None):
         from predictionio_tpu_torch.core.runtime import RuntimeContext
         self.deployment = deployment
         self._dep_lock = threading.Lock()
@@ -255,6 +386,8 @@ class PredictionServer:
             from predictionio_tpu_torch.streaming import Refresher
             self._refresher = Refresher(self, refresh_interval_s)
         self.batcher = _MicroBatcher(window_s, batch_max)
+        self._feedback = _Feedback(feedback) if feedback is not None \
+            else None
         self._stats_lock = threading.Lock()
         self.request_count = 0
         self.avg_serving_sec = 0.0
@@ -284,11 +417,16 @@ class PredictionServer:
         return self.port
 
     def stop(self, timeout: float = 10.0) -> None:
-        """Stop the refresher, drain accepted requests, then close the
+        """Stop the refresher, drain accepted requests, flush the
+        feedback queue within what is left of `timeout`, then close the
         socket and stop the page thread."""
+        t0 = time.perf_counter()
         if self._refresher is not None:
             self._refresher.stop()
         self.batcher.close(timeout)
+        if self._feedback is not None:
+            self._feedback.flush(max(0.0, timeout
+                                     - (time.perf_counter() - t0)))
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
@@ -317,13 +455,22 @@ class PredictionServer:
         query = (extract_params(dep.query_class, payload)
                  if dep.query_class is not None else payload)
         prediction = self.batcher.submit(dep, query)
+        extra = {}
+        if self._feedback is not None:
+            pr_id = getattr(prediction, "prId", None) or _gen_pr_id()
+            self._feedback.post(dep, query, prediction, pr_id)
+            if hasattr(prediction, "prId"):
+                extra["prId"] = pr_id
         dt = time.perf_counter() - t0
         with self._stats_lock:
             self.request_count += 1
             self.last_serving_sec = dt
             self.avg_serving_sec += (
                 (dt - self.avg_serving_sec) / self.request_count)
-        return to_jsonable(prediction)
+        out = to_jsonable(prediction)
+        if isinstance(out, dict):
+            out.update(extra)
+        return out
 
     def status(self) -> Dict[str, Any]:
         from predictionio_tpu_torch.ops import fused_topk
@@ -351,6 +498,8 @@ class PredictionServer:
                                 sorted(self.batcher.batch_sizes().items())},
                 "refresh": (self._refresher.status()
                             if self._refresher is not None else None),
+                "feedback": (self._feedback.status()
+                             if self._feedback is not None else None),
                 **stats}
 
 

@@ -44,7 +44,12 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "native", "native.eventlog", "data.storage.evlog",
                      "data.storage.pevlog", "data.storage._scanworker",
                      "streaming", "streaming.delta", "streaming.updaters",
-                     "streaming.refresher"):
+                     "streaming.refresher", "utils.http", "data.plugins",
+                     "data.stats", "data.webhooks",
+                     "data.webhooks.connectors", "data.eventserver",
+                     "resilience", "resilience.retry", "core.evaluation",
+                     "core.batchpredict", "e2", "e2.engine",
+                     "e2.evaluation"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
