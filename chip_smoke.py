@@ -6,8 +6,9 @@
                           [--trained-requests 64] [--lifecycle-requests 320]
                           [--streaming-requests 320]
                           [--quickstart-requests 320]
+                          [--templates-requests 64]
                           [--only serve_sharded | train | lifecycle |
-                                  streaming | quickstart]
+                                  streaming | quickstart | templates]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -29,9 +30,13 @@ the result line:
               block's range; MovieLens-1M's 3,706-item catalog, whose
               few tiles shrink the grid to one tile per block, banned
               alike; all-equal scores across block edges (the
-              lowest ids must win). On real-valued factors at 500,000 x
-              64 the scores agree to rtol=atol=1e-5 (fp32 summation
-              order differs) and ids agree except inside such near-ties.
+              lowest ids must win); the e-commerce plan's shape, 50,000
+              x 32 at W = 2,048 and buckets 1/8/64, its bans the 1,000
+              even ids below 2,000 and a 100-1,000-id seen span over a
+              block edge per row, padded with n_items. On real-valued
+              factors at 500,000 x 64 the scores agree to rtol=atol=1e-5
+              (fp32 summation order differs) and ids agree except inside
+              such near-ties.
   4. serve    the serving path at full width: a 162,541-user x
               500,000-item rank-64 ALS model made from --seed, deployed
               through `cli.main.deploy` (the code `cli deploy` runs) and
@@ -89,6 +94,8 @@ the result line:
               time and a `torch.profiler` trace of it (device time by
               kernel, device operations per call, the card's busy
               share), and the single-device kernel on the same inputs.
+              K1 again at the e-commerce plan's 50,000 x 32, W = 2,048
+              (phase timing_ecommerce), buckets 1/8/64.
   9. train_parity
               ALS training on 4,000 users x 3,000 items with 200,000
               planted ratings: the port's user half-steps (`ops.als.
@@ -194,12 +201,43 @@ the result line:
               lines, K1 launches = plan calls = warmed buckets + one per
               64 queries of each 1,024-query chunk; queries/s of both.
 
+ 15. templates
+              the e-commerce and similar-product templates over SQLITE
+              metadata and PEVLOG events (24-hour segments, 4 scan
+              workers): bench.py's e-commerce scale, 5,000 users x
+              50,000 items, 1,000,000 Zipf(1.3) views over 8 days, the
+              first 100,000 again as buys, 1,000 unavailable items, 20
+              more views for u0-u63, 1-3 of 20 categories per item and
+              100,000 likes and dislikes (4:1), written through the
+              port's PEVLOG DAO in process (events/s). E-commerce
+              (rank 32, 5 iterations, alpha 20, lambda 0.1, 32 CG steps)
+              and similar product (als, likealgo, cooccurrence at the
+              template's defaults) each through `cli build`, `train`
+              and `deploy`, then --templates-requests (64; two alone,
+              the rest from 4 clients) and 256 queries (8 clients).
+              Gates: both COMPLETED, residual
+              below 1e-2; every answer against the plain version on the
+              models read back (bans recomputed from the generator; the
+              cooccurrence through the template's host predict, the
+              three averaged); no unavailable, seen or blacklisted item
+              served; K1 launches = plan calls; unknown items answer
+              empty; a 3-shard `similar_plan` on the card answers as
+              the single-device one. Then the streaming cooccurrence at
+              bench.py's 5,000 x 20,000 x 500,000 (cap 200) on the card
+              equal to the CPU's bit for bit, the dense route equal to
+              the streaming one at 4,096 items; and each template's
+              `fold_in` over a 192-event drip on the card against the
+              CPU (factors to 2e-3, the cooccurrence merge exactly).
+              Prints the train phases, the plan's banned width, p50 and
+              p99, ms per store read and the queries per serve path.
+
 `--only serve_sharded` runs the build and phase 6 alone (for a machine
 with several cards), `--only train` the build and phases 9-11,
 `--only lifecycle` the build and phases 3 and 12, `--only streaming`
 the build and phases 3 and 13, `--only quickstart` the build, phase 3,
-phase 13's import and train, and phase 14; none prints the kernels
-line.
+phase 13's import and train, and phase 14, `--only templates` the
+build and phases 3 and 15; none prints the kernels line. Every run
+prints its seconds (`script_s`).
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -227,6 +265,11 @@ K = 10               # the recommendation template's plan k
 WIDTH = 64           # its banned width
 TOL = 1e-5
 TIMED_BUCKETS = (1, 8, 64)   # the serve run drains batches of 1-7
+# the e-commerce template at bench.py's scale (bench_ecommerce_scale):
+# 5,000 users, 50,000 items, 1,000,000 views, rank 32; its plan's banned
+# width is _next_pow2(1,000 unavailable items + 128)
+EC_USERS, EC_ITEMS, EC_VIEWS, EC_BUYS = 5_000, 50_000, 1_000_000, 100_000
+EC_RANK, EC_WIDTH, EC_UNAVAILABLE = 32, 2_048, 1_000
 # the lifecycle phase: GroupLens MovieLens-1M's shape
 ML1M_USERS, ML1M_ITEMS, ML1M_N = 6_040, 3_706, 1_000_209
 ML1M_BASE_MS = 1_577_836_800_000     # its first event time, 2020-01-01
@@ -305,8 +348,24 @@ def block_edges(ft, n: int, rank: int, b: int, k: int) -> list:
     return edges
 
 
+def ecommerce_bans(rng, b: int, n: int, edges) -> list:
+    """Per-row bans as the e-commerce plan sees them: the 1,000
+    unavailable ids (the even ids below 2,000) and a seen list of
+    100-1,000 ids around a block edge of the kernel's grid (it straddles
+    tiles), unique, in random order; at most EC_WIDTH ids."""
+    rows = []
+    for _ in range(b):
+        m = int(rng.integers(100, 1_001))
+        lo = max(0, min(n - m, int(rng.choice(edges)) - m // 2))
+        ids = np.union1d(np.arange(0, 2 * EC_UNAVAILABLE, 2),
+                         np.arange(lo, lo + m))[:EC_WIDTH]
+        rows.append(rng.permutation(ids).tolist())
+    return rows
+
+
 def phase_parity(torch, ft, dev, rng) -> float:
-    def run(n, rank, b, k, n_valid, bans, integer, f=None, v=None):
+    def run(n, rank, b, k, n_valid, bans, integer, f=None, v=None,
+            width=None):
         if f is None:
             f = (rng.integers(-4, 5, (n, rank)).astype(np.float32)
                  if integer else
@@ -315,7 +374,7 @@ def phase_parity(torch, ft, dev, rng) -> float:
             v = (rng.integers(-4, 5, (b, rank)).astype(np.float32)
                  if integer else
                  rng.standard_normal((b, rank), dtype=np.float32))
-        width = max(WIDTH, max(len(x) for x in bans))
+        width = width or max(WIDTH, max(len(x) for x in bans))
         ban = np.full((b, width), n, np.int32)
         for row in range(b):
             ids = bans[row % len(bans)]
@@ -393,6 +452,20 @@ def phase_parity(torch, ft, dev, rng) -> float:
                 [edges[:WIDTH], [], edges[-WIDTH:], edges[1::2][:WIDTH]],
                 True, f=f, v=v)
             cases += 1
+    # the e-commerce plan at its catalog, rank and banned width 2,048:
+    # the block edges score highest and the seen spans around them are
+    # banned, so every flush tests candidates against the whole list
+    ecom = []
+    for b in TIMED_BUCKETS:
+        edges = block_edges(ft, EC_ITEMS, EC_RANK, b, K)
+        f = rng.integers(-4, 5, (EC_ITEMS, EC_RANK)).astype(np.float32)
+        f[edges] = 4.0
+        v = rng.integers(1, 5, (b, EC_RANK)).astype(np.float32)
+        bans = ecommerce_bans(rng, b, EC_ITEMS, edges)
+        run(EC_ITEMS, EC_RANK, b, K, EC_ITEMS, bans, True, f=f, v=v,
+            width=EC_WIDTH)
+        ecom.append([b, min(map(len, bans)), max(map(len, bans))])
+        cases += 1
     # all-equal scores across block boundaries: the lowest ids win, past
     # the banned ones
     for b in (1, 8, 64):
@@ -409,6 +482,11 @@ def phase_parity(torch, ft, dev, rng) -> float:
                           for u in uneven],
           "small_catalog": [dict(zip(("bucket", "rank", "tiles", "grid"), u))
                             for u in ml1m],
+          "ecommerce_width": {"n_items": EC_ITEMS, "rank": EC_RANK,
+                              "width": EC_WIDTH,
+                              "bans_per_row": [dict(zip(
+                                  ("bucket", "min", "max"), e))
+                                  for e in ecom]},
           "real_valued": {"n_items": N_ITEMS, "rank": RANK, "bucket": 64,
                           "max_abs_err": err, "tol": TOL}})
     return err
@@ -984,6 +1062,54 @@ def phase_timing(torch, ft, dev, rng, card: str) -> dict:
     return out
 
 
+def phase_timing_ecommerce(torch, ft, dev, rng, card: str) -> dict:
+    """K1 at the e-commerce plan's shape (50,000 x 32, k = 10, W =
+    2,048, real-valued factors) per timed bucket, beside its plain
+    version, the library chain and the bound, as `phase_timing`."""
+    from predictionio_tpu_torch.ops.topk import NEG_INF
+    bw, fl, _ = peaks(card)
+    factors = torch.from_numpy(rng.standard_normal(
+        (EC_ITEMS, EC_RANK), dtype=np.float32)).to(dev)
+    out = {}
+    for b in TIMED_BUCKETS:
+        vecs = torch.from_numpy(
+            rng.standard_normal((b, EC_RANK), dtype=np.float32)).to(dev)
+        rows = ecommerce_bans(rng, b, EC_ITEMS,
+                              block_edges(ft, EC_ITEMS, EC_RANK, b, K))
+        ban = np.full((b, EC_WIDTH), EC_ITEMS, np.int32)
+        for r, ids in enumerate(rows):
+            ban[r, :len(ids)] = ids
+        banned = torch.from_numpy(ban).to(dev)
+        # the library chain repeats a row's first ban in its padding
+        banned64 = torch.where(banned < EC_ITEMS, banned,
+                               banned[:, :1]).long()
+
+        def library():
+            s = torch.matmul(vecs, factors.T)
+            s.scatter_(1, banned64, NEG_INF)
+            return torch.topk(s, K)
+
+        kernel_ms = time_ms(torch, lambda: ft.fused_topk(
+            vecs, factors, banned, k=K, n_valid=EC_ITEMS), 50)
+        plain_ms = time_ms(torch, lambda: ft.fused_topk_reference(
+            vecs, factors, banned, k=K, n_valid=EC_ITEMS), 20)
+        library_ms = time_ms(torch, library, 20)
+        nbytes = (4 * (EC_ITEMS * EC_RANK + b * EC_RANK + b * EC_WIDTH)
+                  + 8 * b * K)
+        flops = 2 * b * EC_ITEMS * EC_RANK
+        t_bytes, t_ops = nbytes / bw, flops / fl
+        row = {"bucket": b, "width": EC_WIDTH, "ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_us": 1e6 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops,
+               "bans_per_row": [len(r) for r in rows][:8]}
+        emit({"phase": "timing_ecommerce", "card": card, **row})
+        out[b] = row
+    return out
+
+
 def phase_timing_sharded(torch, ft, dev, rng, model, card: str) -> dict:
     from predictionio_tpu_torch.ops.topk import NEG_INF
     from predictionio_tpu_torch.ops.topk_sharded import (
@@ -1552,9 +1678,9 @@ def http_post(port: int, q):
     return body, time.perf_counter() - t
 
 
-def serve_http(port: int, queries) -> list:
-    """`queries` from 64 client threads; [(body, seconds)] in order."""
-    with ThreadPoolExecutor(64) as pool:
+def serve_http(port: int, queries, clients: int = 64) -> list:
+    """`queries` from `clients` threads; [(body, seconds)] in order."""
+    with ThreadPoolExecutor(clients) as pool:
         return list(pool.map(lambda q: http_post(port, q), queries))
 
 
@@ -1564,9 +1690,10 @@ def http_status(port: int) -> dict:
         return json.loads(resp.read())
 
 
-def read_model(config: dict, iid: str, dev):
-    """The model of instance `iid` as the store holds it, read back
-    through the port's registry and `deserialize_models`, on `dev`."""
+def read_models(config: dict, iid: str, dev):
+    """Every model of instance `iid` as the store holds it, read back
+    through the port's registry and `deserialize_models`, on `dev` where
+    the model moves; returns (models, the instance's row)."""
     from predictionio_tpu_torch.core.persistence import deserialize_models
     from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
                                                      StorageRegistry)
@@ -1575,11 +1702,20 @@ def read_model(config: dict, iid: str, dev):
     if row is None or row.status != EngineInstanceStatus.COMPLETED:
         fail(f"the store holds instance {iid} as "
              f"{row.status if row else 'missing'}")
-    model, = deserialize_models(
-        registry.get_model_data_models().get(iid).models, iid, [None],
+    n = len(json.loads(row.algorithms_params))
+    models = deserialize_models(
+        registry.get_model_data_models().get(iid).models, iid, [None] * n,
         None, retrain=None)
     registry.close()
-    return model.to(dev), row
+    return [m.to(dev) if callable(getattr(m, "to", None)) else m
+            for m in models], row
+
+
+def read_model(config: dict, iid: str, dev):
+    """The model of single-algorithm instance `iid` as the store holds
+    it, on `dev` (`read_models`)."""
+    (model,), row = read_models(config, iid, dev)
+    return model, row
 
 
 def heldout_rmse(model, u, i, r, test) -> float:
@@ -2673,6 +2809,701 @@ def phase_quickstart(torch, ft, dev, rng, project: dict, n_requests: int,
     return out
 
 
+# -- phase 15: the e-commerce and similar-product templates -------------------
+
+EC_EXTRA_USERS, EC_EXTRA_VIEWS = 64, 20   # u0-u63: 20 further views each
+EC_FRESH, EC_FRESH_VIEWS = 16, 5          # viewers appended after train
+# e-commerce clients: each known user's query reads the user's history
+# (about 1.3 s at 1.25 M events on an H100 machine's host) in the one
+# drainer thread, and 8 clients queued requests past the server's 30-s
+# submit deadline (504)
+EC_CLIENTS = 4
+SP_CATEGORIES, SP_LIKES = 20, 100_000
+SP_REQUESTS, SP_UNKNOWN = 256, 16
+# bench.py's streaming cooccurrence shape (its cooc section)
+COOC_USERS, COOC_ITEMS, COOC_EVENTS, COOC_CAP = 5_000, 20_000, 500_000, 200
+COOC_DENSE_ITEMS = 4_096                  # ops.cooccur._DENSE_ITEM_LIMIT
+TEMPLATE_FOLD_TOL = 2e-3                  # the card's fold against the CPU's
+TEMPLATES_T0_MS = 1_704_067_200_000       # 2024-01-01, bench.py's t_base
+DAY_MS = 86_400_000
+
+
+def templates_data(seed: int) -> dict:
+    """The store's events as arrays, `bench_ecommerce_scale`'s generator
+    from `seed`: 1,000,000 views of Zipf(1.3) mod 50,000 items by 5,000
+    uniform users, spread over 8 days (view j on day j % 8, j // 8
+    seconds in); the first 100,000 again as buys; 20 further views for
+    each of u0-u63; for the similar-product template 1-3 of 20
+    categories per item and 100,000 like/dislike events (4:1) over the
+    same users and items; 16 viewers who come after the train."""
+    rng = np.random.default_rng(seed + 15)
+    j = np.arange(EC_VIEWS)
+    d = {"u": rng.integers(0, EC_USERS, EC_VIEWS),
+         "i": rng.zipf(1.3, EC_VIEWS) % EC_ITEMS,
+         "t": TEMPLATES_T0_MS + (j % 8) * DAY_MS + (j // 8) * 1000}
+    d["xu"] = np.repeat(np.arange(EC_EXTRA_USERS), EC_EXTRA_VIEWS)
+    d["xi"] = rng.integers(0, EC_ITEMS, d["xu"].size)
+    d["xt"] = TEMPLATES_T0_MS + 9 * DAY_MS + np.arange(d["xu"].size) * 1000
+    k = np.arange(SP_LIKES)
+    d["lu"] = rng.integers(0, EC_USERS, SP_LIKES)
+    d["li"] = rng.zipf(1.3, SP_LIKES) % EC_ITEMS
+    d["like"] = rng.random(SP_LIKES) < 0.8
+    d["lt"] = TEMPLATES_T0_MS + (k % 8) * DAY_MS + (k // 8) * 1000 + 500
+    d["cats"] = [sorted(rng.choice(SP_CATEGORIES, int(rng.integers(1, 4)),
+                                   replace=False).tolist())
+                 for _ in range(EC_ITEMS)]
+    d["fresh"] = [rng.choice(EC_ITEMS // 10, EC_FRESH_VIEWS,
+                             replace=False).tolist()
+                  for _ in range(EC_FRESH)]
+    return d
+
+
+def templates_ingest(events, app_id: int, d: dict) -> dict:
+    """The events into the port's PEVLOG DAO in process (`insert_batch`
+    of 50,000, as bench.py ingests them); returns the count and the
+    seconds."""
+    from predictionio_tpu_torch.data.event import DataMap, Event, from_millis
+    users = [f"u{n}" for n in range(EC_USERS)]
+    items = [f"i{n}" for n in range(EC_ITEMS)]
+
+    def pair(name, u, i, t):
+        return Event(event=name, entity_type="user", entity_id=users[u],
+                     target_entity_type="item", target_entity_id=items[i],
+                     properties=DataMap({}), event_time=from_millis(t))
+
+    def stream():
+        yield Event(event="$set", entity_type="constraint",
+                    entity_id="unavailableItems",
+                    properties=DataMap({"items": [
+                        items[n] for n in range(0, 2 * EC_UNAVAILABLE, 2)]}),
+                    event_time=from_millis(TEMPLATES_T0_MS))
+        for n, cats in enumerate(d["cats"]):
+            yield Event(event="$set", entity_type="item", entity_id=items[n],
+                        properties=DataMap({"categories": [
+                            f"c{c}" for c in cats]}),
+                        event_time=from_millis(TEMPLATES_T0_MS + n))
+        u, i, t = d["u"].tolist(), d["i"].tolist(), d["t"].tolist()
+        for name, count in (("view", EC_VIEWS), ("buy", EC_BUYS)):
+            for n in range(count):
+                yield pair(name, u[n], i[n], t[n])
+        for n, (a, b, c) in enumerate(zip(d["xu"].tolist(),
+                                          d["xi"].tolist(),
+                                          d["xt"].tolist())):
+            yield pair("view", a, b, c)
+        for a, b, c, like in zip(d["lu"].tolist(), d["li"].tolist(),
+                                 d["lt"].tolist(), d["like"].tolist()):
+            yield pair("like" if like else "dislike", a, b, c)
+
+    t0 = time.perf_counter()
+    n, batch = 0, []
+    for e in stream():
+        batch.append(e)
+        if len(batch) == 50_000:
+            events.insert_batch(batch, app_id)
+            n, batch = n + len(batch), []
+    if batch:
+        events.insert_batch(batch, app_id)
+        n += len(batch)
+    return {"events": n, "seconds": time.perf_counter() - t0}
+
+
+def ranked(torch, scores, allowed, num: int):
+    """The plain top-`num` of one row of scores under a host mask: a
+    stable sort by (score desc, index asc), NEG_INF rows dropped;
+    returns (ids, fp32 scores, the whole score row on the host)."""
+    from predictionio_tpu_torch.ops.topk import NEG_INF
+    s = scores.masked_fill(~torch.from_numpy(allowed).to(scores.device),
+                           NEG_INF)
+    order = torch.sort(s, descending=True, stable=True).indices[:num]
+    top = s[order].cpu().numpy()
+    keep = top > NEG_INF / 2
+    return (order.cpu().numpy()[keep], top[keep],
+            s.double().cpu().numpy())
+
+
+def check_ranked(what: str, got: list, ids, scores, full, item_ix) -> float:
+    """An answer (a list of {"item", "score"}) against the plain ranking:
+    the same length, scores within TOL, and where an id differs, the
+    answer's item scores within TOL of the plain one at that rank (a
+    near-tie). Returns max |score diff|."""
+    if len(got) != len(ids):
+        fail(f"{what}: {len(got)} items, the plain version {len(ids)}")
+    err = 0.0
+    seen = set()
+    for j, (g, i, s) in enumerate(zip(got, ids, scores)):
+        gi = item_ix(g["item"])
+        if gi is None or gi in seen:
+            fail(f"{what}: unknown or repeated item {g['item']}")
+        seen.add(gi)
+        e = abs(g["score"] - float(s))
+        err = max(err, e)
+        if not e <= TOL + TOL * abs(float(s)):
+            fail(f"{what} rank {j}: score {g['score']} vs plain {s}")
+        if gi != int(i) and not abs(full[gi] - float(s)) <= TOL + TOL * abs(
+                float(s)):
+            fail(f"{what} rank {j}: item {g['item']} ({full[gi]}) vs plain "
+                 f"{int(i)} ({s}) is no near-tie")
+    return err
+
+
+def ecommerce_queries(torch, dev, rng, model, d: dict, n_requests: int):
+    """The request mix, scaled to `n_requests` (96: 48 known users of
+    u0-u63, half with a 1-8 item blackList of their own top items; 16
+    viewers who came after the train; 16 users with no events; 16
+    known-user queries with categories; 64: 34, 10, 10, 10), each with
+    what the template must answer: the plain version on the factors read
+    back, the bans (unavailable + seen + blackList) recomputed from the
+    generator."""
+    n_items = model.item_factors.shape[0]
+    ix = model.items.get
+    unavail = [x for n in range(0, 2 * EC_UNAVAILABLE, 2)
+               if (x := ix(f"i{n}")) is not None]
+    seen: dict = {}
+    for a, b in zip(d["u"][:EC_VIEWS].tolist(), d["i"].tolist()):
+        if a < EC_EXTRA_USERS:
+            seen.setdefault(a, set()).add(b)
+    for a, b in zip(d["xu"].tolist(), d["xi"].tolist()):
+        seen.setdefault(a, set()).add(b)
+    # the buys are the first views again: they add no seen item
+    member = np.zeros((n_items, SP_CATEGORIES), bool)
+    for n, cats in enumerate(d["cats"]):
+        if (x := ix(f"i{n}")) is not None:
+            member[x, cats] = True
+    items_unit = model.item_factors / (torch.linalg.vector_norm(
+        model.item_factors, dim=1, keepdim=True) + 1e-9)
+    sixth = max(1, n_requests // 6)
+    n_known = n_requests - 3 * sixth
+    known = rng.choice(EC_EXTRA_USERS, n_known,
+                       replace=n_known > EC_EXTRA_USERS)
+    specs = ([("known", int(u)) for u in known]
+             + [("fresh", k % EC_FRESH) for k in range(sixth)]
+             + [("ghost", k) for k in range(sixth)]
+             + [("category", int(u)) for u in rng.choice(
+                 EC_EXTRA_USERS, sixth)])
+    out = []
+    for n, (kind, who) in enumerate(specs):
+        q = {"num": int(rng.integers(1, K + 1))}
+        allowed = np.ones(n_items, bool)
+        allowed[unavail] = False
+        if kind in ("known", "category"):
+            q["user"] = f"u{who}"
+            allowed[[x for b in seen[who] if (x := ix(f"i{b}")) is not None]] \
+                = False
+            row = model.users.get(q["user"])
+            scores = model.user_factors[row] @ model.item_factors.T
+            if kind == "category":
+                q["categories"] = [f"c{c}" for c in rng.choice(
+                    SP_CATEGORIES, int(rng.integers(1, 3)), replace=False)]
+                allowed &= member[:, [int(c[1:]) for c in q["categories"]]
+                                  ].any(axis=1)
+            elif n % 2:
+                top, _, _ = ranked(torch, scores, allowed, 8)
+                ban = top[:int(rng.integers(1, 9))].tolist()
+                q["blackList"] = [model.items.inverse(x) for x in ban]
+                allowed[ban] = False
+        elif kind == "fresh":
+            q["user"] = f"fresh{who}"
+            viewed = [x for b in d["fresh"][who]
+                      if (x := ix(f"i{b}")) is not None]
+            allowed[viewed] = False
+            # the latest 10 views, latest first (all 5 of them here)
+            rows = torch.tensor(viewed[::-1][:10], device=dev)
+            vec = model.item_factors[rows].mean(dim=0)
+            vec = vec / (torch.linalg.vector_norm(vec) + 1e-9)
+            scores = vec @ items_unit.T
+        else:
+            q["user"] = f"ghost{who}"
+            scores = model.popularity.clone()
+        ids, sc, full = ranked(torch, scores, allowed, min(q["num"],
+                                                           n_items))
+        out.append((kind, q, ids, sc, full, np.nonzero(~allowed)[0]))
+    order = rng.permutation(len(out))
+    return [out[n] for n in order]
+
+
+def sp_expected(torch, models, units, members, q: dict):
+    """What the similar-product engine must answer: the cosine of the
+    mean query vector on each factor model read back (on the card), the
+    template's own host `predict` for the cooccurrence model, averaged by
+    `ScoreAverageServing`; returns (the result, {item: score})."""
+    from predictionio_tpu_torch.models import similarproduct as sp
+    query = sp.Query(**q)
+    preds = []
+    for model, unit, member in zip(models[:2], units, members):
+        ixs = [x for it in q["items"] if (x := model.items.get(it))
+               is not None]
+        if not ixs:
+            preds.append(sp.PredictedResult())
+            continue
+        n = unit.shape[0]
+        allowed = np.ones(n, bool)
+        if q.get("whiteList") is not None:
+            allowed[:] = False
+            allowed[[x for it in q["whiteList"]
+                     if (x := model.items.get(it)) is not None]] = True
+        allowed[[x for it in q.get("blackList", ())
+                 if (x := model.items.get(it)) is not None]] = False
+        allowed[ixs] = False
+        if q.get("categories") is not None:
+            allowed &= member[:, [int(c[1:]) for c in q["categories"]]
+                              ].any(axis=1)
+        vec = model.item_factors[torch.tensor(ixs, device=unit.device)
+                                 ].mean(dim=0)
+        vec = vec / (torch.linalg.vector_norm(vec) + 1e-9)
+        ids, sc, _ = ranked(torch, vec @ unit.T, allowed, min(q["num"], n))
+        preds.append(sp.PredictedResult(tuple(
+            sp.ItemScore(model.items.inverse(int(i)), float(s))
+            for i, s in zip(ids, sc))))
+    cooc = sp.CooccurrenceAlgorithm(sp.CooccurrenceParams())
+    preds.append(cooc.predict(models[2], query))
+    res = sp.ScoreAverageServing().serve(query, preds)
+    sums: dict = {}
+    for p in preds:
+        for s in p.itemScores:
+            sums.setdefault(s.item, []).append(s.score)
+    return res, {k: sum(v) / len(v) for k, v in sums.items()}
+
+
+def similar_queries(rng, model, n_requests: int) -> list:
+    """`n_requests` queries of 1-3 known items (Zipf-popular, so that the
+    like model and the cooccurrence know most of them): half with 1-2
+    categories, a quarter with a whiteList of 100 items, a quarter with a
+    blackList of 1-10; `SP_UNKNOWN` with unknown items only."""
+    keys = model.items.keys()
+    out = []
+    for n in range(n_requests - SP_UNKNOWN):
+        q = {"items": [keys[int(x)] for x in np.unique(rng.zipf(
+            1.3, int(rng.integers(1, 4))) % min(len(keys), 5_000))],
+             "num": int(rng.integers(1, K + 1))}
+        if n % 2:
+            q["categories"] = [f"c{c}" for c in rng.choice(
+                SP_CATEGORIES, int(rng.integers(1, 3)), replace=False)]
+        if n % 4 == 0:
+            q["whiteList"] = [keys[int(x)] for x in rng.choice(
+                len(keys), 100, replace=False)]
+        elif n % 4 == 2:
+            q["blackList"] = [keys[int(x)] for x in rng.integers(
+                0, 200, int(rng.integers(1, 11)))]
+        out.append(q)
+    out += [{"items": [f"nobody{k}"], "num": 5} for k in range(SP_UNKNOWN)]
+    return [out[n] for n in rng.permutation(len(out))]
+
+
+def cooccurrence_on_card(torch, dev, seed: int) -> dict:
+    """`top_cooccurrences_streaming` at bench.py's shape (5,000 users,
+    20,000 items, 500,000 Zipf(1.3) events, 200 items per user) on the
+    card and on the CPU, which must agree bit for bit; then on a
+    4,096-item catalog the dense route and the streaming route, on the
+    card, bit for bit."""
+    from predictionio_tpu_torch.ops import cooccur
+    rng = np.random.default_rng(seed + 16)
+    u = rng.integers(0, COOC_USERS, COOC_EVENTS)
+    i = rng.zipf(1.3, COOC_EVENTS) % COOC_ITEMS
+    out = {}
+    runs = {}
+    for where in ("cuda", "cpu"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        runs[where] = cooccur.top_cooccurrences_streaming(
+            u, i, COOC_USERS, COOC_ITEMS, 20,
+            max_items_per_user=COOC_CAP,
+            device=dev if where == "cuda" else "cpu")
+        torch.cuda.synchronize(dev)
+        out[f"{where}_s"] = time.perf_counter() - t0
+        if where == "cuda":
+            out["peak_device_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                        - base)
+    a, b = runs["cuda"], runs["cpu"]
+    if not (np.array_equal(a.top_items, b.top_items)
+            and np.array_equal(a.top_counts, b.top_counts)):
+        fail("streaming cooccurrence on the card differs from the CPU's")
+    small = i % COOC_DENSE_ITEMS
+    t0 = time.perf_counter()
+    dense = cooccur.top_cooccurrences_from_pairs(u, small, COOC_USERS,
+                                                 COOC_DENSE_ITEMS, 20,
+                                                 device=dev)
+    dense_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = cooccur.top_cooccurrences_streaming(u, small, COOC_USERS,
+                                                 COOC_DENSE_ITEMS, 20,
+                                                 device=dev)
+    stream_s = time.perf_counter() - t0
+    if not (np.array_equal(dense.top_items, stream.top_items)
+            and np.array_equal(dense.top_counts, stream.top_counts)):
+        fail("the dense and the streaming cooccurrence routes differ")
+    return {"users": COOC_USERS, "items": COOC_ITEMS, "events": COOC_EVENTS,
+            "max_items_per_user": COOC_CAP, "bit_identical": True,
+            "nonzero_counts": int((a.top_counts > 0).sum()), **out,
+            "dense_vs_streaming": {"items": COOC_DENSE_ITEMS,
+                                   "dense_s": dense_s,
+                                   "streaming_s": stream_s,
+                                   "bit_identical": True}}
+
+
+def template_folds(torch, dev, config: dict, app_id: int, rows: dict,
+                   models: dict, seed: int) -> dict:
+    """Each template's `fold_in`, in process on the card, over a drip of
+    192 events between two watermarks (48 new users, each viewing two
+    known items, buying the first and liking or disliking the second),
+    held against the same fold on the CPU: factors within
+    TEMPLATE_FOLD_TOL, popularity equal, the cooccurrence merge bit for
+    bit. New users keep the cooccurrence fold's per-user history reads
+    in the drip's own segment."""
+    import os
+    from predictionio_tpu_torch.core.workflow import (
+        engine_params_from_instance, resolve_engine)
+    from predictionio_tpu_torch.data.event import DataMap, Event, from_millis
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    from predictionio_tpu_torch.streaming.updaters import FoldContext
+    rng = np.random.default_rng(seed + 17)
+    registry = StorageRegistry(config)
+    events = registry.get_events()
+    ec_model = models["ecommerce"][0]
+    # items both factor models know (a new item forces a rebuild) that
+    # no viewer after the train touched (a fold of an item re-solves it
+    # over all its users, and no delta here folds those viewers)
+    fresh = {f"i{b}" for viewed in templates_data(seed)["fresh"]
+             for b in viewed}
+    liked = models["similarproduct"][1].items
+    known = [x for x in ec_model.items.keys()[:5_000]
+             if x not in fresh and liked.get(x) is not None]
+    drip, t = [], TEMPLATES_T0_MS + 11 * DAY_MS
+    for k in range(48):
+        a, b = rng.choice(len(known), 2, replace=False)
+        for name, item in (("view", a), ("view", b), ("buy", a),
+                           ("like" if rng.random() < 0.8 else "dislike",
+                            b)):
+            t += 1
+            drip.append(Event(event=name, entity_type="user",
+                              entity_id=f"drip{k}",
+                              target_entity_type="item",
+                              target_entity_id=known[int(item)],
+                              properties=DataMap({}),
+                              event_time=from_millis(t)))
+    wm1 = events.ingest_watermark(app_id)
+    events.insert_batch(drip, app_id)
+    wm2 = events.ingest_watermark(app_id)
+    prev = os.environ.get("PIO_INGEST_WORKERS")
+    os.environ["PIO_INGEST_WORKERS"] = "4"
+    out = {"events": len(drip)}
+    try:
+        for name in ("ecommerce", "similarproduct"):
+            engine = resolve_engine(name)
+            _, _, algos, _ = engine.make_components(
+                engine_params_from_instance(engine, rows[name]))
+            for a, model in zip(algos, models[name]):
+                what = f"{name}.{type(a).__name__}"
+                folded = {}
+                for where in ("cuda", "cpu"):
+                    m = model.to("cpu") if (where == "cpu" and callable(
+                        getattr(model, "to", None))) else model
+                    fctx = FoldContext(store=events, app_id=app_id,
+                                       channel_id=None, since=wm1, upto=wm2)
+                    t0 = time.perf_counter()
+                    folded[where] = a.fold_in(m, None, fctx)
+                    if where == "cuda":
+                        torch.cuda.synchronize(dev)
+                    out[f"{what}_{where}_s"] = time.perf_counter() - t0
+                fc, fp = folded["cuda"], folded["cpu"]
+                if fc is None or fp is None:
+                    fail(f"{what}: the drip folded nothing")
+                if hasattr(fc, "top"):
+                    if not (np.array_equal(fc.top.top_items,
+                                           fp.top.top_items)
+                            and np.array_equal(fc.top.top_counts,
+                                               fp.top.top_counts)):
+                        fail(f"{what}: the card's merge differs from the "
+                             "CPU's")
+                    out[f"{what}_changed_rows"] = int(
+                        (fc.top.top_counts != model.top.top_counts).any(
+                            axis=1).sum())
+                    continue
+                if fc.item_factors.device != dev:
+                    fail(f"{what}: the fold ran on {fc.item_factors.device}")
+                err = 0.0
+                for f in ("user_factors", "item_factors"):
+                    a_, b_ = getattr(fc, f).cpu(), getattr(fp, f)
+                    if not torch.allclose(a_, b_, rtol=TEMPLATE_FOLD_TOL,
+                                          atol=TEMPLATE_FOLD_TOL):
+                        fail(f"{what}: {f} of the card's fold differ from "
+                             f"the CPU's by {(a_ - b_).abs().max()}")
+                    err = max(err, float((a_ - b_).abs().max()))
+                if hasattr(fc, "popularity") and not torch.equal(
+                        fc.popularity.cpu(), fp.popularity):
+                    fail(f"{what}: popularity differs")
+                out[f"{what}_max_abs_err"] = err
+                out[f"{what}_users"] = len(fc.users)
+    finally:
+        if prev is None:
+            os.environ.pop("PIO_INGEST_WORKERS", None)
+        else:
+            os.environ["PIO_INGEST_WORKERS"] = prev
+        registry.close()
+    return out
+
+
+def phase_templates(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
+    """The e-commerce and the similar-product templates on the card
+    through the command line, over SQLITE metadata and PEVLOG events (24-
+    hour segments, the scan on 4 workers), on `templates_data`'s store.
+
+    E-commerce (bench.py's engine: rank 32, 5 iterations, alpha 20,
+    lambda 0.1, seed 1, 32 CG steps): build, train, deploy, then
+    `n_requests` /queries.json (`ecommerce_queries`' mix): two alone,
+    whose reads fill the server's replay cache, then the rest from
+    EC_CLIENTS threads. Gates: COMPLETED with a solver
+    residual below 1e-2; every answer against the plain version on the
+    factors read back; no answer holds an unavailable, seen or
+    blacklisted item; K1 launches = plan calls on `GET /`, and the plan
+    answered known users.
+
+    Similar product (als, likealgo and cooccurrence at the template's
+    defaults; the cooccurrence streams at 50,000 items): build, train,
+    deploy, SP_REQUESTS queries. Gates: every answer equals
+    `sp_expected`; unknown items answer empty; a `similar_plan` over
+    `ServeMesh((cuda:0,) * 3, forced=True)` answers as the
+    single-device plan does.
+
+    Then the cooccurrence alone on the card against the CPU, and each
+    template's fold on the card against the CPU (`template_folds`)."""
+    from predictionio_tpu_torch.data.event import DataMap, Event, from_millis
+    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
+                                                     StorageRegistry)
+    from predictionio_tpu_torch.native.eventlog import EventLog
+    from predictionio_tpu_torch.ops import topk_sharded as ps
+
+    t_phase = time.perf_counter()
+    out = {"phase": "templates"}
+    d = templates_data(seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_templates_") as tmp:
+        tmp = Path(tmp)
+        config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+                  "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db"),
+                  "PIO_STORAGE_SOURCES_PEV_TYPE": "PEVLOG",
+                  "PIO_STORAGE_SOURCES_PEV_PATH": str(tmp / "pevlog"),
+                  "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+                  "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PEV",
+                  "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"}
+        cli = cli_runner(tmp, config, PIO_INGEST_WORKERS="4")
+        if not EventLog(str(tmp / "probe.log")).uses_native:
+            fail("the event journal is not the native (g++) build")
+        app, _ = cli("app", "new", "shop")
+        registry = StorageRegistry(config)
+        events = registry.get_events()
+        events.init(app["id"])
+        ingest = templates_ingest(events, app["id"], d)
+        out["ingest"] = {**ingest,
+                         "events_per_s": ingest["events"] / ingest["seconds"]}
+        (tmp / "ecommerce.json").write_text(json.dumps({
+            "id": "ecommerce", "engineFactory": "ecommerce",
+            "datasource": {"params": {"app_name": "shop"}},
+            "algorithms": [{"name": "ecomm", "params": {
+                "app_name": "shop", "rank": EC_RANK, "num_iterations": 5,
+                "alpha": 20.0, "lambda_": 0.1, "seed": 1,
+                "cg_iters": 32}}]}))
+        (tmp / "similarproduct.json").write_text(json.dumps({
+            "id": "similarproduct", "engineFactory": "similarproduct",
+            "datasource": {"params": {"app_name": "shop"}},
+            "algorithms": [{"name": "als", "params": {}},
+                           {"name": "likealgo", "params": {}},
+                           {"name": "cooccurrence", "params": {}}]}))
+        rows, models = {}, {}
+        for name in ("ecommerce", "similarproduct"):
+            cli("build", "--engine-json", f"{name}.json")
+            report, wall = cli("train", "--engine-json", f"{name}.json")
+            if report["status"] != EngineInstanceStatus.COMPLETED:
+                fail(f"the {name} instance is {report['status']}")
+            tm = report["phaseTimings"]
+            if not tm.get("solver_residual", 1.0) < 1e-2:
+                fail(f"{name}: solver residual {tm.get('solver_residual')}"
+                     " is not below 1e-2")
+            models[name], rows[name] = read_models(
+                config, report["engineInstanceId"], dev)
+            out[f"{name}_train"] = {
+                "engine_instance": report["engineInstanceId"],
+                "status": report["status"], "command_wall_s": wall,
+                **{k: tm[k] for k in sorted(tm) if k.endswith("_s")
+                   or k in ("solver_residual", "blob_bytes")}}
+        # viewers after the train: unknown to the model, so their
+        # queries take the recent-view cosine path. fresh0's views arrive
+        # late, stamped on days 0-4 (see the serve below); the others' on
+        # day 10
+        events.insert_batch([Event(
+            event="view", entity_type="user", entity_id=f"fresh{k}",
+            target_entity_type="item", target_entity_id=f"i{b}",
+            properties=DataMap({}),
+            event_time=from_millis(TEMPLATES_T0_MS + n * DAY_MS + 43_200_000
+                                   if k == 0 else TEMPLATES_T0_MS
+                                   + 10 * DAY_MS + 1000 * k + n))
+            for k, viewed in enumerate(d["fresh"])
+            for n, b in enumerate(viewed)], app["id"])
+
+        # -- e-commerce: deploy and serve ---------------------------------
+        ec_model = models["ecommerce"][0]
+        iid = rows["ecommerce"].id
+        queries = ecommerce_queries(torch, dev, rng, ec_model, d,
+                                    n_requests)
+        proc, port, deploy_s = start_deploy(
+            tmp, cli, iid, "--engine-instance-id", iid)
+        try:
+            # the server's first reads replay the PEVLOG segments they
+            # touch into its cache, in the request's time: fresh0's (days
+            # 0-4), then a known user's (the rest), each alone, each well
+            # inside the micro-batcher's 30-s deadline, where the whole
+            # journal's replay in one request came within 4.4 s of it on
+            # an H100 machine
+            for kind, who in (("known", None), ("fresh", "fresh0")):
+                first = next(n for n, x in enumerate(queries)
+                             if x[0] == kind and who in (None, x[1]["user"]))
+                queries.insert(0, queries.pop(first))
+            answers = [http_post(port, q) for _, q, *_ in queries[:2]]
+            t0 = time.perf_counter()
+            answers += serve_http(port, [q for _, q, *_ in queries[2:]],
+                                  EC_CLIENTS)
+            wall = time.perf_counter() - t0
+            status = http_status(port)
+        finally:
+            stop_deploy(proc)
+        if status["plans"] != ["BucketedTopK"] or \
+                status["plan_banned_widths"] != [EC_WIDTH]:
+            fail(f"e-commerce GET /: plans {status['plans']}, widths "
+                 f"{status['plan_banned_widths']}")
+        launches = status["kernel_launches"]["fused_topk"]
+        paths = status["serve_paths"][0]
+        if not (launches == status["plan_calls"]
+                and launches > len(status["plan_buckets"][0])
+                and paths["plan"] > 0):
+            fail(f"e-commerce: K1 launches {launches}, plan calls "
+                 f"{status['plan_calls']}, paths {paths}")
+        err, kinds = 0.0, {}
+        for (kind, q, ids, sc, full, banned), (body, _) in zip(queries,
+                                                               answers):
+            got = body["itemScores"]
+            err = max(err, check_ranked(f"e-commerce {kind} {q}", got, ids,
+                                        sc, full, ec_model.items.get))
+            bad = set(banned.tolist()) & {ec_model.items.get(g["item"])
+                                          for g in got}
+            if bad:
+                fail(f"e-commerce {q['user']}: banned items {bad} served")
+            kinds[kind] = kinds.get(kind, 0) + 1
+        out["ecommerce_serve"] = {
+            "requests": len(queries), "by_kind": kinds,
+            "answers_checked": len(queries), "max_abs_err": err,
+            "launches": launches, "plan_calls": status["plan_calls"],
+            "plan_banned_width": status["plan_banned_widths"][0],
+            "warmed_buckets": status["plan_buckets"][0],
+            "batch_sizes": status["batch_sizes"],
+            "queries_by_path": {k: paths[k] for k in ("plan", "generic",
+                                                       "per_query")},
+            "store_reads": paths["store_reads"],
+            "ms_per_store_read": 1e3 * paths["store_read_s"]
+            / max(1, paths["store_reads"]),
+            "deploy": {"command_to_serving_s": deploy_s,
+                       **status["deploy_timings"]},
+            "first_requests_s": [t for _, t in answers[:2]],
+            "clients": EC_CLIENTS, "wall_s": wall,
+            "qps": (len(queries) - 2) / wall,
+            "latency_ms": latency_ms(answers[2:])}
+
+        # -- similar product: deploy and serve -----------------------------
+        sp_models = models["similarproduct"]
+        units, members = [], []
+        for m in sp_models[:2]:
+            units.append(m.item_factors / (torch.linalg.vector_norm(
+                m.item_factors, dim=1, keepdim=True) + 1e-9))
+            member = np.zeros((len(m.items), SP_CATEGORIES), bool)
+            for x, key in enumerate(m.items.keys()):
+                member[x, d["cats"][int(key[1:])]] = True
+            members.append(member)
+        sq = similar_queries(rng, sp_models[0], SP_REQUESTS)
+        iid = rows["similarproduct"].id
+        proc, port, deploy_s = start_deploy(
+            tmp, cli, iid, "--engine-instance-id", iid)
+        try:
+            t0 = time.perf_counter()
+            sanswers = serve_http(port, sq, 8)
+            wall = time.perf_counter() - t0
+            sstatus = http_status(port)
+        finally:
+            stop_deploy(proc)
+        if sstatus["plans"] != ["BucketedSimilar", "BucketedSimilar",
+                                "NoneType"]:
+            fail(f"similar-product GET /: plans {sstatus['plans']}")
+        serr, empty = 0.0, 0
+        for q, (body, _) in zip(sq, sanswers):
+            want, avg = sp_expected(torch, sp_models, units, members, q)
+            got = body["itemScores"]
+            if q["items"][0].startswith("nobody"):
+                if got:
+                    fail(f"unknown items {q['items']} answered {got}")
+                empty += 1
+                continue
+            ids = [w.item for w in want.itemScores]
+            scores = [w.score for w in want.itemScores]
+            if len(got) != len(ids):
+                fail(f"similar {q}: {len(got)} items, expected {len(ids)}")
+            for j, (g, i, s) in enumerate(zip(got, ids, scores)):
+                e = abs(g["score"] - s)
+                serr = max(serr, e)
+                if not e <= TOL + TOL * abs(s):
+                    fail(f"similar {q} rank {j}: {g} vs {i} {s}")
+                if g["item"] != i and not (
+                        g["item"] in avg and abs(avg[g["item"]] - s)
+                        <= TOL + TOL * abs(s)):
+                    fail(f"similar {q} rank {j}: {g['item']} vs {i} is no "
+                         "near-tie")
+        # the sharded cosine plan on one card against the single-device one
+        factors = sp_models[0].item_factors
+        live = [q for q in sq if not q["items"][0].startswith("nobody")][:64]
+        vecs = torch.stack([factors[torch.tensor(
+            [sp_models[0].items.get(it) for it in q["items"]
+             if sp_models[0].items.get(it) is not None], device=dev)].mean(0)
+            for q in live])
+        mask = np.ones((len(live), factors.shape[0]), bool)
+        for r, q in enumerate(live):
+            mask[r, [sp_models[0].items.get(it) for it in q["items"]
+                     if sp_models[0].items.get(it) is not None]] = False
+        single = ps.similar_plan(factors, k=K, buckets=(64,), device=dev)
+        sharded = ps.similar_plan(factors, k=K, buckets=(64,),
+                                  mesh=ps.ServeMesh((dev,) * 3, forced=True))
+        if not isinstance(sharded, ps.ShardedBucketedSimilar):
+            fail(f"similar_plan over a forced mesh built {sharded!r}")
+        single.warm()
+        sharded.warm()
+        (s1, i1), (s3, i3) = single(vecs, mask), sharded(vecs, mask)
+        full = (vecs / (torch.linalg.vector_norm(vecs, dim=1, keepdim=True)
+                        + 1e-9)) @ units[0].T
+        full = full.double().cpu().numpy()
+        mesh_err = 0.0
+        for r in range(len(live)):
+            mesh_err = max(mesh_err, check_ranked(
+                f"sharded similar row {r}",
+                [{"item": int(x), "score": float(y)}
+                 for x, y in zip(i3[r], s3[r])], i1[r], s1[r], full[r],
+                lambda x: x))
+        del single, sharded
+        out["similarproduct_serve"] = {
+            "requests": len(sq), "answers_checked": len(sq),
+            "unknown_empty": empty, "max_abs_err": serr,
+            "plans": sstatus["plans"], "plan_calls": sstatus["plan_calls"],
+            "batch_sizes": sstatus["batch_sizes"],
+            "deploy": {"command_to_serving_s": deploy_s,
+                       **sstatus["deploy_timings"]},
+            "wall_s": wall, "qps": len(sq) / wall,
+            "latency_ms": latency_ms(sanswers),
+            "sharded_plan_3_on_one_card": {"queries": len(live),
+                                           "max_abs_err": mesh_err}}
+        registry.close()
+        out["cooccurrence"] = cooccurrence_on_card(torch, dev, seed)
+        out["fold"] = template_folds(torch, dev, config, app["id"], rows,
+                                     models, seed)
+    out["templates_launches"] = out["ecommerce_serve"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2683,15 +3514,19 @@ def main() -> int:
     ap.add_argument("--lifecycle-requests", type=int, default=320)
     ap.add_argument("--streaming-requests", type=int, default=320)
     ap.add_argument("--quickstart-requests", type=int, default=320)
+    ap.add_argument("--templates-requests", type=int, default=64)
     ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle",
-                                       "streaming", "quickstart"),
+                                       "streaming", "quickstart",
+                                       "templates"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
                          "for parity and lifecycle; streaming for parity "
                          "and streaming; quickstart for parity and "
-                         "quickstart), no kernels line")
+                         "quickstart; templates for parity and "
+                         "templates), no kernels line")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -2755,10 +3590,15 @@ def main() -> int:
             phase_parity(torch, ft, dev, rng)
             phase_lifecycle(torch, ft, dev, rng, args.seed,
                             args.lifecycle_requests)
+        elif args.only == "templates":
+            phase_parity(torch, ft, dev, rng)
+            phase_templates(torch, ft, dev, rng, args.seed,
+                            args.templates_requests)
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
                           args.only == "quickstart")
+        emit({"script_s": time.perf_counter() - t_script})
         print(smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -2773,6 +3613,7 @@ def main() -> int:
     tiered = phase_serve_tiered(torch, ft, dev, rng, model,
                                 args.tiered_queries)
     timing = phase_timing(torch, ft, dev, rng, card)
+    timing_ec = phase_timing_ecommerce(torch, ft, dev, rng, card)
     timing_sh = phase_timing_sharded(torch, ft, dev, rng, model, card)
     del model
     _, served = train_phases()
@@ -2780,8 +3621,11 @@ def main() -> int:
                                 args.lifecycle_requests)
     streaming, quickstart = pevlog_phases(
         True, True, lifecycle["import"]["events_per_s"])
+    templates = phase_templates(torch, ft, dev, rng, args.seed,
+                                args.templates_requests)
 
     main_row, shard_row = timing[64], timing_sh[64]
+    emit({"script_s": time.perf_counter() - t_script})
     emit({"kernels": [{
         "name": "fused_topk", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
@@ -2796,7 +3640,10 @@ def main() -> int:
         "lifecycle_launches": lifecycle["serve"]["launches"],
         "streaming_launches": streaming["launches"],
         "quickstart_launches": quickstart["launches"],
-        "by_bucket": {str(b): r for b, r in timing.items()}}, {
+        "templates_launches": templates["templates_launches"],
+        "by_bucket": {str(b): r for b, r in timing.items()},
+        "by_width": {str(EC_WIDTH): {str(b): r
+                                     for b, r in timing_ec.items()}}}, {
         "name": "shard_local_candidates", "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
         "replaces": "predictionio_tpu/ops/fused_topk.py:176",

@@ -11,11 +11,12 @@ The port of the part of `predictionio_tpu/data/storage/base.py` that the
     `EvaluationInstances`, `Models` and `EventStore` (LEvents.scala:
     40-520): `insert` and
     `insert_batch` validate first, `find` has the three-state target
-    filter, `scan_columns` adapts `find`, and `ingest_watermark` /
-    `ingest_cache_dir` are None (no prepared-data cache, no delta).
+    filter, `scan_columns` and `aggregate_properties` adapt `find`, and
+    `ingest_watermark` / `ingest_cache_dir` are None (no prepared-data
+    cache, no delta).
 
-Leases, tenant quotas, SLO objectives and `aggregate_properties` come
-with the slices that use them. Drivers
+Leases, tenant quotas and SLO objectives come with the slices that use
+them. Drivers
 (`memory.py`, `sqlite.py`, `evlog.py`, `pevlog.py`) implement these
 bases and are found by the registry (`registry.py`).
 """
@@ -31,7 +32,7 @@ from datetime import datetime, timezone
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence
 
 from predictionio_tpu_torch.data.event import (Event, EventValidation,
-                                               utcnow)
+                                               PropertyMap, utcnow)
 
 
 class StorageError(Exception):
@@ -434,6 +435,46 @@ class EventStore(abc.ABC):
         """Directory of the prepared-data cache's blobs, or None when the
         driver has no on-disk home for them."""
         return None
+
+    def aggregate_properties(self, app_id: int,
+                             channel_id: Optional[int] = None, *,
+                             entity_type: str,
+                             start_time: Optional[datetime] = None,
+                             until_time: Optional[datetime] = None,
+                             required: Optional[Sequence[str]] = None,
+                             ) -> Dict[str, PropertyMap]:
+        """Replay $set/$unset/$delete into final per-entity properties
+        (LEvents.futureAggregateProperties, LEvents.scala:393-440);
+        `required` keeps the entities that hold every named field."""
+        from predictionio_tpu_torch.data.aggregate import (
+            aggregate_properties)
+        events = self.find(
+            app_id, channel_id,
+            start_time=start_time, until_time=until_time,
+            entity_type=entity_type,
+            event_names=["$set", "$unset", "$delete"])
+        result = aggregate_properties(events)
+        if required:
+            req = list(required)
+            result = {k: v for k, v in result.items()
+                      if all(r in v.fields for r in req)}
+        return result
+
+    def aggregate_properties_of_entity(
+            self, app_id: int, channel_id: Optional[int] = None, *,
+            entity_type: str, entity_id: str,
+            start_time: Optional[datetime] = None,
+            until_time: Optional[datetime] = None) -> Optional[PropertyMap]:
+        """One entity's aggregated properties, or None when it has none
+        (LEvents.futureAggregatePropertiesOfEntity)."""
+        from predictionio_tpu_torch.data.aggregate import (
+            aggregate_properties_single)
+        events = self.find(
+            app_id, channel_id,
+            start_time=start_time, until_time=until_time,
+            entity_type=entity_type, entity_id=entity_id,
+            event_names=["$set", "$unset", "$delete"])
+        return aggregate_properties_single(events)
 
 
 def match_event(e: Event, *,

@@ -91,6 +91,11 @@ def t_millis_from_us(t_us: np.ndarray) -> np.ndarray:
     return (t_us.astype(np.float64) / 1e6 * 1000.0).astype(np.int64)
 
 
+def t_millis_from_us_scalar(us: int) -> int:
+    """`t_millis_from_us` of one int (the same two IEEE operations)."""
+    return int(us / 1_000_000 * 1000)
+
+
 @dataclass
 class EventColumns:
     """Dense scan result, sorted by event time (stable w.r.t. journal

@@ -1,7 +1,6 @@
 """PEVLOG storage driver: the scalable INDEXED event store (HBase role).
 
-The port of `predictionio_tpu/data/storage/pevlog.py`, less
-`aggregate_properties` (which comes with `data/aggregate.py`). Journals,
+The port of `predictionio_tpu/data/storage/pevlog.py`. Journals,
 sidecar indexes, tombstones and external-id logs are the same files in
 the same formats, so a PEVLOG directory either package wrote reads back
 through the other, its sidecar indexes loaded, not rebuilt.
@@ -1377,6 +1376,95 @@ class PevlogEvents(base.EventStore):
     def ingest_cache_dir(self, app_id: int,
                          channel_id: Optional[int] = None) -> Path:
         return self._part_dir(app_id, channel_id) / "_prepared"
+
+    # -- columnar property aggregation ---------------------------------------
+    def aggregate_properties(self, app_id: int,
+                             channel_id: Optional[int] = None, *,
+                             entity_type: str,
+                             start_time=None, until_time=None,
+                             required=None):
+        """$set/$unset/$delete replay through the index pushdown and a
+        raw-frame scan: segments without property events prune by their
+        event-name set, and the surviving frames fold into `EventOp`s
+        without building Events (the base path decodes every frame into
+        an Event and two datetimes first). Equal to the base
+        implementation; a journal the raw path cannot reproduce exactly
+        (legacy or tombstone frames in it, external ids) goes through
+        the base path instead."""
+        from predictionio_tpu_torch.data import aggregate as agg
+        names = ("$set", "$unset", "$delete")
+        name_set = frozenset(names)
+        part = self._part_dir(app_id, channel_id)
+        start_us = _us(start_time) if start_time is not None else None
+        until_us = _us(until_time) if until_time is not None else None
+        dead = self._tombstones(part)
+        rows: List[tuple] = []   # (tus, seq, name, entity_id, props|None)
+        seq = 0
+        for seg in self._segments(part):
+            if not self._segment_survives(
+                    self._index(seg), start_us=start_us, until_us=until_us,
+                    entity_type=entity_type, entity_id=None,
+                    event_names=names, target_entity_type=base._UNSET,
+                    target_entity_id=base._UNSET, properties=None):
+                self.c.stats["segments_pruned"] += 1
+                continue
+            self.c.stats["segments_scanned"] += 1
+            key = str(seg)
+            try:
+                size = seg.stat().st_size
+            except OSError:
+                continue
+            cached = self.c.replay_cache.get(key)
+            if cached is not None and cached[0] == size:
+                for e in cached[2].values():
+                    if e.event not in name_set \
+                            or e.entity_type != entity_type \
+                            or not self._live(e, dead) \
+                            or not base.match_event(
+                                e, start_time=start_time,
+                                until_time=until_time):
+                        continue
+                    rows.append((columns._event_us(e), seq, e.event,
+                                 e.entity_id, e.properties._fields))
+                    seq += 1
+                continue
+            for payload, _end in EventLog(key).scan_from(0):
+                obj = json.loads(payload.decode())
+                if "$tombstone" in obj or "tus" not in obj \
+                        or not _GEN_ID.match(obj["id"]):
+                    # dict-replay semantics needed: the base path
+                    return super().aggregate_properties(
+                        app_id, channel_id, entity_type=entity_type,
+                        start_time=start_time, until_time=until_time,
+                        required=required)
+                if obj["e"] not in name_set or obj["et"] != entity_type:
+                    continue
+                tus = obj["tus"]
+                if start_us is not None and tus < start_us:
+                    continue
+                if until_us is not None and tus >= until_us:
+                    continue
+                if dead and dead.get(obj["id"], -1) >= obj["cus"]:
+                    continue
+                rows.append((tus, seq, obj["e"], obj["ei"], obj.get("p")))
+                seq += 1
+        rows.sort(key=lambda r: (r[0], r[1]))   # find()'s stable time sort
+        ops: Dict[str, agg.EventOp] = {}
+        for tus, _seq, name, ei, p in rows:
+            op = agg.op_from_parts(
+                name, p, columns.t_millis_from_us_scalar(tus))
+            prev = ops.get(ei)
+            ops[ei] = op if prev is None else prev.combine(op)
+        out = {}
+        for ei, op in ops.items():
+            pm = op.to_property_map()
+            if pm is not None:
+                out[ei] = pm
+        if required:
+            req = list(required)
+            out = {k: v for k, v in out.items()
+                   if all(r in v.fields for r in req)}
+        return out
 
 
 # -- ingest worker pool ------------------------------------------------------

@@ -1,6 +1,7 @@
 """Engine-facing event store facade.
 
-The port of `app_name_to_id`, `find_events` and `rating_columns` from
+The port of `app_name_to_id`, `find_events`, `rating_columns`,
+`aggregate_properties` and `find_by_entity` from
 `predictionio_tpu/data/store.py` (PEventStore.scala / LEventStore.scala):
 engines address data by app name and channel name, which resolve to
 ids (store/Common.scala appNameToId) before the `EventStore` DAO runs.
@@ -8,9 +9,9 @@ ids (store/Common.scala appNameToId) before the `EventStore` DAO runs.
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
-from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.event import Event, PropertyMap
 
 
 class AppNotFoundError(ValueError):
@@ -52,3 +53,26 @@ def rating_columns(registry, app_name: str,
     app_id, channel_id = app_name_to_id(registry, app_name, channel_name)
     return RatingColumns.from_store(
         registry.get_events(), app_id, channel_id, **kwargs)
+
+
+def aggregate_properties(registry, app_name: str, *, entity_type: str,
+                         channel_name: Optional[str] = None,
+                         **filters) -> Dict[str, PropertyMap]:
+    """PEventStore.aggregateProperties: `filters` pass through to
+    `EventStore.aggregate_properties`."""
+    app_id, channel_id = app_name_to_id(registry, app_name, channel_name)
+    return registry.get_events().aggregate_properties(
+        app_id, channel_id, entity_type=entity_type, **filters)
+
+
+def find_by_entity(registry, app_name: str, *, entity_type: str,
+                   entity_id: str, channel_name: Optional[str] = None,
+                   event_names: Optional[Sequence[str]] = None,
+                   limit: Optional[int] = None,
+                   latest_first: bool = True) -> Iterator[Event]:
+    """LEventStore.findByEntity: the serving-time read the e-commerce
+    template makes inside predict (`ECommAlgorithm.scala:331-430`)."""
+    app_id, channel_id = app_name_to_id(registry, app_name, channel_name)
+    return registry.get_events().find(
+        app_id, channel_id, entity_type=entity_type, entity_id=entity_id,
+        event_names=event_names, limit=limit, reversed=latest_first)

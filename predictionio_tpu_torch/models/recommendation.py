@@ -46,7 +46,8 @@ from predictionio_tpu_torch.core.runtime import RuntimeContext
 from predictionio_tpu_torch.core.workflow import register_engine
 from predictionio_tpu_torch.data import store
 from predictionio_tpu_torch.ingest.arrays import RatingColumns
-from predictionio_tpu_torch.models.common import resolve_item_mask
+from predictionio_tpu_torch.models.common import (generic_factors,
+                                                  resolve_item_mask)
 from predictionio_tpu_torch.ops.als import ALSModel, als_train
 from predictionio_tpu_torch.ops.topk import (NEG_INF, BucketedTopK,
                                              _off_host, topk_scores,
@@ -205,13 +206,7 @@ class ALSAlgorithm(Algorithm):
         return plan.warm()
 
     def _generic_factors(self, model: ALSModel) -> torch.Tensor:
-        """The item factors the generic (non-plan) paths score against:
-        a single-device plan's resident copy, else the model's master
-        (in host RAM once a sharded or tiered plan owns the card's)."""
-        plan = self._serve_plan
-        if isinstance(plan, BucketedTopK):
-            return plan.factors
-        return model.item_factors
+        return generic_factors(self._serve_plan, model.item_factors)
 
     def fold_in(self, model: ALSModel, delta, fctx) -> Optional[ALSModel]:
         """Streaming fold-in: closed-form ALS half-steps over the delta's

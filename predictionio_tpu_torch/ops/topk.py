@@ -15,6 +15,11 @@ promises on every path.
     pinned on the device once; every bucket of a call goes through the
     hand-written fused kernel (`ops/fused_topk.py`), with no per-bucket
     chain to fall back to.
+  - `topk_similar` / `BucketedSimilar`: cosine top-k under a dense
+    [b, n_items] mask (the similar-product and e-commerce templates),
+    the JAX package's `_topk_similar_raw`: rows scaled by 1 / (norm +
+    1e-9), an fp32 product, the mask, the stable top-k. It is XLA there
+    and plain torch ops here (no Pallas kernel).
 
 Every dispatch lands in `DISPATCH_COUNTS` and the policy's EWMAs.
 """
@@ -282,6 +287,60 @@ def topk_scores(user_vecs: ArrayLike, item_factors: ArrayLike,
     return out
 
 
+def _unit_rows(a: torch.Tensor) -> torch.Tensor:
+    """Rows scaled by 1 / (L2 norm + 1e-9), as the JAX package's
+    `_topk_similar_raw` scales both sides (a zero row stays zero)."""
+    return a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + 1e-9)
+
+
+def _similar_rows(query_vecs: torch.Tensor, unit_factors: torch.Tensor,
+                  mask: torch.Tensor, k: int):
+    """Cosine top-k of `query_vecs` against factors already scaled by
+    `_unit_rows`, under the bool `mask` (True = allowed): the device
+    program of `topk_similar` and of the plans."""
+    scores = torch.matmul(_unit_rows(query_vecs), unit_factors.T)
+    return _topk_rows(scores.masked_fill(~mask, NEG_INF), k)
+
+
+def topk_similar(query_vecs: ArrayLike, item_factors: ArrayLike,
+                 mask: ArrayLike, *, k: int, device=None):
+    """Cosine-similarity top-k (the similar-product template's scoring,
+    `ALSAlgorithm.scala` of multi-events-multi-algos): `query_vecs`
+    [b, rank] (mean item vectors, typically) against `item_factors`
+    [n_items, rank] under `mask` [b, n_items]. Tensor inputs run on their
+    device; host inputs go to the host or to `device` by
+    `DispatchPolicy`, as `topk_scores` does. Returns host (scores [b, k],
+    ids [b, k])."""
+    dev = _placement(device, query_vecs, item_factors, mask)
+    k = min(k, item_factors.shape[0])
+    cells = query_vecs.shape[0] * item_factors.shape[0]
+    on_dev = any(isinstance(a, torch.Tensor)
+                 for a in (query_vecs, item_factors, mask))
+    if on_dev or DISPATCH_POLICY.choose(cells) == "device":
+        t0 = time.perf_counter()
+        s, i = _similar_rows(
+            torch.as_tensor(query_vecs, dtype=torch.float32, device=dev),
+            _unit_rows(torch.as_tensor(item_factors, dtype=torch.float32,
+                                       device=dev)),
+            torch.as_tensor(mask, dtype=torch.bool, device=dev), k)
+        out = s.cpu().numpy(), i.cpu().numpy()
+        _record_dispatch("device", cells, time.perf_counter() - t0)
+        return out
+    t0 = time.perf_counter()
+    DISPATCH_POLICY.host_begin()
+    try:
+        q = np.asarray(query_vecs)
+        f = np.asarray(item_factors)
+        qn = q / (np.linalg.norm(q, axis=-1, keepdims=True) + 1e-9)
+        fn = f / (np.linalg.norm(f, axis=-1, keepdims=True) + 1e-9)
+        scores = np.where(np.asarray(mask), qn @ fn.T, np.float32(NEG_INF))
+        out = _topk_host(scores, k)
+    finally:
+        DISPATCH_POLICY.host_end()
+    _record_dispatch("host", cells, time.perf_counter() - t0)
+    return out
+
+
 def build_mask(n_items: int,
                blacklist_ix: Sequence[int] = (),
                whitelist_ix: Optional[Sequence[int]] = None,
@@ -455,3 +514,116 @@ def _pin(item_factors: ArrayLike, device: torch.device) -> torch.Tensor:
     they already are one)."""
     return torch.as_tensor(item_factors, dtype=torch.float32,
                            device=device).contiguous()
+
+
+class BucketedSimilar:
+    """Serving plan of the dense-mask cosine path (the similar-product
+    template's `batch_predict`): the item factors pinned on the device
+    once, with their unit rows beside them, and every batch bucket run
+    once at warmup, so a deployment's first query allocates nothing new.
+
+    The filter is the template's dense [b, n_items] category/white/black
+    mask, so the mask block is padded to the bucket with all-False rows
+    (their lanes score NEG_INF and are sliced off before return).
+    Batches past the largest bucket are chunked. The scoring is
+    `_similar_rows`: plain torch ops, as the JAX package's plan is XLA."""
+
+    def __init__(self, item_factors: ArrayLike, *, k: int,
+                 buckets: Sequence[int] = DEFAULT_SERVE_BUCKETS,
+                 device=None):
+        if device is None and isinstance(item_factors, torch.Tensor):
+            device = item_factors.device
+        self.device = resolve_device(device)
+        self.factors = _pin(item_factors, self.device)
+        self._unit = _unit_rows(self.factors)
+        self.n_items, self.rank = self.factors.shape
+        self.k = max(1, min(k, self.n_items))
+        self.buckets = tuple(sorted({_next_pow2(b)
+                                     for b in buckets if b > 0})) or (1,)
+        self._warm: set = set()
+        # bucket calls made by this plan (warmup included)
+        self.calls = 0
+        register_resident_plan(self)
+
+    def resident_per_device_bytes(self) -> float:
+        """The factors and their unit rows."""
+        return float(2 * self.factors.numel() * 4)
+
+    def warm(self) -> int:
+        """Run every bucket once; returns how many were warmed
+        (idempotent)."""
+        warmed = 0
+        for b in self.buckets:
+            if b in self._warm:
+                continue
+            self._launch(torch.zeros((b, self.rank), dtype=torch.float32,
+                                     device=self.device),
+                         torch.zeros((b, self.n_items), dtype=torch.bool,
+                                     device=self.device))
+            self._warm.add(b)
+            warmed += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return warmed
+
+    def swap_factors(self, item_factors: ArrayLike) -> torch.Tensor:
+        """Replace the resident factors with a same-shape block (the
+        refresher's commit); returns the previous ones as the rollback
+        token. A catalog change must re-warm instead."""
+        new = _pin(item_factors, self.device)
+        if tuple(new.shape) != (self.n_items, self.rank):
+            raise ValueError(
+                f"swap_factors shape {tuple(new.shape)} != "
+                f"{(self.n_items, self.rank)}: catalog changed; re-warm "
+                "instead")
+        unit = _unit_rows(new)
+        prev, self.factors, self._unit = self.factors, new, unit
+        return prev
+
+    @property
+    def max_bucket(self) -> int:
+        return self.buckets[-1]
+
+    def fits(self, *, k: int) -> bool:
+        return bool(self._warm) and k <= self.k
+
+    def _bucket_for(self, b: int) -> int:
+        for bucket in self.buckets:
+            if bucket >= b:
+                return bucket
+        return self.max_bucket
+
+    def _launch(self, vecs: torch.Tensor, mask: torch.Tensor):
+        self.calls += 1
+        return _similar_rows(vecs, self._unit, mask, self.k)
+
+    def __call__(self, query_vecs: ArrayLike, mask: ArrayLike):
+        """Cosine top-k of `query_vecs` [b, rank] (host or on the plan's
+        device) against the resident factors under the dense mask
+        [b, n_items]; returns host (scores [b, k], ids [b, k])."""
+        b = query_vecs.shape[0]
+        if b > self.max_bucket:
+            parts = [self(query_vecs[lo:lo + self.max_bucket],
+                          mask[lo:lo + self.max_bucket])
+                     for lo in range(0, b, self.max_bucket)]
+            return (np.concatenate([p[0] for p in parts]),
+                    np.concatenate([p[1] for p in parts]))
+        bucket = self._bucket_for(b)
+        if bucket not in self._warm:
+            raise RuntimeError(
+                f"BucketedSimilar bucket {bucket} not warmed; call warm() "
+                "at deploy time")
+        t0 = time.perf_counter()
+        vecs = torch.zeros((bucket, self.rank), dtype=torch.float32,
+                           device=self.device)
+        vecs[:b] = torch.as_tensor(query_vecs, dtype=torch.float32,
+                                   device=self.device)
+        mask_p = torch.zeros((bucket, self.n_items), dtype=torch.bool,
+                             device=self.device)
+        mask_p[:b] = torch.as_tensor(mask, dtype=torch.bool,
+                                     device=self.device)
+        scores, ixs = self._launch(vecs, mask_p)
+        scores, ixs = scores.cpu().numpy(), ixs.cpu().numpy()
+        _record_dispatch("device", bucket * self.n_items,
+                         time.perf_counter() - t0)
+        return scores[:b], ixs[:b]

@@ -1,11 +1,9 @@
 """Sharded serving plans and the banned-index serve-plan selection.
 
-The port of `predictionio_tpu/ops/topk_sharded.py` (the banned-index
-half; the dense-mask `ShardedBucketedSimilar` / `similar_plan` come
-with the similar-product template). A catalog is partitioned row-wise
-over a `ServeMesh`, a list of torch devices that may name one device
-more than once (several shards on one card run one after another on
-its stream):
+The port of `predictionio_tpu/ops/topk_sharded.py`. A catalog is
+partitioned row-wise over a `ServeMesh`, a list of torch devices that
+may name one device more than once (several shards on one card run one
+after another on its stream):
 
   - `ShardedBucketedTopK`: the item factors are zero-padded to a
     multiple of the shard count and placed once, one contiguous
@@ -27,8 +25,17 @@ its stream):
   - `ShardSliceTopK`: a fleet member's plan over its own contiguous
     row block, with an inner plan chosen by `serve_plan` (no mesh) and
     global ids out.
+  - `ShardedBucketedSimilar`: the dense-mask cosine plan (the
+    similar-product template's) over the same row partition: each shard
+    scores its unit rows against the unit query rows under its columns
+    of the mask (the padding columns False), keeps its
+    `min(k, per_shard)` best by (score desc, id asc), and the merge on
+    `devices[0]` is the banned-index plan's, with the same tie argument.
 
-`serve_plan` chooses, in this order: a `ShardSlice` builds the slice
+`similar_plan` shards by the same `_wants_shard` rule and otherwise
+builds the single-device `BucketedSimilar` (a fleet `ShardSlice` too:
+the dense-mask path has no slice form). `serve_plan` chooses, in this
+order: a `ShardSlice` builds the slice
 plan; a mesh that warrants it shards (`_wants_shard`: forced, or the
 factors exceed the effective device capacity); a catalog past the
 effective capacity tiers (`_tier_hot_items`, `PIO_SERVE_TIER`), but
@@ -55,8 +62,8 @@ import torch
 
 from predictionio_tpu_torch.ops import topk
 from predictionio_tpu_torch.ops.topk import (
-    DEFAULT_SERVE_BUCKETS, BucketedTopK, _host_f32, _next_pow2, _off_host,
-    _record_dispatch, _topk_rows,
+    DEFAULT_SERVE_BUCKETS, NEG_INF, BucketedSimilar, BucketedTopK, _host_f32,
+    _next_pow2, _off_host, _record_dispatch, _topk_rows, _unit_rows,
 )
 from predictionio_tpu_torch.parallel.mesh import shard_put
 
@@ -227,6 +234,24 @@ def serve_plan(item_factors, *, k: int,
                         banned_width=banned_width, device=device)
 
 
+def similar_plan(item_factors, *, k: int,
+                 buckets: Sequence[int] = DEFAULT_SERVE_BUCKETS,
+                 mesh=None, device=None):
+    """The dense-mask cosine serving plan: sharded over `mesh` when
+    `_wants_shard` says so, else the single-device `BucketedSimilar` on
+    `device` (a fleet `ShardSlice` keeps the whole catalog: every member
+    answers alike and the router's merge drops the duplicates)."""
+    n_items, rank = item_factors.shape
+    if not isinstance(mesh, ShardSlice) and _wants_shard(n_items, rank,
+                                                         mesh):
+        return ShardedBucketedSimilar(item_factors, k=k, buckets=buckets,
+                                      mesh=mesh)
+    if device is None and isinstance(item_factors, torch.Tensor):
+        device = item_factors.device
+    return BucketedSimilar(item_factors, k=k, buckets=buckets,
+                           device=device)
+
+
 class ShardedBucketedTopK:
     """Banned-index top-k over row-sharded resident factors: per-shard
     candidates through the fused kernel, merged on `devices[0]` (the
@@ -386,6 +411,147 @@ class ShardedBucketedTopK:
             if len(bl):
                 banned[row, :len(bl)] = np.asarray(bl, np.int32)
         scores, ixs = self._launch(vecs, torch.from_numpy(banned))
+        scores, ixs = scores.cpu().numpy(), ixs.cpu().numpy()
+        _record_dispatch("sharded", bucket * self.n_items,
+                         time.perf_counter() - t0)
+        return scores[:b], ixs[:b]
+
+
+class ShardedBucketedSimilar:
+    """Dense-mask cosine top-k over row-sharded resident factors: the
+    mask is split by columns to match the catalog rows, each shard
+    scores its own unit rows (row-local scaling, the single-device
+    plan's arithmetic), keeps its best `min(k, per_shard)`, and the
+    candidates merge on `devices[0]` as in `ShardedBucketedTopK`.
+    Drop-in for `BucketedSimilar`."""
+
+    def __init__(self, item_factors, *, k: int,
+                 buckets: Sequence[int] = DEFAULT_SERVE_BUCKETS,
+                 mesh: ServeMesh = None):
+        if not isinstance(mesh, ServeMesh) or mesh.n_shards < 1:
+            raise ValueError(
+                f"ShardedBucketedSimilar needs a ServeMesh, got {mesh!r}")
+        host = _host_f32(item_factors)
+        self.n_items, self.rank = host.shape
+        self.k = max(1, min(k, self.n_items))
+        self.buckets = tuple(sorted({_next_pow2(b)
+                                     for b in buckets if b > 0})) or (1,)
+        self.mesh = mesh
+        self.devices = mesh.devices
+        self.n_shards = mesh.n_shards
+        self._host_factors = host
+        self._place(host)
+        self.per_shard = self.factors[0].shape[0]
+        self.n_pad = self.per_shard * self.n_shards
+        self.k_shard = min(self.k, self.per_shard)
+        self._warm: set = set()
+        # bucket calls made by this plan (warmup included)
+        self.calls = 0
+        topk.register_resident_plan(self)
+
+    def _place(self, host: np.ndarray) -> None:
+        self.factors = shard_put(host, self.devices)
+        self._unit = [_unit_rows(f) for f in self.factors]
+
+    def resident_per_device_bytes(self) -> float:
+        """One padded shard's rows and unit rows times the shards that
+        the most loaded device holds."""
+        most = max(Counter(self.devices).values())
+        return float(2 * self.per_shard * self.rank * 4 * most)
+
+    def swap_factors(self, item_factors) -> np.ndarray:
+        """Replace the resident factors with a same-shape catalog, re-split
+        per shard; returns the previous host factors (the rollback
+        token)."""
+        host = _host_f32(item_factors)
+        if host.shape != (self.n_items, self.rank):
+            raise ValueError(
+                f"swap_factors shape {host.shape} != "
+                f"{(self.n_items, self.rank)}: catalog changed; re-warm "
+                "instead")
+        prev, self._host_factors = self._host_factors, host
+        self._place(host)
+        return prev
+
+    @property
+    def max_bucket(self) -> int:
+        return self.buckets[-1]
+
+    def _bucket_for(self, b: int) -> int:
+        for bucket in self.buckets:
+            if bucket >= b:
+                return bucket
+        return self.max_bucket
+
+    def warm(self) -> int:
+        """Run every bucket on every shard once and synchronise each
+        CUDA device; returns how many buckets were warmed (idempotent)."""
+        warmed = 0
+        for b in self.buckets:
+            if b in self._warm:
+                continue
+            self._launch(torch.zeros((b, self.rank), dtype=torch.float32,
+                                     device=self.devices[0]),
+                         torch.zeros((b, self.n_pad), dtype=torch.bool))
+            self._warm.add(b)
+            warmed += 1
+        for d in sorted({d for d in self.devices if d.type == "cuda"},
+                        key=str):
+            torch.cuda.synchronize(d)
+        return warmed
+
+    def fits(self, *, k: int) -> bool:
+        return bool(self._warm) and k <= self.k
+
+    def _launch(self, vecs: torch.Tensor, mask: torch.Tensor):
+        """One bucket call: `vecs [bucket, rank]` on any device, `mask
+        [bucket, n_pad]` (the padding columns False). Returns (scores,
+        global ids) [bucket, k] on `devices[0]`, not synchronised."""
+        self.calls += 1
+        per, dev0 = self.per_shard, self.devices[0]
+        unit_q = _unit_rows(vecs)
+        inputs = {}   # device -> unit query rows, uploaded once per device
+        scores, gids = [], []
+        for s, (dev, unit) in enumerate(zip(self.devices, self._unit)):
+            if dev not in inputs:
+                inputs[dev] = unit_q.to(dev)
+            m = mask[:, s * per:(s + 1) * per].to(dev)
+            local = torch.matmul(inputs[dev], unit.T).masked_fill(~m,
+                                                                  NEG_INF)
+            sc, ix = _topk_rows(local, self.k_shard)
+            scores.append(sc.to(dev0))
+            gids.append((ix + s * per).to(dev0))
+        # shard-major concatenation = global-id order for equal scores
+        top_s, pos = _topk_rows(torch.cat(scores, dim=1), self.k)
+        return top_s, torch.cat(gids, dim=1).gather(1, pos.long())
+
+    def __call__(self, query_vecs, mask):
+        """Cosine top-k of `[b, rank]` queries (host or device) against
+        the sharded catalog under the dense mask [b, n_items]; returns
+        host (scores [b, k], ids [b, k]). Pads to the bucket grid; chunks
+        past the largest bucket."""
+        b = query_vecs.shape[0]
+        if b > self.max_bucket:
+            parts = [self(query_vecs[lo:lo + self.max_bucket],
+                          mask[lo:lo + self.max_bucket])
+                     for lo in range(0, b, self.max_bucket)]
+            return (np.concatenate([p[0] for p in parts]),
+                    np.concatenate([p[1] for p in parts]))
+        bucket = self._bucket_for(b)
+        if bucket not in self._warm:
+            raise RuntimeError(
+                f"ShardedBucketedSimilar bucket {bucket} not warmed; call "
+                "warm() at deploy time")
+        t0 = time.perf_counter()
+        dev0 = self.devices[0]
+        vecs = torch.zeros((bucket, self.rank), dtype=torch.float32,
+                           device=dev0)
+        vecs[:b] = torch.as_tensor(query_vecs, dtype=torch.float32,
+                                   device=dev0)
+        # padding lanes and padding catalog columns are all-False
+        mask_p = torch.zeros((bucket, self.n_pad), dtype=torch.bool)
+        mask_p[:b, :self.n_items] = torch.as_tensor(np.asarray(mask, bool))
+        scores, ixs = self._launch(vecs, mask_p)
         scores, ixs = scores.cpu().numpy(), ixs.cpu().numpy()
         _record_dispatch("sharded", bucket * self.n_items,
                          time.perf_counter() - t0)

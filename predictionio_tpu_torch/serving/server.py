@@ -10,8 +10,10 @@ micro-batcher that coalesces concurrent requests into device batches
                        -> {"itemScores": [{"item", "score"}]}
   GET  /               status JSON: the engine instance served, the
                        fused kernel's launch counts, the serving plans'
-                       kinds and their calls, the refresher's ticks,
-                       the feedback loop's sent and dropped counts
+                       kinds, calls, buckets and banned widths, each
+                       algorithm's `serve_paths` counts where it keeps
+                       them, the refresher's ticks, the feedback loop's
+                       sent and dropped counts
 
 A deployment whose plan is tiered (`ops/topk_tiered.TieredTopK`, bare
 or inside a fleet slice) gets a `serving.paging.PageManager` thread for
@@ -490,6 +492,10 @@ class PredictionServer:
                 "plan_calls": sum(getattr(p, "calls", 0) for p in plans),
                 "plan_buckets": [list(getattr(p, "buckets", ()))
                                  for p in plans],
+                "plan_banned_widths": [getattr(p, "banned_width", None)
+                                       for p in plans],
+                "serve_paths": [dict(getattr(a, "serve_paths", {}))
+                                for a in dep.algos],
                 "devices": devices,
                 "kernel_launches": {
                     "fused_topk": fused_topk.LAUNCHES,

@@ -65,6 +65,20 @@ class FoldContext:
             self.app_id, self.channel_id, since=self.since,
             upto=self.upto, **kw)
 
+    def user_history(self, user_id: str, event_names: Sequence[str]):
+        """A touched user's full history of `event_names`, as Events in
+        find order (the serving-time read, LEventStore.findByEntity)."""
+        return self.store.find(
+            self.app_id, self.channel_id, entity_type="user",
+            entity_id=user_id, event_names=list(event_names))
+
+    def item_history(self, item_id: str, event_names: Sequence[str]):
+        """Every user event of `event_names` that targets one item, in
+        find order."""
+        return self.store.find(
+            self.app_id, self.channel_id, entity_type="user",
+            target_entity_id=item_id, event_names=list(event_names))
+
     def history_columns(self, **kw):
         """The whole store's rows under a template's spec (`scan_columns`
         filters), in `find` order: every touched entity's full history at

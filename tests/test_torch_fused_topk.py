@@ -254,3 +254,27 @@ def test_kernel_variant_patches_apply(name):
     src = kv.variant_source(name)
     assert (src == fused_topk.SOURCE.read_text()) == (name == "kernel")
     assert "score_blocks" in src and "merge_blocks" in src
+
+
+@pytest.mark.parametrize("bucket", [1, 8])
+def test_ecommerce_ban_width_matches_jax_kernel(bucket, monkeypatch):
+    """The e-commerce plan's banned width, 2,048 (`_next_pow2(1,000
+    unavailable + 128)`): the 1,000 even ids below 2,000 plus per-row
+    seen lists of 100-1,000 ids that straddle tiles, padded with
+    `n_items`, on integer factors at rank 32: the plain version equals
+    the JAX kernel in interpret mode and the XLA chain bit for bit."""
+    n, rank, width = 2_600, 32, 2_048
+    factors = _int((n, rank), seed=31)
+    vecs = _int((bucket, rank), seed=32 + bucket)
+    rng = np.random.default_rng(bucket)
+    banned = np.full((bucket, width), n, np.int32)
+    for row in range(bucket):
+        seen = rng.choice(n, int(rng.integers(100, 1_001)), replace=False)
+        ids = np.unique(np.r_[np.arange(0, 2_000, 2), seen])[:width]
+        banned[row, :len(ids)] = rng.permutation(ids)
+    port = _port(vecs, factors, banned, k=10, n_valid=n)
+    _same(port, _jax_chain(vecs, factors, banned, k=10))
+    _same(port, _jax_kernel(vecs, factors, banned, k=10, n_valid=n,
+                            tile=512, monkeypatch=monkeypatch))
+    for row in range(bucket):
+        assert not np.isin(port[1][row], banned[row]).any()

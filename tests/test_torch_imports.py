@@ -49,7 +49,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "data.webhooks.connectors", "data.eventserver",
                      "resilience", "resilience.retry", "core.evaluation",
                      "core.batchpredict", "e2", "e2.engine",
-                     "e2.evaluation"):
+                     "e2.evaluation", "data.aggregate", "ops.cooccur",
+                     "models.common", "models.ecommerce",
+                     "models.similarproduct"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -630,3 +630,70 @@ def test_sharded_deploy_answers_as_single_device():
     finally:
         single.stop()
         sharded.stop()
+
+
+# -- the dense-mask cosine plan (similar-product template) ------------------
+
+def _real(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _sim_mask(b, seed, n=N):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((b, n)) > 0.4
+    if b > 1:
+        mask[1] = False
+        mask[1, [0, n - 1]] = True     # fewer allowed items than k
+    return mask
+
+
+@pytest.mark.parametrize("n_shards", [2, 3, 4, 8])
+def test_sharded_similar_matches_single_device_plan(n_shards):
+    """`ShardedBucketedSimilar` on a CPU mesh answers as `BucketedSimilar`
+    on the same catalog (ids equal, scores to 1e-6: the per-shard
+    products differ from the whole one only in fp32 summation order),
+    and both as the JAX `_topk_similar_raw`; padding rows never leak."""
+    factors = _real((N, RANK), seed=41)
+    single = pt.BucketedSimilar(factors, k=K, buckets=BUCKETS, device="cpu")
+    plan = ps.ShardedBucketedSimilar(factors, k=K, buckets=BUCKETS,
+                                     mesh=_cpu_mesh(n_shards))
+    assert plan.n_pad == pmesh.pad_to_multiple(N, n_shards)
+    assert single.warm() == plan.warm() == 4 and plan.warm() == 0
+    for b in (1, 3, 8, 13):            # 13: chunks past the largest bucket
+        vecs = _real((b, RANK), seed=42 + b)
+        mask = _sim_mask(b, seed=b)
+        got = plan(vecs, mask)
+        np.testing.assert_array_equal(got[1], single(vecs, mask)[1])
+        np.testing.assert_allclose(got[0], single(vecs, mask)[0],
+                                   rtol=1e-6, atol=1e-6)
+        want = jax.device_get(jt._topk_similar_raw(vecs, factors, mask,
+                                                    k=K))
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+        assert (got[1] < N).all()
+    assert plan.calls == 4 + 1 + 1 + 1 + 2
+
+
+def test_sharded_similar_swap_and_selection(monkeypatch):
+    factors = _real((N, RANK), seed=51)
+    plan = ps.similar_plan(factors, k=K, buckets=BUCKETS,
+                           mesh=_cpu_mesh(3))
+    assert isinstance(plan, ps.ShardedBucketedSimilar)
+    assert isinstance(ps.similar_plan(factors, k=K, buckets=BUCKETS,
+                                      mesh=_cpu_mesh(3, forced=False),
+                                      device="cpu"), pt.BucketedSimilar)
+    assert isinstance(ps.similar_plan(factors, k=K, buckets=BUCKETS,
+                                      mesh=ps.ShardSlice(2, 0),
+                                      device="cpu"), pt.BucketedSimilar)
+    plan.warm()
+    new = _real((N, RANK), seed=52)
+    prev = plan.swap_factors(new)
+    np.testing.assert_array_equal(prev, factors)
+    vecs, mask = _real((2, RANK), seed=53), _sim_mask(2, seed=9)
+    single = pt.BucketedSimilar(new, k=K, buckets=BUCKETS, device="cpu")
+    single.warm()
+    np.testing.assert_array_equal(plan(vecs, mask)[1], single(vecs, mask)[1])
+    with pytest.raises(ValueError, match="catalog changed"):
+        plan.swap_factors(new[1:])
+    assert plan.resident_per_device_bytes() == 2 * plan.per_shard * RANK * 4 * 3

@@ -5,6 +5,7 @@ with the XLA chain and with the fused kernel in interpret mode),
 `DispatchPolicy`. Integer-valued factors make every product exact, so
 scores and ids must be bit-identical, ties included."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -195,3 +196,81 @@ def test_dispatch_policy_matches_jax(monkeypatch):
     assert b2.snapshot()["host_inflight"] == 0
     for cells in (1 << 16, 1 << 18, 1 << 21):
         assert a2.choose(cells) == b2.choose(cells)
+
+
+# -- the cosine path (similar-product and e-commerce templates) -------------
+
+def _real(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _similar_mask(b, n, seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((b, n)) > 0.3
+    mask[0] = True
+    if b > 2:
+        mask[2] = False
+        mask[2, :3] = True     # fewer allowed items than k
+    return mask
+
+
+def _close(p, j):
+    """Ids equal, scores to rtol 1e-5 (fp32 summation order)."""
+    np.testing.assert_array_equal(np.asarray(p[1]), np.asarray(j[1]))
+    np.testing.assert_allclose(np.asarray(p[0]), np.asarray(j[0]),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("on", ["host", "cpu_tensors"])
+@pytest.mark.parametrize("b", [1, 5])
+def test_topk_similar_matches_jax_raw(b, on):
+    factors = _real((N, RANK), seed=11)
+    factors[7] = 0.0                   # a zero row scores 0, not NaN
+    vecs = _real((b, RANK), seed=12 + b)
+    mask = _similar_mask(b, N, seed=b)
+    want = jax.device_get(jt._topk_similar_raw(vecs, factors, mask, k=10))
+    if on == "host":
+        got = pt.topk_similar(vecs, factors, mask, k=10, device="cpu")
+    else:
+        got = pt.topk_similar(torch.from_numpy(vecs),
+                              torch.from_numpy(factors),
+                              torch.from_numpy(mask), k=10)
+    _close(got, want)
+    assert isinstance(got[0], np.ndarray) and got[1].dtype == np.int32
+
+
+def test_bucketed_similar_matches_jax_raw_and_plan():
+    factors = _real((N, RANK), seed=21)
+    plan = pt.BucketedSimilar(factors, k=10, buckets=(1, 2, 4, 8),
+                              device="cpu")
+    jplan = jt.BucketedSimilar(factors, k=10, buckets=(1, 2, 4, 8))
+    assert plan.warm() == 4 and plan.warm() == 0 and plan.calls == 4
+    jplan.warm()
+    assert plan.fits(k=10) and not plan.fits(k=11)
+    for b in (1, 3, 8, 19):            # 19: chunks past the largest bucket
+        vecs = _real((b, RANK), seed=22 + b)
+        mask = _similar_mask(b, N, seed=b)
+        got = plan(vecs, mask)
+        assert got[0].shape == (b, 10)
+        _close(got, jax.device_get(jt._topk_similar_raw(vecs, factors, mask,
+                                                         k=10)))
+        _close(got, jplan(vecs, mask))
+    assert plan.calls == 4 + 1 + 1 + 1 + 3
+
+
+def test_bucketed_similar_swap_and_contract():
+    factors = _real((N, RANK), seed=31)
+    plan = pt.BucketedSimilar(torch.from_numpy(factors), k=5, buckets=(2,))
+    with pytest.raises(RuntimeError, match="not warmed"):
+        plan(factors[:1], np.ones((1, N), bool))
+    plan.warm()
+    assert plan.resident_per_device_bytes() == 2 * N * RANK * 4
+    new = _real((N, RANK), seed=32)
+    prev = plan.swap_factors(new)
+    assert torch.equal(prev, torch.from_numpy(factors))
+    vecs, mask = _real((2, RANK), seed=33), np.ones((2, N), bool)
+    _close(plan(vecs, mask),
+           jax.device_get(jt._topk_similar_raw(vecs, new, mask, k=5)))
+    with pytest.raises(ValueError, match="catalog changed"):
+        plan.swap_factors(new[:-1])
