@@ -8,7 +8,8 @@
                           [--quickstart-requests 320]
                           [--templates-requests 64]
                           [--only serve_sharded | train | lifecycle |
-                                  streaming | quickstart | templates]
+                                  streaming | quickstart | templates |
+                                  classification]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -230,13 +231,42 @@ the result line:
               CPU (factors to 2e-3, the cooccurrence merge exactly).
               Prints the train phases, the plan's banned width, p50 and
               p99, ms per store read and the queries per serve path.
+ 16. classification
+              (a) bench.py's BASELINE config 2 (bench_classification's
+              generator, 1,000,000 x 100, 4 classes): NB on the Poisson
+              counts (a uint8 upload; pi and theta within 1e-5 of a
+              float64 fit, accuracy within 0.005 of the closed form; a
+              uint16 upload alike); the forest on the planted depth-2
+              rule (10 trees, depth 5, 32 bins, every feature, seed 1):
+              held-out accuracy at least 0.90, on a 100,000-row slice the
+              card's forest equal to the CPU port's (a differing split
+              only at a counted near-tie of the CPU's gains), the host
+              loop and the device traversal equal; the level loop again
+              with CUDA events (histogram, selection, routing ms per
+              level beside the histogram's bound); predict ms and
+              queries/s by route at 1-100,000 queries; logistic
+              regression, 200 steps, its logits within 1e-4 x the
+              largest of the CPU port's. (b) The template over SQLITE +
+              PEVLOG: 200,000 users' `$set` events (the quickstart's
+              rule), `cli build`, `train` (forest 8 x depth 4, naive,
+              logreg), `deploy` and 256 /queries.json from 8 clients,
+              `cli batchpredict` of 20,000 queries and the same lines
+              through `core.batchpredict` in process, `cli eval`
+              (Accuracy, 3 folds, naive and forest). Gates: COMPLETED;
+              every answer equals the forest's batch_predict on the
+              models read back, on the CPU; each algorithm's answers on
+              the card equal its CPU answers; served batches stay on the
+              forest's host loop, batchpredict chunks of 1,024 take its
+              device traversal; eval NB above 0.85, the forest at least
+              NB - 0.05; no K1 or K2 launch in the phase.
 
 `--only serve_sharded` runs the build and phase 6 alone (for a machine
 with several cards), `--only train` the build and phases 9-11,
 `--only lifecycle` the build and phases 3 and 12, `--only streaming`
 the build and phases 3 and 13, `--only quickstart` the build, phase 3,
 phase 13's import and train, and phase 14, `--only templates` the
-build and phases 3 and 15; none prints the kernels line. Every run
+build and phases 3 and 15, `--only classification` the build and
+phases 3 and 16; none prints the kernels line. Every run
 prints its seconds (`script_s`).
 
 Then the kernels line, the nvidia-smi line and, last,
@@ -3504,6 +3534,587 @@ def phase_templates(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
     return out
 
 
+# -- phase 16: the classification template ------------------------------------
+
+# bench.py's BASELINE config 2 (bench_classification): 1,000,000 x 100,
+# 4 classes; NB on class-conditional Poisson counts, the forest on a
+# planted depth-2 rule with 10% flips (Bayes accuracy 0.925), 10 trees of
+# depth 5 over 32 bins, every feature, seed 1
+CLF_N, CLF_F, CLF_CLASSES = 1_000_000, 100, 4
+CLF_TREES, CLF_DEPTH, CLF_BINS, CLF_SEED = 10, 5, 32, 1
+CLF_SLICE = 100_000      # rows on which the card's forest meets the CPU's
+CLF_STEPS = 200          # logistic regression's full-batch Adam steps
+NB_TOL = 1e-5            # pi and theta against a float64 numpy fit
+GAIN_TIE = 1e-6          # a differing split is allowed only at this margin
+# logits of the card's logistic regression against the CPU port's, times
+# max(1, the largest |logit|); tests/test_torch_classification.py holds
+# the port against optax at the same bound
+LOGREG_TOL = 1e-4
+PREDICT_SIZES = (1, 8, 64, 256, 1024, 2048, 4096, 16_384, 100_000)
+# phase (b): the quickstart's users (tests/test_classification.py:87-103's
+# rule), cut from bench's 1,000,000 rows to 200,000 for the script's time
+CLF_USERS, CLF_REQUESTS, CLF_CLIENTS, CLF_BP = 200_000, 256, 8, 20_000
+CLF_T0_MS = 1_704_067_200_000
+CLF_EVAL_FOLDS = 3
+
+# The evaluation `cli eval` runs: Accuracy over 3 folds, NB and the forest
+CLF_EVAL_MODULE = """
+from predictionio_tpu_torch.core.evaluation import (EngineParamsGenerator,
+                                                    Evaluation)
+from predictionio_tpu_torch.core.params import EngineParams
+from predictionio_tpu_torch.models import classification as clf
+
+DS = ("", clf.DataSourceParams(app_name="clf", eval_k={folds}))
+ClassificationEvaluation = Evaluation(
+    engine=clf.ClassificationEngine.apply(), metric=clf.Accuracy())
+ClassificationParams = EngineParamsGenerator([
+    EngineParams(data_source_params=DS, algorithm_params_list=(
+        ("naive", clf.NaiveBayesParams()),)),
+    EngineParams(data_source_params=DS, algorithm_params_list=(
+        ("forest", clf.RandomForestParams(num_trees=8, max_depth=4)),))])
+"""
+
+
+def classification_data(seed: int) -> dict:
+    """`bench_classification`'s generator (bench.py:2754-2803) from
+    `seed` (0 is bench's): NB's counts and split, then the forest's
+    features, planted rule, flips and split, in bench's draw order."""
+    rng = np.random.RandomState(seed)
+    n, f = CLF_N, CLF_F
+    theta = rng.dirichlet(np.ones(f) * 0.3, CLF_CLASSES)
+    y = rng.randint(0, CLF_CLASSES, n)
+    counts = rng.poisson(theta[y] * 40.0).astype(np.float32)
+    test = rng.rand(n) < 0.1
+    xf = rng.randn(n, f).astype(np.float32)
+    rule = (xf[:, 3] > 0.2).astype(np.int64) * 2 + (xf[:, 17] > -0.1)
+    flip = rng.rand(n) < 0.1
+    yf = np.where(flip, rng.randint(0, 4, n), rule)
+    trf = rng.rand(n) < 0.9
+    return {"xtr": counts[~test], "ytr": y[~test], "xte": counts[test],
+            "yte": y[test], "xf": xf, "yf": yf, "trf": trf}
+
+
+def split_margins(torch, fo, hist, ranks, subset: int, impurity: str):
+    """Per (tree, node): the best allowed gain and the gap to the second
+    best, from a level's histogram [t, nd, f, B, C], by the gain formula
+    of `ops.forest._select_splits`."""
+    left = torch.cumsum(hist, dim=3)
+    total = left[:, :, :, -1, :]
+    right = total[:, :, :, None, :] - left
+    nl, nr = left.sum(-1), right.sum(-1)
+    parent = total[:, :, 0, :]
+    imp_p = fo._impurity(parent, parent.sum(-1)[..., None], impurity)
+    child = (nl * fo._impurity(left, nl[..., None], impurity)
+             + nr * fo._impurity(right, nr[..., None], impurity)) \
+        / torch.clamp(nl + nr, min=1e-9)
+    gain = imp_p[:, :, None, None] - child
+    gain[:, :, :, -1] = -float("inf")
+    gain = torch.where((ranks < subset)[:, :, :, None], gain,
+                       -float("inf"))
+    top = torch.topk(gain.reshape(gain.shape[0], gain.shape[1], -1), 2,
+                     dim=-1)
+    return gain, top.values[..., 0], top.values[..., 0] - top.values[..., 1]
+
+
+def forest_levels(torch, fo, dev, x, y, *, n_trees, depth, bins, subset,
+                  impurity, seed, stop_at=None, timed=False):
+    """`ops.forest.forest_train`'s level loop again from the same seed
+    (the same draws, the same uploads), on `dev`: per level the splits
+    and, with `timed`, CUDA-event ms of the histogram, the selection and
+    the routing; up to `stop_at`, whose histogram and ranks it returns
+    instead."""
+    edges = fo.quantile_bins(x, bins)
+    xb_np = fo.apply_bins(x, edges)
+    classes, y_np = np.unique(y, return_inverse=True)
+    c, (n, f) = max(len(classes), 2), x.shape
+    gen = torch.Generator().manual_seed(seed)
+    w = (torch.ones((1, n)) if n_trees == 1 else torch.poisson(
+        torch.ones((n_trees, n)), generator=gen)).to(dev)
+    xb = torch.from_numpy(xb_np).to(dev)
+    fb_cols = xb.to(torch.int32) + torch.arange(
+        f, dtype=torch.int32, device=dev)[None, :] * bins
+    yd = torch.from_numpy(y_np.astype(np.int64)).to(dev)
+    node = torch.zeros((n_trees, n), dtype=torch.int64, device=dev)
+    levels = []
+    for level in range(depth):
+        nd = 1 << level
+        ranks = fo.draw_ranks(gen, n_trees, nd, f).to(dev)
+        kw = dict(n_nodes=nd, c=c, f=f, b=bins)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] \
+            if timed else None
+        if timed:
+            ev[0].record()
+        hist = fo._histogram(node * c + yd[None, :], w, fb_cols, **kw)
+        if level == stop_at:
+            return hist, ranks
+        if timed:
+            ev[1].record()
+        sf, sb = fo._select_splits(hist, ranks, subset=subset,
+                                   impurity=impurity, **kw)
+        if timed:
+            ev[2].record()
+        node = fo._route(xb, node, sf, sb)
+        row = {"split_feature": sf.cpu().numpy(),
+               "split_bin": sb.cpu().numpy()}
+        if timed:
+            ev[3].record()
+            torch.cuda.synchronize()
+            row.update(hist_ms=ev[0].elapsed_time(ev[1]),
+                       select_ms=ev[1].elapsed_time(ev[2]),
+                       route_ms=ev[2].elapsed_time(ev[3]))
+        levels.append(row)
+    return levels
+
+
+def forest_agreement(torch, fo, card, cpu, x, y, *, subset: int,
+                     impurity: str, seed: int) -> dict:
+    """Two forests of one seed (the card's, the CPU's): equal splits and
+    leaves, except that a tree may take another split where, at the
+    first level it differs, each differing node's two best gains on the
+    CPU lie within GAIN_TIE and the card's split is one of them; such a
+    tree's deeper levels and leaves are then not compared. Fails
+    otherwise; returns the counts."""
+    t, depth = card.n_trees, card.max_depth
+    ties, tied_trees = 0, set()
+    for level in range(depth):
+        cols = slice((1 << level) - 1, (1 << (level + 1)) - 1)
+        diff = ((card.split_feature[:, cols] != cpu.split_feature[:, cols])
+                | (card.split_bin[:, cols] != cpu.split_bin[:, cols]))
+        diff[sorted(tied_trees)] = False
+        if not diff.any():
+            continue
+        hist, ranks = forest_levels(
+            torch, fo, torch.device("cpu"), x, y, n_trees=t, depth=depth,
+            bins=card.bin_edges.shape[1] + 1, subset=subset,
+            impurity=impurity, seed=seed, stop_at=level)
+        gain, best, margin = split_margins(torch, fo, hist, ranks, subset,
+                                           impurity)
+        b = card.bin_edges.shape[1] + 1
+        for tree, nd in zip(*np.nonzero(diff)):
+            j = int(card.split_feature[tree, cols][nd]) * b + int(
+                card.split_bin[tree, cols][nd])
+            got = float(gain[tree, nd].reshape(-1)[j])
+            if not (float(margin[tree, nd]) <= GAIN_TIE
+                    and got >= float(best[tree, nd]) - GAIN_TIE):
+                fail(f"forest: tree {tree} level {level} node {nd} splits "
+                     "otherwise on the card than on the CPU with a gain "
+                     f"margin {float(margin[tree, nd])}")
+            ties += 1
+            tied_trees.add(int(tree))
+    same = [k for k in range(t) if k not in tied_trees]
+    if not np.array_equal(card.leaf_class[same], cpu.leaf_class[same]):
+        fail("forest: leaves differ between the card and the CPU")
+    return {"trees": t, "identical_trees": len(same), "near_ties": ties}
+
+
+def timed_route(fn, xb, reps: int) -> float:
+    """Median ms of `fn(xb)` (each call ends on the host)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(xb)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def predict_routes(model, x) -> dict:
+    """Host loop and device traversal of one forest at PREDICT_SIZES
+    queries up to len(x) (binned once; each device call uploads and
+    fetches): median ms, queries/s, and the cells from which the card
+    wins at every larger size measured."""
+    from predictionio_tpu_torch.ops import forest as fo
+    rows, crossover = [], None
+    for q in [q for q in PREDICT_SIZES if q <= len(x)]:
+        xb = fo.apply_bins(np.asarray(x[:q], np.float32), model.bin_edges)
+        if not np.array_equal(model.predict_host(xb),
+                              model.predict_device(xb)):
+            fail(f"forest predict: host and device differ at {q} queries")
+        reps = 20 if q <= 4096 else 5
+        host = timed_route(model.predict_host, xb, reps)
+        card = timed_route(model.predict_device, xb, reps)
+        rows.append({"queries": q, "cells": q * model.n_trees,
+                     "host_ms": host, "device_ms": card,
+                     "host_qps": 1e3 * q / host,
+                     "device_qps": 1e3 * q / card})
+    for r in reversed(rows):
+        if r["device_ms"] > r["host_ms"]:
+            break
+        crossover = r["cells"]
+    return {"by_size": rows, "device_wins_from_cells": crossover,
+            "host_crossover_cells": model.HOST_CROSSOVER_CELLS}
+
+
+def classification_ops(torch, dev, card: str, seed: int) -> dict:
+    """Phase classification (a): NB, the forest and logistic regression
+    at bench.py's BASELINE config 2 on the card."""
+    from predictionio_tpu_torch.ops import forest as fo
+    from predictionio_tpu_torch.ops import logreg as lo
+    from predictionio_tpu_torch.ops import naive_bayes as nb
+
+    bw, _, _ = peaks(card)
+    t0 = time.perf_counter()
+    d = classification_data(seed)
+    out = {"data_s": time.perf_counter() - t0, "rows": CLF_N,
+           "features": CLF_F, "classes": CLF_CLASSES}
+
+    # -- naive Bayes --------------------------------------------------------
+    xtr, ytr, xte, yte = d["xtr"], d["ytr"], d["xte"], d["yte"]
+    upload = nb.narrow_features(xtr).dtype
+    if upload != np.uint8:
+        fail(f"NB uploads {upload}, not uint8")
+    nb.nb_train(xtr[:1000], ytr[:1000], 1.0, device=dev)   # cuBLAS set-up
+    tm = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = nb.nb_train(xtr, ytr, 1.0, device=dev, timings=tm)
+    nb_s = time.perf_counter() - t0
+    nb_peak = torch.cuda.max_memory_allocated()
+    counts = np.bincount(ytr, minlength=CLF_CLASSES)
+    sums = np.stack([xtr[ytr == k].sum(0, dtype=np.float64)
+                     for k in range(CLF_CLASSES)])
+    pi64 = np.log(counts / len(ytr))
+    th64 = np.log((sums + 1.0) / (sums.sum(1, keepdims=True) + CLF_F))
+    nb_err = max(float(np.abs(model.pi - pi64).max()),
+                 float(np.abs(model.theta - th64).max()))
+    if not nb_err <= NB_TOL:
+        fail(f"NB: pi / theta {nb_err} from the float64 fit")
+    acc = float((nb.nb_predict(model, xte) == yte).mean())
+    oacc = float(((xte @ th64.T + pi64).argmax(1) == yte).mean())
+    if abs(acc - oacc) > 0.005:
+        fail(f"NB accuracy {acc} vs the closed form's {oacc}")
+    # a uint16 upload widens on the card: its fit against float64 too
+    small = np.random.RandomState(seed + 1).randint(
+        0, 1000, (2000, 8)).astype(np.float32)
+    small_y = (small[:, 0] > 500).astype(np.int64)
+    m16 = nb.nb_train(small, small_y, 1.0, device=dev)
+    s64 = np.stack([small[small_y == k].sum(0, dtype=np.float64)
+                    for k in range(2)])
+    err16 = max(float(np.abs(m16.pi - np.log(
+        np.bincount(small_y) / len(small_y))).max()), float(np.abs(
+            m16.theta - np.log((s64 + 1.0) / (
+                s64.sum(1, keepdims=True) + 8))).max()))
+    if nb.narrow_features(small).dtype != np.uint16 or not err16 <= NB_TOL:
+        fail(f"NB at a uint16 upload: pi / theta {err16} from float64")
+    out["naive_bayes"] = {
+        "train_s": nb_s, **tm, "upload_dtype": str(upload),
+        "upload_bytes": int(xtr.size), "accuracy": acc,
+        "closed_form_accuracy": oacc, "max_abs_err_vs_float64": nb_err,
+        "peak_device_bytes": nb_peak, "uint16_max_abs_err": err16}
+
+    # -- the forest ---------------------------------------------------------
+    xf, yf, trf = d["xf"], d["yf"], d["trf"]
+    x, y = xf[trf], yf[trf]
+    kw = dict(n_trees=CLF_TREES, max_depth=CLF_DEPTH, max_bins=CLF_BINS,
+              feature_subset_strategy="all", seed=CLF_SEED)
+    subset = fo._subset_size("all", CLF_F, CLF_TREES)
+    xs, ys = x[:CLF_SLICE], y[:CLF_SLICE]
+    t0 = time.perf_counter()
+    card_small = fo.forest_train(xs, ys, **kw, device=dev)
+    card_small_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_small = fo.forest_train(xs, ys, **kw, device="cpu")
+    cpu_small_s = time.perf_counter() - t0
+    agreement = forest_agreement(torch, fo, card_small, cpu_small, xs, ys,
+                                 subset=subset, impurity="gini",
+                                 seed=CLF_SEED)
+    tm = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    forest = fo.forest_train(x, y, **kw, device=dev, timings=tm)
+    forest_s = time.perf_counter() - t0
+    forest_peak = torch.cuda.max_memory_allocated()
+    facc = float((forest.predict(xf[~trf]) == yf[~trf]).mean())
+    if not facc >= 0.90:
+        fail(f"forest held-out accuracy {facc} is below 0.90")
+    xb_te = fo.apply_bins(xf[~trf], forest.bin_edges)
+    if not np.array_equal(forest.predict_host(xb_te),
+                          forest.predict_device(xb_te)):
+        fail("forest: host and device predict disagree on the test rows")
+    levels = forest_levels(torch, fo, dev, x, y, n_trees=CLF_TREES,
+                           depth=CLF_DEPTH, bins=CLF_BINS, subset=subset,
+                           impurity="gini", seed=CLF_SEED, timed=True)
+    for lv, row in enumerate(levels):
+        cols = slice((1 << lv) - 1, (1 << (lv + 1)) - 1)
+        if not (np.array_equal(row.pop("split_feature"),
+                               forest.split_feature[:, cols])
+                and np.array_equal(row.pop("split_bin"),
+                                   forest.split_bin[:, cols])):
+            fail(f"forest level {lv}: the timed replay split otherwise")
+        adds = CLF_TREES * len(y) * CLF_F
+        # each scatter-add reads a 4-byte key and a 4-byte weight
+        row.update(level=lv, scatter_adds=adds,
+                   hist_bound_ms=1e3 * adds * 8 / bw,
+                   hist_share=row["hist_ms"] / (
+                       row["hist_ms"] + row["select_ms"] + row["route_ms"]))
+    out["forest"] = {
+        "trees": CLF_TREES, "depth": CLF_DEPTH, "bins": CLF_BINS,
+        "train_rows": len(y), "train_s": forest_s, **tm,
+        "peak_device_bytes": forest_peak, "heldout_accuracy": facc,
+        "bayes_accuracy": 0.925, "levels": levels,
+        "slice": {"rows": CLF_SLICE, "card_s": card_small_s,
+                  "cpu_s": cpu_small_s, **agreement},
+        "predict_routes": predict_routes(forest, xf[~trf])}
+
+    # -- logistic regression ------------------------------------------------
+    t0 = time.perf_counter()
+    lr_card = lo.logreg_train(x, y, steps=CLF_STEPS, device=dev)
+    lr_s = time.perf_counter() - t0
+    # the loop alone on the card: the standardized upload, `_fit`
+    fs = torch.from_numpy(((x - x.mean(0)) / (x.std(0) + 1e-8)).astype(
+        np.float32)).to(dev)
+    cix = torch.from_numpy(np.searchsorted(np.unique(y), y).astype(
+        np.int32)).to(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    lo._fit(fs, cix, n_classes=CLF_CLASSES, steps=CLF_STEPS, lr=0.1,
+            reg=1e-4)
+    end.record()
+    torch.cuda.synchronize()
+    loop_ms = start.elapsed_time(end)
+    del fs, cix
+    t0 = time.perf_counter()
+    lr_cpu = lo.logreg_train(x, y, steps=CLF_STEPS, device="cpu")
+    lr_cpu_s = time.perf_counter() - t0
+    xt = xf[~trf]
+    lc, lh = xt @ lr_card.w + lr_card.b, xt @ lr_cpu.w + lr_cpu.b
+    lr_err = float(np.abs(lc - lh).max())
+    if not lr_err <= LOGREG_TOL * max(1.0, float(np.abs(lh).max())):
+        fail(f"logistic regression: card logits {lr_err} from the CPU's")
+    out["logreg"] = {
+        "steps": CLF_STEPS, "train_s": lr_s, "cpu_train_s": lr_cpu_s,
+        "loop_ms": loop_ms, "loop_ms_per_step": loop_ms / CLF_STEPS,
+        "max_abs_logit_err": lr_err,
+        "max_abs_logit": float(np.abs(lh).max()),
+        "heldout_accuracy": float(
+            (lo.logreg_predict(lr_card, xt) == yf[~trf]).mean())}
+    return out
+
+
+def classification_users(seed: int) -> dict:
+    """CLF_USERS users in the quickstart's structure: plan = i % 2; attr0
+    ~ Poisson(7) for plan 0 and Poisson(1) otherwise, attr2 the other way
+    round, attr1 ~ Poisson(2); then the queries' attributes drawn alike
+    (CLF_REQUESTS for the deploy, CLF_BP for batchpredict)."""
+    rng = np.random.default_rng(seed + 16)
+
+    def draw(n, plan):
+        return np.stack([np.where(plan == 0, rng.poisson(7, n),
+                                  rng.poisson(1, n)),
+                         rng.poisson(2, n),
+                         np.where(plan == 1, rng.poisson(7, n),
+                                  rng.poisson(1, n))], axis=1)
+
+    plan = np.arange(CLF_USERS) % 2
+    nq = CLF_REQUESTS + CLF_BP
+    return {"attrs": draw(CLF_USERS, plan), "plan": plan,
+            "queries": draw(nq, rng.integers(0, 2, nq))}
+
+
+def classification_ingest(events, app_id: int, u: dict) -> dict:
+    """One `$set` per user into the port's PEVLOG DAO in process
+    (`insert_batch` of 50,000)."""
+    from predictionio_tpu_torch.data.event import DataMap, Event, from_millis
+    t0 = time.perf_counter()
+    a, plan = u["attrs"].tolist(), u["plan"].tolist()
+    for lo in range(0, CLF_USERS, 50_000):
+        events.insert_batch([Event(
+            event="$set", entity_type="user", entity_id=f"u{n}",
+            properties=DataMap({"attr0": a[n][0], "attr1": a[n][1],
+                                "attr2": a[n][2], "plan": float(plan[n])}),
+            event_time=from_millis(CLF_T0_MS + n))
+            for n in range(lo, min(lo + 50_000, CLF_USERS))], app_id)
+    return {"events": CLF_USERS, "seconds": time.perf_counter() - t0}
+
+
+def phase_classification(torch, ft, dev, seed: int, card: str) -> dict:
+    """The classification template on the card.
+
+    (a) `classification_ops`: NB, the forest and logistic regression at
+    bench.py's BASELINE config 2.
+    (b) The template through the command line over SQLITE metadata and
+    PEVLOG events: `classification_users`' 200,000 `$set` events, `cli
+    build`, `train` (forest 8 x depth 4, naive, logreg), `deploy` and
+    CLF_REQUESTS /queries.json from CLF_CLIENTS threads; `cli
+    batchpredict` of CLF_BP queries, and the same lines through
+    `core.batchpredict` in this process with the forest's device
+    traversal counted; `cli eval` (Accuracy, 3 folds, naive and forest).
+    Gates: COMPLETED; every answer equals the forest's `batch_predict` on
+    the models read back, on the CPU; each algorithm's answers on the
+    card equal its CPU answers; the served batches stay on the forest's
+    host loop and batchpredict's chunks take its device traversal; NB's
+    eval accuracy above 0.85 and the forest's at least NB's - 0.05; no
+    K1 launch anywhere in the phase."""
+    from predictionio_tpu_torch.core.batchpredict import (load_deployment,
+                                                          predict_lines)
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    from predictionio_tpu_torch.data.storage import (
+        EngineInstanceStatus, EvaluationInstanceStatus, StorageRegistry)
+    from predictionio_tpu_torch.models import classification as clf
+    from predictionio_tpu_torch.ops import forest as fo
+
+    t_phase = time.perf_counter()
+    k1_before = (ft.LAUNCHES, ft.SHARD_LAUNCHES)
+    out = {"phase": "classification",
+           "ops": classification_ops(torch, dev, card, seed)}
+    u = classification_users(seed)
+    engine = clf.ClassificationEngine.apply()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clf_") as tmp:
+        tmp = Path(tmp)
+        config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+                  "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db"),
+                  "PIO_STORAGE_SOURCES_PEV_TYPE": "PEVLOG",
+                  "PIO_STORAGE_SOURCES_PEV_PATH": str(tmp / "pevlog"),
+                  "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+                  "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PEV",
+                  "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"}
+        cli = cli_runner(tmp, config, PIO_INGEST_WORKERS="4")
+        app, _ = cli("app", "new", "clf")
+        registry = StorageRegistry(config)
+        events = registry.get_events()
+        events.init(app["id"])
+        ingest = classification_ingest(events, app["id"], u)
+        out["ingest"] = {**ingest,
+                         "events_per_s": ingest["events"] / ingest["seconds"]}
+        (tmp / "engine.json").write_text(json.dumps({
+            "id": "classification", "engineFactory": "classification",
+            "datasource": {"params": {"app_name": "clf"}},
+            "algorithms": [
+                {"name": "forest", "params": {"num_trees": 8,
+                                              "max_depth": 4}},
+                {"name": "naive", "params": {}},
+                {"name": "logreg", "params": {}}]}))
+        _, build_s = cli("build")
+        report, train_s = cli("train")
+        if report["status"] != EngineInstanceStatus.COMPLETED:
+            fail(f"the classification instance is {report['status']}")
+        iid = report["engineInstanceId"]
+        models, row = read_models(config, iid, dev)
+        names = [a["name"] for a in json.loads(row.algorithms_params)]
+        cpu_models = [m.to("cpu") for m in models]
+        algos = [engine.algorithm_classes[n]() for n in names]
+        qs = [{"attr0": int(a), "attr1": int(b), "attr2": int(c)}
+              for a, b, c in u["queries"].tolist()]
+        queries = [(i, clf.Query(**q)) for i, q in enumerate(qs)]
+        per_algo = {}
+        for name, algo, m, mc in zip(names, algos, models, cpu_models):
+            on_card = [p.label for _, p in algo.batch_predict(m, queries)]
+            on_cpu = [p.label for _, p in algo.batch_predict(mc, queries)]
+            if on_card != on_cpu:
+                fail(f"{name}: the card's answers differ from the CPU's")
+            per_algo[name] = {"answers_checked": len(queries),
+                              "device": m.device}
+        want = [p.label for _, p in algos[0].batch_predict(cpu_models[0],
+                                                           queries)]
+        out["train"] = {"engine_instance": iid, "build_wall_s": build_s,
+                        "command_wall_s": train_s,
+                        **report["phaseTimings"], "algorithms": per_algo}
+
+        proc, port, deploy_s = start_deploy(tmp, cli, iid,
+                                            "--engine-instance-id", iid)
+        try:
+            t0 = time.perf_counter()
+            answers = serve_http(port, qs[:CLF_REQUESTS], CLF_CLIENTS)
+            wall = time.perf_counter() - t0
+            status = http_status(port)
+        finally:
+            stop_deploy(proc)
+        got = [body["label"] for body, _ in answers]
+        if got != want[:CLF_REQUESTS]:
+            fail("deploy: /queries.json answers differ from the forest's "
+                 "batch_predict on the models read back, on the CPU")
+        biggest = max(int(k) for k in status["batch_sizes"])
+        trees = models[0].n_trees
+        if status["kernel_launches"]["fused_topk"] or \
+                biggest * trees >= fo.ForestModel.HOST_CROSSOVER_CELLS:
+            fail(f"deploy: K1 launches {status['kernel_launches']}, "
+                 f"largest batch {biggest} x {trees} trees")
+        out["serve"] = {
+            "requests": CLF_REQUESTS, "clients": CLF_CLIENTS,
+            "answers_checked": CLF_REQUESTS, "wall_s": wall,
+            "qps": CLF_REQUESTS / wall, "latency_ms": latency_ms(answers),
+            "batch_sizes": status["batch_sizes"],
+            "forest_route": "host", "devices": status["devices"],
+            "deploy": {"command_to_serving_s": deploy_s,
+                       **status["deploy_timings"]},
+            "k1_launches": status["kernel_launches"]["fused_topk"]}
+
+        lines = [json.dumps(q) for q in qs[CLF_REQUESTS:]]
+        (tmp / "bp_in.jsonl").write_text("\n".join(lines) + "\n")
+        bp, bp_wall = cli("batchpredict", "--input", "bp_in.jsonl",
+                          "--output", "bp_out.jsonl")
+        out_lines = (tmp / "bp_out.jsonl").read_text().splitlines()
+        rows = [json.loads(x) for x in out_lines]
+        if bp["predictions"] != CLF_BP or bp["engineInstanceId"] != iid or \
+                [r["query"] for r in rows] != qs[CLF_REQUESTS:] or \
+                [r["prediction"]["label"] for r in rows] != \
+                want[CLF_REQUESTS:]:
+            fail(f"batchpredict printed {bp}; its lines are not the "
+                 "queries in order with the forest's CPU answers")
+        traversals = []
+        real = fo._predict_device
+
+        def counted(xb, *a, **kw):
+            traversals.append(int(xb.shape[0]))
+            return real(xb, *a, **kw)
+
+        dep = load_deployment(engine, row, RuntimeContext(
+            registry=registry, device=dev))
+        fo._predict_device = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = list(predict_lines(dep, lines, chunk_size=BP_CHUNK))
+            bp_s = time.perf_counter() - t0
+        finally:
+            fo._predict_device = real
+        sizes = [min(BP_CHUNK, CLF_BP - lo)
+                 for lo in range(0, CLF_BP, BP_CHUNK)]
+        on_card = [q for q in sizes
+                   if q * trees >= fo.ForestModel.HOST_CROSSOVER_CELLS]
+        if again != out_lines or not on_card or traversals != on_card:
+            fail(f"batchpredict in process: same lines {again == out_lines},"
+                 f" device traversals {traversals} for chunks {sizes}")
+        out["batchpredict"] = {
+            "queries": CLF_BP, "command_wall_s": bp_wall,
+            "command_queries_per_s": CLF_BP / bp_wall, "in_process_s": bp_s,
+            "in_process_queries_per_s": CLF_BP / bp_s,
+            "chunk": BP_CHUNK, "device_traversals": len(traversals),
+            "host_chunks": len(sizes) - len(on_card)}
+
+        (tmp / "clf_eval.py").write_text(CLF_EVAL_MODULE.format(
+            folds=CLF_EVAL_FOLDS))
+        printed, eval_wall = cli("eval", "clf_eval.ClassificationEvaluation",
+                                 "clf_eval.ClassificationParams")
+        inst = registry.get_meta_data_evaluation_instances().get(
+            printed["evaluationInstanceId"])
+        results = json.loads(inst.evaluator_results_json)["results"] \
+            if inst is not None else []
+        if inst is None or inst.status != \
+                EvaluationInstanceStatus.COMPLETED or len(results) != 2:
+            fail(f"the evaluation instance: {inst}")
+        nb_acc, rf_acc = (r["score"] for r in results)
+        if not (nb_acc > 0.85 and rf_acc >= nb_acc - 0.05):
+            fail(f"eval accuracy: naive {nb_acc}, forest {rf_acc}")
+        tm = inst.runtime_conf["phase_timings"]
+        out["eval"] = {"folds": CLF_EVAL_FOLDS, "naive": nb_acc,
+                       "forest": rf_acc, "command_wall_s": eval_wall,
+                       "read_s": tm.get("read_s"),
+                       "per_fold": tm.get("folds"),
+                       "peak_device_bytes": inst.runtime_conf.get(
+                           "peak_device_bytes")}
+        out["template_forest_routes"] = predict_routes(
+            models[0], u["queries"].astype(np.float32))
+        registry.close()
+    if (ft.LAUNCHES, ft.SHARD_LAUNCHES) != k1_before:
+        fail("K1 or K2 launched during phase classification")
+    out["k1_launches"] = out["serve"]["k1_launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3517,14 +4128,15 @@ def main() -> int:
     ap.add_argument("--templates-requests", type=int, default=64)
     ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle",
                                        "streaming", "quickstart",
-                                       "templates"),
+                                       "templates", "classification"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
                          "for parity and lifecycle; streaming for parity "
                          "and streaming; quickstart for parity and "
                          "quickstart; templates for parity and "
-                         "templates), no kernels line")
+                         "templates; classification for parity and "
+                         "classification), no kernels line")
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -3594,6 +4206,9 @@ def main() -> int:
             phase_parity(torch, ft, dev, rng)
             phase_templates(torch, ft, dev, rng, args.seed,
                             args.templates_requests)
+        elif args.only == "classification":
+            phase_parity(torch, ft, dev, rng)
+            phase_classification(torch, ft, dev, args.seed, card)
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
@@ -3623,6 +4238,7 @@ def main() -> int:
         True, True, lifecycle["import"]["events_per_s"])
     templates = phase_templates(torch, ft, dev, rng, args.seed,
                                 args.templates_requests)
+    classification = phase_classification(torch, ft, dev, args.seed, card)
 
     main_row, shard_row = timing[64], timing_sh[64]
     emit({"script_s": time.perf_counter() - t_script})
@@ -3641,6 +4257,7 @@ def main() -> int:
         "streaming_launches": streaming["launches"],
         "quickstart_launches": quickstart["launches"],
         "templates_launches": templates["templates_launches"],
+        "classification_launches": classification["k1_launches"],
         "by_bucket": {str(b): r for b, r in timing.items()},
         "by_width": {str(EC_WIDTH): {str(b): r
                                      for b, r in timing_ec.items()}}}, {

@@ -1,17 +1,24 @@
-"""Rating columns: COO triples with the BiMaps of their ids.
+"""Rating columns and labeled points: dense numpy columns with the
+BiMaps of their ids.
 
-The numpy part of `RatingColumns` from `predictionio_tpu/ingest/arrays.py`
-(the per-template `RDD[Rating]` of DataSource.scala:43-72): the fields,
-`from_events` over an Event stream, `from_store` (the columnar scan of
-`ingest.pipeline`, equal array for array) and `default_rating_of`.
-Device columns (`shard`) are not ported: the trainer uploads what it
-packs.
+The numpy part of `predictionio_tpu/ingest/arrays.py`:
+  - `RatingColumns` (the per-template `RDD[Rating]` of DataSource.scala:
+    43-72): the fields, `from_events` over an Event stream, `from_store`
+    (the columnar scan of `ingest.pipeline`, equal array for array) and
+    `default_rating_of`;
+  - `LabeledPoints` and `labeled_points_from_properties` (the
+    classification template's `RDD[LabeledPoint]` from aggregated
+    properties, `examples/scala-parallel-classification/.../
+    DataSource.scala`).
+Device columns (`shard`, a mesh form) are not ported: each trainer
+uploads what it needs.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import (Callable, Dict, Iterable, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
@@ -98,3 +105,45 @@ def default_rating_of(e: Event) -> Optional[float]:
         v = e.properties.get_opt("rating")
         return float(v) if v is not None else None
     return 1.0
+
+
+@dataclass
+class LabeledPoints:
+    """Dense feature matrix + labels (the RDD[LabeledPoint] analog)."""
+    features: np.ndarray   # float32 [n, d]
+    label: np.ndarray      # float32 [n]
+    entities: BiMap        # row -> entityId
+
+    @property
+    def n(self) -> int:
+        return self.features.shape[0]
+
+
+def labeled_points_from_properties(
+        props: Mapping[str, object], *,
+        feature_attrs: Sequence[str],
+        label_attr: str,
+        label_map: Optional[Mapping[str, float]] = None) -> LabeledPoints:
+    """Aggregated entity properties -> (features, label) arrays.
+
+    `props` is the output of `EventStore.aggregate_properties` (entityId ->
+    PropertyMap). Entities missing any required attr are skipped, as the
+    classification DataSource drops them. `label_map` converts
+    categorical string labels to floats."""
+    ids: list = []
+    feats: list = []
+    labels: list = []
+    for eid, pm in props.items():
+        try:
+            row = [float(pm.get(a)) for a in feature_attrs]
+            raw = pm.get(label_attr)
+            y = float(label_map[raw]) if label_map is not None else float(raw)
+        except (KeyError, TypeError, ValueError):
+            continue
+        ids.append(eid)
+        feats.append(row)
+        labels.append(y)
+    f = (np.array(feats, np.float32) if feats
+         else np.zeros((0, len(feature_attrs)), np.float32))
+    return LabeledPoints(f, np.array(labels, np.float32),
+                         BiMap.from_keys(ids))

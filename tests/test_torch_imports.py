@@ -51,7 +51,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "core.batchpredict", "e2", "e2.engine",
                      "e2.evaluation", "data.aggregate", "ops.cooccur",
                      "models.common", "models.ecommerce",
-                     "models.similarproduct"):
+                     "models.similarproduct", "ops.naive_bayes",
+                     "ops.logreg", "ops.forest", "models.classification"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -65,6 +66,81 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    from predictionio_tpu_torch import ingest
+    for name in ("LabeledPoints", "labeled_points_from_properties",
+                 "RatingColumns", "BiMap"):
+        assert hasattr(ingest, name), name
+
+
+NO_JAX_TEMPLATE = """
+import json, sys, urllib.request
+sys.modules["jax"] = None                 # `import jax` now raises
+sys.modules["predictionio_tpu"] = None
+try:
+    import jax  # noqa: F401
+except ImportError:
+    pass
+else:
+    raise SystemExit("jax imported")
+import numpy as np
+from predictionio_tpu_torch.cli import main as cli_main
+from predictionio_tpu_torch.core.runtime import RuntimeContext
+from predictionio_tpu_torch.core.workflow import CoreWorkflow, resolve_engine
+from predictionio_tpu_torch.data.event import DataMap, Event
+from predictionio_tpu_torch.data.storage import App, StorageRegistry
+
+reg = StorageRegistry({"PIO_STORAGE_SOURCES_MEM_TYPE": "MEM",
+                       "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+                       "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+                       "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM"})
+app = reg.get_meta_data_apps().insert(App(0, "clf"))
+reg.get_events().init(app)
+rng = np.random.RandomState(0)
+for i in range(60):
+    plan = i % 2
+    reg.get_events().insert(Event(
+        event="$set", entity_type="user", entity_id=f"u{i}",
+        properties=DataMap({"attr0": int(rng.poisson(7 if plan == 0 else 1)),
+                            "attr1": int(rng.poisson(2)),
+                            "attr2": int(rng.poisson(7 if plan else 1)),
+                            "plan": float(plan)})), app)
+ctx = RuntimeContext(registry=reg, device="cpu")
+engine = resolve_engine("classification")
+params = engine.engine_params_from_variant({
+    "datasource": {"params": {"app_name": "clf"}},
+    "algorithms": [{"name": "forest", "params": {"num_trees": 4,
+                                                 "max_depth": 3}},
+                   {"name": "naive", "params": {}},
+                   {"name": "logreg", "params": {"steps": 50}}]})
+row = CoreWorkflow.run_train(engine, params, ctx,
+                             engine_factory="classification")
+server = cli_main.deploy_instance(engine, row, ctx, port=0)
+try:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{server.port}/queries.json",
+        data=json.dumps({"attr0": 8, "attr1": 2, "attr2": 0}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        body = json.loads(resp.read())
+finally:
+    server.stop()
+print(json.dumps({"status": row.status, "answer": body, "loaded": sorted(
+    m for m, v in sys.modules.items() if v is not None
+    and m.split(".")[0] in ("jax", "predictionio_tpu"))}))
+"""
+
+
+def test_classification_trains_deploys_and_serves_without_jax():
+    """The port's finish line for one template: in a process where
+    `import jax` fails, the classification template (forest, naive,
+    logreg) trains, deploys behind the HTTP server and answers a query
+    on `device="cpu"`."""
+    out = subprocess.run([sys.executable, "-c", NO_JAX_TEMPLATE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"status": "COMPLETED", "answer": {"label": 0.0},
+                   "loaded": []}
 
 
 def test_the_scan_worker_loads_neither_torch_nor_jax():
