@@ -9,7 +9,7 @@
                           [--templates-requests 64]
                           [--only serve_sharded | train | lifecycle |
                                   streaming | quickstart | templates |
-                                  classification]
+                                  classification | neural]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -259,6 +259,44 @@ the result line:
               forest's host loop, batchpredict chunks of 1,024 take its
               device traversal; eval NB above 0.85, the forest at least
               NB - 0.05; no K1 or K2 launch in the phase.
+ 17. neural   the two-tower and sequential recommenders (no TPU kernel
+              on this path: attention, towers and transformer are
+              PyTorch ops). (a) Attention on the card against float64 on
+              the CPU at seqrec's width (B 256, S 32, H 2, Dh 32) and at
+              S 512: causal or not, left-padded kv_mask; forward within
+              2e-5, gradients finite and within 1e-4 x the largest, the
+              blockwise recurrence (4 blocks) within 2e-5, padding rows
+              exactly 0; ms per call beside SDPA's for the record.
+              (b) bench_twotower's data and widths (5,000 x 2,000,
+              200,000 pairs, 5% held out; emb 64, hidden 128, out 64,
+              batch 4,096, 10 epochs) and (c) bench_seqrec's (20,000
+              users, 1,000 items on the planted chain, seq_len 32, dim
+              64, 2 heads, 2 layers, batch 256, 10 epochs) through
+              `twotower_train` / `seqrec_train`: train_s, examples/s, ms
+              per step by CUDA events beside the host's enqueue ms over
+              that call's epochs after the first (its `on_step` hook),
+              the profiler's busy share and operations per step over
+              one more epoch's call, peak device bytes; seqrec's encode
+              ms at batches 1/64/256. Gates: the first 20 step losses
+              equal the CPU port's from the same init and batches within
+              rtol 3e-6 (beside, not gated, the same reading with TF32
+              matmuls); recall@10 at least 4x random; hit-rate@10 at
+              least 0.4 (beside the measured popularity baseline).
+              (d) Both templates through `cli build`, `train`, `deploy
+              --refresh-interval 2` over SQLITE + PEVLOG (two-tower: the
+              generator's 200,000 events as views; seqrec: the
+              generator's 20,000 users, each user's events on one of 30
+              days): 256 requests from 8 clients, every answer
+              against `score_and_rank` on the CPU from the served
+              model's vectors (ids equal but for near-ties, scores within
+              1e-5; unknown users empty); a 192-event drip folded by one
+              warm-start epoch (fold tick, freshness_s); a new item
+              rebuilt in full under 8 clients (0.05 s apart) with no
+              failed request;
+              `cli batchpredict` of 2,000 queries, each answer checked
+              (queries/s); `template new --base twotower` and `--base
+              seqrec` build and train. No K1 or K2 launch in the phase;
+              the seconds of each part.
 
 `--only serve_sharded` runs the build and phase 6 alone (for a machine
 with several cards), `--only train` the build and phases 9-11,
@@ -266,7 +304,8 @@ with several cards), `--only train` the build and phases 9-11,
 the build and phases 3 and 13, `--only quickstart` the build, phase 3,
 phase 13's import and train, and phase 14, `--only templates` the
 build and phases 3 and 15, `--only classification` the build and
-phases 3 and 16; none prints the kernels line. Every run
+phases 3 and 16, `--only neural` the build and phase 17; none prints
+the kernels line. Every run
 prints its seconds (`script_s`).
 
 Then the kernels line, the nvidia-smi line and, last,
@@ -1206,17 +1245,20 @@ def phase_timing_sharded(torch, ft, dev, rng, model, card: str) -> dict:
     return out
 
 
-def profile_calls(torch, fn, iters: int, top: int = 12) -> dict:
+def profile_calls(torch, fn, iters: int, top: int = 12, warm: int = 3,
+                  host_ops: bool = True) -> dict:
     """Device time per call by kernel name under `torch.profiler`, the
     device operations (kernels, copies, memsets) per call, and the
     device's busy share of the wall time (the profiler's own host
-    cost inflates the wall time, so the share is a lower bound)."""
+    cost inflates the wall time, so the share is a lower bound; less so
+    without `host_ops`, the host operators' records). `warm` calls
+    first, unprofiled."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host_ops
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -4115,6 +4157,793 @@ def phase_classification(torch, ft, dev, seed: int, card: str) -> dict:
     return out
 
 
+# the neural phase: bench.py's bench_twotower (bench.py:3478-3527) and
+# bench_seqrec (bench.py:3530-3585) at their data and widths
+TT_USERS, TT_ITEMS, TT_EVENTS = 5_000, 2_000, 200_000
+TT_EMB, TT_HIDDEN, TT_OUT, TT_BATCH, TT_EPOCHS = 64, 128, 64, 4_096, 10
+SR_USERS, SR_ITEMS, SR_SEQ = 20_000, 1_000, 32
+SR_DIM, SR_HEADS, SR_LAYERS, SR_BATCH, SR_EPOCHS = 64, 2, 2, 256, 10
+# the seqrec template's store: bench_seqrec's 20,000 users, each user's
+# events on one of SR_DAYS days (a month of PEVLOG's daily segments)
+SR_DAYS = 30
+NEURAL_T0_MS = 1_704_067_200_000        # 2024-01-01
+PARITY_STEPS = 20
+# the card's step losses against the CPU port's, relative: the float32
+# runs read 1.8e-7 to 3.0e-7 (NVIDIA H100 80GB HBM3, 700 W); the
+# lower-precision controls of `step_parity` must read above it
+STEP_RTOL = 3e-6
+ATTN_TOL = 2e-5         # attention on the card against float64
+ATTN_GRAD_TOL = 1e-4    # x the float64 gradient's largest magnitude
+NEURAL_REQUESTS, NEURAL_CLIENTS, NEURAL_BP = 256, 8, 2_000
+# each client's pause during the rebuild: unpaced, 8 clients held the
+# server's interpreter lock so that a 2.6-s two-tower retrain took 43.5 s
+# (beside an NVIDIA H100 80GB HBM3 at 700 W)
+NEURAL_PACE_S = 0.05
+NEURAL_TOL = 1e-5       # served scores against score_and_rank on the CPU
+
+
+def twotower_data() -> dict:
+    """bench_twotower's generator: 5,000 users in 10 blocks of taste,
+    200,000 (user, item) events, 80% inside the user's block, 5% held
+    out; the held-out sample of 3,000 drawn after, as bench.py draws
+    it."""
+    rng = np.random.RandomState(3)
+    n_blocks = 10
+    gu = rng.randint(0, n_blocks, TT_USERS)
+    u = rng.randint(0, TT_USERS, TT_EVENTS).astype(np.int32)
+    block = np.where(rng.rand(TT_EVENTS) < 0.8, gu[u],
+                     rng.randint(0, n_blocks, TT_EVENTS))
+    i = (block * (TT_ITEMS // n_blocks)
+         + rng.randint(0, TT_ITEMS // n_blocks, TT_EVENTS)).astype(np.int32)
+    held = rng.rand(TT_EVENTS) < 0.05
+    held_ix = np.flatnonzero(held)
+    sample = rng.choice(held_ix, min(3000, len(held_ix)), replace=False)
+    return {"u": u, "i": i, "held": held, "sample": sample}
+
+
+def seqrec_data(n_users: int) -> dict:
+    """bench_seqrec's generator: per user 8-63 events along the planted
+    item chain (item + 1 mod 1,000, 10% noise of up to 6 steps), its
+    sequences (seq_len 32) and a 10% held-out split of them."""
+    from predictionio_tpu_torch.ops.seqrec import build_sequences
+    rng = np.random.RandomState(5)
+    lens = rng.randint(8, 2 * SR_SEQ, n_users)
+    total = int(lens.sum())
+    u = np.repeat(np.arange(n_users), lens)
+    starts = rng.randint(0, SR_ITEMS, n_users)
+    offs = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+    noise = np.where(rng.rand(total) < 0.1, rng.randint(0, 7, total), 0)
+    i = (np.repeat(starts, lens) + offs + noise) % SR_ITEMS
+    seqs, targets = build_sequences(u, i, offs, n_items=SR_ITEMS,
+                                    seq_len=SR_SEQ)
+    held = rng.rand(len(seqs)) < 0.1
+    return {"u": u, "i": i, "offs": offs, "seqs": seqs, "targets": targets,
+            "held": held}
+
+
+def neural_attention(torch, dev, seed: int) -> dict:
+    """The port's attention on the card against float64 on the CPU, at
+    seqrec's width (B 256, S 32, H 2, Dh 32) and at S 512 (B 16): causal
+    or not, with and without a left-padded kv_mask (a row per padding
+    length, one unpadded). Gates: forward within ATTN_TOL, gradients of
+    sum(out^2) finite and within ATTN_GRAD_TOL x the largest float64
+    gradient, the blockwise recurrence (4 blocks) within ATTN_TOL, every
+    dead row (a padding query under the causal mask) exactly 0 in both.
+    Times the reference, the blockwise form and SDPA (for the record)
+    on the unmasked, non-causal case by CUDA events."""
+    import torch.nn.functional as F
+
+    from predictionio_tpu_torch.ops import attention as at
+    gen = torch.Generator().manual_seed(seed)
+    H, Dh = SR_HEADS, SR_DIM // SR_HEADS
+    out = {"tol": ATTN_TOL, "grad_tol": ATTN_GRAD_TOL, "shapes": []}
+    for B, S in ((SR_BATCH, SR_SEQ), (16, 512)):
+        q, k, v = (torch.randn((B, S, H, Dh), generator=gen)
+                   for _ in range(3))
+        pad = torch.arange(B) % S
+        mask = torch.arange(S)[None, :] >= pad[:, None]
+        dead = (torch.arange(S)[None, :] < pad[:, None])     # [B, S]
+        row = {"B": B, "S": S, "H": H, "Dh": Dh, "cases": []}
+        for causal in (False, True):
+            for masked in (False, True):
+                m = mask if masked else None
+                md = m.to(dev) if masked else None
+                qd, kd, vd = (t.to(dev).requires_grad_() for t in (q, k, v))
+                o = at.attention_reference(qd, kd, vd, causal=causal,
+                                           kv_mask=md)
+                g = torch.autograd.grad((o ** 2).sum(), (qd, kd, vd))
+                q64, k64, v64 = (t.double().requires_grad_()
+                                 for t in (q, k, v))
+                o64 = at.attention_reference(q64, k64, v64, causal=causal,
+                                             kv_mask=m)
+                g64 = torch.autograd.grad((o64 ** 2).sum(),
+                                          (q64, k64, v64))
+                with torch.no_grad():
+                    bw = at.blockwise_attention(
+                        qd, kd, vd, n_blocks=4, causal=causal, kv_mask=md)
+                o64 = o64.detach()
+                err = float((o.detach().cpu().double() - o64).abs().max())
+                bw_err = float((bw.cpu().double() - o64).abs().max())
+                gmax = max(float(x.abs().max()) for x in g64)
+                gerr = max(float((a.cpu().double() - b).abs().max())
+                           for a, b in zip(g, g64))
+                finite = all(bool(torch.isfinite(x).all()) for x in g)
+                dead_max = 0.0
+                if causal and masked:
+                    dead_max = max(
+                        float(o.detach().cpu()[dead].abs().max()),
+                        float(bw.cpu()[dead].abs().max()),
+                        float(o64[dead].abs().max()))
+                case = {"causal": causal, "masked": masked,
+                        "max_abs_err": err, "blockwise_max_abs_err": bw_err,
+                        "grad_max_abs_err": gerr, "grad_max": gmax,
+                        "dead_rows": int(dead.sum()) if causal and masked
+                        else 0, "dead_max_abs": dead_max}
+                if not (err <= ATTN_TOL and bw_err <= ATTN_TOL and finite
+                        and gerr <= ATTN_GRAD_TOL * max(1.0, gmax)
+                        and dead_max == 0.0):
+                    fail(f"attention B {B} S {S}: {case}")
+                row["cases"].append(case)
+        qd, kd, vd = (t.to(dev) for t in (q, k, v))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qd, kd, vd))
+        with torch.no_grad():
+            row["ms"] = time_ms(
+                torch, lambda: at.attention_reference(qd, kd, vd), 50)
+            row["blockwise_ms"] = time_ms(
+                torch, lambda: at.blockwise_attention(qd, kd, vd,
+                                                      n_blocks=4), 20)
+            row["sdpa_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                50)
+            sd = F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2)
+            row["sdpa_max_abs_diff"] = float(
+                (sd - at.attention_reference(qd, kd, vd)).abs().max())
+        out["shapes"].append(row)
+    return out
+
+
+class StepClock:
+    """A trainer's `on_step` hook that times its steady state, every
+    epoch after the first: a CUDA event and the host clock once step
+    `skip - 1` is enqueued and once the last one is, so that the card's
+    ms per step and the host's enqueue ms per step cover the same steps
+    of the very call whose losses are gated (nothing syncs between)."""
+
+    def __init__(self, torch, skip: int, n_steps: int):
+        self.torch, self.skip, self.last = torch, skip, n_steps - 1
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.t0 = self.t1 = 0.0
+
+    def __call__(self, i: int) -> None:
+        if i == self.skip - 1:
+            self.start.record()
+            self.t0 = time.perf_counter()
+        elif i == self.last:
+            self.end.record()
+            self.t1 = time.perf_counter()
+
+    def report(self) -> dict:
+        self.torch.cuda.synchronize()
+        n = self.last + 1 - self.skip
+        return {"timed_steps": n,
+                "ms_per_step": self.start.elapsed_time(self.end) / n,
+                "host_enqueue_ms_per_step": 1e3 * (self.t1 - self.t0) / n}
+
+
+def profiled_epoch(torch, train_epoch, steps: int) -> dict:
+    """One call of the trainer over one epoch under `torch.profiler`,
+    device activity only (its uploads, set-up and final copy-out
+    included; the trainer is warm from the timed call): device ms and
+    operations per step and the card's busy share, a lower bound (the
+    profiler's own host cost inflates the wall time)."""
+    prof = profile_calls(torch, train_epoch, 1, top=8, warm=0,
+                         host_ops=False)
+    return {"steps": steps, "busy_share": prof["busy_share"],
+            "wall_ms_per_step": prof["wall_ms"] / steps,
+            "device_ms_per_step": prof["device_ms"] / steps,
+            "operations_per_step": prof["kernels_per_call"] / steps,
+            "kernels": prof["kernels"]}
+
+
+def max_rel(card_losses, cpu_losses) -> float:
+    card = np.array([float(x) for x in card_losses[:PARITY_STEPS]])
+    cpu = np.array([float(x) for x in cpu_losses])
+    if len(card) != PARITY_STEPS or not np.isfinite(card).all():
+        return float("inf")
+    return float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+
+
+def step_parity(torch, what: str, card_losses, cpu_losses,
+                train_epoch) -> dict:
+    """The card's first PARITY_STEPS losses against the CPU port's from
+    the same init and batches: max relative difference, gated at
+    STEP_RTOL. Beside it, reported and not gated, the same reading of
+    one epoch (`train_epoch(losses)`) in the lower precisions the gate
+    is there to catch: float32 matmuls at `high` precision (TF32 where
+    cuBLAS picks it) and under bfloat16 autocast."""
+    rel = max_rel(card_losses, cpu_losses)
+    if not rel <= STEP_RTOL:
+        fail(f"{what}: the card's step losses "
+             f"{[float(x) for x in card_losses[:4]]} ... differ from the "
+             f"CPU port's {cpu_losses[:4]} ... by {rel} (tol {STEP_RTOL})")
+    prior = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = []
+        train_epoch(tf32)
+    finally:
+        torch.set_float32_matmul_precision(prior)
+    bf16 = []
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        train_epoch(bf16)
+    return {"max_rel": rel, "tol": STEP_RTOL,
+            "tf32_control_max_rel": max_rel(tf32, cpu_losses),
+            "bf16_autocast_control_max_rel": max_rel(bf16, cpu_losses)}
+
+
+def neural_twotower_op(torch, dev) -> dict:
+    """bench_twotower on the card: 190,000 training pairs, emb 64, hidden
+    128, out 64, batch 4,096, 10 epochs through `twotower_train`. Gates:
+    its first PARITY_STEPS step losses equal the CPU port's from the same
+    init and batches (STEP_RTOL); recall@10 on 3,000 held-out pairs at
+    least 4x random (10 / 2,000). Its steps timed by `StepClock`, one
+    more epoch's call profiled."""
+    from predictionio_tpu_torch.ops import twotower as tw
+    from predictionio_tpu_torch.ops.adam import Adam
+    d = twotower_data()
+    ut, it = d["u"][~d["held"]], d["i"][~d["held"]]
+    kw = dict(n_users=TT_USERS, n_items=TT_ITEMS, emb_dim=TT_EMB,
+              hidden=TT_HIDDEN, out_dim=TT_OUT, batch_size=TT_BATCH,
+              seed=0)
+    lr, temp = 1e-2, 0.1                     # twotower_train's defaults
+    # the CPU port: the first PARITY_STEPS steps from twotower_train's
+    # init and batches (seed 0)
+    n = len(ut)
+    steps = n // TT_BATCH
+    order = np.random.RandomState(0).permutation(n)[:steps * TT_BATCH]
+    init = tw.random_params(0, TT_USERS, TT_ITEMS, TT_EMB, TT_HIDDEN,
+                            TT_OUT)
+    net = tw.TwoTowerNet(init, "cpu")
+    adam = Adam(list(net.parameters()), lr)
+    cpu_losses = []
+    for s in range(PARITY_STEPS):
+        sel = order[s * TT_BATCH:(s + 1) * TT_BATCH]
+        cpu_losses.append(float(tw.train_step(
+            net, adam, torch.from_numpy(ut[sel].astype(np.int64)),
+            torch.from_numpy(it[sel].astype(np.int64)), temp)))
+    tw.twotower_train(ut[:2 * TT_BATCH], it[:2 * TT_BATCH], epochs=1,
+                      device=dev, **kw)                  # CUDA set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = steps * TT_EPOCHS
+    losses, clock = [], StepClock(torch, steps, n_steps)
+    t0 = time.perf_counter()
+    model = tw.twotower_train(ut, it, epochs=TT_EPOCHS, device=dev,
+                              step_losses=losses, on_step=clock, **kw)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    parity = step_parity(
+        torch, "twotower", losses, cpu_losses,
+        lambda out: tw.twotower_train(ut, it, epochs=1, device=dev,
+                                      step_losses=out, **kw))
+    scores = model.user_emb[d["u"][d["sample"]]] @ model.item_emb.T
+    top10 = np.argpartition(-scores, 10, axis=1)[:, :10]
+    recall = float((top10 == d["i"][d["sample"]][:, None]).any(1).mean())
+    random_recall = 10 / TT_ITEMS
+    if not recall >= 4 * random_recall:
+        fail(f"twotower recall@10 {recall} < 4 x random {random_recall}")
+    profiled = profiled_epoch(
+        torch, lambda: tw.twotower_train(ut, it, epochs=1, device=dev, **kw),
+        steps)
+    return {"users": TT_USERS, "items": TT_ITEMS, "train_pairs": n,
+            "emb": TT_EMB, "hidden": TT_HIDDEN, "out": TT_OUT,
+            "batch": TT_BATCH, "epochs": TT_EPOCHS, "steps": n_steps,
+            "train_s": train_s, "examples_per_s": n_steps * TT_BATCH / train_s,
+            "steps_timed": clock.report(), "profiled_epoch": profiled,
+            "step_parity": parity,
+            "first_losses": [float(x) for x in losses[:3]],
+            "last_loss": float(losses[-1]), "recall_at_10": recall,
+            "random_recall_at_10": random_recall,
+            "recall_vs_random": recall / random_recall,
+            "peak_device_bytes": peak}
+
+
+def neural_seqrec_op(torch, dev) -> dict:
+    """bench_seqrec on the card: 20,000 users' sequences (90% to train),
+    seq_len 32, dim 64, 2 heads, 2 layers, batch 256, 10 epochs through
+    `seqrec_train`. Gates: its first PARITY_STEPS step losses equal the
+    CPU port's from the same init and batches (STEP_RTOL); next-item
+    hit-rate@10 on the held-out sequences at least 0.4 (the planted
+    chain's ceiling is about 0.9), beside the measured popularity
+    baseline. Its steps timed by `StepClock`, one more epoch's call
+    profiled; then `seqrec_encode` ms at batches 1, 64 and 256."""
+    from predictionio_tpu_torch.ops import seqrec as sq
+    from predictionio_tpu_torch.ops.adam import Adam
+    d = seqrec_data(SR_USERS)
+    st, tt_ = d["seqs"][~d["held"]], d["targets"][~d["held"]]
+    sh, th = d["seqs"][d["held"]], d["targets"][d["held"]]
+    lr, temp = 3e-3, 0.07                    # seqrec_train's defaults
+    kw = dict(n_items=SR_ITEMS, seq_len=SR_SEQ, dim=SR_DIM,
+              n_heads=SR_HEADS, n_layers=SR_LAYERS, batch_size=SR_BATCH,
+              seed=0)
+    init = sq.random_params(0, SR_ITEMS, SR_SEQ, SR_DIM, SR_LAYERS)
+    net = sq.SeqRecNet(init, n_items=SR_ITEMS, n_heads=SR_HEADS,
+                       device="cpu")
+    adam = Adam(list(net.parameters()), lr)
+    cpu_losses = []
+    for s in range(PARITY_STEPS):
+        rows = slice(s * SR_BATCH, (s + 1) * SR_BATCH)
+        cpu_losses.append(float(sq.train_step(
+            net, adam, torch.from_numpy(st[rows].astype(np.int64)),
+            torch.from_numpy(tt_[rows].astype(np.int64)), temp)))
+    sq.seqrec_train(st[:2 * SR_BATCH], tt_[:2 * SR_BATCH], epochs=1,
+                    device=dev, **kw)                    # CUDA set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = len(st) // SR_BATCH
+    n_steps = steps * SR_EPOCHS
+    losses, clock = [], StepClock(torch, steps, n_steps)
+    t0 = time.perf_counter()
+    model = sq.seqrec_train(st, tt_, epochs=SR_EPOCHS, device=dev,
+                            step_losses=losses, on_step=clock, **kw)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    parity = step_parity(
+        torch, "seqrec", losses, cpu_losses,
+        lambda out: sq.seqrec_train(st, tt_, epochs=1, device=dev,
+                                    step_losses=out, **kw))
+    vecs = sq.seqrec_encode(model, sh, device=dev)
+    top10 = np.argpartition(-(vecs @ model.item_emb.T), 10, axis=1)[:, :10]
+    hr = float((top10 == th[:, None]).any(1).mean())
+    pop = np.argsort(-np.bincount(tt_, minlength=SR_ITEMS))[:10]
+    pop_hr = float(np.isin(th, pop).mean())
+    if not hr >= 0.4:
+        fail(f"seqrec hitrate@10 {hr} < 0.4 (popularity {pop_hr})")
+    encode = {}
+    for b in (1, 64, 256):
+        batch = sh[:b]
+        sq.seqrec_encode(model, batch, device=dev)
+        reps = []
+        for _ in range(20):
+            t = time.perf_counter()
+            sq.seqrec_encode(model, batch, device=dev)
+            reps.append(1e3 * (time.perf_counter() - t))
+        devnet = model._devp[1]
+        seq_dev = torch.from_numpy(batch.astype(np.int64)).to(dev)
+        with torch.inference_mode():
+            ev_ms = time_ms(torch, lambda: devnet(seq_dev), 20)
+        encode[str(b)] = {"host_ms_median": float(np.median(reps)),
+                          "device_ms": ev_ms}
+    profiled = profiled_epoch(
+        torch, lambda: sq.seqrec_train(st, tt_, epochs=1, device=dev, **kw),
+        steps)
+    return {"users": SR_USERS, "items": SR_ITEMS,
+            "train_sequences": len(st), "held_out": len(sh),
+            "seq_len": SR_SEQ, "dim": SR_DIM, "heads": SR_HEADS,
+            "layers": SR_LAYERS, "batch": SR_BATCH, "epochs": SR_EPOCHS,
+            "steps": n_steps, "train_s": train_s,
+            "examples_per_s": n_steps * SR_BATCH / train_s,
+            "steps_timed": clock.report(), "profiled_epoch": profiled,
+            "step_parity": parity,
+            "first_losses": [float(x) for x in losses[:3]],
+            "last_loss": float(losses[-1]), "hitrate_at_10": hr,
+            "popularity_hitrate_at_10": pop_hr,
+            "hitrate_vs_popularity": hr / max(pop_hr, 1e-9),
+            "encode": encode, "peak_device_bytes": peak}
+
+
+def neural_ingest(events, app_id: int, users, items, t_ms) -> dict:
+    """`view` events (user, item, time) into the port's PEVLOG DAO in
+    process (`insert_batch` of 50,000)."""
+    from predictionio_tpu_torch.data.event import DataMap, Event, from_millis
+    t0 = time.perf_counter()
+    ul, il, tl = users.tolist(), items.tolist(), t_ms.tolist()
+    n = len(ul)
+    for lo in range(0, n, 50_000):
+        events.insert_batch([Event(
+            event="view", entity_type="user", entity_id=f"u{ul[j]}",
+            target_entity_type="item", target_entity_id=f"i{il[j]}",
+            properties=DataMap({}), event_time=from_millis(tl[j]))
+            for j in range(lo, min(lo + 50_000, n))], app_id)
+    return {"events": n, "seconds": time.perf_counter() - t0,
+            "events_per_s": n / (time.perf_counter() - t0)}
+
+
+def neural_queries(rng, n_users: int, n_items: int, n: int) -> list:
+    """`n` queries of known users, num 1-10, every third with a blackList
+    of 3 items, every 16th with a whiteList of 50; two unknown users."""
+    qs = []
+    for j in range(n - 2):
+        q = {"user": f"u{int(rng.integers(n_users))}",
+             "num": int(rng.integers(1, 11))}
+        if j % 3 == 0:
+            q["blackList"] = [f"i{int(x)}" for x in
+                              rng.integers(0, n_items, 3)]
+        if j % 16 == 5:
+            q["whiteList"] = [f"i{int(x)}" for x in
+                              rng.choice(n_items, 50, replace=False)]
+        qs.append(q)
+    return qs + [{"user": "ghost-1", "num": 5}, {"user": "ghost-2", "num": 3}]
+
+
+def seqrec_histories(model, u, i, t):
+    """Seqrec's serve-time history for every user from the events the
+    smoke wrote, in numpy, independent of the store and the template:
+    per user the 4 x seq_len newest events, those whose item the model
+    knows, oldest first, the last seq_len. `u` and `i` are the numbers
+    of the ids `u<n>` and `i<n>` (-1: an item id of another form), `t`
+    the event times in ms. Returns user id -> [item index]."""
+    S = model.net.seq_len
+    ix_of = np.array([model.items.get(f"i{n}", -1)
+                      for n in range(int(i.max()) + 1)])
+    known = np.where(i >= 0, ix_of[np.maximum(i, 0)], -1)
+    order = np.lexsort((-t, u))              # by user, newest first
+    us, ks = u[order], known[order]
+
+    def history(user: str) -> list:
+        if not (user[:1] == "u" and user[1:].isdigit()):
+            return []
+        lo, hi = np.searchsorted(us, [int(user[1:]), int(user[1:]) + 1])
+        newest = ks[lo:min(hi, lo + 4 * S)]
+        return [int(x) for x in newest[::-1] if x >= 0][-S:]
+
+    return history
+
+
+def neural_expected(model, queries, history=None) -> list:
+    """Per query, on the CPU from the served model's vectors: (float64
+    scores of every item, the `score_and_rank` answer), or (None, ())
+    for a user without a vector (unknown, or no history). Two-tower
+    reads the user's tower row; seqrec (`history` given, see
+    `seqrec_histories`) encodes the histories in one batch."""
+    from predictionio_tpu_torch.models.common import score_and_rank
+    from predictionio_tpu_torch.models.recommendation import Query
+    from predictionio_tpu_torch.ops.seqrec import seqrec_encode
+    emb = (model.net.item_emb).astype(np.float64)
+    qs = [Query(**q) for q in queries]
+    if history is None:
+        vecs = [None if (ix := model.users.get(q.user)) is None
+                else model.net.user_emb[ix] for q in qs]
+    else:
+        S = model.net.seq_len
+        hists = [history(q.user) for q in qs]
+        seqs = np.full((len(qs), S), model.net.n_items, np.int32)
+        for row, hist in enumerate(hists):
+            if hist:
+                seqs[row, S - len(hist):] = hist
+        enc = seqrec_encode(model.net, seqs, device="cpu")
+        vecs = [enc[row] if hist else None
+                for row, hist in enumerate(hists)]
+    out = []
+    for n, (query, vec) in enumerate(zip(qs, vecs)):
+        if vec is None:
+            out.append((None, ()))
+            continue
+        (_, res), = score_and_rank(vec[None, :], model.net.item_emb,
+                                   model.items, [(n, query)], device="cpu")
+        out.append((emb @ vec.astype(np.float64), res.itemScores))
+    return out
+
+
+def check_neural(what: str, answers, expected, items) -> float:
+    """Served answers against `neural_expected`: the same length, scores
+    within NEURAL_TOL of the CPU's at each rank, and where an id differs,
+    the served item's float64 score within NEURAL_TOL of the CPU's at
+    that rank (a near-tie); no answer for a user without a vector.
+    Returns max |score diff|."""
+    err = 0.0
+    for n, (body, (full, want)) in enumerate(zip(answers, expected)):
+        got = body["itemScores"]
+        if full is None:
+            if got:
+                fail(f"{what} query {n}: an answer for a user without "
+                     f"history or vector: {got[:2]}")
+            continue
+        if len(got) != len(want):
+            fail(f"{what} query {n}: {len(got)} items, the CPU {len(want)}")
+        for j, (g, w) in enumerate(zip(got, want)):
+            e = abs(g["score"] - w.score)
+            err = max(err, e)
+            gi = items.get(g["item"])
+            if e > NEURAL_TOL or gi is None or (
+                    g["item"] != w.item
+                    and abs(full[gi] - w.score) > NEURAL_TOL):
+                fail(f"{what} query {n} rank {j}: {g} vs the CPU's {w}")
+    return err
+
+
+def neural_template(torch, name: str, tmp: Path, config: dict, rng,
+                    data: dict, beside=None) -> dict:
+    """One neural template through the command line over SQLITE + PEVLOG:
+    its app (`cli.ops.app_new` in process), the events in process while
+    `cli build` runs (and `beside()`, if given), `train`, `deploy
+    --refresh-interval 2`; NEURAL_REQUESTS queries from NEURAL_CLIENTS
+    threads, each answer checked against `score_and_rank` on the CPU
+    from the served model's vectors, seqrec's histories taken from the
+    events written (`seqrec_histories`, `check_neural`); a drip of 192
+    known-entity events folded by one warm-start epoch (a `folded` tick,
+    the answers moved); an event on a new item rebuilt in full under
+    client load (NEURAL_CLIENTS threads, NEURAL_PACE_S apart) with no
+    failed request; `cli batchpredict` of NEURAL_BP queries, each
+    checked likewise. Gates also: no K1 or K2 launch in the deploy
+    process."""
+    from predictionio_tpu_torch.cli.ops import app_new
+    from predictionio_tpu_torch.data.event import DataMap, Event, from_millis
+    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
+                                                     StorageRegistry)
+    work = tmp / name
+    work.mkdir()
+    cli = cli_runner(work, config, PIO_INGEST_WORKERS="4")
+    if name == "twotower":
+        algo_params = {"emb_dim": TT_EMB, "hidden": TT_HIDDEN,
+                       "out_dim": TT_OUT, "batch_size": TT_BATCH,
+                       "epochs": TT_EPOCHS, "seed": 0}
+    else:
+        algo_params = {"app_name": name, "seq_len": SR_SEQ, "dim": SR_DIM,
+                       "n_heads": SR_HEADS, "n_layers": SR_LAYERS,
+                       "batch_size": SR_BATCH, "epochs": SR_EPOCHS,
+                       "seed": 0}
+    (work / "engine.json").write_text(json.dumps({
+        "id": name, "engineFactory": name,
+        "datasource": {"params": {"app_name": name}},
+        "algorithms": [{"name": name, "params": algo_params}]}))
+    registry = StorageRegistry(config)
+    app = app_new(registry, name)
+    events = registry.get_events()
+    # `cli build` reads no event: it runs while the events go in
+    with ThreadPoolExecutor(2) as pool:
+        build = pool.submit(cli, "build")
+        side = pool.submit(beside) if beside is not None else None
+        ingest = neural_ingest(events, app["id"], data["u"], data["i"],
+                               data["t_ms"])
+        _, build_s = build.result()
+        beside_out = side.result() if side is not None else None
+    written = [(data["u"], data["i"], data["t_ms"])]
+    report, train_wall = cli("train")
+    if report["status"] != EngineInstanceStatus.COMPLETED:
+        fail(f"{name}: the instance is {report['status']}")
+    iid = report["engineInstanceId"]
+    model, _ = read_model(config, iid, "cpu")
+    n_users, n_items = len(model.users), len(model.items)
+    queries = neural_queries(rng, data["n_users"], n_items, NEURAL_REQUESTS)
+    proc, port, deploy_s = start_deploy(
+        work, cli, iid, "--engine-instance-id", iid, "--refresh-interval",
+        str(STREAM_INTERVAL_S))
+    try:
+        st0 = wait_status(port, proc, f"{name}: the refresher's baseline",
+                          lambda s: s["refresh"]["ticks"].get("baseline"),
+                          120)
+        t0 = time.perf_counter()
+        answers = serve_http(port, queries, NEURAL_CLIENTS)
+        serve_wall = time.perf_counter() - t0
+        st1 = http_status(port)
+        expected = neural_expected(model, queries, None if name == "twotower"
+                                   else seqrec_histories(model, *map(
+                                       np.concatenate, zip(*written))))
+        err = check_neural(f"{name} deploy", [b for b, _ in answers],
+                           expected, model.items)
+        # the drip: 64 known users x 3 known items, stamped now
+        now_ms = int(time.time() * 1e3)
+        drip_u = rng.choice(n_users, 64, replace=False)
+        drip = [Event(event="view", entity_type="user",
+                      entity_id=model.users.inverse(int(u)),
+                      target_entity_type="item",
+                      target_entity_id=model.items.inverse(
+                          int(rng.integers(n_items))),
+                      properties=DataMap({}),
+                      event_time=from_millis(now_ms - 1_000 + 5 * j))
+                for j, u in enumerate(np.repeat(drip_u, 3))]
+        written.append(tuple(np.array(c, np.int64) for c in zip(*(
+            (int(e.entity_id[1:]), int(e.target_entity_id[1:]),
+             now_ms - 1_000 + 5 * j) for j, e in enumerate(drip)))))
+        t_drip = time.perf_counter()
+        events.insert_batch(drip, app["id"])
+        st2 = wait_status(port, proc, f"{name}: the fold",
+                          lambda s: s["refresh"]["ticks"].get("folded"), 300)
+        fold_seen_s = time.perf_counter() - t_drip
+        folded = serve_http(port, queries, NEURAL_CLIENTS)
+        moved = sum(1 for (a, _), (b, _) in zip(answers, folded)
+                    if a != b)
+        if not moved or any(b["itemScores"] == [] and e[0] is not None
+                            for (b, _), e in zip(folded, expected)):
+            fail(f"{name}: after the fold {moved} answers moved")
+        # an event on a new item: the next tick rebuilds in full
+        with Hammer(port, queries, NEURAL_PACE_S) as load:
+            new_ms = int(time.time() * 1e3)
+            events.insert(Event(
+                event="view", entity_type="user", entity_id="u0",
+                target_entity_type="item", target_entity_id="new-item",
+                properties=DataMap({}), event_time=from_millis(new_ms)),
+                app["id"])
+            written.append((np.array([0]), np.array([-1]),
+                            np.array([new_ms])))
+            t_new = time.perf_counter()
+            st3 = wait_status(port, proc, f"{name}: the full rebuild",
+                              lambda s: s["refresh"]["ticks"].get(
+                                  "full_rebuild"), 300)
+            rebuild_seen_s = time.perf_counter() - t_new
+        after = serve_http(port, queries[:16], NEURAL_CLIENTS)
+        st4 = http_status(port)
+    finally:
+        stop_deploy(proc)
+    if load.failures:
+        fail(f"{name}: {len(load.failures)} requests failed during the "
+             f"rebuild: {load.failures[:3]}")
+    ticks = st4["refresh"]["ticks"]
+    if any(ticks.get(k) for k in ("rolled_back", "failed")) or \
+            ticks.get("folded", 0) < 1:
+        fail(f"{name}: refresher ticks {ticks}")
+    if any(not b["itemScores"] for (b, _), e in zip(after, expected)
+           if e[0] is not None):
+        fail(f"{name}: empty answers after the rebuild")
+    launches = st4["kernel_launches"]
+    if launches["fused_topk"] or launches["shard_local_candidates"]:
+        fail(f"{name}: the deploy launched K1 / K2: {launches}")
+    bp_q = neural_queries(rng, data["n_users"], n_items, NEURAL_BP)
+    lines = [json.dumps(q) for q in bp_q]
+    (work / "bp_in.jsonl").write_text("\n".join(lines) + "\n")
+    bp, bp_wall = cli("batchpredict", "--input", "bp_in.jsonl",
+                      "--output", "bp_out.jsonl")
+    rows = [json.loads(x) for x in
+            (work / "bp_out.jsonl").read_text().splitlines()]
+    if bp["predictions"] != NEURAL_BP or bp["engineInstanceId"] != iid or \
+            [r["query"] for r in rows] != bp_q:
+        fail(f"{name}: batchpredict printed {bp}; its lines are not the "
+             "queries in order")
+    bp_err = check_neural(
+        f"{name} batchpredict", [r["prediction"] for r in rows],
+        neural_expected(model, bp_q, None if name == "twotower" else
+                        seqrec_histories(model, *map(np.concatenate,
+                                                     zip(*written)))),
+        model.items)
+    registry.close()
+    tm = report["phaseTimings"]
+    sp = st1["serve_paths"][0]
+    return {"engine_instance": iid, "users": n_users, "items": n_items,
+            "ingest": ingest, "build_wall_s": build_s,
+            "train": {"command_wall_s": train_wall,
+                      "read_s": tm.get("read_s"),
+                      "train_algo0_s": tm.get("train_algo0_s")},
+            "deploy": {"command_to_serving_s": deploy_s,
+                       **st0["deploy_timings"]},
+            "serve": {"requests": len(queries), "clients": NEURAL_CLIENTS,
+                      "answers_checked": len(queries), "max_abs_err": err,
+                      "wall_s": serve_wall, "qps": len(queries) / serve_wall,
+                      "latency_ms": latency_ms(answers),
+                      "batch_sizes": st1["batch_sizes"],
+                      "serve_paths": sp,
+                      "store_read_ms": (1e3 * sp["store_read_s"]
+                                        / sp["store_reads"]
+                                        if sp.get("store_reads") else None),
+                      "devices": st1["devices"]},
+            "fold": {"events": len(drip), "seen_after_s": fold_seen_s,
+                     "tick_s": st2["refresh"]["last_ticks"]["folded"],
+                     "freshness_s": st2["refresh"]["freshness_s"],
+                     "answers_moved": moved},
+            "rebuild": {"seen_after_s": rebuild_seen_s,
+                        "tick_s": st3["refresh"]["last_ticks"][
+                            "full_rebuild"],
+                        "load": load.summary(), "ticks": ticks},
+            "batchpredict": {"queries": NEURAL_BP, "command_wall_s": bp_wall,
+                             "queries_per_s": NEURAL_BP / bp_wall,
+                             "answers_checked": len(rows),
+                             "max_abs_err": bp_err},
+            "deploy_kernel_launches": launches,
+            **({} if beside is None else {"beside": beside_out})}
+
+
+SCAFFOLD_EVENTS = 5_000
+
+
+def neural_scaffold_app(config: dict, data: dict) -> None:
+    """The scaffolds' app `myapp` (`cli.ops.app_new` in process) with the
+    two-tower generator's first SCAFFOLD_EVENTS events."""
+    from predictionio_tpu_torch.cli.ops import app_new
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    registry = StorageRegistry(config)
+    app = app_new(registry, "myapp")
+    n = SCAFFOLD_EVENTS
+    neural_ingest(registry.get_events(), app["id"], data["u"][:n],
+                  data["i"][:n], NEURAL_T0_MS + np.arange(n))
+    registry.close()
+
+
+def neural_scaffolds(tmp: Path, config: dict) -> dict:
+    """`cli template new --base twotower` and `--base seqrec`, then `cli
+    build` and `train` in each scaffold (the scaffold's defaults; the two
+    side by side) over `neural_scaffold_app`'s `myapp`. Gate: both
+    COMPLETED."""
+    from predictionio_tpu_torch.data.storage import EngineInstanceStatus
+    cli = cli_runner(tmp, config)
+
+    def scaffold(base):
+        made, _ = cli("template", "new", f"scaffold_{base}", "--base", base)
+        scli = cli_runner(tmp / f"scaffold_{base}", config)
+        _, build_s = scli("build")
+        report, train_s = scli("train")
+        if report["status"] != EngineInstanceStatus.COMPLETED:
+            fail(f"template new --base {base}: {report['status']}")
+        return {"build_wall_s": build_s, "train_wall_s": train_s,
+                "train_algo0_s": report["phaseTimings"].get("train_algo0_s"),
+                "message": made["message"].split(" at ")[0]}
+
+    # the two scaffolds side by side (each is process start-up around
+    # seconds of work)
+    with ThreadPoolExecutor(2) as pool:
+        done = dict(zip(("twotower", "seqrec"),
+                        pool.map(scaffold, ("twotower", "seqrec"))))
+    return {"events": SCAFFOLD_EVENTS, **done}
+
+
+def phase_neural(torch, ft, dev, seed: int, card: str) -> dict:
+    """The two-tower and sequential recommenders on the card: attention
+    (`neural_attention`), the two trainers at bench.py's data and widths
+    (`neural_twotower_op`, `neural_seqrec_op`), both templates through
+    the command line (`neural_template`) and the `template new` scaffolds
+    (`neural_scaffolds`). No K1 or K2 launch anywhere in the phase."""
+    t_phase = time.perf_counter()
+    before = (ft.LAUNCHES, ft.SHARD_LAUNCHES)
+    out = {"phase": "neural", "card": card, "part_seconds": {}}
+
+    def part(key, fn):
+        t = time.perf_counter()
+        out[key] = fn()
+        out["part_seconds"][key] = time.perf_counter() - t
+        return out[key]
+
+    for key, fn in (("attention", lambda: neural_attention(torch, dev, seed)),
+                    ("twotower_op", lambda: neural_twotower_op(torch, dev)),
+                    ("seqrec_op", lambda: neural_seqrec_op(torch, dev))):
+        emit({"phase": f"neural_{key}", "card": card, **part(key, fn)})
+    rng = np.random.default_rng(seed + 10)
+    tt = twotower_data()
+    sr = seqrec_data(SR_USERS)
+    day = sr["u"] % SR_DAYS
+    templates_data = {
+        "twotower": {"u": tt["u"], "i": tt["i"], "n_users": TT_USERS,
+                     "t_ms": NEURAL_T0_MS + np.arange(TT_EVENTS)},
+        "seqrec": {"u": sr["u"], "i": sr["i"], "n_users": SR_USERS,
+                   "t_ms": (NEURAL_T0_MS + day * DAY_MS
+                            + sr["offs"] * 60_000)}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_neural_") as tmp:
+        tmp = Path(tmp)
+        config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+                  "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db"),
+                  "PIO_STORAGE_SOURCES_PEV_TYPE": "PEVLOG",
+                  "PIO_STORAGE_SOURCES_PEV_PATH": str(tmp / "pevlog"),
+                  "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+                  "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "PEV",
+                  "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"}
+        # made first, in process: the store's files exist before any
+        # two processes open them at once
+        neural_scaffold_app(config, tt)
+        emit({"phase": "neural_template_twotower", "card": card,
+              **part("template_twotower", lambda: neural_template(
+                  torch, "twotower", tmp, config, rng,
+                  templates_data["twotower"]))})
+        # the scaffolds build and train while seqrec's events go in
+        emit({"phase": "neural_template_seqrec", "card": card,
+              **part("template_seqrec", lambda: neural_template(
+                  torch, "seqrec", tmp, config, rng,
+                  templates_data["seqrec"],
+                  beside=lambda: neural_scaffolds(tmp, config)))})
+        out["scaffolds"] = out["template_seqrec"].pop("beside")
+    out["seqrec_store"] = {"users": SR_USERS, "events": int(len(sr["u"])),
+                           "days": SR_DAYS}
+    k1, k2 = ft.LAUNCHES - before[0], ft.SHARD_LAUNCHES - before[1]
+    if k1 or k2:
+        fail(f"K1 launched {k1}, K2 {k2} times during phase neural")
+    out["k1_launches"], out["k2_launches"] = k1, k2
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "neural", "card": card, "k1_launches": k1,
+          "k2_launches": k2, "seconds": out["seconds"],
+          "part_seconds": out["part_seconds"],
+          "seqrec_store": out["seqrec_store"],
+          "scaffolds": out["scaffolds"]})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4128,7 +4957,8 @@ def main() -> int:
     ap.add_argument("--templates-requests", type=int, default=64)
     ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle",
                                        "streaming", "quickstart",
-                                       "templates", "classification"),
+                                       "templates", "classification",
+                                       "neural"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
@@ -4136,7 +4966,8 @@ def main() -> int:
                          "and streaming; quickstart for parity and "
                          "quickstart; templates for parity and "
                          "templates; classification for parity and "
-                         "classification), no kernels line")
+                         "classification; neural for phase neural), no "
+                         "kernels line")
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -4209,6 +5040,8 @@ def main() -> int:
         elif args.only == "classification":
             phase_parity(torch, ft, dev, rng)
             phase_classification(torch, ft, dev, args.seed, card)
+        elif args.only == "neural":
+            phase_neural(torch, ft, dev, args.seed, card)
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
@@ -4239,6 +5072,7 @@ def main() -> int:
     templates = phase_templates(torch, ft, dev, rng, args.seed,
                                 args.templates_requests)
     classification = phase_classification(torch, ft, dev, args.seed, card)
+    neural = phase_neural(torch, ft, dev, args.seed, card)
 
     main_row, shard_row = timing[64], timing_sh[64]
     emit({"script_s": time.perf_counter() - t_script})
@@ -4258,6 +5092,7 @@ def main() -> int:
         "quickstart_launches": quickstart["launches"],
         "templates_launches": templates["templates_launches"],
         "classification_launches": classification["k1_launches"],
+        "neural_launches": neural["k1_launches"],
         "by_bucket": {str(b): r for b, r in timing.items()},
         "by_width": {str(EC_WIDTH): {str(b): r
                                      for b, r in timing_ec.items()}}}, {
@@ -4271,6 +5106,7 @@ def main() -> int:
         "bound_by": shard_row["bound_by"],
         "library_ms": shard_row["library_ms"], "bucket": 64,
         "per_shard": shard_row["per_shard"],
+        "neural_launches": neural["k2_launches"],
         "by_bucket": {str(b): r for b, r in timing_sh.items()}}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

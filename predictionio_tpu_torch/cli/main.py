@@ -17,6 +17,9 @@
         [--device cpu]
     python -m predictionio_tpu_torch.cli batchpredict [--input queries.json] \
         [--output predictions.json] [--query-partitions 1024] [--device cpu]
+    python -m predictionio_tpu_torch.cli template new DIR \
+        [--base recommendation|similarproduct|classification|ecommerce|
+                twotower|seqrec]
 
 Storage comes from `PIO_STORAGE_*` (or a `pio-env` file); without any,
 one sqlite file at `./.pio_store/pio.db`, the JAX package's default.
@@ -47,6 +50,9 @@ card, records an evaluation instance, and prints its id, the result line
 and the best score. `batchpredict` answers a file of JSON queries, one
 per line, with the latest COMPLETED instance of engine.json's variant,
 through the warmed serving plan, into one JSON line per query.
+`template new` scaffolds an engine directory (engine.json and a
+`my_engine.py` over one of the six bundled templates) to run `build`,
+`train` and `deploy` in.
 """
 
 from __future__ import annotations
@@ -206,6 +212,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="queries per device batch chunk")
     x.add_argument("--device", default=None,
                    help="torch device (default cuda)")
+    x = sub.add_parser("template", help="scaffold a new engine directory")
+    x.add_argument("template_command", choices=["new"])
+    x.add_argument("directory")
+    x.add_argument("--base", default="recommendation",
+                   choices=sorted(ops.SCAFFOLD_BASES),
+                   help="bundled template the scaffold is based on")
     return p
 
 
@@ -314,6 +326,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 device=args.device))
         elif cmd == "eventserver":
             return _eventserver(args)
+        elif cmd == "template":
+            path = ops.template_new(args.directory, base=args.base)
+            _emit({"message": f"Engine scaffold created at {path}",
+                   "next": "edit engine.json, then: build && train"})
         elif cmd == "train":
             try:
                 _emit(ops.train(

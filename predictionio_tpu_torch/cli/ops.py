@@ -3,8 +3,10 @@
 The port of the lifecycle commands of `predictionio_tpu/cli/ops.py`
 (commands/{App,AccessKey,Engine,Import}.scala): `app new|list|show|
 delete`, `accesskey new|list`, `import` of API-JSON event lines, the
-engine.json plumbing of `build`, `train` and `deploy`, `eval` and
-`batchpredict`. Every function takes the storage registry it works on.
+engine.json plumbing of `build`, `train` and `deploy`, `eval`,
+`batchpredict` and the `template new` scaffold
+(commands/Template.scala). Every function but the scaffold takes the
+storage registry it works on.
 """
 
 from __future__ import annotations
@@ -263,3 +265,67 @@ def batchpredict(registry, *, engine_json: str = "engine.json",
                           chunk_size=chunk_size)
     return {"engineInstanceId": instance.id, "predictions": n,
             "output": output_path}
+
+
+# -- template scaffold (commands/Template.scala) ------------------------------
+
+_SCAFFOLD_ENGINE = '''\
+"""Custom engine scaffold. Wire your DASE components into `engine()` and
+reference this module from engine.json's engineFactory
+("my_engine.engine")."""
+
+from predictionio_tpu_torch.core.base import FirstServing, IdentityPreparator
+from predictionio_tpu_torch.core.engine import Engine
+from predictionio_tpu_torch.models.{base} import (
+    {ds_class} as DataSource,
+    {algo_class} as Algorithm,
+)
+
+
+def engine() -> Engine:
+    return Engine(
+        data_source=DataSource,
+        preparator=IdentityPreparator,
+        algorithms={{"": Algorithm}},
+        serving=FirstServing,
+    )
+'''
+
+SCAFFOLD_BASES = {
+    "recommendation": ("RecommendationDataSource", "ALSAlgorithm"),
+    "similarproduct": ("SimilarProductDataSource", "ALSAlgorithm"),
+    "classification": ("ClassificationDataSource", "NaiveBayesAlgorithm"),
+    "ecommerce": ("ECommDataSource", "ECommAlgorithm"),
+    "twotower": ("TwoTowerDataSource", "TwoTowerAlgorithm"),
+    "seqrec": ("SeqRecDataSource", "SeqRecAlgorithm"),
+}
+
+
+def template_new(directory: str, *, base: str = "recommendation") -> str:
+    """pio template new: an engine directory with an engine.json and a
+    `my_engine.py` whose `engine()` wires the base template's data
+    source and algorithm; `cli build`, `train` and `deploy` run in it."""
+    if base not in SCAFFOLD_BASES:
+        raise ValueError(
+            f"Unknown base template {base!r}; known: "
+            f"{sorted(SCAFFOLD_BASES)}")
+    target = Path(directory)
+    if target.exists() and any(target.iterdir()):
+        raise ValueError(f"Directory {directory} exists and is not empty")
+    target.mkdir(parents=True, exist_ok=True)
+    ds_class, algo_class = SCAFFOLD_BASES[base]
+    (target / "my_engine.py").write_text(_SCAFFOLD_ENGINE.format(
+        base=base, ds_class=ds_class, algo_class=algo_class))
+    # the bases whose algorithm reads the event store at serve time carry
+    # app_name in their algorithm params too: without it the reads would
+    # target the 'default' app and answer empty
+    algo_params = ({"app_name": "myapp"}
+                   if base in ("ecommerce", "seqrec") else {})
+    (target / "engine.json").write_text(json.dumps({
+        "id": "default",
+        "description": f"scaffold based on the {base} template",
+        "engineFactory": "my_engine.engine",
+        "datasource": {"params": {"app_name": "myapp"}},
+        "algorithms": [{"name": "", "params": algo_params}],
+    }, indent=2) + "\n")
+    return str(target)

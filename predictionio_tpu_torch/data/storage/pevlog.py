@@ -527,6 +527,9 @@ class PevlogStorageClient:
         # for external_ids.log (see _scan_journal)
         self.replay_cache: Dict[str, Tuple[int, int, dict]] = {}
         self.index_cache: Dict[str, _SegmentIndex] = {}
+        # segment journal path -> (replay state, {(entityType, entityId):
+        # [Event]}) for entity finds (see PevlogEvents._entity_rows)
+        self.entity_cache: Dict[str, Tuple[dict, dict]] = {}
         # observability + the sublinearity contract's test hook
         self.stats = {"segments_pruned": 0, "segments_scanned": 0}
 
@@ -788,6 +791,7 @@ class PevlogEvents(base.EventStore):
                 for p in part.iterdir():
                     self.c.replay_cache.pop(str(p), None)
                     self.c.index_cache.pop(str(p), None)
+                    self.c.entity_cache.pop(str(p), None)
                     if p.is_dir():       # _prepared ingest cache
                         import shutil
                         shutil.rmtree(p, ignore_errors=True)
@@ -1080,6 +1084,22 @@ class PevlogEvents(base.EventStore):
             return False
         return True
 
+    def _entity_rows(self, seg: Path, table: dict) -> Dict[tuple, list]:
+        """(entityType, entityId) -> the segment's events of that entity,
+        in the replay table's order, so that an entity find (a serving
+        read) walks its own events, not the whole segment. Built once per
+        replay state: `_scan_journal` never changes a state it has cached
+        (growth copies it), so the identity check keeps this exact."""
+        key = str(seg)
+        cached = self.c.entity_cache.get(key)
+        if cached is not None and cached[0] is table:
+            return cached[1]
+        rows: Dict[tuple, list] = {}
+        for e in table.values():
+            rows.setdefault((e.entity_type, e.entity_id), []).append(e)
+        self.c.entity_cache[key] = (table, rows)
+        return rows
+
     def find(self, app_id: int, channel_id: Optional[int] = None, *,
              start_time=None, until_time=None, entity_type=None,
              entity_id=None, event_names=None,
@@ -1104,7 +1124,12 @@ class PevlogEvents(base.EventStore):
                 self.c.stats["segments_pruned"] += 1
                 continue
             self.c.stats["segments_scanned"] += 1
-            for e in self._replay_segment(seg).values():
+            table = self._replay_segment(seg)
+            rows = (self._entity_rows(seg, table).get(
+                        (entity_type, entity_id), ())
+                    if entity_type is not None and entity_id is not None
+                    else table.values())
+            for e in rows:
                 if not self._live(e, dead):
                     continue
                 if base.match_event(

@@ -12,9 +12,10 @@ steps from zero w and b, the gradient of
 
 (no penalty on b) by autograd, and a hand-written Adam update in
 optax's order and at optax's defaults (b1 0.9, b2 0.999, eps 1e-8,
-eps_root 0; the bias corrections `1 - b**count` in float32), so that
-the CPU and the card run the same arithmetic. The result agrees with
-the JAX package's optax loop to fp32 summation order.
+eps_root 0; the bias corrections `1 - b**count` in float32; the
+shared `ops.adam.Adam`), so that the CPU and the card run the same
+arithmetic. The result agrees with the JAX package's optax loop to fp32
+summation order.
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+from predictionio_tpu_torch.ops.adam import Adam
 
 
 @dataclass
@@ -57,21 +57,12 @@ def _fit(features: torch.Tensor, class_ix: torch.Tensor, *, n_classes: int,
     onehot = torch.nn.functional.one_hot(
         class_ix.long(), n_classes).to(torch.float32)
     params = (w, b)
-    mu = [torch.zeros_like(p) for p in params]
-    nu = [torch.zeros_like(p) for p in params]
-    b1 = torch.tensor(ADAM_B1, dtype=torch.float32, device=dev)
-    b2 = torch.tensor(ADAM_B2, dtype=torch.float32, device=dev)
-    for count in range(1, steps + 1):
+    adam = Adam(params, lr)
+    for _ in range(steps):
         logits = features @ w + b
         per_ex = (onehot * torch.log_softmax(logits, dim=1)).sum(1)
         loss = -per_ex.sum() / n + reg * (w * w).sum()
-        grads = torch.autograd.grad(loss, params)
-        bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
-        with torch.no_grad():
-            for p, g, m, v in zip(params, grads, mu, nu):
-                m.copy_((1 - ADAM_B1) * g + ADAM_B1 * m)
-                v.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * v)
-                p.add_(-lr * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)))
+        adam.step(torch.autograd.grad(loss, params))
     return w.detach(), b.detach()
 
 

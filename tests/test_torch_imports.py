@@ -52,7 +52,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "e2.evaluation", "data.aggregate", "ops.cooccur",
                      "models.common", "models.ecommerce",
                      "models.similarproduct", "ops.naive_bayes",
-                     "ops.logreg", "ops.forest", "models.classification"):
+                     "ops.logreg", "ops.forest", "models.classification",
+                     "ops.adam", "ops.attention", "ops.twotower",
+                     "ops.seqrec", "models.twotower", "models.seqrec"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"

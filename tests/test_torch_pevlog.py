@@ -282,6 +282,61 @@ class TestPruning:
         assert len(list(store.find(1))) == 10
 
 
+class TestEntityRows:
+    """An entity find walks only that entity's events in each segment
+    it replays (a row map built once per replay state); its answers stay
+    the full find's, filtered, as segments grow and events go and come
+    back."""
+
+    @staticmethod
+    def _agrees(store, **filters):
+        full = list(store.find(1, **filters))
+        for user in sorted({e.entity_id for e in full}) + ["nobody"]:
+            for rev in (False, True):
+                got = store.find(1, entity_type="user", entity_id=user,
+                                 reversed=rev, **filters)
+                want = sorted((e for e in full if e.entity_id == user),
+                              key=lambda e: e.event_time, reverse=rev)
+                assert [e.event_id for e in got] == \
+                    [e.event_id for e in want]
+
+    def test_entity_find_equals_the_filtered_full_find(self, store):
+        # same-day events share a time: the ties keep the segment order
+        store.insert_batch(
+            [_mk(d, f"u{n % 5}", "buy" if n % 4 == 0 else "view")
+             for d in range(3) for n in range(40)], 1)
+        self._agrees(store)
+        self._agrees(store, event_names=["buy"])
+        # growth: the replay state is copied, the row map rebuilt
+        ids = store.insert_batch([_mk(1, f"u{n % 7}") for n in range(30)], 1)
+        self._agrees(store)
+        assert store.delete(ids[3], 1)
+        self._agrees(store)
+        store.insert(_mk(2, "late").with_id("E"), 1)
+        assert store.delete("E", 1)
+        store.insert(_mk(0, "late").with_id("E"), 1)
+        self._agrees(store)
+        got = list(store.find(1, entity_type="user", entity_id="late",
+                              limit=1, reversed=True))
+        assert [e.event_id for e in got] == ["E"]
+
+    def test_entity_find_walks_only_its_events(self, store, monkeypatch):
+        from predictionio_tpu_torch.data.storage import base
+        store.insert_batch([_mk(0, f"u{n}") for n in range(500)], 1)
+        list(store.find(1, entity_type="user", entity_id="u1"))
+        seen = []
+        real = base.match_event
+
+        def counting(e, **kw):
+            seen.append(e.entity_id)
+            return real(e, **kw)
+
+        monkeypatch.setattr(base, "match_event", counting)
+        out = list(store.find(1, entity_type="user", entity_id="u7"))
+        assert [e.entity_id for e in out] == ["u7"]
+        assert seen == ["u7"]
+
+
 class TestBloomGrowth:
     def test_filter_grows_instead_of_saturating(self):
         from predictionio_tpu_torch.data.storage.pevlog import _SegmentIndex
