@@ -9,7 +9,7 @@
                           [--templates-requests 64]
                           [--only serve_sharded | train | lifecycle |
                                   streaming | quickstart | templates |
-                                  classification | neural]
+                                  classification | neural | wire]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -49,6 +49,29 @@ the result line:
               table goes into the live plan by `swap_factors` (ms per
               swap from a device tensor and from host RAM); the second
               half is checked against the new table.
+  4b. wire    phase 4's model behind the serve plane of one server
+              process, deployed through `cli.main.deploy` in this
+              process, its clients in 4 separate client processes
+              (started with subprocess, standard library only) of 16
+              kept-alive connections each: the same 2,560 requests
+              (1,280 {"user", "num"} bodies, which take the fast
+              route; 640 with a blackList of up to 64 items, the
+              generic route; 640 binary `application/x-pio-bin`
+              frames) over the selector wire, then the threaded one.
+              Gates: every answer checked against the plain version;
+              K1 launches = plan calls = warmed buckets + drained
+              chunks; /metrics counts every request sent. Then a shed
+              run on the selector wire at max_inflight 8, a quarter of
+              its 1,280 requests with a 0.5-ms deadline: 503s with
+              Retry-After, 504s only for deadlined requests, every 200
+              right, /metrics counting each status, the sheds and the
+              expired deadlines as the clients saw them. Prints qps, p50
+              and p99 by the clients' clock per wire and per route, the
+              drained batches' `predict_batch` seconds over the wall
+              (host time inside `predict_batch`, K1's launches and the
+              plan's Python and its waits on the interpreter lock
+              included; not the card's busy time), the
+              `pio_serve_stage_seconds` split and the host's CPU count.
   5. parity_sharded
               the kernel's sharded form (K2, `shard_local_candidates`)
               vs its plain version on shard slices of a 20,037-row
@@ -150,7 +173,15 @@ the result line:
               batch chunk, on the server's `GET /`. Prints import events/s,
               the read split into scan and build, pack, transfer, solve,
               the blob's bytes and store seconds, the deploy's load,
-              place and warm seconds, and the serve summary.
+              place and warm seconds, and the serve summary. Then
+              what an operator runs (the deploy holds a server key):
+              `cli redeploy` while a client process keeps querying (no
+              request fails, /status.json's engineInstanceId flips, K1
+              launches = the calls of both plans = two warmups +
+              drained chunks); a /reload onto a COMPLETED instance whose
+              blob is gone answers 500 and the old instance serves on;
+              /stop without the key is 401; `cli undeploy` and the
+              deploy process exits 0 within 30 s.
  13. streaming
               the same shape and split over SQLITE metadata and PEVLOG
               events (the scan on 4 spawned workers): app new, import
@@ -183,7 +214,9 @@ the result line:
               folded and checked as phase 13 checks a fold; 20,000 rate
               events from 8 client processes to /batch/events.json, 50
               per request, beside 8 paced query clients (events/s and
-              per-request p50/p99 beside the PEVLOG import; every
+              per-request p50/p99 beside the PEVLOG import and the
+              threaded wire's reading; the event server on the selector
+              wire, its /metrics counting the ingest; every
               status 201, all 20,000 found in the store and counted by
               /stats.json, a full rebuild with no failed query); a
               Segment.io webhook read back by entity and id, then
@@ -230,7 +263,9 @@ the result line:
               `fold_in` over a 192-event drip on the card against the
               CPU (factors to 2e-3, the cooccurrence merge exactly).
               Prints the train phases, the plan's banned width, p50 and
-              p99, ms per store read and the queries per serve path.
+              p99, ms per store read and the queries per serve path,
+              and the PEVLOG sidecars' bytes and Bloom digests after
+              the 1.25 M-event ingest.
  16. classification
               (a) bench.py's BASELINE config 2 (bench_classification's
               generator, 1,000,000 x 100, 4 classes): NB on the Poisson
@@ -280,7 +315,10 @@ the result line:
               ms at batches 1/64/256. Gates: the first 20 step losses
               equal the CPU port's from the same init and batches within
               rtol 3e-6 (beside, not gated, the same reading with TF32
-              matmuls); recall@10 at least 4x random; hit-rate@10 at
+              matmuls: the net and its Adam are built first, the
+              precision set after them, and the phase fails unless the
+              control's steps ran with TF32 allowed; the flag it read is
+              printed); recall@10 at least 4x random; hit-rate@10 at
               least 0.4 (beside the measured popularity baseline).
               (d) Both templates through `cli build`, `train`, `deploy
               --refresh-interval 2` over SQLITE + PEVLOG (two-tower: the
@@ -304,8 +342,9 @@ with several cards), `--only train` the build and phases 9-11,
 the build and phases 3 and 13, `--only quickstart` the build, phase 3,
 phase 13's import and train, and phase 14, `--only templates` the
 build and phases 3 and 15, `--only classification` the build and
-phases 3 and 16, `--only neural` the build and phase 17; none prints
-the kernels line. Every run
+phases 3 and 16, `--only neural` the build and phase 17, `--only wire`
+the build and phases 3 and 4b; none prints the kernels line (whose K1
+entry counts phase 4b's launches as `wire_launches`). Every run
 prints its seconds (`script_s`).
 
 Then the kernels line, the nvidia-smi line and, last,
@@ -317,6 +356,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -324,6 +364,7 @@ import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -813,6 +854,378 @@ def phase_serve(torch, ft, dev, rng, model, setup_s: float,
     out = {"phase": "serve", **serve_summary(run, n_requests, max_err),
            "model_setup_s": setup_s,
            "swap": {"items": N_ITEMS, "rank": RANK, **run["midway"]}}
+    emit(out)
+    return out
+
+
+# -- phase wire: the serve plane from separate client processes ---------------
+
+WIRE_PROCS, WIRE_CONNS = 4, 16       # client processes x keep-alive conns
+WIRE_PLAIN, WIRE_BANNED, WIRE_BIN = 1_280, 640, 640
+SHED_INFLIGHT = 8                    # the shed run's max_inflight
+SHED_REQUESTS = 1_280                # a quarter of them deadlined
+SHED_DEADLINE_MS = "0.5"             # below the 2-ms batching window
+# REST ingest's events/s when the event server ran on the threaded wire
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside phase quickstart's
+THREADED_REST_EVENTS_PER_S = (479, 656)
+
+WIRE_CLIENT = r"""
+import http.client, json, sys, threading, time
+reqfile, outfile, host, port, conns = sys.argv[1:6]
+port, conns = int(port), int(conns)
+reqs = json.load(open(reqfile))
+pool = [http.client.HTTPConnection(host, port, timeout=120)
+        for _ in range(conns)]
+for c in pool:
+    c.connect()
+print("ready", flush=True)
+sys.stdin.readline()
+out = [None] * len(reqs)
+
+def run(w):
+    conn = pool[w]
+    for n in range(w, len(reqs), conns):
+        r = reqs[n]
+        body = (bytes.fromhex(r["body"]) if r["bin"]
+                else r["body"].encode())
+        hdrs = {"Content-Type": ("application/x-pio-bin" if r["bin"]
+                                 else "application/json")}
+        if r.get("deadline"):
+            hdrs["X-PIO-Deadline-Ms"] = r["deadline"]
+        t0 = time.monotonic()
+        try:
+            conn.request("POST", "/queries.json", body, hdrs)
+            resp = conn.getresponse()
+            data = resp.read().decode()
+            out[n] = [resp.status, resp.getheader("Retry-After"), data,
+                      t0, time.monotonic()]
+        except Exception as e:
+            out[n] = [-1, None, repr(e), t0, time.monotonic()]
+            conn.close()
+            conn = http.client.HTTPConnection(host, port, timeout=120)
+
+threads = [threading.Thread(target=run, args=(w,)) for w in range(conns)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+json.dump(out, open(outfile, "w"))
+"""
+
+
+def wire_requests(torch, ft, dev, rng, model, n_plain: int, n_banned: int,
+                  n_bin: int) -> list:
+    """The request mix: `n_plain` {"user", "num"} bodies (the fast
+    route), `n_banned` with a blackList of up to WIDTH items (the
+    generic route: each row's own top 5 and random ones), `n_bin`
+    binary frames of {"user", "num"}; shuffled. Each entry keeps its
+    query for `check_answers`."""
+    from predictionio_tpu_torch.utils.wire import encode_bin_query
+    qs = make_queries(torch, ft, dev, rng, model, n_plain + n_banned + n_bin,
+                      N_ITEMS)
+    out = []
+    for n, q in enumerate(qs):
+        base = {"user": q["user"], "num": q["num"]}
+        if n < n_plain:
+            out.append({"kind": "plain", "query": base, "bin": False,
+                        "body": json.dumps(base)})
+        elif n < n_plain + n_banned:
+            ban = q.get("blackList") or [model.items.inverse(
+                int(x)) for x in rng.choice(N_ITEMS, WIDTH, replace=False)]
+            full = {**base, "blackList": ban}
+            out.append({"kind": "banned", "query": full, "bin": False,
+                        "body": json.dumps(full)})
+        else:
+            out.append({"kind": "binary", "query": base, "bin": True,
+                        "body": encode_bin_query(q["user"], q["num"]).hex()})
+    order = rng.permutation(len(out))
+    return [out[i] for i in order]
+
+
+def wire_clients(port: int, reqs: list, tmp: Path) -> list:
+    """`reqs` from WIRE_PROCS client processes (started with subprocess,
+    stdlib only, never forked from this process) of WIRE_CONNS kept-alive
+    connections each, released together once every connection is open;
+    returns [status, Retry-After, body text, t_send, t_recv] per request
+    (CLOCK_MONOTONIC, one clock for every process of the machine)."""
+    procs, outs = [], []
+    try:
+        for p in range(WIRE_PROCS):
+            req_f, out_f = tmp / f"wire_req_{p}.json", tmp / f"wire_out_{p}.json"
+            req_f.write_text(json.dumps(
+                [{k: r[k] for k in ("body", "bin", "deadline") if k in r}
+                 for r in reqs[p::WIRE_PROCS]]))
+            proc = subprocess.Popen(
+                [sys.executable, "-c", WIRE_CLIENT, str(req_f), str(out_f),
+                 "127.0.0.1", str(port), str(WIRE_CONNS)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            procs.append(proc)
+            outs.append(out_f)
+        for proc in procs:
+            if proc.stdout.readline().strip() != "ready":
+                fail("a wire client did not come up")
+        for proc in procs:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+        for proc in procs:
+            if proc.wait(timeout=600) != 0:
+                fail(f"a wire client exited {proc.returncode}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res = [None] * len(reqs)
+    for p, out_f in enumerate(outs):
+        for j, r in enumerate(json.loads(out_f.read_text())):
+            res[p + j * WIRE_PROCS] = r
+    return res
+
+
+def prom(text: str) -> dict:
+    """Prometheus text -> {'name{labels}': value}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def prom_sum(series: dict, prefix: str, suffix: str = "") -> float:
+    return sum(v for k, v in series.items()
+               if k.startswith(prefix) and k.endswith(suffix))
+
+
+def lat_summary(res, idx) -> dict:
+    lat = np.sort([res[i][4] - res[i][3] for i in idx])
+    if not len(lat):
+        return {"requests": 0}
+    t0, t1 = min(res[i][3] for i in idx), max(res[i][4] for i in idx)
+    return {"requests": len(lat), "qps": len(lat) / (t1 - t0),
+            "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p99_ms": 1e3 * lat[int(0.99 * (len(lat) - 1))]}
+
+
+def wire_run(torch, ft, dev, model, reqs, tmp: Path, wire: str,
+             max_inflight: int = 0,
+             log_file: Optional[Path] = None) -> dict:
+    """Deploy `model` through `cli.main.deploy` on `wire` with a registry
+    of its own, send `reqs` from the client processes, read GET / and
+    /metrics, stop. The kernel's counts are set to 0 just before the
+    deploy and read after the last answer. With `log_file` the server's
+    structured log runs at INFO, as a default deploy's does, its lines
+    written to that file; otherwise at this run's PIO_OBS_LOG_LEVEL."""
+    import logging
+    from predictionio_tpu_torch.cli.main import deploy
+    from predictionio_tpu_torch.obs import MetricsRegistry, get_logger
+    get_logger("wire")                 # the obs log tree exists
+    log_root = logging.getLogger("pio.torch.obs")
+    saved_log = (log_root.handlers[:], log_root.level)
+    if log_file is not None:
+        handler = logging.FileHandler(log_file)
+        handler.setFormatter(logging.Formatter("%(message)s"))
+        log_root.handlers = [handler]
+        log_root.setLevel(logging.INFO)
+    ft.LAUNCHES = 0
+    ft.SHARD_LAUNCHES = 0
+    server = deploy(model, port=0, batch_max=64, wire=wire,
+                    max_inflight=max_inflight, metrics=MetricsRegistry())
+    if server.wire != wire:
+        fail(f"asked for the {wire} wire, got {server.wire}")
+    plan = server.deployment.algos[0]._serve_plan
+    predict = server.deployment.predict_batch
+    batch_s = []
+
+    def timed_predict(queries):
+        t = time.perf_counter()
+        try:
+            return predict(queries)
+        finally:
+            batch_s.append(time.perf_counter() - t)
+
+    server.deployment.predict_batch = timed_predict
+    try:
+        res = wire_clients(server.port, reqs, tmp)
+        launches, plan_calls = ft.LAUNCHES, plan.calls
+        sizes = server.batcher.batch_sizes()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/metrics",
+                timeout=60) as resp:
+            series = prom(resp.read().decode())
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/",
+                                    timeout=60) as resp:
+            status = json.loads(resp.read())
+    finally:
+        server.stop()
+        server.deployment.predict_batch = predict
+        if log_file is not None:
+            log_root.handlers[0].close()
+            log_root.handlers, level = saved_log
+            log_root.setLevel(level)
+    expected = len(plan.buckets) + sum(
+        c * -(-n // plan.max_bucket) for n, c in sizes.items())
+    if not launches == plan_calls == expected:
+        fail(f"wire {wire}: K1 launches {launches}, plan calls "
+             f"{plan_calls}, expected {expected} (warmup + drained chunks)")
+    bad = [r for r in res if r is None or r[0] == -1]
+    if bad:
+        fail(f"wire {wire}: {len(bad)} requests failed on the client: "
+             f"{bad[0]}")
+    t0, t1 = min(r[3] for r in res), max(r[4] for r in res)
+    return {"res": res, "series": series, "status": status,
+            "sizes": sizes, "launches": launches, "plan_calls": plan_calls,
+            "expected_calls": expected, "batch_s": batch_s,
+            "wall_s": t1 - t0, "buckets": list(plan.buckets)}
+
+
+def check_wire_answers(torch, ft, dev, model, reqs, res, what) -> float:
+    """Every 200 against the plain version (`check_answers`)."""
+    ok = [i for i, r in enumerate(res) if r[0] == 200]
+    if not ok:
+        fail(f"{what}: no request answered 200")
+    return check_answers(torch, ft, dev, model,
+                         [reqs[i]["query"] for i in ok],
+                         [json.loads(res[i][2])["itemScores"] for i in ok],
+                         N_ITEMS)
+
+
+def stage_split(series: dict) -> dict:
+    out = {}
+    for stage in ("extract", "supplement", "predict", "serve"):
+        n = series.get(f'pio_serve_stage_seconds_count{{stage="{stage}"}}',
+                       0.0)
+        s = series.get(f'pio_serve_stage_seconds_sum{{stage="{stage}"}}',
+                       0.0)
+        out[stage] = {"count": int(n), "sum_s": s,
+                      "mean_ms": 1e3 * s / n if n else None}
+    return out
+
+
+def phase_wire(torch, ft, dev, rng, model, card: str) -> dict:
+    """Phase 4's model behind the serve plane, its clients in separate
+    processes: the same WIRE_PLAIN + WIRE_BANNED + WIRE_BIN requests over
+    the selector wire, again over the selector wire with its request
+    log at INFO (a default deploy's level; the run's own level is
+    WARNING), then over the threaded one; then a shed run on the
+    selector wire at max_inflight SHED_INFLIGHT with a quarter of its
+    requests carrying an unmeetable deadline."""
+    from predictionio_tpu_torch.utils.wire import reactor_count
+    t_phase = time.perf_counter()
+    reqs = wire_requests(torch, ft, dev, rng, model, WIRE_PLAIN,
+                         WIRE_BANNED, WIRE_BIN)
+    out = {"phase": "wire", "card": card, "users": N_USERS,
+           "items": N_ITEMS, "rank": RANK, "k": K, "banned_width": WIDTH,
+           "client_processes": WIRE_PROCS, "connections": WIRE_PROCS
+           * WIRE_CONNS, "host_cpus": os.cpu_count(),
+           "reactors": reactor_count(), "wires": {}}
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wire_") as tmp:
+        tmp = Path(tmp)
+        for name, wire in (("selector", "selector"),
+                           ("selector_info_log", "selector"),
+                           ("threaded", "threaded")):
+            log_file = tmp / "wire_info.log" if name.endswith("_log") \
+                else None
+            run = wire_run(torch, ft, dev, model, reqs, tmp, wire,
+                           log_file=log_file)
+            res = run["res"]
+            codes = sorted({r[0] for r in res})
+            if codes != [200]:
+                fail(f"wire {wire}: statuses {codes}")
+            err = check_wire_answers(torch, ft, dev, model, reqs, res, wire)
+            series = run["series"]
+            counted = prom_sum(series, 'pio_http_requests_total{route='
+                               '"/queries.json"')
+            if counted != len(reqs):
+                fail(f"wire {wire}: /metrics counts {counted} queries of "
+                     f"{len(reqs)} sent")
+            log_lines = None
+            if log_file is not None:
+                # one "request" line per generic-route request (the fast
+                # route writes none, as in the JAX package)
+                log_lines = sum(
+                    1 for line in log_file.read_text().splitlines()
+                    if json.loads(line).get("event") == "request")
+                want = sum(1 for r in reqs if r["kind"] == "banned")
+                if log_lines < want:
+                    fail(f"wire {name}: {log_lines} request log lines, "
+                         f"{want} generic-route requests sent")
+            launches += run["launches"]
+            out["wires"][name] = {
+                "wire": wire, "request_log_lines": log_lines,
+                "requests": len(reqs), "answers_checked": len(reqs),
+                "max_abs_err": err, "metrics_requests": counted,
+                "launches": run["launches"],
+                "plan_calls": run["plan_calls"],
+                "expected_calls": run["expected_calls"],
+                "warmed_buckets": run["buckets"],
+                "drained_batches": sum(run["sizes"].values()),
+                "batch_sizes": {str(n): c for n, c in
+                                sorted(run["sizes"].items())},
+                "wall_s": run["wall_s"],
+                "all": lat_summary(res, range(len(res))),
+                "by_route": {kind: lat_summary(res, [
+                    i for i, r in enumerate(reqs) if r["kind"] == kind])
+                    for kind in ("plain", "banned", "binary")},
+                "predict_batch_s": sum(run["batch_s"]),
+                "predict_batch_share_of_wall": sum(run["batch_s"])
+                / run["wall_s"],
+                "stage_seconds": stage_split(series),
+                "wire_requests": prom_sum(series,
+                                          "pio_wire_requests_total{")}
+        # the shed run: admission at SHED_INFLIGHT, unmeetable deadlines
+        shed = wire_requests(torch, ft, dev, rng, model, SHED_REQUESTS,
+                             0, 0)
+        for n, r in enumerate(shed):
+            if n % 4 == 3:
+                r["deadline"] = SHED_DEADLINE_MS
+        run = wire_run(torch, ft, dev, model, shed, tmp, "selector",
+                       max_inflight=SHED_INFLIGHT)
+        res, series = run["res"], run["series"]
+        launches += run["launches"]
+        by = {c: [i for i, r in enumerate(res) if r[0] == c]
+              for c in (200, 503, 504)}
+        other = sorted({r[0] for r in res} - set(by))
+        if other or not by[503] or not by[504]:
+            fail(f"shed run: statuses {sorted({r[0] for r in res})}, "
+                 f"{len(by[503])} x 503, {len(by[504])} x 504")
+        if any(not res[i][1] or int(res[i][1]) < 1 for i in by[503]):
+            fail("shed run: a 503 without Retry-After")
+        if any("deadline" not in shed[i] for i in by[504]):
+            fail("shed run: a 504 for a request with no deadline")
+        err = check_wire_answers(torch, ft, dev, model, shed, res, "shed")
+        counted = {c: prom_sum(series, "pio_http_requests_total{",
+                               f'status="{c}"}}') for c in by}
+        shed_total = prom_sum(series, "pio_shed_total{")
+        deadline_batch = prom_sum(series, 'pio_shed_total{surface='
+                                  '"deadline_batch"')
+        expired = prom_sum(series, "pio_deadline_expired_total{")
+        if counted != {c: float(len(v)) for c, v in by.items()} \
+                or shed_total - deadline_batch != len(by[503]) \
+                or expired != len(by[504]):
+            fail(f"shed run: /metrics counts {counted}, shed "
+                 f"{shed_total} (deadline_batch {deadline_batch}), "
+                 f"expired {expired}; clients saw "
+                 f"{ {c: len(v) for c, v in by.items()} }")
+        out["shed"] = {
+            "requests": len(shed), "max_inflight": SHED_INFLIGHT,
+            "deadline_ms": float(SHED_DEADLINE_MS),
+            "deadlined": sum(1 for r in shed if "deadline" in r),
+            "status_counts": {str(c): len(v) for c, v in by.items()},
+            "metrics_status_counts": {str(c): v for c, v in counted.items()},
+            "shed_by_surface": {
+                k.split('surface="')[1].split('"')[0]: v
+                for k, v in series.items() if k.startswith(
+                    "pio_shed_total{")},
+            "deadline_expired": expired, "answers_checked": len(by[200]),
+            "max_abs_err": err, "launches": run["launches"],
+            "plan_calls": run["plan_calls"],
+            "ok_latency": lat_summary(res, by[200])}
+    out["launches"] = launches
+    out["max_abs_err"] = max(w["max_abs_err"]
+                             for w in out["wires"].values())
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -1920,12 +2333,16 @@ def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
         n_items = model.item_factors.shape[0]
         queries = make_queries(torch, ft, dev, rng, model, n_requests,
                                n_items)
-        proc, port, deploy_wall_s = start_deploy(tmp, cli, iid)
+        proc, port, deploy_wall_s = start_deploy(
+            tmp, cli, iid, "--server-key", LIFECYCLE_KEY)
         try:
             t0 = time.perf_counter()
             answers = serve_http(port, queries)
             wall_s = time.perf_counter() - t0
             status = http_status(port)
+            ops = lifecycle_operations(tmp, cli, config, proc, port, iid,
+                                       n_requests, model.users.inverse,
+                                       len(model.users))
         finally:
             stop_deploy(proc)
     if status["engineInstanceId"] != iid or status["plans"] != [
@@ -1958,8 +2375,167 @@ def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
            "serve": {"requests": n_requests, "answers_checked": n_requests,
                      "max_abs_err": max_err, **gate,
                      "wall_s": wall_s, "qps": n_requests / wall_s,
-                     "latency_ms": latency_ms(answers)}}
+                     "latency_ms": latency_ms(answers)},
+           "operations": ops}
     emit(out)
+    return out
+
+
+LIFECYCLE_KEY = "lifecycle-server-key"
+# a client process that queries the deploy over 4 kept-alive
+# connections until its stop file appears
+QUERY_LOOP_CLIENT = r"""
+import http.client, json, os, random, sys, threading, time
+port, users_file, stop_file, out_file = (int(sys.argv[1]), sys.argv[2],
+                                         sys.argv[3], sys.argv[4])
+users = json.load(open(users_file))
+codes, errors, lock = {}, [], threading.Lock()
+
+def run(w):
+    rnd = random.Random(w)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    while not os.path.exists(stop_file):
+        body = json.dumps({"user": rnd.choice(users), "num": 10})
+        try:
+            conn.request("POST", "/queries.json", body,
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = json.loads(resp.read())
+            ok = resp.status == 200 and len(data["itemScores"]) == 10
+            with lock:
+                codes[resp.status] = codes.get(resp.status, 0) + 1
+                if not ok:
+                    errors.append([resp.status, data])
+        except Exception as e:
+            with lock:
+                errors.append([-1, repr(e)])
+            conn.close()
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=120)
+
+threads = [threading.Thread(target=run, args=(w,)) for w in range(4)]
+for t in threads:
+    t.start()
+print("started", flush=True)
+for t in threads:
+    t.join()
+json.dump({"codes": codes, "errors": errors[:5],
+           "n_errors": len(errors)}, open(out_file, "w"))
+"""
+
+
+def http_json(port: int, path: str, method: str = "GET",
+              key: str = "") -> tuple:
+    """(status, JSON body) of one request; the server key, if any, as
+    the Basic username."""
+    import base64
+    import urllib.error
+    headers = {}
+    if key:
+        headers["Authorization"] = "Basic " + base64.b64encode(
+            f"{key}:".encode()).decode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method, headers=headers,
+        data=b"" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def lifecycle_operations(tmp: Path, cli, config: dict, proc, port: int,
+                         iid: str, served_before: int, user_id,
+                         n_users: int) -> dict:
+    """What an operator runs against the deploy: `cli redeploy` (train,
+    then POST /reload) while a client process keeps querying; a /reload
+    onto a COMPLETED instance whose blob is gone (500, the old instance
+    serves on); `cli undeploy` (the deploy process exits 0). Gates: no
+    request fails, /status.json's instance flips, K1 launches = plan
+    calls of both plans = two warmups + drained chunks (+ 1 for a batch
+    straddling the publish)."""
+    from predictionio_tpu_torch.data.event import utcnow
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    out = {}
+    stop_file, res_file = tmp / "client.stop", tmp / "client.json"
+    users_file = tmp / "client_users.json"
+    users_file.write_text(json.dumps([user_id(u) for u in range(n_users)]))
+    client = subprocess.Popen(
+        [sys.executable, "-c", QUERY_LOOP_CLIENT, str(port),
+         str(users_file), str(stop_file), str(res_file)],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        if client.stdout.readline().strip() != "started":
+            fail("the lifecycle query client did not start")
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        red = subprocess.run(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", "redeploy",
+             "--port", str(port), "--accesskey", LIFECYCLE_KEY], cwd=tmp,
+            env=cli.env, capture_output=True, text=True, timeout=900)
+        out["redeploy_s"] = time.perf_counter() - t0
+        time.sleep(1.0)
+    finally:
+        stop_file.write_text("")
+        client.wait(timeout=120)
+    if red.returncode != 0 or not red.stdout.strip().endswith("Reloaded"):
+        fail(f"cli redeploy exited {red.returncode}: {red.stdout[-500:]} "
+             f"{red.stderr[-2000:]}")
+    new_iid = json.loads(red.stdout[:red.stdout.rindex("}") + 1])[
+        "engineInstanceId"]
+    traffic = json.loads(res_file.read_text())
+    if traffic["n_errors"] or list(traffic["codes"]) != ["200"]:
+        fail(f"requests failed across the redeploy: {traffic}")
+    code, st = http_json(port, "/status.json")
+    if code != 200 or st["engineInstanceId"] != new_iid or new_iid == iid:
+        fail(f"/status.json shows {st.get('engineInstanceId')} after the "
+             f"redeploy to {new_iid} (was {iid})")
+    queried = served_before + traffic["codes"]["200"]
+    sizes = {int(k): v for k, v in st["batch_sizes"].items()}
+    if sum(n * c for n, c in sizes.items()) != queried:
+        fail(f"redeploy: batches {sizes} do not add up to {queried}")
+    buckets, = st["plan_buckets"]
+    expected = 2 * len(buckets) + sum(c * -(-n // max(buckets))
+                                      for n, c in sizes.items())
+    launches = st["kernel_launches"]["fused_topk"]
+    if not (launches == st["process_plan_calls"]
+            and expected <= launches <= expected + 1):
+        fail(f"redeploy: K1 launches {launches}, plan calls of both plans "
+             f"{st['process_plan_calls']}, expected {expected}")
+    out.update(redeployed_to=new_iid, queries_during=traffic["codes"]["200"],
+               launches=launches, plan_calls=st["process_plan_calls"],
+               expected_calls=expected, instance_flipped=True)
+    # a COMPLETED instance without its blob: the reload fails, rolls back
+    reg = StorageRegistry(config)
+    instances = reg.get_meta_data_engine_instances()
+    ghost = instances.insert(instances.get(new_iid).with_(
+        id="", start_time=utcnow()))
+    reg.close()
+    code, body = http_json(port, "/reload", "POST", LIFECYCLE_KEY)
+    code_st, st = http_json(port, "/status.json")
+    probe = http_post(port, {"user": user_id(0), "num": 10})[0]
+    if code != 500 or st["engineInstanceId"] != new_iid or \
+            len(probe["itemScores"]) != 10:
+        fail(f"/reload onto blobless {ghost}: {code} {body}; serving "
+             f"{st.get('engineInstanceId')}")
+    out["rollback"] = {"status": code, "message": body.get("message"),
+                       "serving": st["engineInstanceId"]}
+    denied = http_json(port, "/stop", "POST")[0]
+    t0 = time.perf_counter()
+    und = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli", "undeploy",
+         "--port", str(port), "--accesskey", LIFECYCLE_KEY], cwd=tmp,
+        env=cli.env, capture_output=True, text=True, timeout=120)
+    try:
+        code = proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        fail("the deploy process outlived `cli undeploy` by 30 s")
+    if denied != 401 or und.returncode != 0 or code != 0:
+        fail(f"undeploy: /stop without the key {denied}, cli undeploy "
+             f"{und.returncode} {und.stdout!r}, deploy exit {code}")
+    out["undeploy"] = {"stop_without_key": denied,
+                       "exit_code": code,
+                       "seconds_to_exit": time.perf_counter() - t0}
     return out
 
 
@@ -2712,6 +3288,15 @@ def phase_quickstart(torch, ft, dev, rng, project: dict, n_requests: int,
                       and x["status"] == 201)
         if code != 200 or counted != len(drip) + INGEST_EVENTS:
             fail(f"/stats.json counts {counted} rate events")
+        with urllib.request.urlopen(f"http://127.0.0.1:{es_port}/metrics",
+                                    timeout=60) as resp:
+            es_series = prom(resp.read().decode())
+        es_wire = prom_sum(es_series, "pio_wire_requests_total{")
+        es_ingested = {k.split('"')[1]: v for k, v in es_series.items()
+                       if k.startswith("pio_events_ingested_total{")}
+        if not es_wire or es_ingested.get("batch", 0) < INGEST_EVENTS:
+            fail(f"the event server's /metrics: wire requests {es_wire}, "
+                 f"ingested {es_ingested}")
 
         # 3. a webhook and the reads
         segment = {"type": "track", "user_id": "quickstart-segment-user",
@@ -2845,6 +3430,11 @@ def phase_quickstart(torch, ft, dev, rng, project: dict, n_requests: int,
                       "request_ms": {"p50": 1e3 * lat[len(lat) // 2],
                                      "p99": 1e3 * lat[int(0.99 * (
                                          len(lat) - 1))]},
+                      "wire": "selector",
+                      "wire_requests": es_wire,
+                      "metrics_events_ingested": es_ingested,
+                      "threaded_wire_events_per_s":
+                          THREADED_REST_EVENTS_PER_S,
                       "pevlog_import_events_per_s": import_events_per_s,
                       "pevlog_insert_ms_alone": pevlog_insert_ms(tmp),
                       "drip_ms_per_event": 1e3 * post_s / len(drip),
@@ -2977,6 +3567,23 @@ def templates_ingest(events, app_id: int, d: dict) -> dict:
         events.insert_batch(batch, app_id)
         n += len(batch)
     return {"events": n, "seconds": time.perf_counter() - t0}
+
+
+def sidecar_sizes(events, root: Path) -> dict:
+    """PEVLOG's segment sidecars after an ingest: persisted now, their
+    bytes on disk, the filters' sizes, and the Bloom digests the
+    indexes remember (occurrences and distinct keys, the regrow's
+    sizing input)."""
+    events.c.close()                     # persists every dirty sidecar
+    idx = sorted(root.rglob("*.idx"))
+    ixs = list(events.c.index_cache.values())
+    digests = [dg for ix in ixs for dg in ix.digests]
+    return {"segments": len(idx),
+            "bytes": sum(f.stat().st_size for f in idx),
+            "max_bytes": max((f.stat().st_size for f in idx), default=0),
+            "bloom_bits": sorted({ix.bits for ix in ixs}),
+            "digests": sum(len(dg) for dg in digests),
+            "distinct_digests": sum(len(set(dg)) for dg in digests)}
 
 
 def ranked(torch, scores, allowed, num: int):
@@ -3366,7 +3973,8 @@ def phase_templates(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
         events.init(app["id"])
         ingest = templates_ingest(events, app["id"], d)
         out["ingest"] = {**ingest,
-                         "events_per_s": ingest["events"] / ingest["seconds"]}
+                         "events_per_s": ingest["events"] / ingest["seconds"],
+                         "sidecars": sidecar_sizes(events, tmp / "pevlog")}
         (tmp / "ecommerce.json").write_text(json.dumps({
             "id": "ecommerce", "engineFactory": "ecommerce",
             "datasource": {"params": {"app_name": "shop"}},
@@ -4354,31 +4962,51 @@ def max_rel(card_losses, cpu_losses) -> float:
     return float(np.max(np.abs(card - cpu) / np.abs(cpu)))
 
 
-def step_parity(torch, what: str, card_losses, cpu_losses,
+def tf32_flag(torch) -> str:
+    """What cuBLAS float32 products may use: `fp32_precision` where the
+    torch has it ("tf32" or "ieee"), else from `allow_tf32`."""
+    fp = getattr(torch.backends.cuda.matmul, "fp32_precision", None)
+    if fp is not None:
+        return str(fp)
+    return "tf32" if torch.backends.cuda.matmul.allow_tf32 else "ieee"
+
+
+def step_parity(torch, what: str, card_losses, cpu_losses, make_step,
                 train_epoch) -> dict:
     """The card's first PARITY_STEPS losses against the CPU port's from
     the same init and batches: max relative difference, gated at
-    STEP_RTOL. Beside it, reported and not gated, the same reading of
-    one epoch (`train_epoch(losses)`) in the lower precisions the gate
-    is there to catch: float32 matmuls at `high` precision (TF32 where
-    cuBLAS picks it) and under bfloat16 autocast."""
+    STEP_RTOL. Beside it, reported and not gated, the same reading in
+    the lower precisions the gate is there to catch. The TF32 control:
+    `make_step()` builds the net and its Adam on the card from the same
+    init (their constructors resolve the device, which turns TF32 off),
+    THEN the precision is set to `high`, and the PARITY_STEPS steps run
+    through the step function it returns; the phase fails unless
+    cuBLAS may still take TF32 at the end of them. The bfloat16 control
+    runs one epoch (`train_epoch(losses)`) under autocast."""
     rel = max_rel(card_losses, cpu_losses)
     if not rel <= STEP_RTOL:
         fail(f"{what}: the card's step losses "
              f"{[float(x) for x in card_losses[:4]]} ... differ from the "
              f"CPU port's {cpu_losses[:4]} ... by {rel} (tol {STEP_RTOL})")
+    step = make_step()
     prior = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
     try:
-        tf32 = []
-        train_epoch(tf32)
+        tf32 = [step(s) for s in range(PARITY_STEPS)]
+        tf32 = [float(x) for x in tf32]
+        flag = tf32_flag(torch)
     finally:
         torch.set_float32_matmul_precision(prior)
+    if flag != "tf32":
+        fail(f"{what}: the TF32 control ran with fp32 precision {flag!r}")
     bf16 = []
     with torch.autocast("cuda", dtype=torch.bfloat16):
         train_epoch(bf16)
+    tf32_rel = max_rel(tf32, cpu_losses)
     return {"max_rel": rel, "tol": STEP_RTOL,
-            "tf32_control_max_rel": max_rel(tf32, cpu_losses),
+            "tf32_control_flag": flag,
+            "tf32_control_max_rel": tf32_rel,
+            "tf32_control_within_tol": tf32_rel <= STEP_RTOL,
             "bf16_autocast_control_max_rel": max_rel(bf16, cpu_losses)}
 
 
@@ -4423,8 +5051,20 @@ def neural_twotower_op(torch, dev) -> dict:
                               step_losses=losses, on_step=clock, **kw)
     train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    def tt_step():
+        net_c = tw.TwoTowerNet(init, dev)
+        adam_c = Adam(list(net_c.parameters()), lr)
+
+        def one(s):
+            sel = order[s * TT_BATCH:(s + 1) * TT_BATCH]
+            return tw.train_step(
+                net_c, adam_c,
+                torch.from_numpy(ut[sel].astype(np.int64)).to(dev),
+                torch.from_numpy(it[sel].astype(np.int64)).to(dev), temp)
+        return one
+
     parity = step_parity(
-        torch, "twotower", losses, cpu_losses,
+        torch, "twotower", losses, cpu_losses, tt_step,
         lambda out: tw.twotower_train(ut, it, epochs=1, device=dev,
                                       step_losses=out, **kw))
     scores = model.user_emb[d["u"][d["sample"]]] @ model.item_emb.T
@@ -4489,8 +5129,21 @@ def neural_seqrec_op(torch, dev) -> dict:
                             step_losses=losses, on_step=clock, **kw)
     train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    def sr_step():
+        net_c = sq.SeqRecNet(init, n_items=SR_ITEMS, n_heads=SR_HEADS,
+                             device=dev)
+        adam_c = Adam(list(net_c.parameters()), lr)
+
+        def one(s):
+            rows = slice(s * SR_BATCH, (s + 1) * SR_BATCH)
+            return sq.train_step(
+                net_c, adam_c,
+                torch.from_numpy(st[rows].astype(np.int64)).to(dev),
+                torch.from_numpy(tt_[rows].astype(np.int64)).to(dev), temp)
+        return one
+
     parity = step_parity(
-        torch, "seqrec", losses, cpu_losses,
+        torch, "seqrec", losses, cpu_losses, sr_step,
         lambda out: sq.seqrec_train(st, tt_, epochs=1, device=dev,
                                     step_losses=out, **kw))
     vecs = sq.seqrec_encode(model, sh, device=dev)
@@ -4937,7 +5590,13 @@ def phase_neural(torch, ft, dev, seed: int, card: str) -> dict:
     out["k1_launches"], out["k2_launches"] = k1, k2
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "neural", "card": card, "k1_launches": k1,
-          "k2_launches": k2, "seconds": out["seconds"],
+          "k2_launches": k2,
+          "tf32_control": {k: {f: out[f"{k}_op"]["step_parity"][f]
+                               for f in ("tf32_control_flag",
+                                         "tf32_control_max_rel",
+                                         "tf32_control_within_tol")}
+                           for k in ("twotower", "seqrec")},
+          "seconds": out["seconds"],
           "part_seconds": out["part_seconds"],
           "seqrec_store": out["seqrec_store"],
           "scaffolds": out["scaffolds"]})
@@ -4958,7 +5617,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle",
                                        "streaming", "quickstart",
                                        "templates", "classification",
-                                       "neural"),
+                                       "neural", "wire"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
@@ -4966,10 +5625,13 @@ def main() -> int:
                          "and streaming; quickstart for parity and "
                          "quickstart; templates for parity and "
                          "templates; classification for parity and "
-                         "classification; neural for phase neural), no "
-                         "kernels line")
+                         "classification; neural for phase neural; wire "
+                         "for parity and wire), no kernels line")
     args = ap.parse_args()
     t_script = time.perf_counter()
+    # one structured line per HTTP request is too many for this run's
+    # output; the deploy subprocesses inherit the level
+    os.environ.setdefault("PIO_OBS_LOG_LEVEL", "WARNING")
 
     import torch
     if not torch.cuda.is_available():
@@ -5042,6 +5704,10 @@ def main() -> int:
             phase_classification(torch, ft, dev, args.seed, card)
         elif args.only == "neural":
             phase_neural(torch, ft, dev, args.seed, card)
+        elif args.only == "wire":
+            phase_parity(torch, ft, dev, rng)
+            model, _ = make_model(torch, rng)
+            phase_wire(torch, ft, dev, rng, model, card)
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
@@ -5055,6 +5721,7 @@ def main() -> int:
     err = phase_parity(torch, ft, dev, rng)
     model, setup_s = make_model(torch, rng)
     serve = phase_serve(torch, ft, dev, rng, model, setup_s, args.requests)
+    wire = phase_wire(torch, ft, dev, rng, model, card)
     err_sh = phase_parity_sharded(torch, ft, dev, rng, model)
     serve_sh = phase_serve_sharded(torch, ft, dev, rng, model,
                                    args.sharded_requests)
@@ -5081,10 +5748,11 @@ def main() -> int:
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
         "replaces": "predictionio_tpu/ops/fused_topk.py:206",
         "launches": serve["launches"],
-        "max_abs_err": max(err, serve["max_abs_err"]),
+        "max_abs_err": max(err, serve["max_abs_err"], wire["max_abs_err"]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "bucket": 64,
+        "wire_launches": wire["launches"],
         "tiered_launches": tiered["launches"],
         "trained_model_launches": served["launches"],
         "lifecycle_launches": lifecycle["serve"]["launches"],

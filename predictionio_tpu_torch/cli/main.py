@@ -7,9 +7,16 @@
         [--stop-after-read | --stop-after-prepare] [--skip-sanity-check] \
         [--device cpu]
     python -m predictionio_tpu_torch.cli deploy [--engine-instance-id ID] \
-        [--port 8000] [--batch-max 64] [--items-on-host] [--device cpu] \
-        [--refresh-interval SECONDS] [--feedback --accesskey KEY \
+        [--port 8000] [--batch-max 64] [--batch-window-ms 2] \
+        [--items-on-host] [--device cpu] [--refresh-interval SECONDS] \
+        [--server-key KEY] [--feedback --accesskey KEY \
         [--event-server-ip localhost] [--event-server-port 7070]]
+    python -m predictionio_tpu_torch.cli undeploy [--ip 127.0.0.1] \
+        [--port 8000] [--accesskey SERVER_KEY]
+    python -m predictionio_tpu_torch.cli redeploy [--engine-json engine.json] \
+        [--ip 127.0.0.1] [--port 8000] [--accesskey SERVER_KEY] [--device cpu]
+    python -m predictionio_tpu_torch.cli status
+    python -m predictionio_tpu_torch.cli version
     python -m predictionio_tpu_torch.cli eventserver [--ip 0.0.0.0] \
         [--port 7070] [--stats]
     python -m predictionio_tpu_torch.cli eval my.module.MyEvaluation \
@@ -41,6 +48,18 @@ is needed; SQLITE retrains in full on a change) and swaps the new item
 factors into the warmed plan. `--feedback` posts every served
 prediction back to the event server (`--event-server-ip`,
 `--event-server-port`, `--accesskey`) as a `predict` event.
+`--server-key` (else `PIO_SERVER_ACCESS_KEY` of the storage config, the
+JAX name) guards the server's `/reload` and `/stop`; the JAX deploy's
+`--accesskey` is the feedback key here too, so the server key has a
+flag of its own. `--batch-window-ms` is the micro-batcher's window.
+`PIO_SERVER_SSL_CERT` and `PIO_SERVER_SSL_KEY` serve TLS (on the
+threaded wire); `PIO_SERVE_WIRE=threaded` picks that wire without TLS.
+The deploy process exits 0 on SIGTERM or after `/stop`.
+
+`undeploy` POSTs `/stop` to a running server (the server key as
+`--accesskey`); `redeploy` trains engine.json's variant, then POSTs
+`/reload` (the reference's cron recipe); `status` prints the version,
+the storage and the devices; `version` the port's version.
 
 `eventserver` serves the REST event API (`/events.json`,
 `/batch/events.json`, webhooks, `/stats.json` with `--stats`) over the
@@ -70,10 +89,13 @@ from predictionio_tpu_torch.core.base import TrainingInterrupted
 from predictionio_tpu_torch.core.runtime import RuntimeContext
 from predictionio_tpu_torch.core.workflow import CoreWorkflow, prepare_deploy
 from predictionio_tpu_torch.models.recommendation import RecommendationEngine
+from predictionio_tpu_torch.obs import train_report
 from predictionio_tpu_torch.ops.als import ALSModel, load_npz
 from predictionio_tpu_torch.serving.server import (FeedbackConfig,
                                                    PredictionServer,
-                                                   _Deployment)
+                                                   _Deployment,
+                                                   install_signal_handlers)
+from predictionio_tpu_torch.utils.security import ssl_context_from_config
 
 
 def _emit(obj) -> None:
@@ -82,8 +104,8 @@ def _emit(obj) -> None:
 
 def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
            batch_max: int = 64, window_s: float = 0.002,
-           mesh=None, feedback: Optional[FeedbackConfig] = None
-           ) -> PredictionServer:
+           mesh=None, feedback: Optional[FeedbackConfig] = None,
+           **server_kw) -> PredictionServer:
     """Warm `model` for serving (kernel built, every bucket up to
     `batch_max` launched once) and start a `PredictionServer` on it in a
     background thread; returns the running server. `mesh`, an
@@ -93,26 +115,29 @@ def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
     local cards, as `serve_mesh_from_conf` decides. A sharded or tiered
     plan takes the device state: `model.item_factors` is moved to host
     RAM (`ALSAlgorithm.warm_serving`). `feedback` posts every served
-    prediction to an event server."""
+    prediction to an event server; `server_kw` go to `PredictionServer`
+    (`server_key`, `max_inflight`, `wire`, `plugins`, `metrics`, ...)."""
     algos, models, serving = prepare_deploy(
         RecommendationEngine.apply(), [model], warm_batch_max=batch_max,
         mesh=mesh)
     return _start(_Deployment(algos, models, serving), host, port,
-                  batch_max, window_s, feedback=feedback)
+                  batch_max, window_s, feedback=feedback, **server_kw)
 
 
 def deploy_instance(engine, instance, ctx: RuntimeContext, *,
                     host: str = "127.0.0.1", port: int = 8000,
                     batch_max: int = 64, window_s: float = 0.002,
                     items_device=None, refresh_interval_s: float = 0.0,
-                    feedback: Optional[FeedbackConfig] = None
-                    ) -> PredictionServer:
+                    feedback: Optional[FeedbackConfig] = None,
+                    **server_kw) -> PredictionServer:
     """Serve an engine instance: its models read back from the model
     store (`CoreWorkflow.prepare_deploy`) onto `ctx.device`, warmed as
     `deploy` warms a model, behind a started `PredictionServer`, whose
     `GET /` shows the instance id and the deploy's load, place and warm
     seconds. `refresh_interval_s` > 0 runs the streaming refresher;
-    `feedback` posts every served prediction to an event server."""
+    `feedback` posts every served prediction to an event server;
+    `server_kw` go to `PredictionServer`. Its `/reload` loads the
+    variant's latest COMPLETED instance the same way."""
     timings: dict = {}
     algos, models, serving = CoreWorkflow.prepare_deploy(
         engine, instance, ctx, warm_batch_max=batch_max,
@@ -120,7 +145,8 @@ def deploy_instance(engine, instance, ctx: RuntimeContext, *,
     return _start(_Deployment(algos, models, serving, engine=engine,
                               instance=instance, timings=timings),
                   host, port, batch_max, window_s, ctx=ctx,
-                  refresh_interval_s=refresh_interval_s, feedback=feedback)
+                  refresh_interval_s=refresh_interval_s, feedback=feedback,
+                  items_device=items_device, **server_kw)
 
 
 def _start(dep: _Deployment, host: str, port: int, batch_max: int,
@@ -180,6 +206,11 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     x.add_argument("--batch-max", type=int, default=64)
+    x.add_argument("--batch-window-ms", type=float, default=2.0,
+                   help="the micro-batcher's window")
+    x.add_argument("--server-key", default=None,
+                   help="key guarding /reload and /stop (default: "
+                        "PIO_SERVER_ACCESS_KEY)")
     x.add_argument("--items-on-host", action="store_true",
                    help="keep the item factors in host RAM; the serving "
                         "plan places what it needs on the device")
@@ -192,6 +223,24 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--event-server-ip", default="localhost")
     x.add_argument("--event-server-port", type=int, default=7070)
     x.add_argument("--accesskey", default="")
+    x = sub.add_parser("undeploy", help="POST /stop to a running server")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--accesskey", default="",
+                   help="the server key when /stop is key-protected")
+    x = sub.add_parser("redeploy", help="train, then POST /reload to the "
+                                        "running server")
+    x.add_argument("--engine-json", default="engine.json")
+    x.add_argument("--engine-factory")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--accesskey", default="",
+                   help="the server key when /reload is key-protected")
+    x.add_argument("--device", default=None,
+                   help="torch device of the train (default cuda)")
+    x = sub.add_parser("status", help="version, storage and devices")
+    x.add_argument("--engine-json", default="engine.json")
+    sub.add_parser("version", help="the port's version")
     x = sub.add_parser("eventserver", help="serve the REST event API")
     x.add_argument("--ip", default="0.0.0.0")
     x.add_argument("--port", type=int, default=7070)
@@ -254,14 +303,19 @@ def _deploy(args) -> int:
         event_server_ip=args.event_server_ip,
         event_server_port=args.event_server_port,
         access_key=args.accesskey) if args.feedback else None
+    registry = _registry()
+    server_kw = dict(
+        window_s=args.batch_window_ms / 1000.0, feedback=feedback,
+        server_key=(args.server_key if args.server_key is not None else
+                    registry.config.get("PIO_SERVER_ACCESS_KEY", "")),
+        ssl_context=ssl_context_from_config(registry.config))
     if args.model:
         model = load_npz(args.model, device=args.device,
                          items_device=items_device)
         server = deploy(model, host=args.ip, port=args.port,
-                        batch_max=args.batch_max, feedback=feedback)
+                        batch_max=args.batch_max, **server_kw)
         what, dev = args.model, model.device
     else:
-        registry = _registry()
         engine, inst = ops.deploy_target(
             registry, engine_instance_id=args.engine_instance_id,
             engine_json=args.engine_json, engine_factory=args.engine_factory)
@@ -270,15 +324,16 @@ def _deploy(args) -> int:
                                          device=args.device),
             host=args.ip, port=args.port, batch_max=args.batch_max,
             items_device=items_device,
-            refresh_interval_s=args.refresh_interval, feedback=feedback)
+            refresh_interval_s=args.refresh_interval, **server_kw)
         what = f"engine instance {inst.id}"
         dev = ", ".join(sorted({str(m.device)
                                 for m in server.deployment.models
                                 if hasattr(m, "device")}))
     print(f"serving {what} on http://{args.ip}:{server.port} ({dev})",
           flush=True)
-    _wait_for_sigterm()
-    server.stop()
+    # SIGTERM, SIGINT and POST /stop all end in the graceful stop()
+    install_signal_handlers(server)
+    server.stopped.wait()
     return 0
 
 
@@ -326,6 +381,31 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 device=args.device))
         elif cmd == "eventserver":
             return _eventserver(args)
+        elif cmd == "undeploy":
+            ok = ops.undeploy(args.ip, args.port, access_key=args.accesskey)
+            print("Undeployed" if ok else "No server responded", flush=True)
+            return 0 if ok else 1
+        elif cmd == "redeploy":
+            _emit(ops.train(_registry(), engine_json=args.engine_json,
+                            engine_factory=args.engine_factory,
+                            device=args.device))
+            ok = ops.reload_server(args.ip, args.port,
+                                   access_key=args.accesskey)
+            print("Reloaded" if ok
+                  else "Trained, but no server responded to /reload",
+                  flush=True)
+            return 0 if ok else 1
+        elif cmd == "status":
+            variant = "default"
+            try:
+                variant = ops.load_variant(args.engine_json).get(
+                    "id", "default")
+            except ValueError:
+                pass
+            _emit(ops.status(_registry(), variant))
+        elif cmd == "version":
+            import predictionio_tpu_torch
+            print(predictionio_tpu_torch.__version__)
         elif cmd == "template":
             path = ops.template_new(args.directory, base=args.base)
             _emit({"message": f"Engine scaffold created at {path}",
@@ -343,6 +423,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 # the reference ends a stop-after run normally; the
                 # instance stays FAILED, so deploy never serves it
                 _emit({"interrupted": type(e).__name__})
+            else:
+                print(train_report(), file=sys.stderr, flush=True)
         else:
             return _deploy(args)
         return 0

@@ -1,12 +1,14 @@
 """Command implementations of the port's CLI.
 
 The port of the lifecycle commands of `predictionio_tpu/cli/ops.py`
-(commands/{App,AccessKey,Engine,Import}.scala): `app new|list|show|
-delete`, `accesskey new|list`, `import` of API-JSON event lines, the
-engine.json plumbing of `build`, `train` and `deploy`, `eval`,
-`batchpredict` and the `template new` scaffold
-(commands/Template.scala). Every function but the scaffold takes the
-storage registry it works on.
+(commands/{App,AccessKey,Engine,Import,Management}.scala): `app new|
+list|show|delete`, `accesskey new|list`, `import` of API-JSON event
+lines, the engine.json plumbing of `build`, `train` and `deploy`,
+`eval`, `batchpredict`, `status`, the running server's `undeploy`
+(POST /stop) and `reload_server` (POST /reload, `redeploy`'s second
+half), and the `template new` scaffold (commands/Template.scala). Every
+function but the scaffold and the two server calls takes the storage
+registry it works on.
 """
 
 from __future__ import annotations
@@ -265,6 +267,94 @@ def batchpredict(registry, *, engine_json: str = "engine.json",
                           chunk_size=chunk_size)
     return {"engineInstanceId": instance.id, "predictions": n,
             "output": output_path}
+
+
+def status(registry, variant: str = "default") -> Dict[str, Any]:
+    """pio status (commands/Management.scala:99-181): the version, the
+    storage sources and repositories and whether their DAOs open, the
+    torch devices, and the latest COMPLETED instance of `variant` with
+    its phase timings."""
+    import torch
+
+    import predictionio_tpu_torch
+    info: Dict[str, Any] = {
+        "version": predictionio_tpu_torch.__version__,
+        "storageSources": {name: cfg.get("TYPE")
+                           for name, cfg in registry.sources.items()},
+        "repositories": {repo: cfg.get("SOURCE")
+                         for repo, cfg in registry.repositories.items()},
+    }
+    try:
+        registry.get_meta_data_apps().get_all()
+        registry.get_meta_data_engine_instances()
+        registry.get_model_data_models()
+        registry.get_events()
+        info["storage"] = "ok"
+    except Exception as e:  # noqa: BLE001 — reported, not raised
+        info["storage"] = f"error: {e}"
+    if torch.cuda.is_available():
+        info["devices"] = [torch.cuda.get_device_name(d)
+                           for d in range(torch.cuda.device_count())]
+        info["platform"] = "cuda"
+    else:
+        info["devices"], info["platform"] = [], "cpu"
+    info["torch"] = torch.__version__
+    info["status"] = ("(sleeping)" if info["storage"] == "ok"
+                      else "storage check failed")
+    try:
+        latest = registry.get_meta_data_engine_instances() \
+            .get_latest_completed("default", "default", variant)
+    except Exception:  # noqa: BLE001 — status never fails on metadata
+        latest = None
+    if latest is not None:
+        info["latestTrainedInstance"] = {
+            "id": latest.id,
+            "startTime": format_time(latest.start_time),
+            "endTime": format_time(latest.end_time),
+            "phaseTimings": latest.runtime_conf.get("phase_timings", {})}
+    return info
+
+
+def _post_server(ip: str, port: int, endpoint: str, access_key: str,
+                 timeout: float) -> bool:
+    """POST a lifecycle endpoint of a running prediction server. The
+    server key travels as the Basic-auth username (never in the URL, so
+    not in access logs). 401 raises ValueError; an unreachable server or
+    another status returns False."""
+    import base64
+    import urllib.error
+    import urllib.request
+    headers = {}
+    if access_key:
+        headers["Authorization"] = "Basic " + base64.b64encode(
+            f"{access_key}:".encode()).decode()
+    req = urllib.request.Request(f"http://{ip}:{port}{endpoint}",
+                                 data=b"", method="POST", headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status == 200
+    except urllib.error.HTTPError as e:
+        if e.code == 401:
+            raise ValueError(
+                f"Unauthorized: the server's {endpoint} is key-protected; "
+                "pass --accesskey with the server key") from e
+        return False
+    except OSError:
+        return False
+
+
+def reload_server(ip: str = "127.0.0.1", port: int = 8000,
+                  access_key: str = "", timeout: float = 300.0) -> bool:
+    """POST /reload: the running server loads, warms and publishes the
+    latest COMPLETED instance (train + reload is the reference's cron
+    redeploy recipe, examples/redeploy-script/redeploy.sh)."""
+    return _post_server(ip, port, "/reload", access_key, timeout=timeout)
+
+
+def undeploy(ip: str = "127.0.0.1", port: int = 8000,
+             access_key: str = "") -> bool:
+    """POST /stop to a running prediction server (Console undeploy)."""
+    return _post_server(ip, port, "/stop", access_key, timeout=30)
 
 
 # -- template scaffold (commands/Template.scala) ------------------------------

@@ -47,6 +47,7 @@ from predictionio_tpu_torch.data.storage.base import (EngineInstance,
                                                       EngineInstanceStatus,
                                                       Model)
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import record_train_phases
 
 _log = logging.getLogger("pio.torch.workflow")
 
@@ -196,6 +197,10 @@ class CoreWorkflow:
             tm = ctx.phase_timings
             tm["store_s"] = round(time.perf_counter() - t0, 4)
             tm["blob_bytes"] = len(blob)
+            # the phases' seconds into the metrics registry, where `cli
+            # train`'s report and /metrics read them
+            record_train_phases({k: v for k, v in tm.items()
+                                 if k.endswith("_s")})
             # the beat must be down before the terminal write: a late
             # get + update beat could bring TRAINING back after COMPLETED
             beat.stop()

@@ -25,12 +25,15 @@ other events with 403.
 Every accepted event is one `EventStore.insert`, a batch's too, as in
 the JAX package: each item of `/batch/events.json` gets its own status,
 and one bad item fails none of the others. `ingested` counts the
-accepted events by surface (single, batch, webhook).
+accepted events by surface (single, batch, webhook), as
+`pio_events_ingested_total{via}` does on `/metrics`, beside the
+`pio_ingest_payload_bytes` histogram of request bodies. The server runs
+on the HTTP base's wire (the selector wire unless `PIO_SERVE_WIRE=
+threaded`) and honours `X-PIO-Deadline-Ms`.
 
 Not ported yet: the startup `fsck` sweep and the readiness on storage
-circuit breakers (ROADMAP.md, Queue 1 item 6; readiness is always
-true), the `pio_events_ingested_total` counter and the payload
-histogram (item 5).
+circuit breakers (ROADMAP.md, Queue 1 item 4; readiness is always
+true).
 """
 
 from __future__ import annotations
@@ -51,12 +54,15 @@ from predictionio_tpu_torch.data.webhooks import (FORM_CONNECTORS,
                                                   JSON_CONNECTORS)
 from predictionio_tpu_torch.data.webhooks.connectors import (
     ConnectorException, connector_to_event)
+from predictionio_tpu_torch.obs import MetricsRegistry
 from predictionio_tpu_torch.utils.http import (HTTPError, HTTPServerBase,
                                                Request, Response,
                                                parse_basic_auth_user)
 
 MAX_EVENTS_PER_BATCH_REQUEST = 50  # EventServer.scala:70
 DEFAULT_QUERY_LIMIT = 20           # EventServer.scala:353
+PAYLOAD_BUCKETS = (256.0, 1024.0, 4096.0, 16384.0, 65536.0, 262144.0,
+                   1048576.0)
 
 
 @dataclass
@@ -76,9 +82,11 @@ class AuthData:
 
 class EventServer(HTTPServerBase):
     def __init__(self, config: Optional[EventServerConfig] = None,
-                 registry: Optional[StorageRegistry] = None):
+                 registry: Optional[StorageRegistry] = None,
+                 metrics: Optional[MetricsRegistry] = None):
         self.config = config or EventServerConfig()
-        super().__init__(host=self.config.ip, port=self.config.port)
+        super().__init__(host=self.config.ip, port=self.config.port,
+                         metrics=metrics)
         self.registry = registry or storage()
         self.event_client = self.registry.get_events()
         self.access_keys_client = self.registry.get_meta_data_access_keys()
@@ -88,6 +96,14 @@ class EventServer(HTTPServerBase):
         self._count_lock = threading.Lock()
         # accepted events by ingest surface: single, batch, webhook
         self.ingested: Dict[str, int] = {}
+        self._ingest_counter = self.metrics.counter(
+            "pio_events_ingested_total",
+            "Events accepted into storage, by ingest surface",
+            labels=("via",))
+        self._payload_hist = self.metrics.histogram(
+            "pio_ingest_payload_bytes",
+            "Ingest request payload size in bytes",
+            buckets=PAYLOAD_BUCKETS)
         self._install_routes()
 
     # -- auth ---------------------------------------------------------------
@@ -126,6 +142,7 @@ class EventServer(HTTPServerBase):
         self.plugin_context.notify_sniffers(info)
         with self._count_lock:
             self.ingested[via] = self.ingested.get(via, 0) + 1
+        self._ingest_counter.labels(via=via).inc()
         if self.config.stats:
             self.stats.bookkeeping(auth.app_id, 201, event)
         return event_id
@@ -159,6 +176,7 @@ class EventServer(HTTPServerBase):
         @r.post("/events.json")
         def post_event(req: Request) -> Response:
             auth = self._auth(req)
+            self._payload_hist.observe(float(len(req.body)))
             event = Event.from_api_json(req.json())
             if auth.events and event.event not in auth.events:
                 return Response.json(
@@ -216,6 +234,7 @@ class EventServer(HTTPServerBase):
         @r.post("/batch/events.json")
         def post_batch(req: Request) -> Response:
             auth = self._auth(req)
+            self._payload_hist.observe(float(len(req.body)))
             payload = req.json()
             if not isinstance(payload, list):
                 raise HTTPError(400,
@@ -263,6 +282,7 @@ class EventServer(HTTPServerBase):
         @r.post("/webhooks/<name>.json")
         def webhook_json(req: Request) -> Response:
             auth = self._auth(req)
+            self._payload_hist.observe(float(len(req.body)))
             connector = JSON_CONNECTORS.get(req.params["name"])
             if connector is None:
                 return _unsupported(req.params["name"])
@@ -283,6 +303,7 @@ class EventServer(HTTPServerBase):
         @r.post("/webhooks/<name>.form")
         def webhook_form(req: Request) -> Response:
             auth = self._auth(req)
+            self._payload_hist.observe(float(len(req.body)))
             connector = FORM_CONNECTORS.get(req.params["name"])
             if connector is None:
                 return _unsupported(req.params["name"])

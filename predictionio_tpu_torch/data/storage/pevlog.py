@@ -415,7 +415,11 @@ class _SegmentIndex:
         never mutated, concurrent readers keep a valid filter."""
         if not self.digests_complete:
             return None
-        biggest = max(len(s) for s in self.digests)
+        # a digest is remembered per key OCCURRENCE (an entity with many
+        # events repeats its digest): size by the distinct keys, and hand
+        # on the lists without the repeats
+        distinct = tuple(list(dict.fromkeys(dg)) for dg in self.digests)
+        biggest = max(len(dg) for dg in distinct)
         # size one doubling AHEAD of the current key count: bulk ingest
         # keeps appending to the segment, and regrowing once per batch
         # re-adds every digest each time
@@ -426,12 +430,12 @@ class _SegmentIndex:
         ix.mem_size, ix.dirty = self.mem_size, self.dirty
         ix.names_incomplete = self.names_incomplete
         ix.event_names = set(self.event_names)
-        # the digest lists transfer: writers are lock-serialized, and
-        # the abandoned old object never appends again
-        ix.digests = self.digests
-        for buf, attr, dg in ((ix.bloom, "filled", self.digests[0]),
-                              (ix.tbloom, "tfilled", self.digests[1]),
-                              (ix.pbloom, "pfilled", self.digests[2])):
+        # the (deduplicated) digest lists transfer: writers are
+        # lock-serialized, and the abandoned old object never appends
+        ix.digests = distinct
+        for buf, attr, dg in ((ix.bloom, "filled", distinct[0]),
+                              (ix.tbloom, "tfilled", distinct[1]),
+                              (ix.pbloom, "pfilled", distinct[2])):
             n = 0
             for d in dg:
                 n += ix._bits_add_digest(buf, d)

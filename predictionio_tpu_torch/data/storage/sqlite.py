@@ -12,7 +12,12 @@ the other.
 
 One connection per client, opened with `check_same_thread=False` and
 used under an RLock, so the prediction server's threads can share it;
-WAL mode keeps readers unblocked.
+WAL mode keeps readers unblocked. Several processes may open one new
+file at once (`cli` commands started together): the WAL switch is
+skipped when the file already reads `wal`, and the switch and the
+schema are retried while another opener holds the lock, with backoff
+under a bounded deadline (`OPEN_DEADLINE_S`). The JAX package's client
+runs the switch once and raises `database is locked` there.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
 
 from predictionio_tpu_torch.data import integrity
+from predictionio_tpu_torch.resilience import (Deadline, RetryPolicy,
+                                               call_with_retry,
+                                               deadline_scope)
 from predictionio_tpu_torch.data.event import (DataMap, Event, from_millis,
                                                to_millis)
 from predictionio_tpu_torch.data.storage import base, columns
@@ -81,6 +89,19 @@ META_DDL = (
 )
 
 
+# how long an open waits out other processes opening the same new file
+OPEN_DEADLINE_S = 30.0
+
+
+class _StoreBusy(Exception):
+    """Another connection holds the lock the open needs (retried)."""
+
+
+def _busy(e: sqlite3.OperationalError) -> bool:
+    msg = str(e).lower()
+    return "locked" in msg or "busy" in msg
+
+
 class SQLiteStorageClient:
     """Owns the sqlite connection; all DAOs of a source share one client."""
 
@@ -92,17 +113,36 @@ class SQLiteStorageClient:
         self.path = path
         self.lock = threading.RLock()
         self.conn = sqlite3.connect(self.path, check_same_thread=False)
-        self.conn.execute("PRAGMA journal_mode=WAL")
-        self.conn.execute("PRAGMA synchronous=NORMAL")
-        with self.lock, self.conn:
-            for ddl in META_DDL:
-                self.conn.execute(ddl)
+        policy = RetryPolicy(attempts=64, base_delay=0.01, max_delay=0.5,
+                             retryable=(_StoreBusy,))
+        try:
+            with deadline_scope(Deadline.after_s(OPEN_DEADLINE_S)):
+                call_with_retry(self._init_schema, policy=policy)
+        except _StoreBusy as e:
+            raise e.__cause__ from None
+
+    def _init_schema(self) -> None:
+        """WAL (unless the file already reads it), then the tables; a
+        lock held by another opener raises `_StoreBusy`."""
+        try:
+            mode = self.conn.execute("PRAGMA journal_mode").fetchone()[0]
+            if str(mode).lower() != "wal":
+                self.conn.execute("PRAGMA journal_mode=WAL")
+            self.conn.execute("PRAGMA synchronous=NORMAL")
+            with self.lock, self.conn:
+                for ddl in META_DDL:
+                    self.conn.execute(ddl)
+        except sqlite3.OperationalError as e:
+            if _busy(e):
+                raise _StoreBusy(str(e)) from e
+            raise
         try:   # a store made before instances had a heartbeat column
             with self.lock, self.conn:
                 self.conn.execute(
                     "ALTER TABLE engine_instances ADD COLUMN heartbeat INTEGER")
-        except sqlite3.OperationalError:
-            pass
+        except sqlite3.OperationalError as e:
+            if _busy(e):
+                raise _StoreBusy(str(e)) from e
 
     def close(self) -> None:
         with self.lock:

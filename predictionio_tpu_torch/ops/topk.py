@@ -47,6 +47,17 @@ HOST_CROSSOVER_CELLS = int(os.environ.get(
 # calls by the path that served them; plain ints under the GIL
 DISPATCH_COUNTS = {"host": 0, "device": 0, "fused": 0, "sharded": 0}
 
+# bucket calls of every fused top-k plan of the process (BucketedTopK,
+# ShardedBucketedTopK), warmups included; each is one K1 launch per
+# shard, so a server that reloads can hold its kernel's launches
+# against the calls of the plans it retired too
+PLAN_CALLS = 0
+
+
+def count_plan_call() -> None:
+    global PLAN_CALLS
+    PLAN_CALLS += 1
+
 # below this many cells the policy never promotes to the device
 PROMOTE_FLOOR_CELLS = int(os.environ.get(
     "PIO_TOPK_PROMOTE_FLOOR_CELLS", 1 << 16))
@@ -459,6 +470,7 @@ class BucketedTopK:
     def _launch(self, vecs: torch.Tensor, banned: np.ndarray):
         from predictionio_tpu_torch.ops import fused_topk
         self.calls += 1
+        count_plan_call()
         return fused_topk.fused_topk(
             vecs, self.factors, torch.from_numpy(banned).to(self.device),
             k=self.k, n_valid=self.n_items)

@@ -361,6 +361,7 @@ class ShardedBucketedTopK:
         `devices[0]`, not synchronised."""
         from predictionio_tpu_torch.ops import fused_topk
         self.calls += 1
+        topk.count_plan_call()
         per, n_items, dev0 = self.per_shard, self.n_items, self.devices[0]
         inputs = {}   # device -> (vecs, banned) uploaded once per device
         scores, gids = [], []

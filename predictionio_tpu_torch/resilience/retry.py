@@ -1,12 +1,13 @@
 """Bounded retry with exponential backoff and full jitter.
 
 The port of `RetryPolicy` and `call_with_retry` from
-`predictionio_tpu/resilience/retry.py`, without its deadline
-awareness (deadlines are not ported yet): exponential backoff
+`predictionio_tpu/resilience/retry.py`: exponential backoff
 (`base_delay * multiplier**attempt`, capped at `max_delay`), each delay
 scaled by a random factor in [1 - jitter, 1], and an explicit allowlist
-of retryable exceptions (anything else propagates at once). The sleep
-is injectable so that tests run a schedule in microseconds.
+of retryable exceptions (anything else propagates at once), and
+deadline awareness: when the request's `current_deadline()` has less
+budget left than the next backoff, the last failure propagates at once.
+The sleep is injectable so that tests run a schedule in microseconds.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import random
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple, Type
+
+from predictionio_tpu_torch.resilience.deadline import current_deadline
 
 
 @dataclass(frozen=True)
@@ -49,5 +52,9 @@ def call_with_retry(fn: Callable, *args,
         except policy.retryable:
             if attempt == attempts - 1:
                 raise
-            sleep(policy.backoff(attempt))
+            delay = policy.backoff(attempt)
+            deadline = current_deadline()
+            if deadline is not None and deadline.remaining() <= delay:
+                raise     # no budget to wait out the backoff
+            sleep(delay)
     raise AssertionError("unreachable")  # pragma: no cover

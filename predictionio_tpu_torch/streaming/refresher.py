@@ -34,9 +34,17 @@ again (a fold reads a touched user's whole history). The tick counters
 by outcome, each outcome's latest tick seconds (a fold's split into
 scan, fold (of it the history read, and how many full scans it took),
 swap and publish), `freshness_s` and the watermark the served model
-reflects show on the server's `GET /` (`status()`).
-The JAX package's metrics, trace spans, watchdog beat, fault seam and
-remote ingest routing are not ported yet.
+reflects show on the server's `GET /` (`status()`), and the JAX
+package's metrics on its `/metrics`: `pio_streaming_refresh_total
+{outcome}`, `pio_streaming_refresh_seconds`, `pio_freshness_seconds`
+and `pio_streaming_fold_rows_total{side}`.
+
+A `/reload` publishes a deployment of another instance: it calls
+`rebase()`, so that the next tick takes a fresh baseline, and a fold
+computed meanwhile from the replaced deployment is dropped (outcome
+`superseded`), its factor swaps undone.
+The JAX package's trace spans, watchdog beat, fault seam and remote
+ingest routing are not ported yet.
 """
 
 from __future__ import annotations
@@ -101,6 +109,22 @@ class Refresher:
         # outcome -> the seconds of its latest tick, by phase
         self.last_ticks: Dict[str, Dict[str, float]] = {}
         self.freshness_s = 0.0
+        self._rebase = False
+        reg = server.metrics
+        self._m = {
+            "freshness": reg.gauge(
+                "pio_freshness_seconds",
+                "age of the newest event reflected in the serving model, "
+                "sampled at the last successful refresh tick"),
+            "ticks": reg.counter(
+                "pio_streaming_refresh_total",
+                "refresh ticks by outcome", labels=("outcome",)),
+            "tick_s": reg.histogram(
+                "pio_streaming_refresh_seconds", "refresh tick duration"),
+            "folded": reg.counter(
+                "pio_streaming_fold_rows_total",
+                "factor rows re-solved by fold-in", labels=("side",)),
+        }
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
@@ -138,17 +162,27 @@ class Refresher:
                     "freshness_s": self.freshness_s,
                     "watermark": self._wm}
 
+    def rebase(self) -> None:
+        """The served deployment changed under the refresher (a
+        /reload): the next tick takes a new baseline."""
+        self._rebase = True
+
     def _count(self, outcome: str, phases: Dict[str, float]) -> None:
         with self._lock:
             self.ticks[outcome] = self.ticks.get(outcome, 0) + 1
             self.last_outcome = outcome
             self.last_ticks[outcome] = dict(phases)
+        self._m["ticks"].labels(outcome=outcome).inc()
+        if "seconds" in phases:
+            self._m["tick_s"].observe(phases["seconds"])
+        self._m["freshness"].set(self.freshness_s)
 
     # -- one tick -----------------------------------------------------------
     def tick(self) -> str:
         """One refresh pass; returns its outcome (no_deployment, no_app,
-        no_watermark, baseline, noop, folded, no_hooks, full_rebuild or
-        rolled_back; the loop counts a tick that raises as failed),
+        no_watermark, baseline, noop, folded, no_hooks, superseded,
+        full_rebuild or rolled_back; the loop counts a tick that raises
+        as failed),
         also counted in `ticks`, with the pass's seconds in
         `last_ticks`."""
         t0 = time.perf_counter()
@@ -159,6 +193,10 @@ class Refresher:
         return outcome
 
     def _tick_inner(self, phases: Dict[str, float]) -> str:
+        if self._rebase:
+            self._rebase = False
+            self._wm = None
+            self._history = {}
         dep = self.server.deployment
         if dep is None:
             return "no_deployment"
@@ -231,6 +269,7 @@ class Refresher:
         phases["history_scans"] = fctx.history_scans
         if not folded:
             return "no_hooks"
+        self._m["folded"].labels(side="user").inc(len(delta.touched_users))
         # phase 2: commit (device swap, then the publish), rolling back
         # to the last good factors on any failure
         done = []                       # (plan, previous factors)
@@ -240,13 +279,17 @@ class Refresher:
                 done.append((plan, plan.swap_factors(factors)))
             phases["swap_s"] = time.perf_counter() - t
             t = time.perf_counter()
-            self.server.publish(self.server._refresh_deployment(
-                dep, new_models))
+            current = self.server.publish(self.server._refresh_deployment(
+                dep, new_models), expected=dep)
             phases["publish_s"] = time.perf_counter() - t
         except Exception:
             for plan, old in reversed(done):
                 plan.swap_factors(old)
             raise
+        if not current:
+            for plan, old in reversed(done):
+                plan.swap_factors(old)
+            return "superseded"
         self.freshness_s = max(0.0, time.time() - delta.newest_us / 1e6)
         return "folded"
 

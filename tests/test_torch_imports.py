@@ -54,7 +54,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "models.similarproduct", "ops.naive_bayes",
                      "ops.logreg", "ops.forest", "models.classification",
                      "ops.adam", "ops.attention", "ops.twotower",
-                     "ops.seqrec", "models.twotower", "models.seqrec"):
+                     "ops.seqrec", "models.twotower", "models.seqrec",
+                     "utils.wire", "utils.security", "obs", "obs.metrics",
+                     "obs.logs", "obs.report", "resilience.deadline",
+                     "resilience.shed", "resilience.faults",
+                     "serving.plugins"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -124,25 +128,34 @@ try:
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=60) as resp:
         body = json.loads(resp.read())
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/metrics", timeout=60) as resp:
+        metrics = resp.read().decode()
 finally:
     server.stop()
+served = [ln for ln in metrics.splitlines() if ln.startswith(
+    'pio_http_requests_total{route="/queries.json"')]
 print(json.dumps({"status": row.status, "answer": body, "loaded": sorted(
     m for m, v in sys.modules.items() if v is not None
-    and m.split(".")[0] in ("jax", "predictionio_tpu"))}))
+    and m.split(".")[0] in ("jax", "predictionio_tpu")),
+    "wire": server.wire, "served": served}))
 """
 
 
 def test_classification_trains_deploys_and_serves_without_jax():
     """The port's finish line for one template: in a process where
     `import jax` fails, the classification template (forest, naive,
-    logreg) trains, deploys behind the HTTP server and answers a query
-    on `device="cpu"`."""
+    logreg) trains, deploys behind the HTTP server on the selector wire,
+    answers a query on `device="cpu"` and counts it on `/metrics`."""
     out = subprocess.run([sys.executable, "-c", NO_JAX_TEMPLATE], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"status": "COMPLETED", "answer": {"label": 0.0},
-                   "loaded": []}
+                   "loaded": [], "wire": "selector",
+                   "served": ['pio_http_requests_total{route='
+                              '"/queries.json",method="POST",'
+                              'status="200"} 1']}
 
 
 def test_the_scan_worker_loads_neither_torch_nor_jax():

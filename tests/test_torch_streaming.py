@@ -643,6 +643,33 @@ def test_tick_protocol_and_hot_swap_without_rewarm(served):
     assert r.ticks == {"baseline": 1, "noop": 2, "folded": 1}
 
 
+def test_reload_rebases_the_refresher_and_drops_a_superseded_fold(served):
+    """A /reload publishes a deployment of another load: the refresher's
+    next tick is a new baseline, and a fold computed from the replaced
+    deployment is not published (its factor swap undone)."""
+    registry, srv, app_id = served
+    events = registry.get_events()
+    r = Refresher(srv, interval_s=999.0)
+    srv._refresher = r                     # what reload() rebases
+    assert r.tick() == "baseline"
+    assert r.tick() == "noop"
+    assert call(srv.port, "POST", "/reload")[0] == 200
+    assert r.tick() == "baseline"          # rebased on the new load
+    events.insert_batch([_rate("u1", "i2", 5.0)], app_id)
+    stale = srv.deployment
+    srv.publish(srv._refresh_deployment(stale, stale.models))
+    plan = stale.algos[0]._serve_plan
+    before = plan.factors
+    assert r._fold_and_swap(stale, scan_delta(
+        events, app_id, None, r._wm, events.ingest_watermark(app_id)),
+        FoldContext(store=events, app_id=app_id, channel_id=None,
+                    since=r._wm, upto=events.ingest_watermark(app_id),
+                    ds_params={"app_name": "streamapp"}), {}) == \
+        "superseded"
+    assert plan.factors is before and srv.deployment is not stale
+    srv._refresher = None
+
+
 def test_second_fold_extends_the_cached_history(served):
     """The refresher's second fold reads the delta alone (its history is
     the first fold's extended), and serves the model that two folds
