@@ -9,7 +9,8 @@
                           [--templates-requests 64]
                           [--only serve_sharded | train | lifecycle |
                                   streaming | quickstart | templates |
-                                  classification | neural | wire]
+                                  classification | neural | wire |
+                                  fleet]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -72,6 +73,37 @@ the result line:
               plan's Python and its waits on the interpreter lock
               included; not the card's busy time), the
               `pio_serve_stage_seconds` split and the host's CPU count.
+  4c. fleet   serving across processes and tenancy: phase 4's model
+              written once into a SQLITE store as a COMPLETED instance
+              (and a second one with a new item table), served through
+              `serving.fleet.FleetServer` routers whose replicas load
+              the instance as `cli deploy` does
+              (`cli.main.fleet_replica_factory`); clients in 4 processes
+              x 16 kept-alive connections with phase wire's mix. Every
+              answer equals bit for bit the single-device K1 answer of
+              its item table, and those answers are held to the plain
+              version. (a) 3 in-process replicas, `items=3@fleet`: each
+              replica's K1 over its 166,667-row slice
+              (`ShardSliceTopK`), 1,280 requests merged by the router;
+              per replica plan calls = warmed buckets + drained chunks,
+              K1 launches = the plan calls, no K2 launch. (b) 2
+              whole-catalog replicas rolled by `/reload` to the second
+              instance while clients loop: no request fails, each
+              answer is one table's, after the roll only the new one's.
+              (c) `cli deploy --supervised 2` as a subprocess, the two
+              children sharing the card: one child SIGKILLed under
+              load, no request fails (the router retries), the child is
+              respawned and admitted again (the seconds from the kill
+              and from the new process's start); each child's K1
+              launches = its plan calls = warmed buckets + drained
+              chunks (its GET /, the killed child's read just before
+              the kill); no child rebuilds the kernel library.
+              (d) tenancy at the router (`--tenancy on`), two apps'
+              access keys, one app at a 50 req/s rate quota: only its
+              excess gets 429 with Retry-After, the other app all 200,
+              the router's /metrics per-app counts equal the clients'.
+              Prints qps, p50 and p99 by the clients' clock per part
+              beside phase wire's direct selector pass of the same run.
   5. parity_sharded
               the kernel's sharded form (K2, `shard_local_candidates`)
               vs its plain version on shard slices of a 20,037-row
@@ -343,8 +375,12 @@ the build and phases 3 and 13, `--only quickstart` the build, phase 3,
 phase 13's import and train, and phase 14, `--only templates` the
 build and phases 3 and 15, `--only classification` the build and
 phases 3 and 16, `--only neural` the build and phase 17, `--only wire`
-the build and phases 3 and 4b; none prints the kernels line (whose K1
-entry counts phase 4b's launches as `wire_launches`). Every run
+the build and phases 3 and 4b, `--only fleet` the build, phase 3, one
+selector pass of phase 4b's requests (its reference) and phase 4c; none
+prints the kernels line (whose K1 entry counts phase 4b's launches as
+`wire_launches` and phase 4c's as `fleet_launches`: its in-process
+parts' and its supervised children's, the killed one's as read
+just before its kill). Every run
 prints its seconds (`script_s`).
 
 Then the kernels line, the nvidia-smi line and, last,
@@ -354,6 +390,7 @@ Then the kernels line, the nvidia-smi line and, last,
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import json
 import os
@@ -894,7 +931,7 @@ def run(w):
             hdrs["X-PIO-Deadline-Ms"] = r["deadline"]
         t0 = time.monotonic()
         try:
-            conn.request("POST", "/queries.json", body, hdrs)
+            conn.request("POST", r.get("path", "/queries.json"), body, hdrs)
             resp = conn.getresponse()
             data = resp.read().decode()
             out[n] = [resp.status, resp.getheader("Retry-After"), data,
@@ -953,8 +990,8 @@ def wire_clients(port: int, reqs: list, tmp: Path) -> list:
         for p in range(WIRE_PROCS):
             req_f, out_f = tmp / f"wire_req_{p}.json", tmp / f"wire_out_{p}.json"
             req_f.write_text(json.dumps(
-                [{k: r[k] for k in ("body", "bin", "deadline") if k in r}
-                 for r in reqs[p::WIRE_PROCS]]))
+                [{k: r[k] for k in ("body", "bin", "deadline", "path")
+                  if k in r} for r in reqs[p::WIRE_PROCS]]))
             proc = subprocess.Popen(
                 [sys.executable, "-c", WIRE_CLIENT, str(req_f), str(out_f),
                  "127.0.0.1", str(port), str(WIRE_CONNS)],
@@ -1225,6 +1262,593 @@ def phase_wire(torch, ft, dev, rng, model, card: str) -> dict:
     out["launches"] = launches
     out["max_abs_err"] = max(w["max_abs_err"]
                              for w in out["wires"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+# -- phase fleet: serving across processes and tenancy ------------------------
+FLEET_SHARDS = 3          # (a) --replicas 3 --mesh items=3@fleet
+MESH_REQUESTS = 1_280     # (a) half of phase wire's mix: the script's time
+ROLL_REPLICAS = 2         # (b) whole-catalog replicas rolled under load
+SUPERVISED = 2            # (c) --supervised 2, the whole catalog each
+TENANT_REQUESTS = 1_280   # (d) half per app
+FLOOD_RATE = 50.0         # (d) the over-quota app's rate and burst
+FLEET_KEY = "fleet-server-key"
+LOOP_PAD_S = 0.5          # load before a roll or a kill, and after it
+
+# a client process that cycles through its requests over kept-alive
+# connections until its stop file appears; every answer is recorded
+FLEET_LOOP_CLIENT = r"""
+import http.client, json, os, sys, threading, time
+reqfile, outfile, host, port, conns, stopfile = sys.argv[1:7]
+port, conns = int(port), int(conns)
+reqs = json.load(open(reqfile))
+pool = [http.client.HTTPConnection(host, port, timeout=120)
+        for _ in range(conns)]
+for c in pool:
+    c.connect()
+print("ready", flush=True)
+sys.stdin.readline()
+outs = [[] for _ in range(conns)]
+
+def run(w):
+    conn, n, out = pool[w], w, outs[w]
+    while not os.path.exists(stopfile):
+        r = reqs[n % len(reqs)]
+        n += conns
+        body = (bytes.fromhex(r["body"]) if r["bin"]
+                else r["body"].encode())
+        hdrs = {"Content-Type": ("application/x-pio-bin" if r["bin"]
+                                 else "application/json")}
+        t0 = time.monotonic()
+        try:
+            conn.request("POST", "/queries.json", body, hdrs)
+            resp = conn.getresponse()
+            out.append([r["i"], resp.status, resp.read().decode(), t0,
+                        time.monotonic()])
+        except Exception as e:
+            out.append([r["i"], -1, repr(e), t0, time.monotonic()])
+            conn.close()
+            conn = http.client.HTTPConnection(host, port, timeout=120)
+
+threads = [threading.Thread(target=run, args=(w,)) for w in range(conns)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+json.dump([x for o in outs for x in o], open(outfile, "w"))
+"""
+
+
+class FleetLoad:
+    """WIRE_PROCS FLEET_LOOP_CLIENT processes of WIRE_CONNS connections
+    each, cycling through `reqs` (each with its index "i") against
+    `port` from `start()` until `stop()`, which returns [index, status,
+    body, t_send, t_recv] per answer (CLOCK_MONOTONIC)."""
+
+    def __init__(self, port: int, reqs: list, tmp: Path, name: str):
+        self.stop_file = tmp / f"{name}.stop"
+        self.procs, self.outs = [], []
+        for p in range(WIRE_PROCS):
+            req_f = tmp / f"{name}_req_{p}.json"
+            out_f = tmp / f"{name}_out_{p}.json"
+            req_f.write_text(json.dumps(
+                [{k: r[k] for k in ("body", "bin", "i")}
+                 for r in reqs[p::WIRE_PROCS]]))
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", FLEET_LOOP_CLIENT, str(req_f),
+                 str(out_f), "127.0.0.1", str(port), str(WIRE_CONNS),
+                 str(self.stop_file)], stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, text=True))
+            self.outs.append(out_f)
+
+    def start(self) -> "FleetLoad":
+        for proc in self.procs:
+            if proc.stdout.readline().strip() != "ready":
+                self.kill()
+                fail("a fleet load client did not come up")
+        for proc in self.procs:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+        return self
+
+    def kill(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def stop(self) -> list:
+        self.stop_file.touch()
+        try:
+            for proc in self.procs:
+                if proc.wait(timeout=300) != 0:
+                    fail(f"a fleet load client exited {proc.returncode}")
+        finally:
+            self.kill()
+        return [r for out_f in self.outs
+                for r in json.loads(out_f.read_text())]
+
+
+def fleet_instance(registry, model) -> str:
+    """Record `model` as a COMPLETED instance of the recommendation
+    template in `registry` (blob and row as `cli train` writes them),
+    through `CoreWorkflow.run_train` with an algorithm that hands the
+    model over; returns its id."""
+    from predictionio_tpu_torch.core.base import (DataSource, FirstServing,
+                                                  IdentityPreparator)
+    from predictionio_tpu_torch.core.engine import Engine
+    from predictionio_tpu_torch.core.runtime import (RuntimeContext,
+                                                     WorkflowParams)
+    from predictionio_tpu_torch.core.workflow import CoreWorkflow
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+
+    class GivenModel(ALSAlgorithm):
+        def train(self, ctx, pd):
+            return model
+
+    class NoEvents(DataSource):
+        def read_training(self, ctx):
+            return None
+
+    engine = Engine(NoEvents, IdentityPreparator, {"als": GivenModel},
+                    FirstServing)
+    row = CoreWorkflow.run_train(
+        engine, engine.engine_params_from_variant(
+            {"algorithms": [{"name": "als", "params": {}}]}),
+        RuntimeContext(registry=registry, device=model.device,
+                       workflow_params=WorkflowParams(
+                           skip_sanity_check=True)),
+        engine_factory="recommendation", engine_variant="default")
+    return row.id
+
+
+def k1_answers(torch, ft, dev, model, queries) -> list:
+    """Single-device K1 over `model`'s whole catalog for each query, as
+    the served answer lists it: [(item names, float32 scores)], cut to
+    `num` and the real candidates."""
+    from predictionio_tpu_torch.ops.topk import NEG_INF
+    n_items = model.item_factors.shape[0]
+    items = model.item_factors.to(dev)
+    out = []
+    for lo in range(0, len(queries), 64):
+        part = queries[lo:lo + 64]
+        rows = torch.tensor([model.users(q["user"]) for q in part],
+                            device=dev)
+        banned = np.full((len(part), WIDTH), n_items, np.int32)
+        for r, q in enumerate(part):
+            ids = [model.items(x) for x in q.get("blackList", ())]
+            banned[r, :len(ids)] = ids
+        sc, ix = ft.fused_topk(model.user_factors[rows], items,
+                               torch.from_numpy(banned).to(dev), k=K,
+                               n_valid=n_items)
+        sc, ix = sc.cpu().numpy(), ix.cpu().numpy()
+        for r, q in enumerate(part):
+            keep = [c for c in range(K) if sc[r, c] > NEG_INF / 2][:q["num"]]
+            out.append(([model.items.inverse(int(ix[r, c])) for c in keep],
+                        [float(sc[r, c]) for c in keep]))
+    return out
+
+
+def match_tables(what: str, bodies: list, idx: list, tables: list) -> list:
+    """For each served body (of request `idx[n]`), the index of the K1
+    answer table it equals bit for bit (names and float32 scores); fails
+    on a body equal to none of them."""
+    out = []
+    for n, body in enumerate(bodies):
+        got = json.loads(body)
+        if "partial" in got:
+            fail(f"{what}: a partial answer {body[:200]}")
+        names = [g["item"] for g in got["itemScores"]]
+        scores = np.float32([g["score"] for g in got["itemScores"]])
+        hit = [t for t, table in enumerate(tables)
+               if table[idx[n]][0] == names and np.array_equal(
+                   np.float32(table[idx[n]][1]), scores)]
+        if not hit:
+            fail(f"{what}: request {idx[n]} answered {body[:300]}, no "
+                 "table's single-device K1 answer")
+        out.append(hit[0])
+    return out
+
+
+def member_calls(server) -> dict:
+    """An in-process replica's plan calls against its warmed buckets and
+    drained chunks."""
+    plan = server.deployment.algos[0]._serve_plan
+    sizes = server.batcher.batch_sizes()
+    expected = len(plan.buckets) + sum(c * -(-n // plan.max_bucket)
+                                       for n, c in sizes.items())
+    return {"shard": server.shard_spec(), "plan": type(plan).__name__,
+            "slice_items": getattr(plan, "slice_items", None),
+            "plan_calls": plan.calls, "expected_calls": expected,
+            "requests": sum(n * c for n, c in sizes.items()),
+            "drained_batches": sum(sizes.values()),
+            "warmed_buckets": len(plan.buckets)}
+
+
+def post_reload(port: int, key: str) -> dict:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/reload", data=b"", method="POST",
+        headers={"Authorization": "Basic " + base64.b64encode(
+            f"{key}:".encode()).decode()})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def proc_start_boottime(pid: int) -> Optional[float]:
+    """A process's start on CLOCK_BOOTTIME, from /proc (None off Linux)."""
+    try:
+        fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1]
+        ticks = int(fields.split()[19])
+    except (OSError, IndexError, ValueError):
+        return None
+    return ticks / os.sysconf("SC_CLK_TCK")
+
+
+def wire_reference(torch, ft, dev, rng, model) -> dict:
+    """`--only fleet`'s stand-in for phase wire's selector pass: the same
+    request mix served by one process on the selector wire, checked."""
+    reqs = wire_requests(torch, ft, dev, rng, model, WIRE_PLAIN,
+                         WIRE_BANNED, WIRE_BIN)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wire_") as tmp:
+        run = wire_run(torch, ft, dev, model, reqs, Path(tmp), "selector")
+    res = run["res"]
+    if sorted({r[0] for r in res}) != [200]:
+        fail(f"wire reference: statuses {sorted({r[0] for r in res})}")
+    check_wire_answers(torch, ft, dev, model, reqs, res, "wire reference")
+    return lat_summary(res, range(len(res)))
+
+
+def phase_fleet(torch, ft, dev, rng, model, card: str,
+                wire_ref: dict) -> dict:
+    """Phase 4's model written once into a SQLITE store as a COMPLETED
+    instance, served by fleets of the port's own processes, 4 client
+    processes x 16 kept-alive connections with phase wire's request mix,
+    every answer held bit for bit to the single-device K1 answer of its
+    table (and those to the plain version): (a) a router over 3
+    in-process replicas serving catalog slices (`items=3@fleet`); (b) a
+    rolling /reload of 2 whole-catalog replicas to a second instance
+    with a new item table, under load; (c) `cli deploy --supervised 2`
+    in a subprocess, one child SIGKILLed under load and respawned; (d)
+    tenancy at the router, one app past its rate quota."""
+    import signal
+    from predictionio_tpu_torch.cli import ops as cli_ops
+    from predictionio_tpu_torch.cli.main import fleet_replica_factory
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    from predictionio_tpu_torch.core.workflow import resolve_engine
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    from predictionio_tpu_torch.obs import MetricsRegistry
+    from predictionio_tpu_torch.ops import topk
+    from predictionio_tpu_torch.ops.als import als_model_from_numpy
+    from predictionio_tpu_torch.serving.fleet import FleetConfig, FleetServer
+    from predictionio_tpu_torch.tenancy import TenancyConfig
+    t_phase = time.perf_counter()
+    reqs = wire_requests(torch, ft, dev, rng, model, WIRE_PLAIN,
+                         WIRE_BANNED, WIRE_BIN)
+    for n, r in enumerate(reqs):
+        r["i"] = n
+    queries = [r["query"] for r in reqs]
+    model2 = als_model_from_numpy(
+        model.user_factors.cpu().numpy(),
+        rng.standard_normal((N_ITEMS, RANK), dtype=np.float32) / 8.0,
+        [f"u{n}" for n in range(N_USERS)], [f"i{n}" for n in range(N_ITEMS)],
+        device=dev)
+    # the answer tables: K1 on one card over each whole catalog, held to
+    # the plain version (these launches come before any count is reset)
+    tables = [k1_answers(torch, ft, dev, m, queries) for m in (model, model2)]
+    table_err = [check_answers(torch, ft, dev, m, queries, [
+        [{"item": a, "score": b} for a, b in zip(*row)] for row in table])
+        for m, table in zip((model, model2), tables)]
+    out = {"phase": "fleet", "card": card, "users": N_USERS,
+           "items": N_ITEMS, "rank": RANK, "k": K, "requests": len(reqs),
+           "client_processes": WIRE_PROCS,
+           "connections": WIRE_PROCS * WIRE_CONNS,
+           "table_max_abs_err": max(table_err),
+           "wire_selector_direct": wire_ref}
+    launches = 0
+    engine = resolve_engine("recommendation")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        tmp = Path(tmp)
+        config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+                  "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db")}
+        registry = StorageRegistry(config)
+        t0 = time.perf_counter()
+        iid1 = fleet_instance(registry, model)
+        out["store_instance_s"] = time.perf_counter() - t0
+        instances = registry.get_meta_data_engine_instances()
+        ctx = RuntimeContext(registry=registry, device=dev)
+
+        def factory(iid, **kw):
+            return fleet_replica_factory(
+                engine, instances.get(iid), ctx, batch_max=64,
+                server_key=FLEET_KEY, metrics=MetricsRegistry(), **kw)
+
+        def start_fleet(iid, replicas, mesh="", tenancy=None,
+                        metrics=None):
+            ft.LAUNCHES = 0          # the counts cover this part only
+            ft.SHARD_LAUNCHES = 0
+            topk.PLAN_CALLS = 0
+            t = time.perf_counter()
+            fleet = FleetServer(
+                factory(iid), fleet=FleetConfig(replicas=replicas),
+                port=0, registry=registry, mesh=mesh, server_key=FLEET_KEY,
+                tenancy=tenancy or TenancyConfig(),
+                metrics=metrics or MetricsRegistry())
+            fleet.start()
+            return fleet, time.perf_counter() - t
+
+        def gate_inprocess(what, fleet, per_member=True):
+            """K1 launches = the plan calls of every plan of the part
+            (this process's replicas share the counter); per member,
+            plan calls = warmed buckets + drained chunks (not across a
+            reload, whose new plan starts its own count)."""
+            # (remote members restored from the store's member snapshot
+            # of an earlier part are no in-process replicas)
+            members = [member_calls(rep.server) for rep in fleet.replicas()
+                       if rep.server is not None]
+            for m in members:
+                if per_member and m["plan_calls"] != m["expected_calls"]:
+                    fail(f"{what}: a member's plan calls {m}")
+            if not ft.LAUNCHES == topk.PLAN_CALLS or (per_member and (
+                    ft.LAUNCHES != sum(m["plan_calls"] for m in members))):
+                fail(f"{what}: K1 launches {ft.LAUNCHES}, plan calls "
+                     f"{topk.PLAN_CALLS} across its plans, members "
+                     f"{members}")
+            if ft.SHARD_LAUNCHES:
+                fail(f"{what}: {ft.SHARD_LAUNCHES} K2 launches")
+            return members, ft.LAUNCHES
+
+        # (a) the catalog mesh
+        mreqs = reqs[:MESH_REQUESTS]
+        fleet, start_s = start_fleet(iid1, FLEET_SHARDS,
+                                     mesh=f"items={FLEET_SHARDS}@fleet")
+        try:
+            res = wire_clients(fleet.port, mreqs, tmp)
+            members, n_launch = gate_inprocess("fleet mesh", fleet)
+            routed = fleet.status_json()
+        finally:
+            fleet.stop()
+        codes = sorted({r[0] for r in res})
+        if codes != [200]:
+            fail(f"fleet mesh: statuses {codes}")
+        match_tables("fleet mesh", [r[2] for r in res], range(len(res)),
+                     tables[:1])
+        if sorted(m["shard"] for m in members) != [
+                f"{i}/{FLEET_SHARDS}" for i in range(FLEET_SHARDS)] or any(
+                m["plan"] != "ShardSliceTopK" or m["requests"] != len(mreqs)
+                for m in members):
+            fail(f"fleet mesh: members {members}")
+        launches += n_launch
+        out["mesh"] = {
+            "replicas": FLEET_SHARDS, "start_s": start_s,
+            "members": members, "launches": n_launch,
+            "k2_launches": 0, "answers_bit_identical": len(res),
+            "admitted": sum(1 for m in routed["replicas"] if m["admitted"]),
+            "all": lat_summary(res, range(len(res))),
+            "by_route": {kind: lat_summary(res, [
+                i for i, r in enumerate(mreqs) if r["kind"] == kind])
+                for kind in ("plain", "banned", "binary")}}
+
+        # (b) a rolling /reload to a new item table under load
+        iid2 = fleet_instance(registry, model2)
+        fleet, start_s = start_fleet(iid1, ROLL_REPLICAS)
+        try:
+            load = FleetLoad(fleet.port, reqs, tmp, "roll").start()
+            try:
+                time.sleep(LOOP_PAD_S)
+                t_roll0 = time.monotonic()
+                report = post_reload(fleet.port, FLEET_KEY)
+                t_roll1 = time.monotonic()
+                time.sleep(LOOP_PAD_S)
+            finally:
+                res = load.stop()
+            serving = [rep.server.deployment.instance_id
+                       for rep in fleet.replicas()]
+            members, n_launch = gate_inprocess("rolling reload", fleet,
+                                               per_member=False)
+        finally:
+            fleet.stop()
+        if report["aborted"] or [r["outcome"] for r in report["results"]] \
+                != ["reloaded"] * ROLL_REPLICAS or serving != \
+                [iid2] * ROLL_REPLICAS:
+            fail(f"rolling reload: {report}, serving {serving}")
+        bad = [r for r in res if r[1] != 200]
+        if bad:
+            fail(f"rolling reload: {len(bad)} of {len(res)} requests "
+                 f"failed: {bad[0][:3]}")
+        which = match_tables("rolling reload", [r[2] for r in res],
+                             [r[0] for r in res], tables)
+        after = [w for r, w in zip(res, which) if r[3] > t_roll1]
+        if not after or set(after) != {1}:
+            fail(f"rolling reload: {len(after)} answers after the roll, "
+                 f"tables {sorted(set(after))}")
+        launches += n_launch
+        out["roll"] = {
+            "replicas": ROLL_REPLICAS, "start_s": start_s,
+            "roll_s": t_roll1 - t_roll0, "report": report,
+            "requests": len(res), "failed": 0,
+            "old_table_answers": which.count(0),
+            "new_table_answers": which.count(1),
+            "answers_after_roll": len(after), "launches": n_launch,
+            "plan_calls": topk.PLAN_CALLS, "k2_launches": 0,
+            "all": lat_summary(res, range(len(res))),
+            "during_roll": lat_summary(res, [
+                n for n, r in enumerate(res) if t_roll0 <= r[3] <= t_roll1])}
+
+        # (c) --supervised 2 as a subprocess: a child killed under load
+        lib = ft.build_library()
+        lib_mtime = lib.stat().st_mtime_ns
+        cli = cli_runner(tmp, {**config, "PIO_FLEET_HEARTBEAT_S": "0.5"})
+        t0 = time.perf_counter()
+        proc, line = start_server(
+            tmp, cli, "deploy", "--supervised", str(SUPERVISED),
+            "--engine-instance-id", iid1, "--port", "0", "--batch-max",
+            "64", "--server-key", FLEET_KEY)
+        if not line.startswith("Fleet control plane started on"):
+            proc.kill()
+            fail(f"supervised deploy: {line!r} {stderr_tail(proc)}")
+        port = int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
+
+        def admitted():
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/status.json",
+                    timeout=60) as resp:
+                return [m for m in json.loads(resp.read())["replicas"]
+                        if m["admitted"]]
+
+        def wait_members(pred, what, timeout_s=300.0):
+            end = time.monotonic() + timeout_s
+            while time.monotonic() < end:
+                if proc.poll() is not None:
+                    fail(f"supervised deploy exited {proc.returncode}: "
+                         f"{stderr_tail(proc)}")
+                got = admitted()
+                if pred(got):
+                    return got
+                time.sleep(0.05)
+            fail(f"supervised deploy: timed out waiting for {what}")
+
+        def child_counts(m, what, settle_s=0.0):
+            """A child's GET / counts: K1 launches = plan calls = warmed
+            buckets + drained chunks, no K2 launch. Under load a read can
+            fall inside a batch (its size counted, its plan call or launch
+            not yet), so it is read again for up to `settle_s` until the
+            three agree between batches."""
+            end = time.monotonic() + settle_s
+            while True:
+                st = http_status(m["port"])
+                sizes = {int(k): v for k, v in st["batch_sizes"].items()}
+                buckets, = st["plan_buckets"]
+                expected = len(buckets) + sum(
+                    c * -(-n // max(buckets)) for n, c in sizes.items())
+                k1 = st["kernel_launches"]["fused_topk"]
+                k2 = st["kernel_launches"]["shard_local_candidates"]
+                if k1 == st["plan_calls"] == expected and not k2:
+                    break
+                if time.monotonic() >= end:
+                    fail(f"supervised child {m['name']} ({what}): K1 "
+                         f"launches {k1}, plan calls {st['plan_calls']}, "
+                         f"expected {expected}, K2 {k2}")
+                time.sleep(0.005)
+            return {"name": m["name"], "pid": st["pid"], "launches": k1,
+                    "plan_calls": st["plan_calls"],
+                    "expected_calls": expected,
+                    "requests": sum(n * c for n, c in sizes.items()),
+                    "deploy_timings": st["deploy_timings"]}
+
+        try:
+            first = wait_members(lambda m: len(m) == SUPERVISED,
+                                 "both children")
+            ready_s = time.perf_counter() - t0
+            victim = first[0]
+            pid = http_status(victim["port"])["pid"]
+            load = FleetLoad(port, reqs, tmp, "kill").start()
+            try:
+                time.sleep(LOOP_PAD_S)
+                # the victim's counts, read just before the kill: the
+                # batches it drains between this read and the kill are
+                # counted nowhere
+                killed = {**child_counts(victim, "read before its kill",
+                                         settle_s=10.0),
+                          "killed": True, "respawned": False}
+                t_kill = time.monotonic()
+                os.kill(pid, signal.SIGKILL)
+                back = wait_members(lambda m: any(
+                    x["name"] == victim["name"]
+                    and x["member"] != victim["member"] for x in m)
+                    and len(m) == SUPERVISED, "the respawned child")
+                t_back = time.monotonic()
+                boot_back = time.clock_gettime(time.CLOCK_BOOTTIME)
+                time.sleep(LOOP_PAD_S)
+            finally:
+                res = load.stop()
+            reborn = next(x for x in back if x["name"] == victim["name"])
+            new_pid = http_status(reborn["port"])["pid"]
+            started = proc_start_boottime(new_pid)
+            children = [killed] + [
+                {**child_counts(m, "after the load"), "killed": False,
+                 "respawned": m is reborn} for m in back]
+        finally:
+            stop_deploy(proc, "supervised deploy")
+        bad = [r for r in res if r[1] != 200]
+        if bad:
+            fail(f"supervised kill: {len(bad)} of {len(res)} requests "
+                 f"failed: {bad[0][:3]}")
+        match_tables("supervised kill", [r[2] for r in res],
+                     [r[0] for r in res], tables[:1])
+        if lib.stat().st_mtime_ns != lib_mtime:
+            fail("a supervised child rebuilt the kernel library")
+        n_launch = sum(c["launches"] for c in children)
+        launches += n_launch
+        out["supervised"] = {
+            "children": SUPERVISED, "ready_s": ready_s,
+            "requests": len(res), "failed": 0,
+            "kill_to_admitted_s": t_back - t_kill,
+            "respawn_to_admitted_s": (boot_back - started
+                                      if started is not None else None),
+            "members": children, "launches": n_launch,
+            "library_rebuilt_by_a_child": False,
+            "all": lat_summary(res, range(len(res))),
+            "after_kill": lat_summary(res, [
+                n for n, r in enumerate(res) if r[3] >= t_kill])}
+
+        # (d) tenancy at the router: one app past its rate quota
+        keys = {name: cli_ops.app_new(registry, name)["accessKey"]
+                for name in ("calm", "flood")}
+        cli_ops.app_quota_set(registry, "flood", rate=FLOOD_RATE,
+                              burst=FLOOD_RATE)
+        treqs = []
+        for n, r in enumerate(reqs[:TENANT_REQUESTS]):
+            app = ("calm", "flood")[n % 2]
+            treqs.append({**r, "app": app,
+                          "path": f"/queries.json?accessKey={keys[app]}"})
+        router_metrics = MetricsRegistry()
+        fleet, start_s = start_fleet(
+            iid1, 1, tenancy=TenancyConfig(enabled=True, rate=1e6,
+                                           burst=1e6),
+            metrics=router_metrics)
+        try:
+            res = wire_clients(fleet.port, treqs, tmp)
+            _, n_launch = gate_inprocess("tenancy", fleet)
+            series = prom(router_metrics.render())
+        finally:
+            fleet.stop()
+        by = {a: {c: [n for n, r in enumerate(res)
+                      if treqs[n]["app"] == a and r[0] == c]
+                  for c in (200, 429)} for a in keys}
+        other = [r[0] for r in res if r[0] not in (200, 429)]
+        if other or by["calm"][429] or not by["flood"][429] \
+                or not by["flood"][200]:
+            fail(f"tenancy: statuses {sorted({r[0] for r in res})}; "
+                 f"{ {a: {c: len(v) for c, v in d.items()} for a, d in by.items()} }")
+        if any(not res[n][1] or int(res[n][1]) < 1
+               for n in by["flood"][429]):
+            fail("tenancy: a 429 without Retry-After")
+        ok = by["calm"][200] + by["flood"][200]
+        match_tables("tenancy", [res[n][2] for n in ok],
+                     [treqs[n]["i"] for n in ok], tables[:1])
+        counted = {a: {"admitted": series.get(
+            f'pio_tenant_admitted_total{{app="{a}"}}', 0.0),
+            "shed": series.get(
+                f'pio_shed_total{{surface="quota",app="{a}"}}', 0.0)}
+            for a in keys}
+        if counted != {a: {"admitted": float(len(by[a][200])),
+                           "shed": float(len(by[a][429]))} for a in keys}:
+            fail(f"tenancy: /metrics {counted}, clients saw "
+                 f"{ {a: {c: len(v) for c, v in d.items()} for a, d in by.items()} }")
+        launches += n_launch
+        out["tenancy"] = {
+            "replicas": 1, "start_s": start_s, "requests": len(res),
+            "flood_rate": FLOOD_RATE,
+            "status_counts": {a: {str(c): len(v) for c, v in d.items()}
+                              for a, d in by.items()},
+            "metrics_counts": counted, "launches": n_launch,
+            "all": lat_summary(res, range(len(res))),
+            "by_app": {a: lat_summary(res, by[a][200]) for a in keys},
+            "wall_s": max(r[4] for r in res) - min(r[3] for r in res)}
+        registry.close()
+    out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
@@ -5617,7 +6241,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle",
                                        "streaming", "quickstart",
                                        "templates", "classification",
-                                       "neural", "wire"),
+                                       "neural", "wire", "fleet"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
@@ -5626,7 +6250,9 @@ def main() -> int:
                          "quickstart; templates for parity and "
                          "templates; classification for parity and "
                          "classification; neural for phase neural; wire "
-                         "for parity and wire), no kernels line")
+                         "for parity and wire; fleet for parity, one "
+                         "direct selector pass and fleet), no kernels "
+                         "line")
     args = ap.parse_args()
     t_script = time.perf_counter()
     # one structured line per HTTP request is too many for this run's
@@ -5708,6 +6334,11 @@ def main() -> int:
             phase_parity(torch, ft, dev, rng)
             model, _ = make_model(torch, rng)
             phase_wire(torch, ft, dev, rng, model, card)
+        elif args.only == "fleet":
+            phase_parity(torch, ft, dev, rng)
+            model, _ = make_model(torch, rng)
+            phase_fleet(torch, ft, dev, rng, model, card,
+                        wire_reference(torch, ft, dev, rng, model))
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
@@ -5722,6 +6353,8 @@ def main() -> int:
     model, setup_s = make_model(torch, rng)
     serve = phase_serve(torch, ft, dev, rng, model, setup_s, args.requests)
     wire = phase_wire(torch, ft, dev, rng, model, card)
+    fleet = phase_fleet(torch, ft, dev, rng, model, card,
+                        wire["wires"]["selector"]["all"])
     err_sh = phase_parity_sharded(torch, ft, dev, rng, model)
     serve_sh = phase_serve_sharded(torch, ft, dev, rng, model,
                                    args.sharded_requests)
@@ -5748,11 +6381,13 @@ def main() -> int:
         "source": "predictionio_tpu_torch/csrc/fused_topk.cu",
         "replaces": "predictionio_tpu/ops/fused_topk.py:206",
         "launches": serve["launches"],
-        "max_abs_err": max(err, serve["max_abs_err"], wire["max_abs_err"]),
+        "max_abs_err": max(err, serve["max_abs_err"], wire["max_abs_err"],
+                           fleet["table_max_abs_err"]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "bucket": 64,
         "wire_launches": wire["launches"],
+        "fleet_launches": fleet["launches"],
         "tiered_launches": tiered["launches"],
         "trained_model_launches": served["launches"],
         "lifecycle_launches": lifecycle["serve"]["launches"],

@@ -1,6 +1,9 @@
 """Command line of the port: PredictionIO's lifecycle.
 
     python -m predictionio_tpu_torch.cli app new MyApp
+    python -m predictionio_tpu_torch.cli app quota-set MyApp [--rate R] \
+        [--burst B] [--concurrency C] [--queue-max Q] [--weight W]
+    python -m predictionio_tpu_torch.cli app quota-show|quota-delete MyApp
     python -m predictionio_tpu_torch.cli import --appid 1 --input events.jsonl
     python -m predictionio_tpu_torch.cli build [--engine-json engine.json]
     python -m predictionio_tpu_torch.cli train [--engine-json engine.json] \
@@ -10,7 +13,11 @@
         [--port 8000] [--batch-max 64] [--batch-window-ms 2] \
         [--items-on-host] [--device cpu] [--refresh-interval SECONDS] \
         [--server-key KEY] [--feedback --accesskey KEY \
-        [--event-server-ip localhost] [--event-server-port 7070]]
+        [--event-server-ip localhost] [--event-server-port 7070]] \
+        [--replicas N | --supervised N | --standby | --join URL[,URL]] \
+        [--advertise HOST:PORT] [--member-name NAME] \
+        [--mesh items=N@fleet[:i]] [--tenancy on|off] [--tenant-rate R] \
+        [--tenant-burst B] [--tenant-concurrency C] [--tenant-queue-max Q]
     python -m predictionio_tpu_torch.cli undeploy [--ip 127.0.0.1] \
         [--port 8000] [--accesskey SERVER_KEY]
     python -m predictionio_tpu_torch.cli redeploy [--engine-json engine.json] \
@@ -48,8 +55,25 @@ is needed; SQLITE retrains in full on a change) and swaps the new item
 factors into the warmed plan. `--feedback` posts every served
 prediction back to the event server (`--event-server-ip`,
 `--event-server-port`, `--accesskey`) as a `predict` event.
+`--replicas N` (N > 1, or 0 for a router fed by `--join` members) serves
+through a fleet router (`serving/fleet.py`) in front of N in-process
+replicas; `--supervised N` runs the N replicas as child processes of a
+router (`serving/supervisor.py`), each a `deploy --join` of this CLI;
+`--standby` starts a router with no replicas that takes the leader lease
+when the leader's expires; `--join URL[,URL]` starts a replica that
+registers with those routers and heartbeats (`--advertise`, the address
+they reach it at; `--member-name`, its name). `--mesh items=N@fleet` on
+a router merges N catalog slices, served by in-process replica i (or
+supervised child i) as slice i % N; `--mesh items=N@fleet:i` makes a
+`--join` member serve slice i. `PIO_FLEET_LEASE_TTL_S`,
+`PIO_FLEET_HEARTBEAT_S` and `PIO_FLEET_SUSPECT_N` tune the fleet.
+`--tenancy on` authenticates `/queries.json` with the app access keys and
+enforces per-app quotas (429 with Retry-After) and weighted-fair
+batching; `--tenant-*` set the defaults (`PIO_TENANT_*`), `app quota-set`
+an app's own override, which servers read within 10 s.
 `--server-key` (else `PIO_SERVER_ACCESS_KEY` of the storage config, the
-JAX name) guards the server's `/reload` and `/stop`; the JAX deploy's
+JAX name) guards the server's `/reload` and `/stop` (on a fleet, its
+membership routes too) and signs a router's tenant header; the JAX deploy's
 `--accesskey` is the feedback key here too, so the server key has a
 flag of its own. `--batch-window-ms` is the micro-batcher's window.
 `PIO_SERVER_SSL_CERT` and `PIO_SERVER_SSL_KEY` serve TLS (on the
@@ -95,6 +119,7 @@ from predictionio_tpu_torch.serving.server import (FeedbackConfig,
                                                    PredictionServer,
                                                    _Deployment,
                                                    install_signal_handlers)
+from predictionio_tpu_torch.tenancy import TenancyConfig
 from predictionio_tpu_torch.utils.security import ssl_context_from_config
 
 
@@ -121,14 +146,15 @@ def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
         RecommendationEngine.apply(), [model], warm_batch_max=batch_max,
         mesh=mesh)
     return _start(_Deployment(algos, models, serving), host, port,
-                  batch_max, window_s, feedback=feedback, **server_kw)
+                  batch_max, window_s, feedback=feedback, mesh=mesh,
+                  **server_kw)
 
 
 def deploy_instance(engine, instance, ctx: RuntimeContext, *,
                     host: str = "127.0.0.1", port: int = 8000,
                     batch_max: int = 64, window_s: float = 0.002,
                     items_device=None, refresh_interval_s: float = 0.0,
-                    feedback: Optional[FeedbackConfig] = None,
+                    feedback: Optional[FeedbackConfig] = None, mesh=None,
                     **server_kw) -> PredictionServer:
     """Serve an engine instance: its models read back from the model
     store (`CoreWorkflow.prepare_deploy`) onto `ctx.device`, warmed as
@@ -136,17 +162,34 @@ def deploy_instance(engine, instance, ctx: RuntimeContext, *,
     `GET /` shows the instance id and the deploy's load, place and warm
     seconds. `refresh_interval_s` > 0 runs the streaming refresher;
     `feedback` posts every served prediction to an event server;
-    `server_kw` go to `PredictionServer`. Its `/reload` loads the
-    variant's latest COMPLETED instance the same way."""
+    `mesh`, a `ShardSlice(n, i)`, serves catalog slice i of n (a fleet
+    member) or, a `ServeMesh`, shards it; `server_kw` go to
+    `PredictionServer`. Its `/reload` loads the variant's latest
+    COMPLETED instance the same way, over the same `mesh`."""
     timings: dict = {}
     algos, models, serving = CoreWorkflow.prepare_deploy(
         engine, instance, ctx, warm_batch_max=batch_max,
-        items_device=items_device, timings=timings)
+        items_device=items_device, timings=timings, mesh=mesh)
     return _start(_Deployment(algos, models, serving, engine=engine,
                               instance=instance, timings=timings),
                   host, port, batch_max, window_s, ctx=ctx,
                   refresh_interval_s=refresh_interval_s, feedback=feedback,
-                  items_device=items_device, **server_kw)
+                  items_device=items_device, mesh=mesh, **server_kw)
+
+
+def fleet_replica_factory(engine, instance, ctx: RuntimeContext,
+                          **deploy_kw):
+    """A `FleetServer` replica factory over `deploy_instance`: replica i
+    loads `instance` from `ctx`'s store, warms its plan over its `mesh`
+    (a `ShardSlice`, or None for the whole catalog) and serves on a
+    loopback ephemeral port with the router's replica `tenancy`.
+    `deploy_kw` go to `deploy_instance` (batch_max, window_s,
+    items_device, server_key, metrics, ...)."""
+    def make(index: int, *, mesh=None, tenancy=None) -> PredictionServer:
+        return deploy_instance(engine, instance, ctx, host="127.0.0.1",
+                               port=0, mesh=mesh, tenancy=tenancy,
+                               **deploy_kw)
+    return make
 
 
 def _start(dep: _Deployment, host: str, port: int, batch_max: int,
@@ -172,6 +215,22 @@ def build_parser() -> argparse.ArgumentParser:
     x = app.add_parser("delete")
     x.add_argument("name")
     x.add_argument("--force", "-f", action="store_true")
+    x = app.add_parser("quota-set", help="store an app's serving "
+                       "admission override; unset fields inherit the "
+                       "PIO_TENANT_* defaults")
+    x.add_argument("name")
+    x.add_argument("--rate", type=float,
+                   help="token-bucket refill, requests/second")
+    x.add_argument("--burst", type=float,
+                   help="token-bucket capacity, requests")
+    x.add_argument("--concurrency", type=int,
+                   help="in-flight cap (0 = unlimited)")
+    x.add_argument("--queue-max", type=int,
+                   help="per-app micro-batch lane cap")
+    x.add_argument("--weight", type=float,
+                   help="weighted-fair drain weight (default 1.0)")
+    for cmd in ("quota-show", "quota-delete"):
+        app.add_parser(cmd).add_argument("name")
     ak = sub.add_parser("accesskey", help="manage access keys"
                         ).add_subparsers(dest="ak_command", required=True)
     x = ak.add_parser("new")
@@ -223,6 +282,42 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--event-server-ip", default="localhost")
     x.add_argument("--event-server-port", type=int, default=7070)
     x.add_argument("--accesskey", default="")
+    x.add_argument("--replicas", type=int, default=1,
+                   help="replicas behind a fleet router (> 1; 0 = a "
+                        "router fed by --join members)")
+    x.add_argument("--supervised", type=int, default=0, metavar="N",
+                   help="run N replicas as supervised child processes "
+                        "of a fleet router")
+    x.add_argument("--standby", action="store_true",
+                   help="a standby router: no replicas, takes the "
+                        "leader lease when the leader's expires")
+    x.add_argument("--join",
+                   help="comma-separated router URLs this replica "
+                        "registers with and heartbeats")
+    x.add_argument("--advertise",
+                   help="host:port other hosts reach this process at "
+                        "(default 127.0.0.1:<port>)")
+    x.add_argument("--member-name",
+                   help="with --join: the member's name in heartbeats")
+    x.add_argument("--mesh",
+                   help="items=N@fleet on a router: merge N catalog "
+                        "slices; items=N@fleet:i on a --join member: "
+                        "serve slice i")
+    x.add_argument("--tenancy", choices=["on", "off"],
+                   help="per-app auth, quotas (429 + Retry-After) and "
+                        "weighted-fair batching on /queries.json "
+                        "(default: PIO_TENANCY, off)")
+    x.add_argument("--tenant-rate", type=float,
+                   help="default per-app rate, requests/second "
+                        "(PIO_TENANT_RATE)")
+    x.add_argument("--tenant-burst", type=float,
+                   help="default per-app burst (PIO_TENANT_BURST)")
+    x.add_argument("--tenant-concurrency", type=int,
+                   help="default per-app in-flight cap, 0 = unlimited "
+                        "(PIO_TENANT_CONCURRENCY)")
+    x.add_argument("--tenant-queue-max", type=int,
+                   help="default per-app micro-batch lane cap "
+                        "(PIO_TENANT_QUEUE_MAX)")
     x = sub.add_parser("undeploy", help="POST /stop to a running server")
     x.add_argument("--ip", default="127.0.0.1")
     x.add_argument("--port", type=int, default=8000)
@@ -285,6 +380,16 @@ def _app(args) -> None:
         _emit(ops.app_list(registry))
     elif c == "show":
         _emit(ops.app_show(registry, args.name))
+    elif c == "quota-set":
+        _emit(ops.app_quota_set(
+            registry, args.name, rate=args.rate, burst=args.burst,
+            concurrency=args.concurrency, queue_max=args.queue_max,
+            weight=args.weight))
+    elif c == "quota-show":
+        _emit(ops.app_quota_show(registry, args.name))
+    elif c == "quota-delete":
+        ops.app_quota_delete(registry, args.name)
+        _emit({"message": f"Quota override for {args.name} deleted"})
     else:
         ops.app_delete(registry, args.name, force=args.force)
         _emit({"message": f"App {args.name} deleted"})
@@ -297,23 +402,119 @@ def _wait_for_sigterm() -> None:
     stop.wait()
 
 
-def _deploy(args) -> int:
+def _tenancy(args, registry, server_key: str) -> TenancyConfig:
+    """The deploy's TenancyConfig: PIO_TENANCY and PIO_TENANT_* of the
+    storage config, the flags over them; the server key signs a router's
+    tenant header."""
+    over = {k: v for k, v in (
+        ("rate", args.tenant_rate), ("burst", args.tenant_burst),
+        ("concurrency", args.tenant_concurrency),
+        ("queue_max", args.tenant_queue_max)) if v is not None}
+    if args.tenancy:
+        over["enabled"] = args.tenancy == "on"
+    if server_key:
+        over["header_key"] = server_key
+    return TenancyConfig.from_env(registry.config, **over)
+
+
+def _fleet_mesh(spec: Optional[str]):
+    """`--mesh`: (shards, index or None), or None without one."""
+    if not spec:
+        return None
+    from predictionio_tpu_torch.ops.topk_sharded import parse_fleet_mesh
+    parsed = parse_fleet_mesh(spec)
+    if parsed is None:
+        raise ValueError(f"--mesh {spec!r}: the port's deploy takes "
+                         "items=N@fleet[:i] (a local mesh comes from "
+                         "PIO_SERVE_SHARD)")
+    return parsed
+
+
+def _deploy(args, argv: Sequence[str]) -> int:
+    from predictionio_tpu_torch.ops.topk_sharded import ShardSlice
+    from predictionio_tpu_torch.serving.fleet import (FleetServer,
+                                                      ReplicaAgent,
+                                                      fleet_config_from_env)
     items_device = "cpu" if args.items_on_host else None
     feedback = FeedbackConfig(
         event_server_ip=args.event_server_ip,
         event_server_port=args.event_server_port,
         access_key=args.accesskey) if args.feedback else None
     registry = _registry()
+    server_key = (args.server_key if args.server_key is not None else
+                  registry.config.get("PIO_SERVER_ACCESS_KEY", ""))
+    tenancy = _tenancy(args, registry, server_key)
+    mesh = _fleet_mesh(args.mesh)
+    router = args.supervised > 0 or args.standby or args.replicas != 1
+    if args.join and router:
+        raise ValueError("--join starts one replica: no --replicas, "
+                         "--supervised or --standby with it")
+    if mesh is not None and (mesh[1] is None) != router:
+        raise ValueError(f"--mesh {args.mesh}: items=N@fleet goes with a "
+                         "router (--replicas, --supervised), "
+                         "items=N@fleet:i with a single or --join replica")
     server_kw = dict(
-        window_s=args.batch_window_ms / 1000.0, feedback=feedback,
-        server_key=(args.server_key if args.server_key is not None else
-                    registry.config.get("PIO_SERVER_ACCESS_KEY", "")),
+        window_s=args.batch_window_ms / 1000.0, server_key=server_key,
         ssl_context=ssl_context_from_config(registry.config))
+    if router:
+        if args.model:
+            raise ValueError("a fleet serves engine instances, not --model")
+        fleet_cfg = fleet_config_from_env(
+            registry.config,
+            replicas=0 if args.standby or args.supervised else args.replicas,
+            advertise=args.advertise or "")
+        factory = None
+        if fleet_cfg.replicas:
+            engine, inst = ops.deploy_target(
+                registry, engine_instance_id=args.engine_instance_id,
+                engine_json=args.engine_json,
+                engine_factory=args.engine_factory)
+            factory = fleet_replica_factory(
+                engine, inst, RuntimeContext(registry=registry,
+                                             device=args.device),
+                batch_max=args.batch_max, items_device=items_device,
+                refresh_interval_s=args.refresh_interval,
+                feedback=feedback, **server_kw)
+        server = FleetServer(
+            factory, fleet=fleet_cfg, host=args.ip, port=args.port,
+            registry=registry, mesh=args.mesh or "",
+            server_key=server_key, tenancy=tenancy)
+        port = server.start()
+        what = (f"{args.supervised} supervised replica processes"
+                if args.supervised else
+                f"{fleet_cfg.replicas} local replicas")
+        print(f"Fleet {'standby router' if args.standby else 'control plane'}"
+              f" started on {args.ip}:{port} ({what})", flush=True)
+        sup = None
+        if args.supervised:
+            from predictionio_tpu_torch.serving.supervisor import (
+                ChildSpec, Supervisor, child_argv_from_parent)
+            # the kernel library, built once before the children load it
+            if args.device != "cpu":
+                from predictionio_tpu_torch.ops import fused_topk
+                fused_topk.build_library()
+            router_url = f"http://127.0.0.1:{port}"
+            specs = []
+            for i in range(args.supervised):
+                extra = ["--member-name", f"replica{i}"]
+                if mesh is not None:
+                    extra += ["--mesh", f"items={mesh[0]}@fleet:{i % mesh[0]}"]
+                specs.append(ChildSpec(f"replica{i}", child_argv_from_parent(
+                    argv, router_url, extra=extra)))
+            sup = Supervisor(specs).start()
+        install_signal_handlers(server)
+        try:
+            server.stopped.wait()
+        finally:
+            if sup is not None:
+                sup.stop()
+        return 0
     if args.model:
         model = load_npz(args.model, device=args.device,
                          items_device=items_device)
         server = deploy(model, host=args.ip, port=args.port,
-                        batch_max=args.batch_max, **server_kw)
+                        batch_max=args.batch_max, feedback=feedback,
+                        tenancy=tenancy, **server_kw)
         what, dev = args.model, model.device
     else:
         engine, inst = ops.deploy_target(
@@ -324,16 +525,29 @@ def _deploy(args) -> int:
                                          device=args.device),
             host=args.ip, port=args.port, batch_max=args.batch_max,
             items_device=items_device,
-            refresh_interval_s=args.refresh_interval, **server_kw)
+            refresh_interval_s=args.refresh_interval, feedback=feedback,
+            mesh=ShardSlice(*mesh) if mesh is not None else None,
+            tenancy=(tenancy.replica_variant() if args.join else tenancy),
+            **server_kw)
         what = f"engine instance {inst.id}"
         dev = ", ".join(sorted({str(m.device)
                                 for m in server.deployment.models
                                 if hasattr(m, "device")}))
-    print(f"serving {what} on http://{args.ip}:{server.port} ({dev})",
-          flush=True)
+    agent = None
+    if args.join:
+        agent = ReplicaAgent(
+            server, args.join.split(","), advertise=args.advertise or "",
+            server_key=server_key,
+            heartbeat_s=fleet_config_from_env(registry.config).heartbeat_s,
+            member_name=args.member_name or "")
+        agent.start()
+    print(f"serving {what} on http://{args.ip}:{server.port} ({dev})"
+          + (f", joined {args.join}" if args.join else ""), flush=True)
     # SIGTERM, SIGINT and POST /stop all end in the graceful stop()
     install_signal_handlers(server)
     server.stopped.wait()
+    if agent is not None:
+        agent.stop()
     return 0
 
 
@@ -426,7 +640,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             else:
                 print(train_report(), file=sys.stderr, flush=True)
         else:
-            return _deploy(args)
+            return _deploy(args, list(argv) if argv is not None
+                           else sys.argv[1:])
         return 0
     except (ValueError, OSError) as e:
         print(f"[ERROR] {e}", file=sys.stderr)

@@ -2,7 +2,8 @@
 
 The port of the lifecycle commands of `predictionio_tpu/cli/ops.py`
 (commands/{App,AccessKey,Engine,Import,Management}.scala): `app new|
-list|show|delete`, `accesskey new|list`, `import` of API-JSON event
+list|show|delete`, the serving tenancy's `app quota-set|quota-show|
+quota-delete`, `accesskey new|list`, `import` of API-JSON event
 lines, the engine.json plumbing of `build`, `train` and `deploy`,
 `eval`, `batchpredict`, `status`, the running server's `undeploy`
 (POST /stop) and `reload_server` (POST /reload, `redeploy`'s second
@@ -19,7 +20,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
 from predictionio_tpu_torch.data.event import Event, format_time
-from predictionio_tpu_torch.data.storage import AccessKey, App
+from predictionio_tpu_torch.data.storage import AccessKey, App, TenantQuota
 
 IMPORT_BATCH = 500
 
@@ -79,6 +80,41 @@ def app_delete(registry, name: str, *, force: bool = False) -> None:
     for k in keys.get_by_appid(app.id):
         keys.delete(k.key)
     registry.get_meta_data_apps().delete(app.id)
+
+
+_QUOTA_FIELDS = ("rate", "burst", "concurrency", "queue_max", "weight")
+
+
+def app_quota_set(registry, name: str, **fields) -> Dict[str, Any]:
+    """Store the app's admission override: the fields given (`rate`,
+    `burst`, `concurrency`, `queue_max`, `weight`) replace the stored
+    ones, the rest keep theirs or inherit the PIO_TENANT_* defaults.
+    Running servers read it within their admission TTL."""
+    app = _require_app(registry, name)
+    quotas = registry.get_meta_data_tenant_quotas()
+    existing = quotas.get(app.id)
+    row = {k: fields.get(k) for k in _QUOTA_FIELDS}
+    if existing is not None:
+        row = {k: v if v is not None else getattr(existing, k)
+               for k, v in row.items()}
+    quotas.upsert(TenantQuota(appid=app.id, **row))
+    return app_quota_show(registry, name)
+
+
+def app_quota_show(registry, name: str) -> Dict[str, Any]:
+    """The app's stored override (null fields inherit the defaults)."""
+    app = _require_app(registry, name)
+    quota = registry.get_meta_data_tenant_quotas().get(app.id)
+    return {"name": app.name, "id": app.id,
+            "quota": {k: getattr(quota, k) if quota is not None else None
+                      for k in _QUOTA_FIELDS},
+            "note": "null fields inherit the PIO_TENANT_* defaults"}
+
+
+def app_quota_delete(registry, name: str) -> None:
+    """Drop the app's override; the defaults apply again."""
+    app = _require_app(registry, name)
+    registry.get_meta_data_tenant_quotas().delete(app.id)
 
 
 def accesskey_new(registry, app_name: str, *, key: str = "",

@@ -221,7 +221,8 @@ class CoreWorkflow:
     def prepare_deploy(engine: Engine, instance: EngineInstance,
                        ctx: RuntimeContext, *,
                        warm_batch_max: Optional[int] = None,
-                       items_device=None, timings: Optional[dict] = None
+                       items_device=None, timings: Optional[dict] = None,
+                       mesh=None
                        ) -> Tuple[List[Algorithm], List[Any], Serving]:
         """The instance's models, ready to serve: (algorithms, models,
         serving) (Engine.prepareDeploy; CreateServer.scala:186-244),
@@ -231,7 +232,9 @@ class CoreWorkflow:
         a `to(device, items_device=...)` method move to `ctx.device`
         (None = cuda; raises without CUDA), the item master to
         `items_device` ("cpu" keeps it in host RAM); then they are
-        checked and warmed as `prepare_deploy` does models in hand.
+        checked and warmed as `prepare_deploy` does models in hand, over
+        `mesh` (a `ServeMesh`, or a fleet member's `ShardSlice`; None
+        takes `serve_mesh_from_conf()`).
         `timings`, if given, gets the wall seconds of the blob's read
         (`load_s`), the move to the device (`place_s`) and the check and
         warmup (`warm_s`)."""
@@ -261,7 +264,8 @@ class CoreWorkflow:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
-        out = _ready(algos, models, serving, warm_batch_max=warm_batch_max)
+        out = _ready(algos, models, serving, warm_batch_max=warm_batch_max,
+                     mesh=mesh)
         if timings is not None:
             timings.update(load_s=t1 - t0, place_s=t2 - t1,
                            warm_s=time.perf_counter() - t2)

@@ -4,8 +4,9 @@
 from predictionio_tpu_torch.data.storage.base import (
     AccessKey, AccessKeys, App, Apps, Channel, Channels, EngineInstance,
     EngineInstanceStatus, EngineInstances, EvaluationInstance,
-    EvaluationInstanceStatus, EvaluationInstances, EventStore, Model, Models,
-    StorageError, StorageWriteError,
+    EvaluationInstanceStatus, EvaluationInstances, EventStore, Lease, Leases,
+    Model, Models, SLOObjective, SLOObjectives, StorageError,
+    StorageWriteError, TenantQuota, TenantQuotas,
 )
 from predictionio_tpu_torch.data.storage.registry import (
     StorageRegistry, register_driver, set_default, storage,
@@ -15,6 +16,8 @@ __all__ = [
     "AccessKey", "AccessKeys", "App", "Apps", "Channel", "Channels",
     "EngineInstance", "EngineInstanceStatus", "EngineInstances",
     "EvaluationInstance", "EvaluationInstanceStatus", "EvaluationInstances",
-    "EventStore", "Model", "Models", "StorageError", "StorageWriteError",
+    "EventStore", "Lease", "Leases", "Model", "Models", "SLOObjective",
+    "SLOObjectives", "StorageError", "StorageWriteError", "TenantQuota",
+    "TenantQuotas",
     "StorageRegistry", "register_driver", "set_default", "storage",
 ]

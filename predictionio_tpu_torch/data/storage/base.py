@@ -13,10 +13,13 @@ The port of the part of `predictionio_tpu/data/storage/base.py` that the
     `insert_batch` validate first, `find` has the three-state target
     filter, `scan_columns` and `aggregate_properties` adapt `find`, and
     `ingest_watermark` / `ingest_cache_dir` are None (no prepared-data
-    cache, no delta).
+    cache, no delta);
+  - the serving fleet's and tenancy's rows and DAOs: `Lease` / `Leases`
+    (the fleet's TTL leader lease with its journal), `TenantQuota` /
+    `TenantQuotas` (per-app admission overrides) and `SLOObjective` /
+    `SLOObjectives` (per-app SLO overrides), with no reference analog.
 
-Leases, tenant quotas and SLO objectives come with the slices that use
-them. Drivers
+Drivers
 (`memory.py`, `sqlite.py`, `evlog.py`, `pevlog.py`) implement these
 bases and are found by the registry (`registry.py`).
 """
@@ -147,6 +150,57 @@ class Model:
     """Serialized model blob keyed by engine instance id (Models.scala)."""
     id: str
     models: bytes
+
+
+@dataclass(frozen=True)
+class Lease:
+    """A TTL lease row, the fleet's leader election. `journal` is an
+    opaque payload the holder rewrites while it holds the lease: the
+    fleet keeps its rolling-reload progress and its tenants' spent token
+    buckets there, so that the next holder resumes both."""
+    name: str
+    holder: str
+    expires_at: datetime
+    journal: str = ""
+
+    def expired(self, now: Optional[datetime] = None) -> bool:
+        return (now or utcnow()) >= self.expires_at
+
+
+@dataclass(frozen=True)
+class TenantQuota:
+    """A per-app admission override row. Every field but `appid` may be
+    None, which inherits the server-wide default; `channel` "" is the
+    app-wide row, another value a sub-quota inheriting the app-wide
+    row's set fields (channel row over app row over default). The
+    field order is the sqlite table's column order."""
+    appid: int
+    rate: Optional[float] = None         # token-bucket refill, req/s
+    burst: Optional[float] = None        # bucket capacity, requests
+    concurrency: Optional[int] = None    # in-flight cap (0 = unlimited)
+    queue_max: Optional[int] = None      # micro-batch lane cap
+    weight: Optional[float] = None       # DRR drain weight
+    channel: str = ""                    # "" = app-wide row
+
+    def merged_over(self, other: "TenantQuota") -> "TenantQuota":
+        """This row's set fields over `other`'s."""
+        def pick(name):
+            mine = getattr(self, name)
+            return mine if mine is not None else getattr(other, name)
+        return TenantQuota(appid=self.appid, rate=pick("rate"),
+                           burst=pick("burst"),
+                           concurrency=pick("concurrency"),
+                           queue_max=pick("queue_max"),
+                           weight=pick("weight"), channel=self.channel)
+
+
+@dataclass(frozen=True)
+class SLOObjective:
+    """A per-app SLO override row; None inherits `PIO_SLO_LATENCY_MS` /
+    `PIO_SLO_TARGET`."""
+    appid: int
+    latency_ms: Optional[float] = None   # a good request's latency bound
+    target: Optional[float] = None       # availability objective
 
 
 class Apps(abc.ABC):
@@ -295,6 +349,65 @@ class Models(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, mid: str) -> None: ...
+
+
+class Leases(abc.ABC):
+    """TTL lease DAO: compare-and-swap leader election on shared
+    storage. `acquire` succeeds iff the row is absent, expired, or held
+    by the same holder (a renewal)."""
+
+    @abc.abstractmethod
+    def acquire(self, name: str, holder: str, ttl_s: float,
+                journal: Optional[str] = None) -> Optional[Lease]:
+        """Acquire or renew `name` for `holder` for `ttl_s`; the new row,
+        or None while another holder's lease is unexpired. A None
+        `journal` keeps the row's journal, across a change of holder
+        too (a standby taking over inherits the dead leader's); a
+        string replaces it."""
+
+    @abc.abstractmethod
+    def get(self, name: str) -> Optional[Lease]:
+        """The row, expired or not; None when absent."""
+
+    @abc.abstractmethod
+    def release(self, name: str, holder: str) -> bool:
+        """Delete the row iff `holder` owns it; True when deleted."""
+
+
+class TenantQuotas(abc.ABC):
+    """Per-app admission overrides, read by the admission controller
+    through a TTL cache."""
+
+    @abc.abstractmethod
+    def upsert(self, quota: TenantQuota) -> None:
+        """Insert or replace the row of (`quota.appid`, `quota.channel`)."""
+
+    @abc.abstractmethod
+    def get(self, appid: int,
+            channel: str = "") -> Optional[TenantQuota]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[TenantQuota]: ...
+
+    @abc.abstractmethod
+    def delete(self, appid: int, channel: str = "") -> None: ...
+
+
+class SLOObjectives(abc.ABC):
+    """Per-app SLO overrides, read by `obs.slo.SLOTracker`."""
+
+    @abc.abstractmethod
+    def upsert(self, slo: SLOObjective) -> None:
+        """Insert or replace the row of `slo.appid`."""
+
+    @abc.abstractmethod
+    def get(self, appid: int) -> Optional[SLOObjective]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[SLOObjective]: ...
+
+    @abc.abstractmethod
+    def delete(self, appid: int) -> None: ...
 
 
 # "no filter", as distinct from "filter == None"

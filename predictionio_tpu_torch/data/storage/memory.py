@@ -2,7 +2,9 @@
 
 The port of the DAOs of `predictionio_tpu/data/storage/memory.py` that
 the lifecycle and eval use (apps, access keys, channels, engine and
-evaluation instances, models, events). Thread-safe through one lock per client.
+evaluation instances, models, events) and of the serving fleet's and
+tenancy's (leases, tenant quotas, SLO objectives). Thread-safe through
+one lock per client.
 """
 
 from __future__ import annotations
@@ -10,14 +12,14 @@ from __future__ import annotations
 import itertools
 import threading
 import uuid
-from datetime import datetime
+from datetime import datetime, timedelta
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
-from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.event import Event, utcnow
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (
-    AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
-    _UNSET, match_event)
+    AccessKey, App, Channel, EngineInstance, EvaluationInstance, Lease, Model,
+    SLOObjective, TenantQuota, _UNSET, match_event)
 
 
 class MemStorageClient:
@@ -32,6 +34,9 @@ class MemStorageClient:
         self.engine_instances: Dict[str, EngineInstance] = {}
         self.evaluation_instances: Dict[str, EvaluationInstance] = {}
         self.models: Dict[str, Model] = {}
+        self.leases: Dict[str, Lease] = {}
+        self.tenant_quotas: Dict[Tuple[int, str], TenantQuota] = {}
+        self.slo_objectives: Dict[int, SLOObjective] = {}
         # (app_id, channel_id) -> event_id -> Event
         self.events: Dict[Tuple[int, Optional[int]], Dict[str, Event]] = {}
         self._app_seq = itertools.count(1)
@@ -214,6 +219,81 @@ class MemModels(base.Models):
     def delete(self, mid: str) -> None:
         with self.c.lock:
             self.c.models.pop(mid, None)
+
+
+class MemTenantQuotas(base.TenantQuotas):
+    def __init__(self, client: MemStorageClient):
+        self.c = client
+
+    def upsert(self, quota: TenantQuota) -> None:
+        with self.c.lock:
+            self.c.tenant_quotas[(quota.appid, quota.channel)] = quota
+
+    def get(self, appid: int, channel: str = "") -> Optional[TenantQuota]:
+        with self.c.lock:
+            return self.c.tenant_quotas.get((appid, channel))
+
+    def get_all(self) -> List[TenantQuota]:
+        with self.c.lock:
+            return [self.c.tenant_quotas[k]
+                    for k in sorted(self.c.tenant_quotas)]
+
+    def delete(self, appid: int, channel: str = "") -> None:
+        with self.c.lock:
+            self.c.tenant_quotas.pop((appid, channel), None)
+
+
+class MemSLOObjectives(base.SLOObjectives):
+    def __init__(self, client: MemStorageClient):
+        self.c = client
+
+    def upsert(self, slo: SLOObjective) -> None:
+        with self.c.lock:
+            self.c.slo_objectives[slo.appid] = slo
+
+    def get(self, appid: int) -> Optional[SLOObjective]:
+        with self.c.lock:
+            return self.c.slo_objectives.get(appid)
+
+    def get_all(self) -> List[SLOObjective]:
+        with self.c.lock:
+            return [self.c.slo_objectives[k]
+                    for k in sorted(self.c.slo_objectives)]
+
+    def delete(self, appid: int) -> None:
+        with self.c.lock:
+            self.c.slo_objectives.pop(appid, None)
+
+
+class MemLeases(base.Leases):
+    def __init__(self, client: MemStorageClient):
+        self.c = client
+
+    def acquire(self, name: str, holder: str, ttl_s: float,
+                journal: Optional[str] = None) -> Optional[Lease]:
+        with self.c.lock:
+            now = utcnow()
+            cur = self.c.leases.get(name)
+            if cur is not None and cur.holder != holder \
+                    and not cur.expired(now):
+                return None
+            keep = (cur.journal if cur is not None else "") \
+                if journal is None else journal
+            lease = Lease(name, holder, now + timedelta(seconds=ttl_s), keep)
+            self.c.leases[name] = lease
+            return lease
+
+    def get(self, name: str) -> Optional[Lease]:
+        with self.c.lock:
+            return self.c.leases.get(name)
+
+    def release(self, name: str, holder: str) -> bool:
+        with self.c.lock:
+            cur = self.c.leases.get(name)
+            if cur is None or cur.holder != holder:
+                return False
+            del self.c.leases[name]
+            return True
 
 
 class MemEvents(base.EventStore):

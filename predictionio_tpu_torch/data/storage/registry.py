@@ -48,6 +48,9 @@ def _register_builtin_drivers() -> None:
         "EngineInstances": memory.MemEngineInstances,
         "EvaluationInstances": memory.MemEvaluationInstances,
         "Models": memory.MemModels,
+        "Leases": memory.MemLeases,
+        "TenantQuotas": memory.MemTenantQuotas,
+        "SLOObjectives": memory.MemSLOObjectives,
         "Events": memory.MemEvents,
     })
     register_driver("SQLITE", sqlite.SQLiteStorageClient, {
@@ -57,6 +60,9 @@ def _register_builtin_drivers() -> None:
         "EngineInstances": sqlite.SQLiteEngineInstances,
         "EvaluationInstances": sqlite.SQLiteEvaluationInstances,
         "Models": sqlite.SQLiteModels,
+        "Leases": sqlite.SQLiteLeases,
+        "TenantQuotas": sqlite.SQLiteTenantQuotas,
+        "SLOObjectives": sqlite.SQLiteSLOObjectives,
         "Events": sqlite.SQLiteEvents,
     })
     register_driver("EVLOG", evlog.EvlogStorageClient, {
@@ -203,6 +209,22 @@ class StorageRegistry:
 
     def get_model_data_models(self) -> base.Models:
         return self._repo_dao("MODELDATA", "Models")
+
+    def get_leases(self) -> base.Leases:
+        """The lease DAO on the MODELDATA source (the store every router
+        of a fleet shares); StorageError when its driver has none (the
+        fleet then runs as the only leader)."""
+        return self._repo_dao("MODELDATA", "Leases")
+
+    def get_meta_data_tenant_quotas(self) -> base.TenantQuotas:
+        """Per-app admission overrides; StorageError when the driver has
+        none (admission keeps its defaults)."""
+        return self._repo_dao("METADATA", "TenantQuotas")
+
+    def get_meta_data_slo_objectives(self) -> base.SLOObjectives:
+        """Per-app SLO overrides; StorageError when the driver has none
+        (the SLO tracker keeps its defaults)."""
+        return self._repo_dao("METADATA", "SLOObjectives")
 
     def get_events(self) -> base.EventStore:
         return self._repo_dao("EVENTDATA", "Events")

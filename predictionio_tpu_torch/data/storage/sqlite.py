@@ -3,7 +3,10 @@
 The port of `predictionio_tpu/data/storage/sqlite.py` for the DAOs the
 lifecycle and eval use: apps, access keys, channels, engine and
 evaluation instances, models and events (the reference's JDBC driver role, JDBC{LEvents,Models,...}
-.scala). The on-disk schema is the JAX package's, table for table and
+.scala); and for the serving fleet's and tenancy's: leases (a
+compare-and-swap row under `BEGIN IMMEDIATE`, which WAL makes atomic
+across the processes sharing the file), tenant quotas and SLO
+objectives. The on-disk schema is the JAX package's, table for table and
 column for column: events live in `events_<appId>[_<channelId>]`
 (JDBCUtils.eventTableName), times are epoch milliseconds, model blobs
 carry the integrity envelope, and every event write bumps the table's
@@ -35,11 +38,11 @@ from predictionio_tpu_torch.resilience import (Deadline, RetryPolicy,
                                                call_with_retry,
                                                deadline_scope)
 from predictionio_tpu_torch.data.event import (DataMap, Event, from_millis,
-                                               to_millis)
+                                               to_millis, utcnow)
 from predictionio_tpu_torch.data.storage import base, columns
 from predictionio_tpu_torch.data.storage.base import (
     AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
-    _UNSET, match_properties)
+    SLOObjective, TenantQuota, _UNSET, match_properties)
 
 # The JAX package's metadata tables, verbatim: a store either package
 # creates has the same schema, whichever opens it first.
@@ -469,6 +472,121 @@ class SQLiteModels(base.Models):
     def delete(self, mid: str) -> None:
         with self.c.lock, self.c.conn:
             self.c.conn.execute("DELETE FROM models WHERE id=?", (mid,))
+
+
+class SQLiteTenantQuotas(base.TenantQuotas):
+    """Per-app admission overrides; NULL columns inherit the server's
+    defaults."""
+
+    _COLS = "appid, rate, burst, concurrency, queue_max, weight, channel"
+
+    def __init__(self, client: SQLiteStorageClient):
+        self.c = client
+
+    def upsert(self, quota: TenantQuota) -> None:
+        with self.c.lock, self.c.conn:
+            self.c.conn.execute(
+                f"INSERT OR REPLACE INTO tenant_quotas ({self._COLS}) "
+                "VALUES (?,?,?,?,?,?,?)",
+                (quota.appid, quota.rate, quota.burst, quota.concurrency,
+                 quota.queue_max, quota.weight, quota.channel))
+
+    def get(self, appid: int, channel: str = "") -> Optional[TenantQuota]:
+        with self.c.lock:
+            row = self.c.conn.execute(
+                f"SELECT {self._COLS} FROM tenant_quotas "
+                "WHERE appid=? AND channel=?", (appid, channel)).fetchone()
+        return TenantQuota(*row) if row else None
+
+    def get_all(self) -> List[TenantQuota]:
+        with self.c.lock:
+            rows = self.c.conn.execute(
+                f"SELECT {self._COLS} FROM tenant_quotas "
+                "ORDER BY appid, channel").fetchall()
+        return [TenantQuota(*r) for r in rows]
+
+    def delete(self, appid: int, channel: str = "") -> None:
+        with self.c.lock, self.c.conn:
+            self.c.conn.execute(
+                "DELETE FROM tenant_quotas WHERE appid=? AND channel=?",
+                (appid, channel))
+
+
+class SQLiteSLOObjectives(base.SLOObjectives):
+    """Per-app SLO overrides; NULL columns inherit the server-wide
+    objective."""
+
+    _COLS = "appid, latency_ms, target"
+
+    def __init__(self, client: SQLiteStorageClient):
+        self.c = client
+
+    def upsert(self, slo: SLOObjective) -> None:
+        with self.c.lock, self.c.conn:
+            self.c.conn.execute(
+                f"INSERT OR REPLACE INTO slo_objectives ({self._COLS}) "
+                "VALUES (?,?,?)", (slo.appid, slo.latency_ms, slo.target))
+
+    def get(self, appid: int) -> Optional[SLOObjective]:
+        with self.c.lock:
+            row = self.c.conn.execute(
+                f"SELECT {self._COLS} FROM slo_objectives WHERE appid=?",
+                (appid,)).fetchone()
+        return SLOObjective(*row) if row else None
+
+    def get_all(self) -> List[SLOObjective]:
+        with self.c.lock:
+            rows = self.c.conn.execute(
+                f"SELECT {self._COLS} FROM slo_objectives "
+                "ORDER BY appid").fetchall()
+        return [SLOObjective(*r) for r in rows]
+
+    def delete(self, appid: int) -> None:
+        with self.c.lock, self.c.conn:
+            self.c.conn.execute(
+                "DELETE FROM slo_objectives WHERE appid=?", (appid,))
+
+
+class SQLiteLeases(base.Leases):
+    """A compare-and-swap lease over one row: the client's lock and an
+    immediate transaction make read-check-write atomic in this process,
+    WAL's single writer across the processes sharing the file."""
+
+    def __init__(self, client: SQLiteStorageClient):
+        self.c = client
+
+    def acquire(self, name: str, holder: str, ttl_s: float,
+                journal: Optional[str] = None) -> Optional[base.Lease]:
+        now_ms = to_millis(utcnow())
+        exp_ms = now_ms + int(ttl_s * 1000)
+        with self.c.lock, self.c.conn:
+            self.c.conn.execute("BEGIN IMMEDIATE")
+            row = self.c.conn.execute(
+                "SELECT name, holder, expires_ms, journal FROM leases "
+                "WHERE name=?", (name,)).fetchone()
+            if row is not None and row[1] != holder and row[2] > now_ms:
+                return None
+            keep = (row[3] if row is not None else "") \
+                if journal is None else journal
+            self.c.conn.execute(
+                "INSERT OR REPLACE INTO leases (name, holder, expires_ms, "
+                "journal) VALUES (?,?,?,?)", (name, holder, exp_ms, keep))
+        return base.Lease(name, holder, from_millis(exp_ms), keep or "")
+
+    def get(self, name: str) -> Optional[base.Lease]:
+        with self.c.lock:
+            row = self.c.conn.execute(
+                "SELECT name, holder, expires_ms, journal FROM leases "
+                "WHERE name=?", (name,)).fetchone()
+        return (base.Lease(row[0], row[1], from_millis(row[2]), row[3] or "")
+                if row else None)
+
+    def release(self, name: str, holder: str) -> bool:
+        with self.c.lock, self.c.conn:
+            cur = self.c.conn.execute(
+                "DELETE FROM leases WHERE name=? AND holder=?",
+                (name, holder))
+            return cur.rowcount > 0
 
 
 def _event_row(e: Event) -> tuple:

@@ -130,11 +130,11 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `mesh.shape` of axis sizes). With no mesh or a trivial axis (size 1
     or absent) it is `attention_reference`. A sequence axis over several
     devices raises: the `torch.distributed` ring is not ported yet
-    (ROADMAP Queue 1, item 4)."""
+    (ROADMAP Queue 1, item 6)."""
     shape = getattr(mesh, "shape", None) or {}
     if int(shape.get(axis, 1)) == 1:
         return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask)
     raise NotImplementedError(
         f"ring attention over a {shape[axis]}-device {axis!r} axis needs "
-        "the torch.distributed ring (ROADMAP Queue 1, item 4); this port "
+        "the torch.distributed ring (ROADMAP Queue 1, item 6); this port "
         "runs attention on one device (mesh=None)")

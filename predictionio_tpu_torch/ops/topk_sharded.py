@@ -45,7 +45,10 @@ its master stays on the host, so a deployment that should shard or
 tier on its own loads its item factors with `items_device="cpu"`
 (`ops.als`). `serve_mesh_from_conf` builds a mesh over two or more
 local CUDA cards only; a mesh that repeats one device, or a fleet
-`ShardSlice`, is for a caller that passes it explicitly.
+`ShardSlice`, is for a caller that passes it explicitly. Each sharded
+plan, and a fleet member's slice plan, publishes `pio_serve_shards` and
+`pio_serve_shard_bytes{shard}` (the factor bytes each shard pins; a
+member, its own slice's) to the process's metrics registry.
 """
 
 from __future__ import annotations
@@ -252,6 +255,23 @@ def similar_plan(item_factors, *, k: int,
                            device=device)
 
 
+def _publish_shard_gauges(n_shards: int, shard_rows: dict,
+                          rank: int) -> None:
+    """`pio_serve_shards` and `pio_serve_shard_bytes{shard}` (the JAX
+    names) in the process's registry: the shard count and the factor
+    bytes each shard of `shard_rows` (shard -> rows) pins."""
+    from predictionio_tpu_torch.obs import get_registry
+    reg = get_registry()
+    reg.gauge("pio_serve_shards",
+              "Shard count of the current sharded serving plan "
+              "(0/absent = single-device)").set(float(n_shards))
+    g = reg.gauge("pio_serve_shard_bytes",
+                  "Resident factor bytes pinned per shard by the "
+                  "sharded serving plan", labels=("shard",))
+    for shard, rows in shard_rows.items():
+        g.labels(shard=str(shard)).set(float(rows * rank * 4))
+
+
 class ShardedBucketedTopK:
     """Banned-index top-k over row-sharded resident factors: per-shard
     candidates through the fused kernel, merged on `devices[0]` (the
@@ -294,6 +314,8 @@ class ShardedBucketedTopK:
         # launch per shard each on CUDA devices
         self.calls = 0
         topk.register_resident_plan(self)
+        _publish_shard_gauges(self.n_shards, dict.fromkeys(
+            range(self.n_shards), self.per_shard), self.rank)
 
     def resident_per_device_bytes(self) -> float:
         """Bytes this plan pins on its most loaded device: one padded
@@ -449,6 +471,8 @@ class ShardedBucketedSimilar:
         # bucket calls made by this plan (warmup included)
         self.calls = 0
         topk.register_resident_plan(self)
+        _publish_shard_gauges(self.n_shards, dict.fromkeys(
+            range(self.n_shards), self.per_shard), self.rank)
 
     def _place(self, host: np.ndarray) -> None:
         self.factors = shard_put(host, self.devices)
@@ -591,6 +615,8 @@ class ShardSliceTopK:
         self._inner = serve_plan(full[self.base:self._hi], k=k,
                                  buckets=buckets, banned_width=banned_width,
                                  mesh=None, device=device)
+        # this member pins its own slice only
+        _publish_shard_gauges(n, {idx: self.slice_items}, rank)
 
     # -- plan contract (delegates) ------------------------------------------
     @property
@@ -604,6 +630,11 @@ class ShardSliceTopK:
     @property
     def max_bucket(self) -> int:
         return self._inner.max_bucket
+
+    @property
+    def calls(self) -> int:
+        """The inner plan's bucket calls (warmup included)."""
+        return self._inner.calls
 
     def resident_per_device_bytes(self) -> float:
         # the inner plan registered itself; 0 here avoids counting twice

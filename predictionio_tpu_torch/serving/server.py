@@ -25,8 +25,12 @@ coalesces concurrent requests into device batches (`_MicroBatcher`), and
                        deployment keeps serving
   POST /stop           drain accepted requests and close, on a thread of
                        its own
+  POST /shard/queries.json   a fleet member's candidates, with GLOBAL item
+                       ids: its catalog slice on a `ShardSlice` member,
+                       else the whole catalog (`serving/fleet.py` merges)
   GET  /plugins.json, GET /plugins/<name>[/<args>]   engine-server plugins
-  GET  /metrics, /health, /ready   (the HTTP base)
+  GET  /metrics, /health, /ready   (the HTTP base; /ready carries the
+                       SLO burn as detail)
 
 `/reload` and `/stop` take the server key (`server_key`, the JAX
 `PIO_SERVER_ACCESS_KEY`) as `?accessKey=` or the Basic username; a wrong
@@ -42,12 +46,21 @@ class of another shape, feedback or plugins on) takes the generic
 route, whose json.loads is the fallback parser. Both answer the same
 bytes: the encoder prints each score as `json.dumps` prints the float.
 
+Tenancy (`tenancy=TenancyConfig(enabled=True)`, or `PIO_TENANCY=on`): on
+both routes a request authenticates with its app's access key
+(`?accessKey=`, the Basic username, or on a fleet replica the router's
+signed `X-PIO-App`), is charged its app's rate and concurrency quotas
+(`QuotaExceeded`, 429 with `Retry-After`), and queues in its app's DRR
+lane of the micro-batcher (`tenancy/drr.py`), capped at the app's
+`queue_max`. Every request lands in the per-app `SLOTracker`
+(`obs/slo.py`).
+
 Deadlines and shedding: `X-PIO-Deadline-Ms` bounds a request's wait in
 the batcher; a budget below one window plus the drain estimate is
 refused at once (504, `pio_shed_total{surface=deadline_batch}`), one
-that expires while queued answers 504; a full
-queue, a predicted queue delay past the budget, or `max_inflight`
-requests in flight answer 503 with `Retry-After`.
+that expires while queued answers 504; a full queue or lane, a
+predicted queue delay past the budget, or `max_inflight` requests in
+flight answer 503 with `Retry-After`.
 
 A deployment whose plan is tiered gets a `serving.paging.PageManager`
 thread. With `refresh_interval_s` > 0 a `streaming.Refresher` thread
@@ -65,12 +78,14 @@ Metrics (the JAX names): `pio_http_requests_total`,
 `pio_shed_total{surface,app}`, `pio_deadline_expired_total`,
 `pio_algo_errors_total`, `pio_reload_total{outcome}`,
 `pio_feedback_events_total{outcome,app}`,
-`pio_feedback_dropped_total{reason,app}`.
+`pio_feedback_dropped_total{reason,app}`, `pio_tenant_admitted_total
+{app}`, `pio_tenant_serve_seconds{app}`, `pio_tenant_active`,
+`pio_slo_burn_rate{app,window}`.
 
-Not ported yet (ROADMAP.md, Queue 1 items 2 and 5): tenancy admission,
-the memory-pressure guard, quality accounting and the reload canary,
-SLO burn, `/shard/queries.json`, traces and the watchdog beats. The
-fast route has no stand-in for them.
+Not ported yet (ROADMAP.md, Queue 1 item 5): the memory-pressure guard,
+quality accounting and the reload canary, traces, and the watchdog
+beats of the wire, the drainer, the refresher, the page thread and the
+feedback loop. The fast route has no stand-in for them.
 """
 
 from __future__ import annotations
@@ -78,6 +93,7 @@ from __future__ import annotations
 import dataclasses
 import http.client
 import json
+import os
 import queue
 import random
 import re
@@ -85,15 +101,16 @@ import string
 import threading
 import time
 import typing
-from collections import deque
 from json.encoder import encode_basestring_ascii as _json_str
 from typing import Any, Callable, Dict, List, Optional, Sequence
+from urllib.parse import unquote_plus
 
 import numpy as np
 
 from predictionio_tpu_torch.core.params import extract_params
 from predictionio_tpu_torch.data.event import format_time, utcnow
 from predictionio_tpu_torch.obs import MetricsRegistry, get_logger
+from predictionio_tpu_torch.obs.slo import SLOTracker, dao_overrides_loader
 from predictionio_tpu_torch.resilience import (DEADLINE_HEADER, Deadline,
                                                DeadlineExceeded,
                                                OverloadedError,
@@ -102,6 +119,9 @@ from predictionio_tpu_torch.resilience import (DEADLINE_HEADER, Deadline,
                                                deadline_from_header, faults)
 from predictionio_tpu_torch.serving.plugins import (
     EngineServerPluginContext, QueryInfo)
+from predictionio_tpu_torch.tenancy import (DEFAULT_TENANT, TENANT_HEADER,
+                                            AdmissionController, DRRQueue,
+                                            TenancyConfig, TenantIdentity)
 from predictionio_tpu_torch.utils.http import (HTTPError, HTTPServerBase,
                                                Request, Response,
                                                retry_after_header)
@@ -152,6 +172,10 @@ class _ServeInstruments:
         self.shed = metrics.counter(
             "pio_shed_total", "Requests shed by surface at admission",
             labels=("surface", "app"))
+        self.tenant_serve = metrics.histogram(
+            "pio_tenant_serve_seconds",
+            "End-to-end serve latency per authenticated app",
+            labels=("app",))
         self.algo_errors = metrics.counter(
             "pio_algo_errors_total",
             "Per-algorithm predict failures isolated by graceful "
@@ -187,6 +211,21 @@ _FAST_QUERY_RE = re.compile(
     rb'[ \t\r\n]*\Z')
 
 _EMPTY_SCORES = b'{"itemScores": []}'
+
+_ACCESS_KEY_RE = re.compile(r"(?:^|&)accessKey=([^&]*)")
+_CHANNEL_RE = re.compile(r"(?:^|&)channel=([^&]*)")
+
+
+def _scan_query(qs: str, name: str, regex: re.Pattern) -> Optional[str]:
+    """`parse_qs`'s value of one parameter of a raw query string (the
+    fast route reads only `accessKey` and `channel`)."""
+    if name not in qs:
+        return None
+    m = regex.search(qs)
+    if m is None:
+        return None
+    v = m.group(1)
+    return unquote_plus(v) if "%" in v or "+" in v else v
 
 
 def _derive_fast_ctor(qc) -> Optional[Callable[[str, int], Any]]:
@@ -285,6 +324,10 @@ class _Deployment:
             None)
         # the fast route's (user, num) constructor, derived once
         self.fast_ctor = _derive_fast_ctor(self.query_class)
+        # item name -> global id, for /shard/queries.json's candidates
+        self.item_maps = tuple(
+            im for im in (getattr(m, "items", None) for m in self.models)
+            if im is not None and hasattr(im, "get"))
 
     def predict_batch(self, queries: Sequence[Any]) -> List[Any]:
         """supplement -> per-algo batch_predict -> serve, for a batch.
@@ -339,14 +382,21 @@ class _MicroBatcher:
     queued meanwhile; an empty window retires it. A drainer that dies
     fails every waiter and clears the flag for the next submit.
 
-    Admission: a closed batcher or a full queue (`queue_max`) refuses
-    with OverloadedError (503); every submit waits at most its
-    deadline's budget, else `submit_timeout_s`, then raises
+    The pending store is a `tenancy.DRRQueue` of per-tenant lanes: each
+    lane is capped by its tenant's own `tenant_queue_max`, the drainer
+    composes batches weighted-fair across lanes, and with tenancy off
+    every item lands in the one default lane, which is exactly FIFO.
+
+    Admission: a closed batcher, a full queue (`queue_max`) or a full
+    lane refuses with OverloadedError (503); every submit waits at most
+    its deadline's budget, else `submit_timeout_s`, then raises
     DeadlineExceeded (504) so that a wedged drainer never strands a
     handler thread. Each drained item's enqueue->drain delay feeds an
-    EWMA: while work is pending, a submit whose budget is below it is
-    shed 503 (`queue_delay`); a deadline budget below one window plus
-    the EWMA of the drain's own time is refused 504 at the door
+    EWMA, the batcher's and its lane's: while work is pending, a submit
+    whose budget is below its lane's EWMA (the global one for the
+    default lane) is shed 503 (`queue_delay`), so the tenant causing a
+    backlog sheds first; a deadline budget below one window plus the
+    EWMA of the drain's own time is refused 504 at the door
     (`deadline_batch`; that estimate ages toward zero while no batch
     drains, so one stall cannot lock deadlined traffic out).
 
@@ -369,8 +419,9 @@ class _MicroBatcher:
         self.drain_hook: Optional[Callable[[], None]] = None
         self._lock = threading.Lock()
         self._full = threading.Condition(self._lock)
-        # items: (deployment, query, done event, result slot, enqueue t)
-        self._queue: deque = deque()
+        # per-tenant lanes; items: (deployment, query, done event,
+        # result slot, enqueue t, tenant label)
+        self._queue = DRRQueue()
         self._draining = False
         self._closed = False
         self._delay_ewma = 0.0
@@ -394,31 +445,38 @@ class _MicroBatcher:
             return self._drain_ewma
         return self._drain_ewma * 0.5 ** ((idle - grace) / grace)
 
-    def _shed(self, surface: str) -> None:
+    def _shed(self, surface: str, tenant: str) -> None:
         if self.obs is not None:
-            self.obs.shed.labels(surface=surface, app="").inc()
+            self.obs.shed.labels(surface=surface, app=tenant).inc()
 
     def _depth_locked(self) -> None:
         if self.obs is not None:
             self.obs.queue_depth.set(float(len(self._queue)))
 
     def submit(self, deployment: _Deployment, query: Any,
-               deadline: Optional[Deadline] = None) -> Any:
-        return self.submit_slot(deployment, query, deadline)["result"]
+               deadline: Optional[Deadline] = None,
+               tenant: str = DEFAULT_TENANT, weight: float = 1.0,
+               tenant_queue_max: int = 0) -> Any:
+        return self.submit_slot(deployment, query, deadline, tenant,
+                                weight, tenant_queue_max)["result"]
 
     def submit_slot(self, deployment: _Deployment, query: Any,
-                    deadline: Optional[Deadline] = None) -> Dict[str, Any]:
+                    deadline: Optional[Deadline] = None,
+                    tenant: str = DEFAULT_TENANT, weight: float = 1.0,
+                    tenant_queue_max: int = 0) -> Dict[str, Any]:
         """submit(), returning the drained slot: "result" and, when the
-        batch encoder ran, the pre-serialized "wire" body."""
+        batch encoder ran, the pre-serialized "wire" body. `tenant`,
+        `weight` and `tenant_queue_max` place the item in its DRR lane
+        (`AdmissionController.batch_params`)."""
         done = threading.Event()
         slot: Dict[str, Any] = {}
-        item = (deployment, query, done, slot, time.perf_counter())
+        item = (deployment, query, done, slot, time.perf_counter(), tenant)
         with self._lock:
             if self._closed:
-                self._shed("queries")
+                self._shed("queries", tenant)
                 raise OverloadedError("server draining for shutdown")
             if self.queue_max > 0 and len(self._queue) >= self.queue_max:
-                self._shed("queries")
+                self._shed("queries", tenant)
                 raise OverloadedError("micro-batch queue full",
                                       retry_after=max(self.window_s, 0.05))
             budget = self.submit_timeout_s
@@ -426,18 +484,27 @@ class _MicroBatcher:
                 budget = min(budget, deadline.remaining())
                 drain_est = self._drain_estimate_locked()
                 if drain_est > 0.0 and budget < self.window_s + drain_est:
-                    self._shed("deadline_batch")
+                    self._shed("deadline_batch", tenant)
                     raise DeadlineExceeded(
                         f"deadline budget {budget * 1e3:.0f}ms below "
                         f"batch window + drain estimate "
                         f"{(self.window_s + drain_est) * 1e3:.0f}ms")
-            if self._queue and self._delay_ewma > budget:
-                self._shed("queue_delay")
+            ewma = (self._delay_ewma if tenant == DEFAULT_TENANT
+                    else self._queue.delay_ewma(tenant))
+            if len(self._queue) and ewma > budget:
+                self._shed("queue_delay", tenant)
                 raise OverloadedError(
-                    f"predicted queue delay {self._delay_ewma * 1e3:.0f}ms"
+                    f"predicted queue delay {ewma * 1e3:.0f}ms"
                     f" exceeds request budget {budget * 1e3:.0f}ms",
-                    retry_after=self._delay_ewma)
-            self._queue.append(item)
+                    retry_after=ewma)
+            if not self._queue.push(tenant, item, weight=weight,
+                                    queue_max=tenant_queue_max):
+                # this tenant's own lane is full: only it sheds
+                self._shed("queries", tenant)
+                raise OverloadedError(
+                    f"per-tenant micro-batch queue full "
+                    f"({tenant_queue_max} pending)",
+                    retry_after=max(self.window_s, 0.05))
             self._depth_locked()
             if len(self._queue) >= self.batch_max:
                 self._full.notify()
@@ -448,11 +515,8 @@ class _MicroBatcher:
                              name="pio-torch-batch-drain").start()
         if not done.wait(budget):
             with self._lock:
-                try:
-                    self._queue.remove(item)
+                if self._queue.remove(tenant, item):
                     self._depth_locked()
-                except ValueError:
-                    pass   # already taken by the drainer
             raise DeadlineExceeded(
                 "request deadline expired in micro-batch queue"
                 if deadline is not None else
@@ -470,8 +534,7 @@ class _MicroBatcher:
                     self._full.wait_for(
                         lambda: len(self._queue) >= self.batch_max,
                         timeout=self.window_s)
-                    n = min(len(self._queue), self.batch_max)
-                    batch = [self._queue.popleft() for _ in range(n)]
+                    batch = self._queue.take(self.batch_max)
                     self._depth_locked()
                     if not batch:
                         # retire under the lock every submit checks, so
@@ -479,6 +542,7 @@ class _MicroBatcher:
                         self._draining = False
                         self._full.notify_all()
                         return
+                    n = len(batch)
                     self._sizes[n] = self._sizes.get(n, 0) + 1
                     now = time.perf_counter()
                     for item in batch:
@@ -487,6 +551,7 @@ class _MicroBatcher:
                             self.obs.queue_delay.observe(delay)
                         self._delay_ewma += self.DELAY_ALPHA * (
                             delay - self._delay_ewma)
+                        self._queue.observe_delay(item[5], delay)
                 t0 = time.perf_counter()
                 self._process(batch)
                 dt = time.perf_counter() - t0
@@ -497,12 +562,11 @@ class _MicroBatcher:
                 batch = []
         except BaseException as e:
             with self._lock:
-                stranded = batch + list(self._queue)
-                self._queue.clear()
+                stranded = batch + self._queue.drain_all()
                 self._depth_locked()
                 self._draining = False
                 self._full.notify_all()
-            for _, _, done, slot, _ in stranded:
+            for _, _, done, slot, _, _ in stranded:
                 slot["error"] = e
                 done.set()
             _log.error("batch_drainer_crashed",
@@ -523,7 +587,7 @@ class _MicroBatcher:
             try:
                 results = dep.predict_batch([item[1] for item in items])
             except Exception as e:  # noqa: BLE001 — reported per request
-                for _, _, done, slot, _ in items:
+                for _, _, done, slot, _, _ in items:
                     slot["error"] = e
                     done.set()
                 continue
@@ -533,7 +597,7 @@ class _MicroBatcher:
                     wires = self.encoder(dep, results)
                 except Exception:  # noqa: BLE001 — json.dumps serves it
                     wires = None
-            for i, ((_, _, done, slot, _), r) in enumerate(
+            for i, ((_, _, done, slot, _, _), r) in enumerate(
                     zip(items, results)):
                 slot["result"] = r
                 if wires is not None:
@@ -552,7 +616,7 @@ class _MicroBatcher:
         with self._lock:
             self._closed = True
             return self._full.wait_for(
-                lambda: not self._queue and not self._draining,
+                lambda: not len(self._queue) and not self._draining,
                 timeout=timeout)
 
 
@@ -683,7 +747,10 @@ class PredictionServer(HTTPServerBase):
     /reload and /stop; `max_inflight` caps the requests in flight (503
     past it); `wire` picks "selector" or "threaded" (default:
     `PIO_SERVE_WIRE`, else the selector wire; TLS takes the threaded
-    one)."""
+    one). `tenancy`, a `TenancyConfig` (default: `PIO_TENANCY` and
+    `PIO_TENANT_*`), turns on per-app admission; `mesh`, an
+    `ops.topk_sharded.ShardSlice`, marks a fleet member that serves one
+    catalog slice (`shard_spec`), which /reload rebuilds."""
 
     def __init__(self, deployment: _Deployment, *, host: str = "127.0.0.1",
                  port: int = 8000, batch_max: int = 64,
@@ -693,7 +760,8 @@ class PredictionServer(HTTPServerBase):
                  max_inflight: int = 0, server_key: str = "",
                  plugins: Sequence[Any] = (), items_device=None,
                  ssl_context=None, metrics: Optional[MetricsRegistry] = None,
-                 wire: Optional[str] = None):
+                 wire: Optional[str] = None,
+                 tenancy: Optional[TenancyConfig] = None, mesh=None):
         super().__init__(host=host, port=port, ssl_context=ssl_context,
                          metrics=metrics, max_inflight=max_inflight,
                          wire=wire)
@@ -706,6 +774,16 @@ class PredictionServer(HTTPServerBase):
         self._reload_lock = threading.Lock()
         self.ctx = ctx if ctx is not None else RuntimeContext()
         self._items_device = items_device
+        self.mesh = mesh
+        tcfg = tenancy if tenancy is not None else TenancyConfig.from_env()
+        # the metadata store, where a deploy named one or tenancy needs
+        # it (a model in hand with tenancy off opens none)
+        registry = self.ctx.registry if ctx is not None or tcfg.enabled \
+            else None
+        self.admission = AdmissionController(tcfg, registry=registry,
+                                             metrics=self.metrics)
+        self._slo = SLOTracker(metrics=self.metrics,
+                               loader=dao_overrides_loader(registry))
         self.auth = KeyAuthentication(server_key or None)
         self.plugin_context = EngineServerPluginContext(plugins)
         self._refresher = None
@@ -838,7 +916,8 @@ class PredictionServer(HTTPServerBase):
                 algos, models, serving = CoreWorkflow.prepare_deploy(
                     engine, inst, self.ctx,
                     warm_batch_max=self.batcher.batch_max,
-                    items_device=self._items_device, timings=timings)
+                    items_device=self._items_device, timings=timings,
+                    mesh=self.mesh)
                 new = _Deployment(algos, models, serving, engine=engine,
                                   instance=inst, timings=timings,
                                   obs=self._serve_obs)
@@ -860,17 +939,20 @@ class PredictionServer(HTTPServerBase):
             self.avg_serving_sec += (
                 (dt - self.avg_serving_sec) / self.request_count)
 
-    def serve_query(self, payload: Any) -> Any:
+    def serve_query(self, payload: Any,
+                    tenant: Optional[TenantIdentity] = None) -> Any:
         """The generic route's serve chain: extract the typed query,
-        batch it, post feedback, run the output blockers and sniffers;
-        returns the JSON-ready answer."""
+        batch it in the tenant's lane, post feedback, run the output
+        blockers and sniffers; returns the JSON-ready answer."""
         t0 = time.perf_counter()
         dep = self.deployment
         obs = self._serve_obs
         query = (extract_params(dep.query_class, payload)
                  if dep.query_class is not None else payload)
         obs.stage.labels(stage="extract").observe(time.perf_counter() - t0)
-        prediction = self.batcher.submit(dep, query, current_deadline())
+        label, weight, tqmax = self.admission.batch_params(tenant)
+        prediction = self.batcher.submit(dep, query, current_deadline(),
+                                         label, weight, tqmax)
         extra = {}
         if self._feedback is not None:
             tf = time.perf_counter()
@@ -884,7 +966,10 @@ class PredictionServer(HTTPServerBase):
             QueryInfo(dep.engine_variant, query, prediction))
         self.plugin_context.notify_sniffers(
             QueryInfo(dep.engine_variant, query, prediction))
-        self._count_request(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._count_request(dt)
+        if tenant is not None:
+            obs.tenant_serve.labels(app=tenant.label).observe(dt)
         out = to_jsonable(prediction)
         if isinstance(out, dict):
             out.update(extra)
@@ -892,10 +977,12 @@ class PredictionServer(HTTPServerBase):
 
     def _fast_queries(self, raw: RawRequest) -> Optional[bytes]:
         """/queries.json off the raw frame: the compiled query shape (or
-        its binary frame), deadline and in-flight admission, the batch
-        submit, and the body the drainer pre-serialized. None hands the
-        request to the generic route: no fast constructor, feedback or
-        plugins on, or a body of another shape."""
+        its binary frame), deadline, in-flight and tenant admission
+        (the access key, `X-PIO-App` and Basic auth scanned from the
+        raw head), the batch submit in the tenant's lane, and the body
+        the drainer pre-serialized. None hands the request to the
+        generic route: no fast constructor, feedback or plugins on, or
+        a body of another shape."""
         dep = self.deployment
         if dep.fast_ctor is None or self._feedback is not None \
                 or self.plugin_context.output_blockers \
@@ -922,31 +1009,49 @@ class PredictionServer(HTTPServerBase):
                                          "frame", rid, keep, t0)
             user, num = decoded
         admitted = False
+        tenant: Optional[TenantIdentity] = None
         try:
             deadline = deadline_from_header(raw.header(DEADLINE_HEADER))
             if deadline is not None and deadline.expired:
                 return self._fast_finish(
                     504, "deadline expired before processing", rid, keep,
                     t0)
+            if self.admission.enabled:
+                qs = raw.query_string
+                tenant = self.admission.resolve_raw(
+                    _scan_query(qs, "accessKey", _ACCESS_KEY_RE),
+                    raw.header(TENANT_HEADER), raw.header("Authorization"),
+                    channel=_scan_query(qs, "channel", _CHANNEL_RE))
             with self._limiter:
                 admitted = True
-                slot = self.batcher.submit_slot(
-                    dep, dep.fast_ctor(user, num), deadline)
+                with self.admission.admit(tenant):
+                    label, weight, tqmax = \
+                        self.admission.batch_params(tenant)
+                    slot = self.batcher.submit_slot(
+                        dep, dep.fast_ctor(user, num), deadline, label,
+                        weight, tqmax)
+        except HTTPError as e:
+            return self._fast_finish(e.status, e.message, rid, keep, t0,
+                                     tenant=tenant, extra=e.headers)
         except DeadlineExceeded as e:
-            return self._fast_finish(504, str(e), rid, keep, t0)
+            return self._fast_finish(504, str(e), rid, keep, t0,
+                                     tenant=tenant)
         except OverloadedError as e:
             if not admitted:
                 self._shed_counter.labels(surface=self._limiter.surface,
                                           app="").inc()
             return self._fast_finish(e.status, e.message, rid, keep, t0,
-                                     retry_after=e.retry_after)
+                                     retry_after=e.retry_after,
+                                     tenant=tenant)
         except ValueError as e:
-            return self._fast_finish(400, str(e), rid, keep, t0)
+            return self._fast_finish(400, str(e), rid, keep, t0,
+                                     tenant=tenant)
         except Exception as e:  # noqa: BLE001 — request boundary
             _log.exception("unhandled_error", request_id=rid,
                            method="POST", path="/queries.json",
                            error=f"{type(e).__name__}: {e}")
-            return self._fast_finish(500, str(e), rid, keep, t0)
+            return self._fast_finish(500, str(e), rid, keep, t0,
+                                     tenant=tenant)
         wire = slot.get("wire")
         if wire is None:
             wire = json.dumps(to_jsonable(slot["result"])).encode("utf-8")
@@ -954,24 +1059,74 @@ class PredictionServer(HTTPServerBase):
         self._count_request(dt)
         self._fq_ok.inc()
         self._fq_hist.observe(dt)
+        app = tenant.label if tenant is not None else ""
+        if tenant is not None:
+            self._serve_obs.tenant_serve.labels(app=app).observe(dt)
+        self._slo.record(app, dt, ok=True)
         return build_response(200, "application/json", wire, rid,
                               keep_alive=keep)
 
     def _fast_finish(self, status: int, message: str, rid: str,
                      keep: bool, t0: float,
-                     retry_after: Optional[float] = None) -> bytes:
+                     retry_after: Optional[float] = None,
+                     tenant: Optional[TenantIdentity] = None,
+                     extra: Optional[Dict[str, str]] = None) -> bytes:
         """A fast-route answer other than 200: the metrics the generic
         middleware records, the same JSON error body."""
-        extra = (retry_after_header(retry_after)
-                 if retry_after is not None else None)
+        extra = dict(extra or {})
+        if retry_after is not None:
+            extra.update(retry_after_header(retry_after))
+        dt = time.perf_counter() - t0
         if status == 504:
             self._deadline_counter.labels(route="/queries.json").inc()
         self._req_counter.labels(route="/queries.json", method="POST",
                                  status=str(status)).inc()
-        self._fq_hist.observe(time.perf_counter() - t0)
+        self._fq_hist.observe(dt)
+        self._slo.record(tenant.label if tenant is not None else "", dt,
+                         ok=status < 500)
         body = b'{"message": ' + _json_str(message).encode("ascii") + b'}'
         return build_response(status, "application/json", body, rid,
-                              extra, keep_alive=keep)
+                              extra or None, keep_alive=keep)
+
+    @staticmethod
+    def _query_payload(req: Request) -> Any:
+        """The query of a generic-route request: its JSON body, or its
+        binary frame (the threaded wire, feedback or plugins on, or a
+        fleet router's proxy)."""
+        if (req.header("Content-Type") or "").startswith(BIN_CONTENT_TYPE):
+            decoded = decode_bin_query(req.body)
+            if decoded is None:
+                raise HTTPError(400, "malformed binary query frame")
+            return {"user": decoded[0], "num": decoded[1]}
+        try:
+            return json.loads(req.body or b"{}")
+        except ValueError as e:
+            raise HTTPError(400, f"malformed JSON body: {e}")
+
+    # -- fleet membership ---------------------------------------------------
+    def shard_spec(self) -> str:
+        """"i/n" on a fleet member that serves catalog slice i of n
+        (`mesh=ShardSlice(n, i)`), else "": what the replica agent's
+        heartbeats and /shard/queries.json report."""
+        m = self.mesh
+        if m is None or not hasattr(m, "index"):
+            return ""
+        return f"{m.index}/{m.n_shards}"
+
+    def current_instance_id(self) -> str:
+        """The serving engine instance's id ("" for a model file): a
+        replica agent's heartbeats carry it."""
+        return self.deployment.instance_id or ""
+
+    def readiness(self):
+        """/ready: serving, not stopping; the SLO burn is detail only
+        (a page, not a reason to leave rotation)."""
+        detail: Dict[str, Any] = {"modelLoaded": True}
+        slo = self._slo.snapshot()
+        if slo:
+            detail["slo"] = slo
+            detail["sloDegraded"] = self._slo.degraded()
+        return (not self._stopping, detail)
 
     # -- status -------------------------------------------------------------
     def status(self) -> Dict[str, Any]:
@@ -988,6 +1143,7 @@ class PredictionServer(HTTPServerBase):
         plans = dep.plans()
         return {"status": "alive",
                 "engineInstanceId": dep.instance_id,
+                "pid": os.getpid(),
                 "deploy_timings": dep.timings,
                 "algorithms": [type(a).__name__ for a in dep.algos],
                 "plans": [type(p).__name__ for p in plans],
@@ -1001,6 +1157,8 @@ class PredictionServer(HTTPServerBase):
                                 for a in dep.algos],
                 "devices": devices,
                 "wire": self.wire,
+                "shard": self.shard_spec(),
+                "tenancy": self.admission.enabled,
                 "kernel_launches": {
                     "fused_topk": fused_topk.LAUNCHES,
                     "shard_local_candidates": fused_topk.SHARD_LAUNCHES},
@@ -1032,20 +1190,53 @@ class PredictionServer(HTTPServerBase):
 
         @r.post("/queries.json")
         def queries(req: Request) -> Response:
-            if (req.header("Content-Type") or "").startswith(
-                    BIN_CONTENT_TYPE):
-                # the binary frame on the generic route (the threaded
-                # wire, or feedback and plugins on)
-                decoded = decode_bin_query(req.body)
-                if decoded is None:
-                    raise HTTPError(400, "malformed binary query frame")
-                payload: Any = {"user": decoded[0], "num": decoded[1]}
-            else:
-                try:
-                    payload = json.loads(req.body or b"{}")
-                except ValueError as e:
-                    raise HTTPError(400, f"malformed JSON body: {e}")
-            return Response.json(self.serve_query(payload))
+            # tenancy on: authenticate the app key, then charge the
+            # app's quotas (429 with Retry-After past them)
+            tenant = self.admission.resolve(req)
+            app = tenant.label if tenant is not None else ""
+            t0 = time.perf_counter()
+            try:
+                with self.admission.admit(tenant):
+                    resp = Response.json(self.serve_query(
+                        self._query_payload(req), tenant))
+            except Exception as e:
+                self._slo.record(app, time.perf_counter() - t0,
+                                 ok=getattr(e, "status", 500) < 500)
+                raise
+            self._slo.record(app, time.perf_counter() - t0, ok=True)
+            return resp
+
+        @r.post("/shard/queries.json")
+        def shard_queries(req: Request) -> Response:
+            """The fleet member's surface: this member's candidates
+            (its catalog slice, or the whole catalog on a member with
+            none) with GLOBAL item ids, which the router merges by
+            (-score, id)."""
+            tenant = self.admission.resolve(req)
+            with self.admission.admit(tenant):
+                dep = self.deployment
+                payload = self._query_payload(req)
+                query = (extract_params(dep.query_class, payload)
+                         if dep.query_class is not None else payload)
+                label, weight, tqmax = self.admission.batch_params(tenant)
+                prediction = self.batcher.submit(
+                    dep, query, current_deadline(), label, weight, tqmax)
+            out = to_jsonable(prediction)
+            scores = (out.get("itemScores") or ()) \
+                if isinstance(out, dict) else ()
+            cands = []
+            for sc in scores:
+                name = sc.get("item")
+                gid = next((g for g in (im.get(name)
+                                        for im in dep.item_maps)
+                            if g is not None), None)
+                cands.append([-1 if gid is None else int(gid),
+                              sc.get("score", 0.0), name])
+            num = (query.get("num") if isinstance(query, dict)
+                   else getattr(query, "num", None))
+            return Response.json({"shard": self.shard_spec(),
+                                  "num": int(num) if num else len(cands),
+                                  "cands": cands})
 
         @r.get("/")
         def index(req: Request) -> Response:

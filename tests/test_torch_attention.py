@@ -156,7 +156,7 @@ def test_ring_attention_falls_through_and_refuses_a_sharded_axis():
         torch.testing.assert_close(
             pa.ring_attention(q, k, v, mesh, causal=True), ref,
             rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
         pa.ring_attention(q, k, v, _mesh((8, "sp")), causal=True)
 
 

@@ -58,7 +58,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "utils.wire", "utils.security", "obs", "obs.metrics",
                      "obs.logs", "obs.report", "resilience.deadline",
                      "resilience.shed", "resilience.faults",
-                     "serving.plugins"):
+                     "serving.plugins", "tenancy", "tenancy.admission",
+                     "tenancy.drr", "obs.slo", "resilience.watchdog",
+                     "serving.fleet", "serving.supervisor"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -175,6 +177,30 @@ def test_the_scan_worker_loads_neither_torch_nor_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_a_supervised_child_runs_the_ports_cli_without_jax():
+    """`child_argv_from_parent` names the port's CLI, and that argv's
+    module parses the child's deploy flags in a process where `import
+    jax` and `import predictionio_tpu` fail (so do the stub child's)."""
+    from predictionio_tpu_torch.serving.supervisor import (
+        child_argv_from_parent, stub_child_argv)
+    argv = child_argv_from_parent(
+        ["deploy", "--supervised", "2", "--device", "cpu", "--port", "9"],
+        "http://127.0.0.1:9", extra=("--member-name", "replica0"))
+    assert argv[1:3] == ["-m", "predictionio_tpu_torch.cli"]
+    assert stub_child_argv("http://127.0.0.1:9")[1:3] == [
+        "-m", "predictionio_tpu_torch.serving.supervisor"]
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['predictionio_tpu'] = None\n"
+        f"sys.argv = ['x', *{argv[3:]!r}, '--help']\n"
+        f"runpy.run_module({argv[2]!r}, run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--join" in out.stdout and "--supervised" in out.stdout
 
 
 def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
