@@ -4,7 +4,17 @@
     python -m predictionio_tpu_torch.cli app quota-set MyApp [--rate R] \
         [--burst B] [--concurrency C] [--queue-max Q] [--weight W]
     python -m predictionio_tpu_torch.cli app quota-show|quota-delete MyApp
-    python -m predictionio_tpu_torch.cli import --appid 1 --input events.jsonl
+    python -m predictionio_tpu_torch.cli app data-delete MyApp \
+        [--channel NAME] [--all] --force
+    python -m predictionio_tpu_torch.cli app channel-new MyApp NAME
+    python -m predictionio_tpu_torch.cli app channel-delete MyApp NAME --force
+    python -m predictionio_tpu_torch.cli accesskey delete KEY
+    python -m predictionio_tpu_torch.cli import --appid 1 [--channel ID] \
+        --input events.jsonl [--format json|parquet]
+    python -m predictionio_tpu_torch.cli export --appid 1 [--channel ID] \
+        --output events.jsonl [--format json|parquet]
+    python -m predictionio_tpu_torch.cli doctor [--repair] \
+        [--stale-after SECONDS]
     python -m predictionio_tpu_torch.cli build [--engine-json engine.json]
     python -m predictionio_tpu_torch.cli train [--engine-json engine.json] \
         [--stop-after-read | --stop-after-prepare] [--skip-sanity-check] \
@@ -80,6 +90,15 @@ flag of its own. `--batch-window-ms` is the micro-batcher's window.
 threaded wire); `PIO_SERVE_WIRE=threaded` picks that wire without TLS.
 The deploy process exits 0 on SIGTERM or after `/stop`.
 
+`doctor` runs the store-wide fsck (corrupt model blobs, torn journal
+tails, stale sidecars, diverging replicas) and the stale-instance
+janitor and prints the report with the breakers' states; `--repair`
+quarantines, truncates, rebuilds and fails what it finds, and
+`--stale-after` (default 900 s) is how old an INIT or TRAINING row's
+heartbeat may grow. `export` writes an app's (or channel's) events to a
+file, `import --format parquet` and `export --format parquet` need
+pyarrow.
+
 `undeploy` POSTs `/stop` to a running server (the server key as
 `--accesskey`); `redeploy` trains engine.json's variant, then POSTs
 `/reload` (the reference's cron recipe); `status` prints the version,
@@ -106,21 +125,21 @@ import logging
 import signal
 import sys
 import threading
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 from predictionio_tpu_torch.cli import ops
 from predictionio_tpu_torch.core.base import TrainingInterrupted
 from predictionio_tpu_torch.core.runtime import RuntimeContext
-from predictionio_tpu_torch.core.workflow import CoreWorkflow, prepare_deploy
-from predictionio_tpu_torch.models.recommendation import RecommendationEngine
 from predictionio_tpu_torch.obs import train_report
-from predictionio_tpu_torch.ops.als import ALSModel, load_npz
 from predictionio_tpu_torch.serving.server import (FeedbackConfig,
                                                    PredictionServer,
                                                    _Deployment,
                                                    install_signal_handlers)
 from predictionio_tpu_torch.tenancy import TenancyConfig
 from predictionio_tpu_torch.utils.security import ssl_context_from_config
+
+if TYPE_CHECKING:    # torch loads with the commands that need it
+    from predictionio_tpu_torch.ops.als import ALSModel
 
 
 def _emit(obj) -> None:
@@ -142,6 +161,9 @@ def deploy(model: ALSModel, *, host: str = "127.0.0.1", port: int = 8000,
     RAM (`ALSAlgorithm.warm_serving`). `feedback` posts every served
     prediction to an event server; `server_kw` go to `PredictionServer`
     (`server_key`, `max_inflight`, `wire`, `plugins`, `metrics`, ...)."""
+    from predictionio_tpu_torch.core.workflow import prepare_deploy
+    from predictionio_tpu_torch.models.recommendation import \
+        RecommendationEngine
     algos, models, serving = prepare_deploy(
         RecommendationEngine.apply(), [model], warm_batch_max=batch_max,
         mesh=mesh)
@@ -167,6 +189,7 @@ def deploy_instance(engine, instance, ctx: RuntimeContext, *,
     `PredictionServer`. Its `/reload` loads the variant's latest
     COMPLETED instance the same way, over the same `mesh`."""
     timings: dict = {}
+    from predictionio_tpu_torch.core.workflow import CoreWorkflow
     algos, models, serving = CoreWorkflow.prepare_deploy(
         engine, instance, ctx, warm_batch_max=batch_max,
         items_device=items_device, timings=timings, mesh=mesh)
@@ -188,7 +211,7 @@ def fleet_replica_factory(engine, instance, ctx: RuntimeContext,
     def make(index: int, *, mesh=None, tenancy=None) -> PredictionServer:
         return deploy_instance(engine, instance, ctx, host="127.0.0.1",
                                port=0, mesh=mesh, tenancy=tenancy,
-                               **deploy_kw)
+                               startup_check=False, **deploy_kw)
     return make
 
 
@@ -231,6 +254,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weighted-fair drain weight (default 1.0)")
     for cmd in ("quota-show", "quota-delete"):
         app.add_parser(cmd).add_argument("name")
+    x = app.add_parser("data-delete", help="delete an app's events")
+    x.add_argument("name")
+    x.add_argument("--channel")
+    x.add_argument("--all", action="store_true")
+    x.add_argument("--force", "-f", action="store_true")
+    x = app.add_parser("channel-new")
+    x.add_argument("app_name")
+    x.add_argument("channel_name")
+    x = app.add_parser("channel-delete")
+    x.add_argument("app_name")
+    x.add_argument("channel_name")
+    x.add_argument("--force", "-f", action="store_true")
     ak = sub.add_parser("accesskey", help="manage access keys"
                         ).add_subparsers(dest="ak_command", required=True)
     x = ak.add_parser("new")
@@ -239,10 +274,25 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--events", nargs="*", default=[])
     x = ak.add_parser("list")
     x.add_argument("app_name", nargs="?")
-    x = sub.add_parser("import", help="import API-JSON event lines")
+    ak.add_parser("delete").add_argument("key")
+    x = sub.add_parser("import", help="import an events file")
     x.add_argument("--appid", type=int, required=True)
     x.add_argument("--channel", type=int, default=None)
     x.add_argument("--input", required=True)
+    x.add_argument("--format", choices=["json", "parquet"], default="json")
+    x = sub.add_parser("export", help="export an app's events to a file")
+    x.add_argument("--appid", type=int, required=True)
+    x.add_argument("--channel", type=int, default=None)
+    x.add_argument("--output", required=True)
+    x.add_argument("--format", choices=["json", "parquet"], default="json")
+    x = sub.add_parser("doctor", help="fsck every bound store and fail "
+                       "stale instances; --repair to act")
+    x.add_argument("--repair", action="store_true",
+                   help="quarantine, truncate, rebuild and fail instead "
+                        "of only reporting")
+    x.add_argument("--stale-after", type=float, default=None,
+                   help="seconds before an INIT/TRAINING instance with no "
+                        "heartbeat counts as dead (default 900)")
     x = sub.add_parser("build", help="validate the engine variant")
     x.add_argument("--engine-json", default="engine.json")
     x = sub.add_parser("train", help="train and record an engine instance")
@@ -390,16 +440,28 @@ def _app(args) -> None:
     elif c == "quota-delete":
         ops.app_quota_delete(registry, args.name)
         _emit({"message": f"Quota override for {args.name} deleted"})
+    elif c == "data-delete":
+        ops.app_data_delete(registry, args.name, channel=args.channel,
+                            all_channels=args.all, force=args.force)
+        _emit({"message": f"Data of app {args.name} deleted"})
+    elif c == "channel-new":
+        _emit(ops.channel_new(registry, args.app_name, args.channel_name))
+    elif c == "channel-delete":
+        ops.channel_delete(registry, args.app_name, args.channel_name,
+                           force=args.force)
+        _emit({"message": f"Channel {args.channel_name} deleted"})
     else:
         ops.app_delete(registry, args.name, force=args.force)
         _emit({"message": f"App {args.name} deleted"})
 
 
-def _wait_for_sigterm() -> None:
+def _sigterm_event() -> threading.Event:
+    """An event SIGINT and SIGTERM set, installed before the caller
+    announces itself (a signal sent at once must not kill the process)."""
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
-    stop.wait()
+    return stop
 
 
 def _tenancy(args, registry, server_key: str) -> TenancyConfig:
@@ -510,6 +572,7 @@ def _deploy(args, argv: Sequence[str]) -> int:
                 sup.stop()
         return 0
     if args.model:
+        from predictionio_tpu_torch.ops.als import load_npz
         model = load_npz(args.model, device=args.device,
                          items_device=items_device)
         server = deploy(model, host=args.ip, port=args.port,
@@ -528,7 +591,7 @@ def _deploy(args, argv: Sequence[str]) -> int:
             refresh_interval_s=args.refresh_interval, feedback=feedback,
             mesh=ShardSlice(*mesh) if mesh is not None else None,
             tenancy=(tenancy.replica_variant() if args.join else tenancy),
-            **server_kw)
+            startup_check=not args.join, **server_kw)
         what = f"engine instance {inst.id}"
         dev = ", ".join(sorted({str(m.device)
                                 for m in server.deployment.models
@@ -557,8 +620,9 @@ def _eventserver(args) -> int:
     server = EventServer(EventServerConfig(ip=args.ip, port=args.port,
                                            stats=args.stats), _registry())
     port = server.start()
+    stop = _sigterm_event()
     print(f"Event server started on {args.ip}:{port}", flush=True)
-    _wait_for_sigterm()
+    stop.wait()
     server.shutdown()
     return 0
 
@@ -575,12 +639,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             if args.ak_command == "new":
                 _emit(ops.accesskey_new(_registry(), args.app_name,
                                         key=args.key, events=args.events))
+            elif args.ak_command == "delete":
+                ops.accesskey_delete(_registry(), args.key)
+                _emit({"message": f"Access key {args.key} deleted"})
             else:
                 _emit(ops.accesskey_list(_registry(), args.app_name))
         elif cmd == "import":
             _emit(ops.import_events(_registry(), app_id=args.appid,
                                     input_path=args.input,
-                                    channel_id=args.channel))
+                                    channel_id=args.channel,
+                                    format=args.format))
+        elif cmd == "export":
+            _emit(ops.export_events(_registry(), app_id=args.appid,
+                                    output_path=args.output,
+                                    channel_id=args.channel,
+                                    format=args.format))
+        elif cmd == "doctor":
+            report = ops.doctor(_registry(), repair=args.repair,
+                                stale_after_s=args.stale_after)
+            _emit(report)
+            return 0 if report["unrepaired"] == 0 else 1
         elif cmd == "build":
             _emit(ops.build(args.engine_json))
         elif cmd == "eval":

@@ -1,11 +1,13 @@
 """Command implementations of the port's CLI.
 
 The port of the lifecycle commands of `predictionio_tpu/cli/ops.py`
-(commands/{App,AccessKey,Engine,Import,Management}.scala): `app new|
-list|show|delete`, the serving tenancy's `app quota-set|quota-show|
-quota-delete`, `accesskey new|list`, `import` of API-JSON event
-lines, the engine.json plumbing of `build`, `train` and `deploy`,
-`eval`, `batchpredict`, `status`, the running server's `undeploy`
+(commands/{App,AccessKey,Engine,Import,Export,Management}.scala): `app
+new|list|show|delete|data-delete|channel-new|channel-delete`, the
+serving tenancy's `app quota-set|quota-show|quota-delete`, `accesskey
+new|list|delete`, `import` and `export` of events (API-JSON lines, or
+parquet through pyarrow, imported when asked for), the engine.json
+plumbing of `build`, `train` and `deploy`, `eval`, `batchpredict`,
+`status`, `doctor` (`data/fsck.py`), the running server's `undeploy`
 (POST /stop) and `reload_server` (POST /reload, `redeploy`'s second
 half), and the `template new` scaffold (commands/Template.scala). Every
 function but the scaffold and the two server calls takes the storage
@@ -20,7 +22,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
 from predictionio_tpu_torch.data.event import Event, format_time
-from predictionio_tpu_torch.data.storage import AccessKey, App, TenantQuota
+from predictionio_tpu_torch.data.storage import (AccessKey, App, Channel,
+                                                 TenantQuota)
 
 IMPORT_BATCH = 500
 
@@ -117,6 +120,59 @@ def app_quota_delete(registry, name: str) -> None:
     registry.get_meta_data_tenant_quotas().delete(app.id)
 
 
+def app_data_delete(registry, name: str, *,
+                    channel: Optional[str] = None,
+                    all_channels: bool = False,
+                    force: bool = False) -> None:
+    """Empty the app's default event table (or the named channel's; with
+    `all_channels` every channel's too), keeping the app."""
+    app = _require_app(registry, name)
+    if not force:
+        raise ValueError("Pass force=True (CLI: --force) to delete data")
+    events = registry.get_events()
+    channels = registry.get_meta_data_channels().get_by_appid(app.id)
+    if channel is not None:
+        match = [c for c in channels if c.name == channel]
+        if not match:
+            raise ValueError(f"Channel {channel} does not exist. Aborting.")
+        events.remove(app.id, match[0].id)
+        events.init(app.id, match[0].id)
+        return
+    events.remove(app.id)
+    events.init(app.id)
+    if all_channels:
+        for c in channels:
+            events.remove(app.id, c.id)
+            events.init(app.id, c.id)
+
+
+def channel_new(registry, app_name: str,
+                channel_name: str) -> Dict[str, Any]:
+    """A new channel of the app, with its event table."""
+    app = _require_app(registry, app_name)
+    channels = registry.get_meta_data_channels()
+    if any(c.name == channel_name for c in channels.get_by_appid(app.id)):
+        raise ValueError(f"Channel {channel_name} already exists. Aborting.")
+    channel_id = channels.insert(Channel(0, channel_name, app.id))
+    registry.get_events().init(app.id, channel_id)
+    return {"app": app_name, "channel": channel_name, "id": channel_id}
+
+
+def channel_delete(registry, app_name: str, channel_name: str, *,
+                   force: bool = False) -> None:
+    """Delete a channel with its events."""
+    app = _require_app(registry, app_name)
+    if not force:
+        raise ValueError("Pass force=True (CLI: --force) to delete")
+    channels = registry.get_meta_data_channels()
+    match = [c for c in channels.get_by_appid(app.id)
+             if c.name == channel_name]
+    if not match:
+        raise ValueError(f"Channel {channel_name} does not exist. Aborting.")
+    registry.get_events().remove(app.id, match[0].id)
+    channels.delete(match[0].id)
+
+
 def accesskey_new(registry, app_name: str, *, key: str = "",
                   events: Sequence[str] = ()) -> Dict[str, Any]:
     app = _require_app(registry, app_name)
@@ -134,30 +190,118 @@ def accesskey_list(registry, app_name: Optional[str] = None
             for k in keys]
 
 
+def accesskey_delete(registry, key: str) -> None:
+    dao = registry.get_meta_data_access_keys()
+    if dao.get(key) is None:
+        raise ValueError(f"Access key {key} does not exist. Aborting.")
+    dao.delete(key)
+
+
+def _require_pyarrow():
+    try:
+        import pyarrow
+        import pyarrow.parquet  # noqa: F401
+        return pyarrow
+    except ImportError as e:
+        raise ValueError(
+            "format='parquet' requires pyarrow, which is not installed; "
+            "use format='json'") from e
+
+
+# the parquet columns: the API-JSON fields, `properties` as JSON text
+# (a property bag has no static arrow schema)
+PARQUET_COLUMNS = ("eventId", "event", "entityType", "entityId",
+                   "targetEntityType", "targetEntityId", "properties",
+                   "eventTime", "tags", "prId", "creationTime")
+
+
 def import_events(registry, *, app_id: int, input_path: str,
-                  channel_id: Optional[int] = None) -> Dict[str, Any]:
-    """One API-JSON event per line -> the event store, in batches of
-    `IMPORT_BATCH` (imprt/FileToEvents.scala:40-106); returns the count
-    and the seconds it took."""
+                  channel_id: Optional[int] = None,
+                  format: str = "json") -> Dict[str, Any]:
+    """An events file -> the event store, in batches of `IMPORT_BATCH`
+    (imprt/FileToEvents.scala:40-106): one API-JSON event per line, or
+    parquet as `export_events` writes it. Returns the count and the
+    seconds it took."""
+    if format not in ("json", "parquet"):
+        raise ValueError(f"Unknown import format {format!r} "
+                         "(expected 'json' or 'parquet')")
     t0 = time.perf_counter()
     store = registry.get_events()
     store.init(app_id, channel_id)
     n = 0
     batch: List[Event] = []
-    with open(input_path) as f:
-        for line in f:
-            line = line.strip()
-            if not line:
-                continue
-            batch.append(Event.from_api_json(json.loads(line)))
-            if len(batch) >= IMPORT_BATCH:
-                store.insert_batch(batch, app_id, channel_id)
-                n += len(batch)
-                batch = []
+
+    def add(e: Event) -> None:
+        nonlocal n, batch
+        batch.append(e)
+        if len(batch) >= IMPORT_BATCH:
+            store.insert_batch(batch, app_id, channel_id)
+            n += len(batch)
+            batch = []
+
+    if format == "parquet":
+        pa = _require_pyarrow()
+        for rb in pa.parquet.ParquetFile(input_path).iter_batches(
+                batch_size=IMPORT_BATCH):
+            for row in rb.to_pylist():
+                obj = {k: v for k, v in row.items() if v is not None}
+                if "properties" in obj:
+                    obj["properties"] = json.loads(obj["properties"])
+                add(Event.from_api_json(obj))
+    else:
+        with open(input_path) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    add(Event.from_api_json(json.loads(line)))
     if batch:
         store.insert_batch(batch, app_id, channel_id)
         n += len(batch)
     return {"imported": n, "seconds": time.perf_counter() - t0}
+
+
+def export_events(registry, *, app_id: int, output_path: str,
+                  channel_id: Optional[int] = None,
+                  format: str = "json") -> Dict[str, Any]:
+    """The event store -> a file (export/EventsToFile.scala:40-108): one
+    API-JSON event per line, or parquet with the API-JSON fields as
+    columns. Returns the count and the seconds it took."""
+    if format not in ("json", "parquet"):
+        raise ValueError(f"Unknown export format {format!r} "
+                         "(expected 'json' or 'parquet')")
+    t0 = time.perf_counter()
+    events = registry.get_events().find(app_id, channel_id)
+    n = 0
+    if format == "parquet":
+        pa = _require_pyarrow()
+        schema = pa.schema(
+            [(c, pa.list_(pa.string()) if c == "tags" else pa.string())
+             for c in PARQUET_COLUMNS])
+        with pa.parquet.ParquetWriter(output_path, schema) as writer:
+            chunk: List[dict] = []
+
+            def write() -> None:
+                writer.write_table(pa.table(
+                    {c: [r.get(c) for r in chunk] for c in PARQUET_COLUMNS},
+                    schema=schema))
+
+            for e in events:
+                d = e.to_api_json()
+                if "properties" in d:
+                    d["properties"] = json.dumps(d["properties"])
+                chunk.append(d)
+                n += 1
+                if len(chunk) >= 5000:
+                    write()
+                    chunk = []
+            if chunk or n == 0:
+                write()
+    else:
+        with open(output_path, "w") as f:
+            for e in events:
+                f.write(json.dumps(e.to_api_json()) + "\n")
+                n += 1
+    return {"exported": n, "seconds": time.perf_counter() - t0}
 
 
 def load_variant(path: str) -> Dict[str, Any]:
@@ -218,7 +362,10 @@ def train(registry, *, engine_json: str = "engine.json",
 
 def latest_completed(registry, variant_id: str):
     """The instance `deploy` serves: the newest COMPLETED one of the
-    variant (commands/Engine.scala:235-236)."""
+    variant (commands/Engine.scala:235-236). An instance whose blob
+    `doctor --repair` quarantined is still the newest, as in the JAX
+    package: its deploy fails, and the operator names an intact one
+    with `--engine-instance-id`."""
     inst = registry.get_meta_data_engine_instances().get_latest_completed(
         "default", "default", variant_id)
     if inst is None:
@@ -349,6 +496,18 @@ def status(registry, variant: str = "default") -> Dict[str, Any]:
             "endTime": format_time(latest.end_time),
             "phaseTimings": latest.runtime_conf.get("phase_timings", {})}
     return info
+
+
+def doctor(registry, *, repair: bool = False,
+           stale_after_s: Optional[float] = None) -> Dict[str, Any]:
+    """`pio doctor`: the store-wide fsck, the stale-instance janitor and
+    the breakers' states; with `repair` it quarantines, truncates,
+    rebuilds and fails what it finds."""
+    from predictionio_tpu_torch.data import fsck
+    return fsck.doctor(
+        registry, repair=repair,
+        stale_after_s=(stale_after_s if stale_after_s is not None
+                       else fsck.DEFAULT_STALE_S))
 
 
 def _post_server(ip: str, port: int, endpoint: str, access_key: str,

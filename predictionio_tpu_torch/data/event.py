@@ -16,10 +16,10 @@ joda-time millisecond ordering.
 from __future__ import annotations
 
 import itertools
+import os
 import json
 import threading
 import time
-import uuid
 from dataclasses import dataclass, field, replace
 from datetime import datetime, timezone
 # Mapping from the abc, not typing: isinstance against typing.Mapping
@@ -86,7 +86,7 @@ def _gen_event_id() -> str:
         _event_id_last_ns = max(_event_id_last_ns, time.time_ns())
         ns = _event_id_last_ns
         seq = next(_event_id_seq)
-    return f"{ns:016x}{seq & 0xFFFFFFFF:08x}{uuid.uuid4().hex[:8]}"
+    return f"{ns:016x}{seq & 0xFFFFFFFF:08x}{os.urandom(4).hex()}"
 
 
 _JSON_SCALARS = (type(None), bool, int, float, str)

@@ -31,9 +31,11 @@ accepted events by surface (single, batch, webhook), as
 on the HTTP base's wire (the selector wire unless `PIO_SERVE_WIRE=
 threaded`) and honours `X-PIO-Deadline-Ms`.
 
-Not ported yet: the startup `fsck` sweep and the readiness on storage
-circuit breakers (ROADMAP.md, Queue 1 item 4; readiness is always
-true).
+The server sweeps its stores when it starts (`data.fsck.startup_check`:
+torn journal tails and corrupt blobs reported, stale instances failed);
+`/ready` is false while a storage source's circuit breaker is open
+(named in `storageBreakers`), when ingests would fast-fail with 503 and
+`Retry-After`.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from predictionio_tpu_torch.data.webhooks import (FORM_CONNECTORS,
                                                   JSON_CONNECTORS)
 from predictionio_tpu_torch.data.webhooks.connectors import (
     ConnectorException, connector_to_event)
-from predictionio_tpu_torch.obs import MetricsRegistry
+from predictionio_tpu_torch.obs import MetricsRegistry, get_logger
 from predictionio_tpu_torch.utils.http import (HTTPError, HTTPServerBase,
                                                Request, Response,
                                                parse_basic_auth_user)
@@ -104,7 +106,16 @@ class EventServer(HTTPServerBase):
             "pio_ingest_payload_bytes",
             "Ingest request payload size in bytes",
             buckets=PAYLOAD_BUCKETS)
+        from predictionio_tpu_torch.data.fsck import startup_check
+        startup_check(self.registry, log=get_logger("eventserver").warning)
         self._install_routes()
+
+    def readiness(self):
+        """Ready while no storage circuit breaker is open (an open one
+        fast-fails ingests with 503: the balancer should back off)."""
+        states = self.registry.breaker_states()
+        return (not any(st == "open" for st in states.values()),
+                {"storageBreakers": states})
 
     # -- auth ---------------------------------------------------------------
     def _auth(self, req: Request) -> AuthData:

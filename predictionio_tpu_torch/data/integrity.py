@@ -19,7 +19,10 @@ since another writer of the store may choose CRC32.
 `atomic_write_bytes` is how the file-backed drivers and the prepared-data
 cache write a file whole: a unique temporary file, fsync, rename, fsync
 of the directory, so a crash leaves the old content or the new one,
-never a torn file.
+never a torn file. `verify` is the non-raising check the fsck sweeps
+run; `quarantine_file` moves a bad blob into `.quarantine/` beside it
+with a `.reason` sidecar, and `purge_tmp_siblings` clears the leftover
+temporary files of interrupted writes.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import struct
 import uuid
 import zlib
 from pathlib import Path
-from typing import Union
+from typing import Optional, Tuple, Union
 
 from predictionio_tpu_torch.data.storage.base import StorageError
 
@@ -87,6 +90,18 @@ def unwrap(blob: bytes) -> bytes:
     return payload
 
 
+def verify(blob: bytes) -> Tuple[bool, str]:
+    """Non-raising integrity check: (ok, reason). A blob without the
+    envelope verifies as "legacy"."""
+    if blob[:4] != BLOB_MAGIC:
+        return True, "legacy"
+    try:
+        unwrap(blob)
+    except CorruptBlobError as exc:
+        return False, str(exc)
+    return True, "ok"
+
+
 def atomic_write_bytes(path: Union[str, Path], data: bytes) -> None:
     """Crash-safe write: unique tmp -> fsync -> rename -> fsync(dir)."""
     path = Path(path)
@@ -103,8 +118,12 @@ def atomic_write_bytes(path: Union[str, Path], data: bytes) -> None:
         except OSError:
             pass
         raise
+    _fsync_dir(path.parent)
+
+
+def _fsync_dir(dirpath: Path) -> None:
     try:
-        fd = os.open(str(path.parent), os.O_RDONLY)
+        fd = os.open(str(dirpath), os.O_RDONLY)
     except OSError:
         return
     try:
@@ -113,3 +132,35 @@ def atomic_write_bytes(path: Union[str, Path], data: bytes) -> None:
         pass
     finally:
         os.close(fd)
+
+
+def purge_tmp_siblings(path: Path) -> int:
+    """Remove leftover `<name>.*.tmp` files beside `path`; the count."""
+    removed = 0
+    try:
+        siblings = list(path.parent.glob(path.name + ".*.tmp"))
+    except OSError:
+        return 0
+    for tmp in siblings:
+        try:
+            tmp.unlink()
+            removed += 1
+        except OSError:
+            pass
+    return removed
+
+
+def quarantine_file(path: Path, reason: str,
+                    quarantine_dir: Optional[Path] = None) -> Path:
+    """Move `path` into a `.quarantine/` directory beside it, with a
+    `.reason` sidecar; returns where it went."""
+    qdir = quarantine_dir or (path.parent / ".quarantine")
+    qdir.mkdir(parents=True, exist_ok=True)
+    dest = qdir / path.name
+    if dest.exists():
+        dest = qdir / f"{path.name}.{uuid.uuid4().hex[:8]}"
+    os.replace(path, dest)
+    atomic_write_bytes(dest.with_name(dest.name + ".reason"),
+                       (reason + "\n").encode("utf-8"))
+    _fsync_dir(qdir)
+    return dest

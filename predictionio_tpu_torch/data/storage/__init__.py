@@ -6,7 +6,7 @@ from predictionio_tpu_torch.data.storage.base import (
     EngineInstanceStatus, EngineInstances, EvaluationInstance,
     EvaluationInstanceStatus, EvaluationInstances, EventStore, Lease, Leases,
     Model, Models, SLOObjective, SLOObjectives, StorageError,
-    StorageWriteError, TenantQuota, TenantQuotas,
+    StorageUnavailableError, StorageWriteError, TenantQuota, TenantQuotas,
 )
 from predictionio_tpu_torch.data.storage.registry import (
     StorageRegistry, register_driver, set_default, storage,
@@ -17,7 +17,8 @@ __all__ = [
     "EngineInstance", "EngineInstanceStatus", "EngineInstances",
     "EvaluationInstance", "EvaluationInstanceStatus", "EvaluationInstances",
     "EventStore", "Lease", "Leases", "Model", "Models", "SLOObjective",
-    "SLOObjectives", "StorageError", "StorageWriteError", "TenantQuota",
+    "SLOObjectives", "StorageError", "StorageUnavailableError",
+    "StorageWriteError", "TenantQuota",
     "TenantQuotas",
     "StorageRegistry", "register_driver", "set_default", "storage",
 ]

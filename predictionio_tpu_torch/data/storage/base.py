@@ -20,8 +20,10 @@ The port of the part of `predictionio_tpu/data/storage/base.py` that the
     `SLOObjectives` (per-app SLO overrides), with no reference analog.
 
 Drivers
-(`memory.py`, `sqlite.py`, `evlog.py`, `pevlog.py`) implement these
-bases and are found by the registry (`registry.py`).
+(`memory.py`, `sqlite.py`, `evlog.py`, `pevlog.py`, `postgres.py`,
+`localfs.py`, `objectstore.py`, `replicated.py`) implement these bases
+and are found by the registry (`registry.py`). `StorageUnavailableError`
+and `TRANSIENT_STORAGE_ERRORS` are what the resilience proxy retries.
 """
 
 from __future__ import annotations
@@ -44,6 +46,29 @@ class StorageError(Exception):
 
 class StorageWriteError(StorageError):
     """A write rejected by the backend (duplicate key, constraint)."""
+
+
+class StorageUnavailableError(StorageError):
+    """A transient backend failure (connection refused or lost, a
+    timeout, a server shutting down). Drivers raise it, or a plain
+    OSError, for what a retry can cure; the resilience proxy
+    (`resilient.py`) retries these and trips the source's circuit
+    breaker when they persist. Client errors never use it."""
+
+
+class StorageOutcomeUnknownError(StorageError):
+    """The backend went away before it answered a write that may have
+    been applied (a connection lost during COMMIT, or during an
+    autocommitted statement). Never retried, since a repeat could apply
+    it twice; it still counts toward the source's breaker."""
+
+
+# what the storage resilience layer retries and counts toward a trip
+# (ConnectionError and TimeoutError are OSError subclasses)
+TRANSIENT_STORAGE_ERRORS = (StorageUnavailableError, OSError)
+# what counts toward a trip: the transient errors and a lost reply
+BREAKER_FAILURE_ERRORS = TRANSIENT_STORAGE_ERRORS + (
+    StorageOutcomeUnknownError,)
 
 
 @dataclass(frozen=True)
@@ -349,6 +374,13 @@ class Models(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, mid: str) -> None: ...
+
+    def list_model_ids(self) -> List[str]:
+        """The ids the store can enumerate, sorted; [] when the driver
+        cannot enumerate (the fsck sweeps then take the metadata's ids
+        alone). LOCALFS returns its escaped file names, which are the
+        ids for every id the system writes (alphanumeric)."""
+        return []
 
 
 class Leases(abc.ABC):

@@ -5,7 +5,9 @@ reference's HBase event store, `storage/hbase/HBEventsUtil.scala`: one
 table per app/channel; here one CRC-framed journal per app/channel,
 appended through `native/eventlog.cpp`, flock-safe across processes).
 Deletes append tombstone frames; readers replay the journal, cached per
-file until it grows. It also holds the time and payload helpers PEVLOG
+file until it grows. `fsck` finds a torn tail (bytes past the last
+valid frame, which scans skip but which hide every later append) and
+with `repair` truncates it. It also holds the time and payload helpers PEVLOG
 shares (`_us`, `_from_us`, `_payload_to_event`).
 
 Config: PIO_STORAGE_SOURCES_<NAME>_TYPE=EVLOG, ..._PATH=<dir>.
@@ -14,11 +16,12 @@ Config: PIO_STORAGE_SOURCES_<NAME>_TYPE=EVLOG, ..._PATH=<dir>.
 from __future__ import annotations
 
 import json
+import os
 import threading
 from dataclasses import replace
 from datetime import datetime, timezone
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
@@ -131,6 +134,30 @@ class EvlogEvents(base.EventStore):
             EventLog(str(self._path(app_id, channel_id))).append(
                 json.dumps({"$tombstone": event_id}).encode())
         return True
+
+    def fsck(self, repair: bool = False) -> List[dict]:
+        """Torn journal tails; `repair` truncates each to its last valid
+        frame."""
+        findings: List[dict] = []
+        for path in sorted(self.c.base_dir.glob("events_*.log")):
+            try:     # the size first: an append racing the scan is no tail
+                size = path.stat().st_size
+            except OSError:
+                continue
+            valid_end = EventLog(str(path)).valid_end()
+            if size <= valid_end:
+                continue
+            finding = {"kind": "torn_tail", "path": str(path),
+                       "reason": (f"{size - valid_end} trailing bytes "
+                                  "fail frame CRC"),
+                       "action": "none"}
+            if repair:
+                with self.c.lock:
+                    os.truncate(path, valid_end)
+                    self.c.cache.pop(str(path), None)
+                finding["action"] = f"truncated to {valid_end}"
+            findings.append(finding)
+        return findings
 
     def find(self, app_id: int, channel_id: Optional[int] = None, *,
              start_time=None, until_time=None, entity_type=None,

@@ -823,13 +823,11 @@ class PevlogEvents(base.EventStore):
             if not part.is_dir():
                 continue
             for jpath in sorted(part.glob("*.log")):
-                valid_end = 0
-                for _payload, end in EventLog(str(jpath)).scan_from(0):
-                    valid_end = end
-                try:
+                try:   # the size first: an append racing the scan is no tail
                     size = jpath.stat().st_size
                 except OSError:
                     continue
+                valid_end = EventLog(str(jpath)).valid_end()
                 if size > valid_end:
                     finding = {
                         "kind": "torn_tail", "path": str(jpath),

@@ -1,7 +1,7 @@
 """Storage registry: config-driven backend discovery and DAO construction.
 
 The port of `predictionio_tpu/data/storage/registry.py` (Storage.scala:
-147-452) without the resilience wrapper. Sources are declared by
+147-452). Sources are declared by
 `PIO_STORAGE_SOURCES_<NAME>_TYPE` (plus driver keys such as `_PATH`);
 `PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_{NAME,SOURCE}`
 bind the three data roles to sources. Layers, highest first: an explicit
@@ -11,10 +11,25 @@ by `$PIO_ENV_FILE` or found at `./pio-env` or `~/.pio_store/pio-env`.
 Drivers register in `DRIVERS` (`register_driver`): MEM and SQLITE for
 every DAO; EVLOG (a journal per app/channel, `PATH`) and PEVLOG (the
 indexed, delta-capable event store: time-bucketed segment journals,
-`PATH` and `BUCKET_HOURS`, default 24) for events only. With
-no configuration at all, one SQLITE source at `./.pio_store/pio.db`
-holds everything, the JAX package's zero-config default, so that both
-packages run from one directory share one store.
+`PATH` and `BUCKET_HOURS`, default 24) for events only; POSTGRES and
+PGSQL (`postgres.py`, over the wire client `pgwire.py`: `URL` or
+`HOST`/`PORT`/`DATABASE`/`USERNAME`/`PASSWORD`) for every DAO but
+leases; LOCALFS (`PATH`) for models and leases; OBJECTSTORE, S3 and
+HDFS (fsspec, imported when such a source is opened) for models;
+REPLICATED (`REPLICAS`, `QUORUM`) for models and leases over other
+sources. With no configuration at all, one SQLITE source at
+`./.pio_store/pio.db` holds everything, the JAX package's zero-config
+default, so that both packages run from one directory share one store.
+
+Every DAO comes wrapped in `resilient.ResilientDAO` (retry of transient
+errors, one circuit breaker and one retry budget per source, the
+`storage.<source>.<dao>.<method>` fault seams), except a REPLICATED
+source's, whose targets carry their own (a quorum failure is final and
+must not be retried). The per-source keys `RESILIENCE` (`off` unwraps),
+`RETRY_ATTEMPTS`, `RETRY_BASE_DELAY`, `BREAKER_THRESHOLD`,
+`BREAKER_RECOVERY_S` and `RETRY_BUDGET` (tokens; `off` unbudgeted) tune
+them, at the JAX defaults (3 attempts from 50 ms, 5 failures, 30 s, 50
+tokens). `breaker_states()` feeds every server's `/ready`.
 """
 
 from __future__ import annotations
@@ -26,7 +41,11 @@ from pathlib import Path
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 from predictionio_tpu_torch.data.storage import base
-from predictionio_tpu_torch.data.storage.base import StorageError
+from predictionio_tpu_torch.data.storage.base import (
+    TRANSIENT_STORAGE_ERRORS, StorageError)
+from predictionio_tpu_torch.data.storage.resilient import ResilientDAO
+from predictionio_tpu_torch.resilience import (CircuitBreaker, RetryBudget,
+                                               RetryPolicy)
 
 # type name -> {"client": factory, "daos": {dao name -> DAO class}}
 DRIVERS: Dict[str, Dict[str, object]] = {}
@@ -38,7 +57,9 @@ def register_driver(type_name: str, client_factory: Callable,
 
 
 def _register_builtin_drivers() -> None:
-    from predictionio_tpu_torch.data.storage import (evlog, memory, pevlog,
+    from predictionio_tpu_torch.data.storage import (evlog, localfs, memory,
+                                                     objectstore, pevlog,
+                                                     postgres, replicated,
                                                      sqlite)
 
     register_driver("MEM", memory.MemStorageClient, {
@@ -70,6 +91,33 @@ def _register_builtin_drivers() -> None:
     })
     register_driver("PEVLOG", pevlog.PevlogStorageClient, {
         "Events": pevlog.PevlogEvents,
+    })
+    register_driver("LOCALFS", localfs.LocalFSStorageClient, {
+        "Models": localfs.LocalFSModels,
+        "Leases": localfs.LocalFSLeases,
+    })
+    # the reference's jdbc driver set; the connection opens with the
+    # source, and POSTGRES keeps no lease table (as the JAX driver)
+    for type_name in ("POSTGRES", "PGSQL"):
+        register_driver(type_name, postgres.PostgresStorageClient, {
+            "Apps": postgres.PostgresApps,
+            "AccessKeys": postgres.PostgresAccessKeys,
+            "Channels": postgres.PostgresChannels,
+            "EngineInstances": postgres.PostgresEngineInstances,
+            "EvaluationInstances": postgres.PostgresEvaluationInstances,
+            "Models": postgres.PostgresModels,
+            "TenantQuotas": postgres.PostgresTenantQuotas,
+            "SLOObjectives": postgres.PostgresSLOObjectives,
+            "Events": postgres.PostgresEvents,
+        })
+    # S3 and HDFS are the reference's driver names; OBJECTSTORE takes
+    # any fsspec URL (fsspec is imported when such a source opens)
+    for type_name in ("OBJECTSTORE", "S3", "HDFS"):
+        register_driver(type_name, objectstore.ObjectStoreStorageClient,
+                        {"Models": objectstore.ObjectStoreModels})
+    register_driver("REPLICATED", replicated.ReplicatedStorageClient, {
+        "Models": replicated.ReplicatedModels,
+        "Leases": replicated.ReplicatedLeases,
     })
 
 
@@ -117,6 +165,8 @@ class StorageRegistry:
         self._lock = threading.RLock()
         self._clients: Dict[str, object] = {}
         self._daos: Dict[Tuple[str, str], object] = {}
+        self._breakers: Dict[str, CircuitBreaker] = {}
+        self._budgets: Dict[str, Optional[RetryBudget]] = {}
         self.sources, self.repositories = self._parse(self.config)
 
     @staticmethod
@@ -169,8 +219,13 @@ class StorageRegistry:
                 if scfg["TYPE"].upper() == "SQLITE" and "PATH" in scfg:
                     Path(scfg["PATH"]).expanduser().parent.mkdir(
                         parents=True, exist_ok=True)
-                self._clients[source_name] = DRIVERS[
-                    scfg["TYPE"].upper()]["client"](scfg)
+                factory = DRIVERS[scfg["TYPE"].upper()]["client"]
+                # a virtual source (REPLICATED) resolves its targets'
+                # DAOs back through this registry
+                self._clients[source_name] = (
+                    factory(scfg, registry=self)
+                    if getattr(factory, "needs_registry", False)
+                    else factory(scfg))
             return self._clients[source_name]
 
     def get_data_object(self, source_name: str, dao: str):
@@ -184,9 +239,59 @@ class StorageRegistry:
                     raise StorageError(
                         f"Storage type {scfg['TYPE']} does not support "
                         f"data object {dao}")
-                self._daos[key] = driver["daos"][dao](
-                    self._client(source_name))
+                raw = driver["daos"][dao](self._client(source_name))
+                self._daos[key] = self._wrap_resilient(raw, source_name,
+                                                       dao, scfg)
             return self._daos[key]
+
+    def _wrap_resilient(self, dao: object, source: str, dao_name: str,
+                        scfg: Mapping[str, str]):
+        """`dao` behind retry, the source's breaker and budget, and its
+        fault seams; REPLICATED (each target wrapped already) and
+        `RESILIENCE=off` stay bare."""
+        default = ("off" if scfg["TYPE"].upper() == "REPLICATED"
+                   else "on")
+        if str(scfg.get("RESILIENCE", default)).lower() in (
+                "off", "0", "false", "no"):
+            return dao
+        policy = RetryPolicy(
+            attempts=int(scfg.get("RETRY_ATTEMPTS", 3)),
+            base_delay=float(scfg.get("RETRY_BASE_DELAY", 0.05)),
+            retryable=TRANSIENT_STORAGE_ERRORS)
+        return ResilientDAO(
+            dao, seam=f"storage.{source}.{dao_name}", source=source,
+            breaker=self._breaker(source, scfg), policy=policy,
+            budget=self._budget(source, scfg))
+
+    def _breaker(self, source: str, scfg: Mapping[str, str]
+                 ) -> CircuitBreaker:
+        """One breaker per source, shared by all its DAOs."""
+        breaker = self._breakers.get(source)
+        if breaker is None:
+            breaker = CircuitBreaker(
+                f"storage.{source}",
+                failure_threshold=int(scfg.get("BREAKER_THRESHOLD", 5)),
+                recovery_time=float(scfg.get("BREAKER_RECOVERY_S", 30.0)))
+            self._breakers[source] = breaker
+        return breaker
+
+    def _budget(self, source: str, scfg: Mapping[str, str]
+                ) -> Optional[RetryBudget]:
+        """One retry budget per source (amplification is a per-backend
+        matter); None when `RETRY_BUDGET` is off."""
+        if source not in self._budgets:
+            raw = str(scfg.get("RETRY_BUDGET", "50")).lower()
+            self._budgets[source] = (
+                None if raw in ("off", "0", "false", "no", "none", "")
+                else RetryBudget(capacity=float(raw)))
+        return self._budgets[source]
+
+    def breaker_states(self) -> Dict[str, str]:
+        """Each opened source's breaker state ("closed", "open",
+        "half-open") by source name: every server's `/ready` reads it."""
+        with self._lock:
+            breakers = dict(self._breakers)
+        return {name: b.state for name, b in breakers.items()}
 
     def _repo_dao(self, repo: str, dao: str):
         return self.get_data_object(self.repositories[repo]["SOURCE"], dao)

@@ -150,15 +150,15 @@ long long el_index(const char* path, long long* offsets, long long* lengths,
   return count;
 }
 
-// Number of valid frames (same walk as el_index without output arrays).
-long long el_count(const char* path) {
-  long long offsets_dummy[1];
-  long long lengths_dummy[1];
-  // walk with a large cap by chunking through el_index semantics is
-  // wasteful; do the walk inline
+// Byte offset just past the last valid frame (where a torn tail
+// starts), in one walk; 0 for a missing file, -1 for one that exists
+// but cannot be opened (it is not an empty log).
+long long el_valid_end(const char* path) {
   FILE* f = fopen(path, "rb");
-  if (!f) return 0;
-  long long count = 0;
+  if (!f) {
+    return access(path, F_OK) == 0 ? -1 : 0;
+  }
+  long long pos = 0;
   uint8_t header[kHeader];
   size_t buf_cap = 1 << 16;
   uint8_t* buf = new uint8_t[buf_cap];
@@ -175,12 +175,11 @@ long long el_count(const char* path) {
     }
     if (fread(buf, 1, len, f) != len) break;
     if (crc32(buf, len) != crc) break;
-    count++;
+    pos += (long long)kHeader + (long long)len;
   }
   delete[] buf;
   fclose(f);
-  (void)offsets_dummy; (void)lengths_dummy;
-  return count;
+  return pos;
 }
 
 // Truncate the journal (EventStore.remove).

@@ -52,6 +52,8 @@ class EventLog:
                 ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong]
             self._lib.el_truncate.restype = ctypes.c_int
             self._lib.el_truncate.argtypes = [ctypes.c_char_p]
+            self._lib.el_valid_end.restype = ctypes.c_longlong
+            self._lib.el_valid_end.argtypes = [ctypes.c_char_p]
 
     @property
     def uses_native(self) -> bool:
@@ -166,6 +168,23 @@ class EventLog:
                     return
                 pos += _HEADER.size + length
                 yield payload, pos
+
+    def valid_end(self) -> int:
+        """The byte offset just past the last valid frame: where a torn
+        tail starts (one native walk when the library is built; else the
+        Python scan). A journal that exists but cannot be read raises
+        OSError: it is not an empty one."""
+        if not Path(self.path).exists():
+            return 0
+        if self._lib is None:
+            end = 0
+            for _payload, end in self.scan_from(0):
+                pass
+            return end
+        end = self._lib.el_valid_end(self.path.encode())
+        if end < 0:
+            raise OSError(f"cannot read the journal {self.path}")
+        return end
 
     def truncate(self) -> None:
         if self._lib is not None:

@@ -1,6 +1,11 @@
 """Resilience primitives of the port: deadlines, bounded retry with
-backoff, load shedding and fault-injection seams."""
+backoff, per-source retry budgets, circuit breakers, load shedding and
+fault-injection seams."""
 
+from predictionio_tpu_torch.resilience.breaker import (  # noqa: F401
+    CircuitBreaker, CircuitOpenError,
+)
+from predictionio_tpu_torch.resilience.budget import RetryBudget  # noqa: F401
 from predictionio_tpu_torch.resilience.deadline import (  # noqa: F401
     DEADLINE_HEADER, Deadline, DeadlineExceeded, current_deadline,
     deadline_from_header, deadline_scope,

@@ -12,6 +12,9 @@ hits ``serve.predict.0:ALSAlgorithm``. The port's seams:
 
   serve.predict.<i>:<AlgoClass>     per-algorithm batch predict
   deploy.prepare                    the model load of a deploy or reload
+  storage.<source>.<dao>.<method>   every storage DAO call the registry
+                                    wraps (`data/storage/resilient.py`)
+  storage.<source>.models.insert.torn   a LOCALFS blob write, torn
 
 Injections are counted per seam in `pio_faults_injected_total`. Tests
 arm the process-default injector and clear it in teardown

@@ -7,7 +7,10 @@ scaled by a random factor in [1 - jitter, 1], and an explicit allowlist
 of retryable exceptions (anything else propagates at once), and
 deadline awareness: when the request's `current_deadline()` has less
 budget left than the next backoff, the last failure propagates at once.
-The sleep is injectable so that tests run a schedule in microseconds.
+`on_retry(attempt, exc, delay)` fires before each backoff sleep (the
+storage proxy counts retries and draws its retry budget there; raising
+from it ends the loop). The sleep is injectable so that tests run a
+schedule in microseconds.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ class RetryPolicy:
 
 def call_with_retry(fn: Callable, *args,
                     policy: Optional[RetryPolicy] = None,
+                    on_retry: Optional[Callable] = None,
                     sleep: Callable[[float], None] = time.sleep, **kwargs):
     """Run `fn`, retrying the policy's retryable exceptions; the last
     attempt's exception propagates unwrapped."""
@@ -49,12 +53,14 @@ def call_with_retry(fn: Callable, *args,
     for attempt in range(attempts):
         try:
             return fn(*args, **kwargs)
-        except policy.retryable:
+        except policy.retryable as e:
             if attempt == attempts - 1:
                 raise
             delay = policy.backoff(attempt)
             deadline = current_deadline()
             if deadline is not None and deadline.remaining() <= delay:
                 raise     # no budget to wait out the backoff
+            if on_retry is not None:
+                on_retry(attempt, e, delay)
             sleep(delay)
     raise AssertionError("unreachable")  # pragma: no cover

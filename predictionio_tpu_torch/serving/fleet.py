@@ -62,10 +62,13 @@ the port's router takes a `replica_factory(index, *, mesh, tenancy)`
 that returns a started replica (`cli.main.fleet_replica_factory`, over
 `deploy_instance`).
 
+A router given a registry sweeps its stores once when it is made
+(`data.fsck.startup_check`) and runs the scheduled fsck when
+`PIO_FSCK_INTERVAL_S` is set; its replicas skip their own sweeps.
+
 Not ported yet (ROADMAP.md, Queue 1 item 5, with `obs/tsdb.py`): the
 member `/metrics` scrape and its derived gauges, `/federate`,
-`/fleet.html`, `/quality.json` and the autoscaler's tick; the fleet's
-fsck sweep (item 4).
+`/fleet.html`, `/quality.json` and the autoscaler's tick.
 """
 
 from __future__ import annotations
@@ -309,6 +312,15 @@ class FleetServer(HTTPServerBase):
         self._leader_hint = ""
         self._lease_stop = threading.Event()
         self._replicas: List[_Replica] = []
+        # one recovery sweep and one scheduled fsck per fleet: its
+        # replicas skip theirs
+        self._fsck_sched = None
+        if registry is not None:
+            from predictionio_tpu_torch.data.fsck import (
+                start_scheduled_fsck, startup_check)
+            startup_check(registry, log=_log.warning)
+            self._fsck_sched = start_scheduled_fsck(registry,
+                                                    log=_log.warning)
         self._routes()
 
     # -- lifecycle ----------------------------------------------------------
@@ -369,6 +381,8 @@ class FleetServer(HTTPServerBase):
         self._monitor_stop.set()
         self._lease_stop.set()
         self._close_beats()
+        if self._fsck_sched is not None:
+            self._fsck_sched.stop()
         for rep in list(self._replicas):
             with rep.lock:
                 rep.admitted = False

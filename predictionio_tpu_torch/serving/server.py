@@ -29,8 +29,10 @@ coalesces concurrent requests into device batches (`_MicroBatcher`), and
                        ids: its catalog slice on a `ShardSlice` member,
                        else the whole catalog (`serving/fleet.py` merges)
   GET  /plugins.json, GET /plugins/<name>[/<args>]   engine-server plugins
-  GET  /metrics, /health, /ready   (the HTTP base; /ready carries the
-                       SLO burn as detail)
+  GET  /metrics, /health, /ready   (the HTTP base; /ready is false while
+                       a storage circuit breaker is open, named in
+                       `storageBreakers`, and carries the SLO burn as
+                       detail)
 
 `/reload` and `/stop` take the server key (`server_key`, the JAX
 `PIO_SERVER_ACCESS_KEY`) as `?accessKey=` or the Basic username; a wrong
@@ -61,6 +63,12 @@ refused at once (504, `pio_shed_total{surface=deadline_batch}`), one
 that expires while queued answers 504; a full queue or lane, a
 predicted queue delay past the budget, or `max_inflight` requests in
 flight answer 503 with `Retry-After`.
+
+A server given a `ctx` sweeps its stores when it starts
+(`data.fsck.startup_check`: fsck reporting only, the stale-instance
+janitor acting) unless `startup_check` is False (a fleet member: its
+router sweeps once). A storage call under an open breaker
+(`CircuitOpenError`) answers 503 with `Retry-After` on both routes.
 
 A deployment whose plan is tiered gets a `serving.paging.PageManager`
 thread. With `refresh_interval_s` > 0 a `streaming.Refresher` thread
@@ -111,7 +119,8 @@ from predictionio_tpu_torch.core.params import extract_params
 from predictionio_tpu_torch.data.event import format_time, utcnow
 from predictionio_tpu_torch.obs import MetricsRegistry, get_logger
 from predictionio_tpu_torch.obs.slo import SLOTracker, dao_overrides_loader
-from predictionio_tpu_torch.resilience import (DEADLINE_HEADER, Deadline,
+from predictionio_tpu_torch.resilience import (DEADLINE_HEADER,
+                                               CircuitOpenError, Deadline,
                                                DeadlineExceeded,
                                                OverloadedError,
                                                RetryPolicy, call_with_retry,
@@ -750,7 +759,8 @@ class PredictionServer(HTTPServerBase):
     one). `tenancy`, a `TenancyConfig` (default: `PIO_TENANCY` and
     `PIO_TENANT_*`), turns on per-app admission; `mesh`, an
     `ops.topk_sharded.ShardSlice`, marks a fleet member that serves one
-    catalog slice (`shard_spec`), which /reload rebuilds."""
+    catalog slice (`shard_spec`), which /reload rebuilds.
+    `startup_check` runs the store sweep of a server given a `ctx`."""
 
     def __init__(self, deployment: _Deployment, *, host: str = "127.0.0.1",
                  port: int = 8000, batch_max: int = 64,
@@ -761,7 +771,8 @@ class PredictionServer(HTTPServerBase):
                  plugins: Sequence[Any] = (), items_device=None,
                  ssl_context=None, metrics: Optional[MetricsRegistry] = None,
                  wire: Optional[str] = None,
-                 tenancy: Optional[TenancyConfig] = None, mesh=None):
+                 tenancy: Optional[TenancyConfig] = None, mesh=None,
+                 startup_check: bool = True):
         super().__init__(host=host, port=port, ssl_context=ssl_context,
                          metrics=metrics, max_inflight=max_inflight,
                          wire=wire)
@@ -780,6 +791,12 @@ class PredictionServer(HTTPServerBase):
         # it (a model in hand with tenancy off opens none)
         registry = self.ctx.registry if ctx is not None or tcfg.enabled \
             else None
+        self._store = registry
+        if ctx is not None and startup_check:
+            from predictionio_tpu_torch.data.fsck import startup_check as sweep
+            t0 = time.perf_counter()
+            sweep(registry, log=_log.warning)
+            deployment.timings["sweep_s"] = time.perf_counter() - t0
         self.admission = AdmissionController(tcfg, registry=registry,
                                              metrics=self.metrics)
         self._slo = SLOTracker(metrics=self.metrics,
@@ -1043,6 +1060,10 @@ class PredictionServer(HTTPServerBase):
             return self._fast_finish(e.status, e.message, rid, keep, t0,
                                      retry_after=e.retry_after,
                                      tenant=tenant)
+        except CircuitOpenError as e:
+            return self._fast_finish(503, str(e), rid, keep, t0,
+                                     retry_after=e.retry_after,
+                                     tenant=tenant)
         except ValueError as e:
             return self._fast_finish(400, str(e), rid, keep, t0,
                                      tenant=tenant)
@@ -1119,14 +1140,19 @@ class PredictionServer(HTTPServerBase):
         return self.deployment.instance_id or ""
 
     def readiness(self):
-        """/ready: serving, not stopping; the SLO burn is detail only
-        (a page, not a reason to leave rotation)."""
-        detail: Dict[str, Any] = {"modelLoaded": True}
+        """/ready: serving, not stopping, and no storage breaker open;
+        the SLO burn is detail only (a page, not a reason to leave
+        rotation)."""
+        states = (self._store.breaker_states()
+                  if self._store is not None else {})
+        detail: Dict[str, Any] = {"modelLoaded": True,
+                                  "storageBreakers": states}
         slo = self._slo.snapshot()
         if slo:
             detail["slo"] = slo
             detail["sloDegraded"] = self._slo.degraded()
-        return (not self._stopping, detail)
+        open_breakers = [n for n, st in states.items() if st == "open"]
+        return (not self._stopping and not open_breakers, detail)
 
     # -- status -------------------------------------------------------------
     def status(self) -> Dict[str, Any]:

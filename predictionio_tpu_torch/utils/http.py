@@ -37,8 +37,9 @@ it answers 504, counted in `pio_deadline_expired_total`); past
 Error bodies keep the JAX shape `{"message": ...}` with the JAX status
 codes: an unknown path 404, a known path with another method 405, a
 raised `HTTPError` its own status, `DeadlineExceeded` 504, an
-`OverloadedError` its status with `Retry-After`, a `ValueError` (bad
-JSON, an invalid event) 400, any other exception 500. Path captures are
+`OverloadedError` its status with `Retry-After`, a `CircuitOpenError`
+(a storage source's breaker open) 503 with `Retry-After`, a `ValueError`
+(bad JSON, an invalid event) 400, any other exception 500. Path captures are
 matched on the raw (still percent-encoded) path and then decoded one by
 one, so that an id holding `%2F` stays reachable.
 
@@ -63,7 +64,8 @@ from urllib.parse import parse_qs, unquote, urlparse
 
 from predictionio_tpu_torch.obs import (MetricsRegistry, get_logger,
                                         get_registry, new_request_id)
-from predictionio_tpu_torch.resilience import (DEADLINE_HEADER, Deadline,
+from predictionio_tpu_torch.resilience import (DEADLINE_HEADER,
+                                               CircuitOpenError, Deadline,
                                                DeadlineExceeded,
                                                InflightLimiter,
                                                OverloadedError,
@@ -218,6 +220,9 @@ class Router:
                 return Response.json({"message": str(e)}, 504)
             except OverloadedError as e:
                 return Response.json({"message": e.message}, e.status,
+                                     **retry_after_header(e.retry_after))
+            except CircuitOpenError as e:
+                return Response.json({"message": str(e)}, 503,
                                      **retry_after_header(e.retry_after))
             except ValueError as e:
                 return Response.json({"message": str(e)}, 400)

@@ -321,14 +321,19 @@ def test_same_replies_and_stored_events_as_the_jax_server(servers, case):
 
 
 def test_ingest_counts_by_surface_and_readiness(servers):
-    _, (psrv, _), _ = servers
+    (jsrv, _), (psrv, preg), _ = servers
     call(psrv.port, "POST", f"/events.json?{K}", EV)
     call(psrv.port, "POST", f"/batch/events.json?{K}",
          [_ev(2), _ev(3), {"event": "x"}])
     call(psrv.port, "POST", f"/webhooks/segmentio.json?{K}", SEGMENT)
     assert psrv.ingested == {"single": 1, "batch": 2, "webhook": 1}
     assert call(psrv.port, "GET", "/health") == (200, {"status": "ok"})
-    assert call(psrv.port, "GET", "/ready") == (200, {"ready": True})
+    # ready with every storage breaker closed, named as the JAX server
+    # names them
+    ready = call(psrv.port, "GET", "/ready")
+    assert ready == (200, {"ready": True, "storageBreakers": {
+        name: "closed" for name in preg.sources}})
+    assert ready == call(jsrv.port, "GET", "/ready")
 
 
 def test_stats_buckets_are_pruned():

@@ -60,7 +60,12 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "resilience.shed", "resilience.faults",
                      "serving.plugins", "tenancy", "tenancy.admission",
                      "tenancy.drr", "obs.slo", "resilience.watchdog",
-                     "serving.fleet", "serving.supervisor"):
+                     "serving.fleet", "serving.supervisor",
+                     "resilience.breaker", "resilience.budget",
+                     "data.storage.resilient", "data.storage.localfs",
+                     "data.storage.pgwire", "data.storage.postgres",
+                     "data.storage.objectstore", "data.storage.replicated",
+                     "data.fsck"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -201,6 +206,64 @@ def test_a_supervised_child_runs_the_ports_cli_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "--join" in out.stdout and "--supervised" in out.stdout
+
+
+def test_the_storage_drivers_and_doctor_run_without_jax(tmp_path):
+    """POSTGRES (over `tests/fakepg.py`, loaded by path as
+    `chip_smoke.py` loads it), REPLICATED LOCALFS, the resilience proxy
+    and `doctor` in a process where `import jax` and `import
+    predictionio_tpu` fail."""
+    code = (
+        "import importlib.util, json, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['predictionio_tpu'] = None\n"
+        "spec = importlib.util.spec_from_file_location('fakepg', "
+        f"{str(REPO / 'tests' / 'fakepg.py')!r})\n"
+        "fakepg = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(fakepg)\n"
+        "from predictionio_tpu_torch.data.storage import (App, Model,\n"
+        "    StorageRegistry)\n"
+        "from predictionio_tpu_torch.data import fsck\n"
+        "with fakepg.FakePgServer() as url:\n"
+        "    cfg = {'PIO_STORAGE_SOURCES_PG_TYPE': 'POSTGRES',\n"
+        "           'PIO_STORAGE_SOURCES_PG_URL': url,\n"
+        "           'PIO_STORAGE_SOURCES_REP_TYPE': 'REPLICATED',\n"
+        "           'PIO_STORAGE_SOURCES_REP_REPLICAS': 'A,B',\n"
+        "           'PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE': 'REP',\n"
+        "           'PIO_STORAGE_REPOSITORIES_METADATA_SOURCE': 'PG',\n"
+        "           'PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE': 'PG'}\n"
+        "    for t in 'AB':\n"
+        "        cfg[f'PIO_STORAGE_SOURCES_{t}_TYPE'] = 'LOCALFS'\n"
+        f"        cfg[f'PIO_STORAGE_SOURCES_{{t}}_PATH'] = {str(tmp_path)!r}"
+        " + '/' + t\n"
+        "    reg = StorageRegistry(cfg)\n"
+        "    aid = reg.get_meta_data_apps().insert(App(0, 'a'))\n"
+        "    reg.get_model_data_models().insert(Model('m', b'x'))\n"
+        "    report = fsck.doctor(reg, repair=True)\n"
+        "    reg.close()\n"
+        "bad = sorted(n for n in sys.modules if n.startswith(('jax.', "
+        "'predictionio_tpu.')))\n"
+        "print(json.dumps([aid, report['unrepaired'], bad]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [1, 0, []]
+
+
+def test_chip_smoke_imports_only_the_port_and_fakepg():
+    import ast
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "jax" not in roots and "predictionio_tpu" not in roots
+    assert "tests" not in roots          # fakepg is loaded by its path
+    assert "predictionio_tpu_torch" in roots
+    assert '"fakepg.py"' in (REPO / "chip_smoke.py").read_text()
 
 
 def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
