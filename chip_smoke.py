@@ -503,6 +503,12 @@ _BACKGROUND: set = set()
 @atexit.register
 def _stop_background() -> None:
     for proc in list(_BACKGROUND):
+        if getattr(proc, "group", False):
+            # a process group (ingestd and its scan workers): all of it
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            continue
         if getattr(proc, "phase", None):
             # a phase process exits through its own clean-up (its
             # SIGTERM handler), stopping what it started
@@ -4014,12 +4020,14 @@ class Hammer:
                 "latency_ms": latency_ms([(None, t) for t in self.seconds])}
 
 
-def pevlog_import(tmp: Path, seed: int) -> dict:
+def pevlog_import(tmp: Path, seed: int, ingest=None) -> dict:
     """The lifecycle's generator and held-out split over SQLITE metadata
     and PEVLOG events in `tmp`, through the command line: `app new`,
     then `import`, `build` and `train` (the scan on 4 spawned workers)
     one after another on a background thread (phase lifecycle runs beside
-    them); `pevlog_project` waits for them."""
+    them), then `ingest(started, train)` (phase ingest's scans and
+    train, `ingest_scan_train`), while the store is still as the train
+    read it; `pevlog_project` waits for them."""
     from predictionio_tpu_torch.native.eventlog import EventLog
 
     u, i, r = planted(ML1M_USERS, ML1M_ITEMS, ML1M_N, seed + 5)
@@ -4037,20 +4045,22 @@ def pevlog_import(tmp: Path, seed: int) -> dict:
     if not uses_native:
         fail("the event journal is not the native (g++) build")
     app, _ = cli("app", "new", "ml1m")
+    started = {"tmp": tmp, "config": config, "cli": cli, "app": app,
+               "u": u, "i": i, "r": r, "test": test, "seed": seed,
+               "write_s": write_s, "uses_native": uses_native}
 
     def commands():
         imported = cli("import", "--appid", str(app["id"]), "--input",
                        "events.jsonl")
         cli("build")
-        return imported, cli("train")
+        trained = cli("train")
+        return imported, trained, (ingest(started, trained)
+                                   if ingest is not None else None)
 
     pool = ThreadPoolExecutor(1, thread_name_prefix="pevlog-project")
-    started = pool.submit(commands)
+    started["commands"] = pool.submit(commands)
     pool.shutdown(wait=False)
-    return {"tmp": tmp, "config": config, "cli": cli, "app": app,
-            "u": u, "i": i, "r": r, "test": test, "seed": seed,
-            "write_s": write_s, "uses_native": uses_native,
-            "commands": started}
+    return started
 
 
 def pevlog_project(started: dict, dev) -> dict:
@@ -4063,7 +4073,7 @@ def pevlog_project(started: dict, dev) -> dict:
     cli, config, app = started["cli"], started["config"], started["app"]
     u, i, r, test = (started[k] for k in ("u", "i", "r", "test"))
     n_train = int((~test).sum())
-    (imported, import_wall_s), (report, train_wall_s) = \
+    (imported, import_wall_s), (report, train_wall_s), ingest = \
         started["commands"].result()
     if imported["imported"] != n_train:
         fail(f"imported {imported['imported']} of {n_train} events")
@@ -4077,10 +4087,11 @@ def pevlog_project(started: dict, dev) -> dict:
     return {"tmp": started["tmp"], "config": config, "cli": cli,
             "app": app, "app_id": app["id"], "iid": iid, "model": model,
             "row": row, "report": report, "n_train": n_train,
+            "u": u, "i": i, "r": r, "test": test,
             "heldout": heldout, "uses_native": started["uses_native"],
             "write_s": started["write_s"], "seed": started["seed"],
             "imported": imported, "import_wall_s": import_wall_s,
-            "train_wall_s": train_wall_s}
+            "train_wall_s": train_wall_s, "ingest": ingest}
 
 
 def fold_gates(torch, ft, dev, queries, before, folded, touched_users,
@@ -4883,6 +4894,493 @@ def phase_quickstart(torch, ft, dev, rng, project: dict, n_requests: int,
                             "warmed_buckets": list(plan.buckets)},
            "launches": {"deploy": gate["launches"],
                         "batchpredict": ft.LAUNCHES}}
+    emit(out)
+    return out
+
+
+# -- phase 14b: the remote ingest service -------------------------------------
+
+INGEST_REQUESTS = 256        # (c): requests before the drip and after it
+INGEST_VARIANT = "ml1m-ingest"   # (b)'s engine.json id: the project's own
+# deploys keep resolving the project's instance
+INGEST_PROBE = """
+import hashlib, json
+
+from predictionio_tpu_torch.data import store
+from predictionio_tpu_torch.data.storage import storage
+from predictionio_tpu_torch.obs import get_registry
+
+
+def digest(pc):
+    h = hashlib.sha256()
+    for a in (pc.left_ix, pc.right_ix, pc.weight):
+        h.update(a.tobytes())
+    h.update(json.dumps([pc.left.keys(), pc.right.keys()]).encode())
+    return {"n": int(pc.n), "sha256": h.hexdigest()}
+
+
+def pairs():
+    out = digest(store.pair_columns(storage(), "ml1m", event_names=["rate"]))
+    reg = get_registry()
+    for outcome in ("ok", "fallback"):
+        out[outcome] = reg.value("pio_ingest_remote_scans_total",
+                                 outcome=outcome) or 0.0
+    return out
+"""
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """These environment variables set for the `with` block, restored
+    after it."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def start_ingestd(tmp: Path, cli):
+    """`cli ingestd --workers 4` over the project's store, in its own
+    process group (its spawned scan workers die with it); returns (the
+    process, its port)."""
+    log = tmp / f"ingestd_{time.monotonic_ns()}.stderr"
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", "ingestd",
+             "--ip", "127.0.0.1", "--port", "0", "--workers", "4"],
+            cwd=tmp, env=cli.env, stdout=subprocess.PIPE, stderr=err,
+            text=True, start_new_session=True)
+    proc.stderr_log, proc.group = log, True
+    _BACKGROUND.add(proc)
+    line = proc.stdout.readline()
+    if not line.startswith("Ingest service started on 127.0.0.1:"):
+        fail(f"ingestd did not come up: {line!r} {stderr_tail(proc)}")
+    return proc, int(line.rsplit(":", 1)[1])
+
+
+def http_metrics(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as resp:
+        return prom(resp.read().decode())
+
+
+def process_tree(pid: int) -> set:
+    """`pid` and its descendants, from /proc."""
+    out, todo = set(), [pid]
+    while todo:
+        p = todo.pop()
+        out.add(p)
+        for task in Path(f"/proc/{p}/task").glob("*"):
+            try:
+                todo += [int(c) for c in
+                         (task / "children").read_text().split()]
+            except OSError:
+                pass
+    return out
+
+
+def nvidia_fds(pids) -> int:
+    """Open file descriptors of `pids` on the card's device files (a CUDA
+    context opens them)."""
+    n = 0
+    for p in pids:
+        for fd in Path(f"/proc/{p}/fd").glob("*"):
+            with contextlib.suppress(OSError):
+                n += os.readlink(fd).startswith("/dev/nvidia")
+    return n
+
+
+def off_card(proc, what: str) -> dict:
+    """Fail if `proc` or a process it started holds a CUDA context: a pid
+    in `nvidia-smi --query-compute-apps`, or an open /dev/nvidia* file.
+    This process, which holds one, is the control: its device files are
+    counted, and whether nvidia-smi lists it."""
+    pids = {int(x) for x in subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()}
+    tree = process_tree(proc.pid)
+    on, fds = pids & tree, nvidia_fds(tree)
+    if on or fds:
+        fail(f"{what}: ingestd's processes {sorted(tree)} are on the card "
+             f"(compute pids {sorted(on)}, {fds} device files open)")
+    return {"compute_pids": sorted(pids), "ingestd_pids": len(tree),
+            "smi_lists_this_process": os.getpid() in pids,
+            "this_process_device_files": nvidia_fds([os.getpid()])}
+
+
+def same_ratings(a, b) -> bool:
+    return all(getattr(a, k).dtype == getattr(b, k).dtype
+               and np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("user_ix", "item_ix", "rating", "t_millis")) and \
+        a.users.keys() == b.users.keys() and a.items.keys() == b.items.keys()
+
+
+def factor_gap(torch, a, b) -> float:
+    """Largest |difference| of two ALS models' factors; inf when their
+    id tables differ."""
+    if a.users.keys() != b.users.keys() or a.items.keys() != b.items.keys():
+        return float("inf")
+    return max(float((a.user_factors - b.user_factors).abs().max()),
+               float((a.item_factors - b.item_factors).abs().max()))
+
+
+def ingest_scan_train(torch, dev, started: dict, trained) -> dict:
+    """Phase ingest's first half, on the PEVLOG project's thread right
+    after its `cli train` (beside phase lifecycle in the whole run),
+    while the store is as that train read it: `cli ingestd --workers 4`
+    over the project's store; (a) the recommendation template's
+    `rating_columns` through the service with the prepared cache off,
+    from two consumers started together, each bit-identical to the
+    local scan (the four columns and both tables), the service's
+    /metrics counting one underlying scan and one coalesced
+    subscription; (b) `cli train` through the service (an engine.json
+    of variant INGEST_VARIANT, the same params): COMPLETED, held-out
+    RMSE below 1.0, factors bit-identical to the project's locally
+    scanned instance (where they are not, a second local train shows
+    whether two local trains are, and the tolerance is twice their
+    difference). ingestd never appears among the card's compute
+    processes. Returns the state `ingest_serve_fold` goes on from."""
+    from predictionio_tpu_torch.data import store as pstore
+    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
+                                                     StorageRegistry)
+    from predictionio_tpu_torch.models.recommendation import (
+        DataSourceParams)
+
+    t_phase = time.perf_counter()
+    tmp, config, cli = started["tmp"], started["config"], started["cli"]
+    app_id = started["app"]["id"]
+    report0, train_wall0 = trained
+    t = time.perf_counter()
+    proc, port = start_ingestd(tmp, cli)
+    service = f"127.0.0.1:{port}"
+    parts = {"ingestd_start_s": time.perf_counter() - t}
+    registry = StorageRegistry(config)
+    events = registry.get_events()
+    wm = events.ingest_watermark(app_id)
+
+    # (a) two consumers against the local scan
+    t_a = time.perf_counter()
+    kw = dict(event_names=["rate", "buy"],
+              value_spec={"rate": ("prop", "rating"), "buy": float(
+                  DataSourceParams(app_name="ml1m").buy_rating)},
+              dedup_last_wins=True)
+
+    def timed_read():
+        t0 = time.perf_counter()
+        rc = pstore.rating_columns(registry, "ml1m", **kw)
+        return rc, time.perf_counter() - t0
+
+    with env_set(PIO_INGEST_CACHE="off", PIO_INGEST_WORKERS="4"):
+        local, local_s = timed_read()
+        m0 = http_metrics(port)
+        with env_set(PIO_INGEST_SERVICE=service), \
+                ThreadPoolExecutor(2) as pool:
+            remote = [f.result() for f in [pool.submit(timed_read)
+                                           for _ in range(2)]]
+    m1 = http_metrics(port)
+    for n, (rc, _) in enumerate(remote):
+        if not same_ratings(rc, local):
+            fail(f"ingest (a): consumer {n}'s remote rating columns differ "
+                 "from the local scan")
+    ok_key = 'pio_ingest_service_scans_total{outcome="ok"}'
+    co_key = "pio_ingest_service_coalesced_total"
+    scans = m1.get(ok_key, 0.0) - m0.get(ok_key, 0.0)
+    coalesced = m1.get(co_key, 0.0) - m0.get(co_key, 0.0)
+    if (scans, coalesced) != (1.0, 1.0):
+        fail(f"ingest (a): two consumers made {scans} scans and "
+             f"{coalesced} coalesced subscriptions (want 1 and 1)")
+    blocks = m1.get("pio_ingest_service_blocks_total", 0.0)
+    block_bytes = m1.get("pio_ingest_service_block_bytes_total", 0.0)
+    card_a = off_card(proc, "ingest (a)")
+    parts["a_s"] = time.perf_counter() - t_a
+    a = {"rows": int(local.n), "users": len(local.users),
+         "items": len(local.items), "local_s": local_s,
+         "remote_s": [s for _, s in remote], "scans": scans,
+         "coalesced": coalesced, "blocks": blocks,
+         "block_bytes": block_bytes, "off_card": card_a}
+
+    # (b) cli train through the service
+    t_b = time.perf_counter()
+    variant = json.loads((tmp / "engine.json").read_text())
+    variant["id"] = INGEST_VARIANT
+    (tmp / "engine_ingest.json").write_text(json.dumps(variant))
+    cli_r = cli_runner(tmp, config, PIO_INGEST_WORKERS="4",
+                       PIO_INGEST_SERVICE=service, PIO_INGEST_CACHE="off")
+    report, train_wall_s = cli_r("train", "--engine-json",
+                                 "engine_ingest.json")
+    m2 = http_metrics(port)
+    if events.ingest_watermark(app_id) != wm:
+        fail("ingest (b): the store's watermark moved during the train")
+    if report["status"] != EngineInstanceStatus.COMPLETED:
+        fail(f"ingest (b): the instance is {report['status']}")
+    iid = report["engineInstanceId"]
+    model, row = read_model(config, iid, dev)
+    local_model, _ = read_model(config, report0["engineInstanceId"], dev)
+    heldout = heldout_rmse(model, *(started[k] for k in ("u", "i", "r",
+                                                         "test")))
+    if not heldout < 1.0:
+        fail(f"ingest (b): held-out RMSE {heldout} is not below 1.0")
+    served = m2.get(co_key, 0.0) + m2.get(ok_key, 0.0) - \
+        m1.get(co_key, 0.0) - m1.get(ok_key, 0.0)
+    if served != 1.0 or m2.get("pio_ingest_service_blocks_total",
+                               0.0) <= blocks:
+        fail(f"ingest (b): the train's read took {served} subscriptions "
+             "of the service")
+    gap = factor_gap(torch, model, local_model)
+    twin = None
+    if gap != 0.0:
+        # is a local train on the card bit-reproducible at all?
+        variant["id"] = INGEST_VARIANT + "-local"
+        (tmp / "engine_local.json").write_text(json.dumps(variant))
+        rep2, _ = cli_runner(tmp, config, PIO_INGEST_WORKERS="4",
+                             PIO_INGEST_CACHE="off")(
+            "train", "--engine-json", "engine_local.json")
+        model2, _ = read_model(config, rep2["engineInstanceId"], dev)
+        local_gap = factor_gap(torch, model2, local_model)
+        twin = {"local_trains_gap": local_gap, "tolerance": 2 * local_gap}
+        if local_gap == 0.0 or not gap <= 2 * local_gap:
+            fail(f"ingest (b): factors {gap} from the local instance's, "
+                 f"two local trains {local_gap} apart")
+    tm, tm0 = report["phaseTimings"], report0["phaseTimings"]
+    card_b = off_card(proc, "ingest (b)")
+    parts["b_s"] = time.perf_counter() - t_b
+    b = {"engine_instance": iid, "status": report["status"],
+         "heldout_rmse": heldout, "factor_max_abs_diff": gap,
+         "bit_identical": gap == 0.0, "local_twin": twin,
+         "command_wall_s": train_wall_s,
+         "read_s": tm["read_s"], "ingest_scan_s": tm.get("ingest_scan_s"),
+         "ingest_build_s": tm.get("ingest_build_s"),
+         "local_command_wall_s": train_wall0,
+         "local_read_s": tm0["read_s"],
+         "local_ingest_scan_s": tm0.get("ingest_scan_s"),
+         "local_ingest_build_s": tm0.get("ingest_build_s"),
+         "service_scans": m2.get(ok_key, 0.0) - m1.get(ok_key, 0.0),
+         "service_coalesced": m2.get(co_key, 0.0) - m1.get(co_key, 0.0),
+         "off_card": card_b}
+    registry.close()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "ingest_scan_train", "service": service, "a": a,
+          "b": b, "parts_s": parts, "seconds": seconds})
+    return {"proc": proc, "port": port, "service": service, "cli": cli_r,
+            "iid": iid, "model": model, "row": row, "a": a, "b": b,
+            "parts": parts, "seconds": seconds}
+
+
+def ingest_serve_fold(torch, ft, dev, rng, project: dict) -> dict:
+    """Phase ingest's second half, after phase quickstart (no earlier gate
+    sees its events), from `project["ingest"]`: (c) (b)'s instance
+    deployed with `--refresh-interval 2` and PIO_INGEST_SERVICE:
+    INGEST_REQUESTS requests, each answer checked against the plain
+    version on its factors, then a 192-event drip (`drip_events`)
+    through the PEVLOG DAO, folded by the refresher through the service
+    and served as `fold_gates` requires against this process's own fold
+    on the card; K1 launches = plan calls = warmed buckets + drained
+    chunks; the service counting the tick's scans, the deploy's
+    `pio_ingest_remote_scans_total{outcome="fallback"}` 0. While that
+    deploy starts: (e) `cli run` of a function in a temporary module
+    returning `store.pair_columns` through the service, equal to the
+    local read, and (d) `cli train` with PIO_INGEST_FALLBACK=off against
+    a port where nothing listens (a dead service), which fails with
+    IngestUnavailable. Then (d) ingestd SIGKILLed while it scans for a
+    consumer in this process: the consumer's local scan gives the same
+    columns, counted `outcome="fallback"`. ingestd never appears among
+    the card's compute processes."""
+    import importlib.util
+    import socket
+    import threading
+    from predictionio_tpu_torch.core.workflow import (
+        engine_params_from_instance)
+    from predictionio_tpu_torch.data import store as pstore
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    from predictionio_tpu_torch.ingest.client import maybe_remote
+    from predictionio_tpu_torch.models.recommendation import (
+        RecommendationEngine)
+    from predictionio_tpu_torch.obs import get_registry
+    from predictionio_tpu_torch.streaming import scan_delta
+    from predictionio_tpu_torch.streaming.updaters import FoldContext
+
+    t_phase = time.perf_counter()
+    state = project["ingest"]
+    tmp, config, app_id = project["tmp"], project["config"], project["app_id"]
+    proc, port, service, cli = (state[k] for k in ("proc", "port",
+                                                   "service", "cli"))
+    model, parts = state["model"], state["parts"]
+    if proc.poll() is not None:
+        fail(f"ingestd exited {proc.returncode}: {stderr_tail(proc)}")
+    n_items = model.item_factors.shape[0]
+    registry = StorageRegistry(config)
+    events = registry.get_events()
+    engine = RecommendationEngine.apply()
+    _, _, (algo,), _ = engine.make_components(
+        engine_params_from_instance(engine, state["row"]))
+    queries = make_queries(torch, ft, dev, rng, model, INGEST_REQUESTS,
+                           n_items)
+    ok_key = 'pio_ingest_service_scans_total{outcome="ok"}'
+
+    # (e) and (d)'s train with no fallback start beside the deploy
+    t_c = time.perf_counter()
+    (tmp / "ingest_probe.py").write_text(INGEST_PROBE)
+    run_proc = cli.start("run", "ingest_probe.pairs")
+    dead = socket.socket()          # bound, never listening: refused
+    dead.bind(("127.0.0.1", 0))
+    off_env = {**cli.env, "PIO_INGEST_FALLBACK": "off",
+               "PIO_INGEST_SERVICE": f"127.0.0.1:{dead.getsockname()[1]}"}
+    off_err = open(tmp / "train_fallback_off.err", "w+")
+    off_proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli", "train",
+         "--engine-json", "engine_ingest.json"], cwd=tmp, env=off_env,
+        stdout=subprocess.DEVNULL, stderr=off_err, text=True)
+    _BACKGROUND.add(off_proc)
+    dep, dport, deploy_wall_s = start_deploy(
+        tmp, cli, state["iid"], "--engine-json", "engine_ingest.json",
+        "--refresh-interval", str(STREAM_INTERVAL_S))
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "ingest_probe", tmp / "ingest_probe.py")
+        probe = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(probe)
+        with env_set(PIO_INGEST_CACHE="off", PIO_INGEST_WORKERS="4"):
+            want = probe.digest(pstore.pair_columns(registry, "ml1m",
+                                                    event_names=["rate"]))
+        got, run_wall_s = cli.finish(run_proc)
+        wait_status(dport, dep, "the refresher's baseline",
+                    lambda s: s["refresh"]["ticks"].get("baseline"), 120)
+        answers0 = serve_http(dport, queries)
+        m0 = http_metrics(port)
+        wm_before = events.ingest_watermark(app_id)
+        drip = drip_events(model, rng, time.time())
+        t_drip = time.perf_counter()
+        events.insert_batch(drip, app_id)
+        wm_after = events.ingest_watermark(app_id)
+        st = wait_status(dport, dep, "the drip's fold",
+                         lambda s: s["refresh"]["ticks"].get("folded"), 120)
+        seen_s = time.perf_counter() - t_drip
+        answers1 = serve_http(dport, queries)
+        st_end = http_status(dport)
+        dm = http_metrics(dport)
+        m1 = http_metrics(port)
+    finally:
+        stop_deploy(dep)
+    if {k: got[k] for k in want} != want or got["ok"] != 1.0 or \
+            got["fallback"] != 0.0:
+        fail(f"ingest (e): cli run read {got}, the local read {want}")
+    err0 = check_answers(torch, ft, dev, model, queries,
+                         [b_["itemScores"] for b_, _ in answers0], n_items)
+    with env_set(PIO_INGEST_WORKERS="4"):
+        delta = scan_delta(events, app_id, None, wm_before, wm_after)
+        fctx = FoldContext(store=events, app_id=app_id, channel_id=None,
+                           since=wm_before, upto=wm_after,
+                           ds_params={"app_name": "ml1m"})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        folded = algo.fold_in(model, delta, fctx)
+        torch.cuda.synchronize()
+        own_fold_s = time.perf_counter() - t
+    ticks = st_end["refresh"]["ticks"]
+    if ticks.get("baseline") != 1 or ticks.get("folded") != 1 or any(
+            ticks.get(k) for k in ("rolled_back", "failed",
+                                   "full_rebuild")):
+        fail(f"ingest (c): refresher ticks {ticks}")
+    if st_end["refresh"]["watermark"] != wm_after:
+        fail("ingest (c): the served model's watermark is not the drip's")
+    err1, untouched, unchanged = fold_gates(
+        torch, ft, dev, queries, model, folded, delta.touched_users,
+        delta.touched_items, answers0, answers1, n_items)
+    gate = launch_gate("ingest (c)", st_end, 2 * INGEST_REQUESTS)
+    remote_ok = dm.get('pio_ingest_remote_scans_total{outcome="ok"}', 0.0)
+    fallbacks = dm.get('pio_ingest_remote_scans_total{outcome="fallback"}',
+                       0.0)
+    tick_scans = m1.get(ok_key, 0.0) - m0.get(ok_key, 0.0)
+    if fallbacks != 0.0 or remote_ok < 3 or tick_scans < 3:
+        fail(f"ingest (c): the deploy's remote scans ok {remote_ok}, "
+             f"fallback {fallbacks}; the service scanned {tick_scans} "
+             "times for the fold (want the delta, its re-scan and the "
+             "histories)")
+    card_c = off_card(proc, "ingest (c)")
+    parts["c_s"] = time.perf_counter() - t_c
+    c = {"requests": 2 * INGEST_REQUESTS, "drip_events": len(drip),
+         "touched_users": len(delta.touched_users),
+         "touched_items": len(delta.touched_items),
+         "command_to_serving_s": deploy_wall_s,
+         "seen_folded_after_s": seen_s,
+         "tick_s": st["refresh"]["last_ticks"]["folded"],
+         "freshness_s": st["refresh"]["freshness_s"],
+         "own_fold_s": own_fold_s, "max_abs_err": max(err0, err1),
+         "untouched_answers": untouched,
+         "untouched_answers_identical": unchanged,
+         "remote_scans_ok": remote_ok, "remote_fallbacks": fallbacks,
+         "service_scans_for_the_fold": tick_scans,
+         "latency_ms": latency_ms(answers1), **gate,
+         "off_card": card_c}
+    e = {**got, "command_wall_s": run_wall_s}
+
+    # (d) the train with no fallback, then a SIGKILL during a scan
+    t_d = time.perf_counter()
+    off_code = off_proc.wait(timeout=600)
+    _BACKGROUND.discard(off_proc)
+    dead.close()
+    off_err.seek(0)
+    off_tail = off_err.read()[-2000:]
+    off_err.close()
+    if off_code == 0 or "IngestUnavailable" not in off_tail:
+        fail(f"ingest (d): with PIO_INGEST_FALLBACK=off `cli train` "
+             f"exited {off_code}: {off_tail}")
+    off_wait_s = time.perf_counter() - t_d
+    scan_kw = dict(event_names=["rate"], value_spec={"rate": 2.0})
+    fb = lambda: get_registry().value(      # noqa: E731
+        "pio_ingest_remote_scans_total", outcome="fallback") or 0.0
+    fb0, got_cols = fb(), {}
+    t_k = time.perf_counter()
+    with env_set(PIO_INGEST_SERVICE=service, PIO_INGEST_WORKERS="4"):
+        th = threading.Thread(target=lambda: got_cols.update(
+            cols=maybe_remote(events).scan_columns(app_id, **scan_kw)))
+        th.start()
+        t_end = time.perf_counter() + 30
+        while True:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/ingest/scans.json",
+                    timeout=30) as resp:
+                if any(s["state"] == "running"
+                       for s in json.loads(resp.read())["scans"]):
+                    break
+            if not th.is_alive() or time.perf_counter() > t_end:
+                fail("ingest (d): the consumer's scan ended before ingestd "
+                     "was seen scanning")
+            time.sleep(0.002)
+        os.killpg(proc.pid, signal.SIGKILL)
+        killed_s = time.perf_counter() - t_k
+        th.join(300)
+        fallback_s = time.perf_counter() - t_k - killed_s
+        local = events.scan_columns(app_id, **scan_kw)
+    proc.wait(timeout=60)
+    _BACKGROUND.discard(proc)
+    cols = got_cols.get("cols")
+    if cols is None or not (
+            all(np.array_equal(getattr(cols, k), getattr(local, k))
+                for k in ("entity_ix", "target_ix", "value", "t_us"))
+            and cols.entities == local.entities
+            and cols.targets == local.targets):
+        fail("ingest (d): the fallback's columns differ from the local scan")
+    if fb() != fb0 + 1.0:
+        fail(f"ingest (d): fallbacks counted {fb() - fb0}, want 1")
+    parts["d_s"] = time.perf_counter() - t_d
+    d = {"killed_after_s": killed_s, "fallback_scan_s": fallback_s,
+         "fallback_rows": int(local.n),
+         "fallback_off_train_exit": off_code,
+         "fallback_off_train_waited_s": off_wait_s}
+    registry.close()
+    seconds = time.perf_counter() - t_phase
+    out = {"phase": "ingest", "service": service,
+           "a": state["a"], "b": state["b"], "c": c, "e": e, "d": d,
+           "parts_s": parts, "first_half_s": state["seconds"],
+           "seconds": seconds, "launches": gate["launches"]}
     emit(out)
     return out
 
@@ -7045,7 +7543,7 @@ def main() -> int:
                                        "streaming", "quickstart",
                                        "templates", "classification",
                                        "neural", "wire", "fleet",
-                                       "storage"),
+                                       "storage", "ingest"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
@@ -7056,7 +7554,8 @@ def main() -> int:
                          "classification; neural for phase neural; wire "
                          "for parity and wire; fleet for parity, one "
                          "direct selector pass and fleet; storage for "
-                         "parity and storage), no kernels line")
+                         "parity and storage; ingest for parity, the "
+                         "PEVLOG project and ingest), no kernels line")
     args = ap.parse_args()
     t_script = time.perf_counter()
     # a SIGTERM (a phase process stopped by its parent) exits through
@@ -7103,13 +7602,19 @@ def main() -> int:
                                      args.trained_requests)
         return trained[0], served
 
-    def pevlog_phases(streaming: bool, quickstart: bool, beside=None):
-        """Phases streaming and quickstart over one PEVLOG project: one
-        import and one train for both. `beside`, phase lifecycle, runs
-        while the PEVLOG import does (their imports overlap, one
-        process each)."""
+    def pevlog_phases(streaming: bool, quickstart: bool, ingest: bool,
+                      beside=None):
+        """Phases streaming, quickstart and ingest over one PEVLOG
+        project: one import and one train for all. `beside`, phase
+        lifecycle, runs while the PEVLOG import does (their imports
+        overlap, one process each). Phase ingest's scans and train run
+        on the project's thread after its train (beside phase
+        lifecycle), its deploy, drip and kill after phase quickstart."""
         with tempfile.TemporaryDirectory(prefix="chip_smoke_pevlog_") as tmp:
-            started = pevlog_import(Path(tmp), args.seed)
+            started = pevlog_import(
+                Path(tmp), args.seed,
+                (lambda st, tr: ingest_scan_train(torch, dev, st, tr))
+                if ingest else None)
             ran = beside() if beside is not None else None
             project = pevlog_project(started, dev)
             import_eps = (project["n_train"]
@@ -7121,7 +7626,9 @@ def main() -> int:
             qs = phase_quickstart(torch, ft, dev, rng, project,
                                   args.quickstart_requests,
                                   import_eps) if quickstart else None
-        return ran, st, qs
+            ing = ingest_serve_fold(torch, ft, dev, rng, project) \
+                if ingest else None
+        return ran, st, qs, ing
 
     if args.only is not None:
         if args.only == "serve_sharded":
@@ -7159,7 +7666,7 @@ def main() -> int:
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
-                          args.only == "quickstart")
+                          args.only == "quickstart", args.only == "ingest")
         emit({"script_s": time.perf_counter() - t_script})
         print(smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
@@ -7183,9 +7690,10 @@ def main() -> int:
     timing_sh = phase_timing_sharded(torch, ft, dev, rng, model, card)
     del model
     _, served = train_phases()
-    lifecycle, streaming, quickstart = pevlog_phases(
-        True, True, lambda: phase_lifecycle(torch, ft, dev, rng, args.seed,
-                                            args.lifecycle_requests))
+    lifecycle, streaming, quickstart, ingest = pevlog_phases(
+        True, True, True,
+        lambda: phase_lifecycle(torch, ft, dev, rng, args.seed,
+                                args.lifecycle_requests))
     # phase neural launches no K1 or K2 and is host-bound, as are the
     # two phases it runs beside
     neural_proc = start_phase_process("neural", args.seed)
@@ -7215,6 +7723,7 @@ def main() -> int:
         "lifecycle_launches": lifecycle["serve"]["launches"],
         "streaming_launches": streaming["launches"],
         "quickstart_launches": quickstart["launches"],
+        "ingest_launches": ingest["launches"],
         "templates_launches": templates["templates_launches"],
         "classification_launches": classification["k1_launches"],
         "neural_launches": neural["k1_launches"],

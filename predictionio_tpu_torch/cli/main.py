@@ -44,6 +44,11 @@
     python -m predictionio_tpu_torch.cli template new DIR \
         [--base recommendation|similarproduct|classification|ecommerce|
                 twotower|seqrec]
+    python -m predictionio_tpu_torch.cli ingestd [--ip 0.0.0.0] \
+        [--port 7200] [--block-rows 65536] [--workers N] \
+        [--join URL[,URL]] [--advertise HOST:PORT]
+    python -m predictionio_tpu_torch.cli run my.module.function
+    python -m predictionio_tpu_torch.cli shell
 
 Storage comes from `PIO_STORAGE_*` (or a `pio-env` file); without any,
 one sqlite file at `./.pio_store/pio.db`, the JAX package's default.
@@ -115,6 +120,20 @@ through the warmed serving plan, into one JSON line per query.
 `template new` scaffolds an engine directory (engine.json and a
 `my_engine.py` over one of the six bundled templates) to run `build`,
 `train` and `deploy` in.
+
+`ingestd` serves the configured event store's columnar scans as
+CRC-framed column blocks (`ingest/service.py`) until SIGTERM; it is a
+host service and takes no device. A `train`, `deploy --refresh-interval`
+or `run` given `PIO_INGEST_SERVICE=host:port[,host:port]` scans through
+it and falls back to its own scan if none answers, unless
+`PIO_INGEST_FALLBACK=off`. `--block-rows` sizes its blocks, `--workers`
+its PEVLOG scan pool; `--join` registers it with fleet routers as a
+member of role `ingest`, which beats and is never routed queries.
+`run` calls a function by its dotted path (the working directory is on
+the import path) with the storage configured and prints what it returns
+as JSON; `shell` is an interactive Python with `registry`, `events` (the
+event store) and the port's `core`, `data`, `models` and `ops`
+preloaded.
 """
 
 from __future__ import annotations
@@ -412,6 +431,26 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--base", default="recommendation",
                    choices=sorted(ops.SCAFFOLD_BASES),
                    help="bundled template the scaffold is based on")
+    x = sub.add_parser("ingestd", help="the remote ingest service: owns "
+                       "the columnar scan and streams CRC-framed column "
+                       "blocks to trainers and refreshers")
+    x.add_argument("--ip", default="0.0.0.0")
+    x.add_argument("--port", type=int, default=7200)
+    x.add_argument("--block-rows", type=int, default=0,
+                   help="rows per streamed block (default 65536)")
+    x.add_argument("--workers", type=int, default=None,
+                   help="scan worker pool width (default "
+                        "PIO_INGEST_WORKERS)")
+    x.add_argument("--join", default="",
+                   help="comma-separated router URLs to register with as "
+                        "a fleet member of role ingest")
+    x.add_argument("--advertise", default="",
+                   help="host:port other hosts reach this service at")
+    x = sub.add_parser("run", help="run a function by its dotted path with "
+                                   "the storage configured")
+    x.add_argument("target", help="module.function")
+    sub.add_parser("shell", help="interactive Python with the storage "
+                                 "registry and the port's modules loaded")
     return p
 
 
@@ -627,6 +666,59 @@ def _eventserver(args) -> int:
     return 0
 
 
+def _ingestd(args) -> int:
+    """The ingest service until SIGINT or SIGTERM; with `--join` a fleet
+    member of role ingest."""
+    from predictionio_tpu_torch.ingest.service import (IngestConfig,
+                                                       IngestService)
+    server = IngestService(
+        IngestConfig(ip=args.ip, port=args.port, block_rows=args.block_rows,
+                     workers=args.workers), _registry())
+    port = server.start()
+    stop = _sigterm_event()
+    print(f"Ingest service started on {args.ip}:{port}", flush=True)
+    agent = None
+    if args.join:
+        from predictionio_tpu_torch.serving.fleet import ReplicaAgent
+        agent = ReplicaAgent(
+            server, args.join.split(","),
+            advertise=args.advertise or f"{args.ip}:{port}", role="ingest")
+        agent.start()
+    try:
+        stop.wait()
+    finally:
+        if agent is not None:
+            agent.stop()
+        server.shutdown()
+    return 0
+
+
+def _run(target: str) -> None:
+    """`cli run`: call `module.function()` and print what it returns."""
+    import importlib
+    module_name, _, attr = target.rpartition(".")
+    result = getattr(importlib.import_module(module_name), attr)()
+    if result is not None:
+        _emit(result)
+
+
+def _shell() -> None:
+    """`cli shell` (bin/pio-shell): a REPL with the storage registry, the
+    event store and the port's modules in scope."""
+    import code
+
+    import predictionio_tpu_torch
+    from predictionio_tpu_torch import core, data, models
+    from predictionio_tpu_torch import ops as tops
+    registry = _registry()
+    ns = {"predictionio_tpu_torch": predictionio_tpu_torch, "core": core,
+          "data": data, "models": models, "ops": tops,
+          "registry": registry, "events": registry.get_events()}
+    code.interact(banner="predictionio_tpu_torch shell - preloaded: "
+                         "registry (storage registry), events (event "
+                         "store), core, data, models, ops", local=ns)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
@@ -673,6 +765,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 device=args.device))
         elif cmd == "eventserver":
             return _eventserver(args)
+        elif cmd == "ingestd":
+            return _ingestd(args)
+        elif cmd == "run":
+            _run(args.target)
+        elif cmd == "shell":
+            _shell()
         elif cmd == "undeploy":
             ok = ops.undeploy(args.ip, args.port, access_key=args.accesskey)
             print("Undeployed" if ok else "No server responded", flush=True)

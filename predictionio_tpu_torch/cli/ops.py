@@ -24,6 +24,8 @@ from typing import Any, Dict, List, Optional, Sequence
 from predictionio_tpu_torch.data.event import Event, format_time
 from predictionio_tpu_torch.data.storage import (AccessKey, App, Channel,
                                                  TenantQuota)
+from predictionio_tpu_torch.data.view import (require_pyarrow,
+                                              write_events_parquet)
 
 IMPORT_BATCH = 500
 
@@ -197,24 +199,6 @@ def accesskey_delete(registry, key: str) -> None:
     dao.delete(key)
 
 
-def _require_pyarrow():
-    try:
-        import pyarrow
-        import pyarrow.parquet  # noqa: F401
-        return pyarrow
-    except ImportError as e:
-        raise ValueError(
-            "format='parquet' requires pyarrow, which is not installed; "
-            "use format='json'") from e
-
-
-# the parquet columns: the API-JSON fields, `properties` as JSON text
-# (a property bag has no static arrow schema)
-PARQUET_COLUMNS = ("eventId", "event", "entityType", "entityId",
-                   "targetEntityType", "targetEntityId", "properties",
-                   "eventTime", "tags", "prId", "creationTime")
-
-
 def import_events(registry, *, app_id: int, input_path: str,
                   channel_id: Optional[int] = None,
                   format: str = "json") -> Dict[str, Any]:
@@ -240,7 +224,7 @@ def import_events(registry, *, app_id: int, input_path: str,
             batch = []
 
     if format == "parquet":
-        pa = _require_pyarrow()
+        pa = require_pyarrow()
         for rb in pa.parquet.ParquetFile(input_path).iter_batches(
                 batch_size=IMPORT_BATCH):
             for row in rb.to_pylist():
@@ -273,29 +257,7 @@ def export_events(registry, *, app_id: int, output_path: str,
     events = registry.get_events().find(app_id, channel_id)
     n = 0
     if format == "parquet":
-        pa = _require_pyarrow()
-        schema = pa.schema(
-            [(c, pa.list_(pa.string()) if c == "tags" else pa.string())
-             for c in PARQUET_COLUMNS])
-        with pa.parquet.ParquetWriter(output_path, schema) as writer:
-            chunk: List[dict] = []
-
-            def write() -> None:
-                writer.write_table(pa.table(
-                    {c: [r.get(c) for r in chunk] for c in PARQUET_COLUMNS},
-                    schema=schema))
-
-            for e in events:
-                d = e.to_api_json()
-                if "properties" in d:
-                    d["properties"] = json.dumps(d["properties"])
-                chunk.append(d)
-                n += 1
-                if len(chunk) >= 5000:
-                    write()
-                    chunk = []
-            if chunk or n == 0:
-                write()
+        n = write_events_parquet(events, output_path)
     else:
         with open(output_path, "w") as f:
             for e in events:

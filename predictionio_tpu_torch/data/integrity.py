@@ -57,12 +57,12 @@ def _digest(payload: bytes, algo: int) -> bytes:
     raise CorruptBlobError(f"unknown digest algo {algo}")
 
 
-def wrap(payload: bytes) -> bytes:
-    """Wrap `payload` in a SHA-256 envelope, as the JAX package's sqlite
-    driver does."""
-    header = _HEADER.pack(BLOB_MAGIC, FORMAT_VERSION, ALGO_SHA256,
-                          len(payload))
-    return header + _digest(payload, ALGO_SHA256) + payload
+def wrap(payload: bytes, algo: int = ALGO_SHA256) -> bytes:
+    """Wrap `payload` in an envelope: SHA-256 by default, as the JAX
+    package's sqlite driver does; CRC32 for the ingest service's column
+    blocks, as the JAX protocol frames them."""
+    header = _HEADER.pack(BLOB_MAGIC, FORMAT_VERSION, algo, len(payload))
+    return header + _digest(payload, algo) + payload
 
 
 def unwrap(blob: bytes) -> bytes:

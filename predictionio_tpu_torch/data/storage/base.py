@@ -542,6 +542,7 @@ class EventStore(abc.ABC):
                      target_entity_id: object = _UNSET,
                      properties: Optional[Dict[str, object]] = None,
                      value_spec=None, require_target: bool = True,
+                     workers: Optional[int] = None,
                      since: Optional[Dict[str, int]] = None,
                      upto: Optional[Dict[str, int]] = None):
         """Columnar training scan with `find`'s filters: an
@@ -549,9 +550,10 @@ class EventStore(abc.ABC):
         `value_spec`, int64 event times) instead of Events. With
         `since` (an `ingest_watermark` snapshot) only the events
         appended after it, up to the snapshot `upto`: the streaming
-        delta. This base adapts `find()` and raises `DeltaInvalidated`
-        for a delta."""
-        del upto
+        delta. `workers` is advisory: the width of a driver's scan
+        pool, where it has one (PEVLOG). This base adapts `find()` and
+        raises `DeltaInvalidated` for a delta."""
+        del upto, workers
         if since is not None:
             raise DeltaInvalidated(
                 f"{type(self).__name__} has no delta scan path")

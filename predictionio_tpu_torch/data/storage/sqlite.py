@@ -882,6 +882,7 @@ class SQLiteEvents(base.EventStore):
                      target_entity_id: object = _UNSET,
                      properties=None,
                      value_spec=None, require_target: bool = True,
+                     workers: Optional[int] = None,
                      since=None, upto=None):
         """Columnar scan in SQL: a projection of the five columns the
         row stream needs, with `find()`'s filter, in `find()`'s order
@@ -889,7 +890,8 @@ class SQLiteEvents(base.EventStore):
         of the base adapter, which builds an `Event` per row and takes
         about three times as long at MovieLens-1M's shape on an H100's
         host (PERF.md §6). A property filter or a delta (`since`) goes
-        to the base adapter."""
+        to the base adapter; `workers` is ignored (one cursor)."""
+        del workers
         filt = dict(start_time=start_time, until_time=until_time,
                     entity_type=entity_type, entity_id=entity_id,
                     event_names=event_names,

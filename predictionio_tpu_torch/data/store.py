@@ -1,7 +1,7 @@
 """Engine-facing event store facade.
 
 The port of `app_name_to_id`, `find_events`, `rating_columns`,
-`aggregate_properties` and `find_by_entity` from
+`pair_columns`, `aggregate_properties` and `find_by_entity` from
 `predictionio_tpu/data/store.py` (PEventStore.scala / LEventStore.scala):
 engines address data by app name and channel name, which resolve to
 ids (store/Common.scala appNameToId) before the `EventStore` DAO runs.
@@ -52,6 +52,17 @@ def rating_columns(registry, app_name: str,
     from predictionio_tpu_torch.ingest.arrays import RatingColumns
     app_id, channel_id = app_name_to_id(registry, app_name, channel_name)
     return RatingColumns.from_store(
+        registry.get_events(), app_id, channel_id, **kwargs)
+
+
+def pair_columns(registry, app_name: str,
+                 channel_name: Optional[str] = None, **kwargs):
+    """The columnar `PairColumns` read (`ingest.pipeline.
+    pair_columns_from_store`, which takes `kwargs`); see
+    `rating_columns`."""
+    from predictionio_tpu_torch.ingest.arrays import PairColumns
+    app_id, channel_id = app_name_to_id(registry, app_name, channel_name)
+    return PairColumns.from_store(
         registry.get_events(), app_id, channel_id, **kwargs)
 
 

@@ -1,6 +1,7 @@
-"""Entity id maps, rating columns and labeled points."""
+"""Entity id maps, rating and pair columns, labeled points."""
 
 from predictionio_tpu_torch.ingest.arrays import (  # noqa: F401
-    LabeledPoints, RatingColumns, labeled_points_from_properties,
+    LabeledPoints, PairColumns, RatingColumns,
+    labeled_points_from_properties,
 )
 from predictionio_tpu_torch.ingest.bimap import BiMap  # noqa: F401

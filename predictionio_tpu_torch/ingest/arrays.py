@@ -1,11 +1,13 @@
-"""Rating columns and labeled points: dense numpy columns with the
-BiMaps of their ids.
+"""Rating columns, pair columns and labeled points: dense numpy columns
+with the BiMaps of their ids.
 
 The numpy part of `predictionio_tpu/ingest/arrays.py`:
   - `RatingColumns` (the per-template `RDD[Rating]` of DataSource.scala:
     43-72): the fields, `from_events` over an Event stream, `from_store`
     (the columnar scan of `ingest.pipeline`, equal array for array) and
     `default_rating_of`;
+  - `PairColumns` (the view / like pairs of CooccurrenceAlgorithm.scala:
+    47-110): `from_events` and `from_store` likewise;
   - `LabeledPoints` and `labeled_points_from_properties` (the
     classification template's `RDD[LabeledPoint]` from aggregated
     properties, `examples/scala-parallel-classification/.../
@@ -105,6 +107,59 @@ def default_rating_of(e: Event) -> Optional[float]:
         v = e.properties.get_opt("rating")
         return float(v) if v is not None else None
     return 1.0
+
+
+@dataclass
+class PairColumns:
+    """(entity, target) index pairs with a weight each, with BiMaps."""
+    left_ix: np.ndarray    # int32 [n]
+    right_ix: np.ndarray   # int32 [n]
+    weight: np.ndarray     # float32 [n]
+    left: BiMap
+    right: BiMap
+
+    @property
+    def n(self) -> int:
+        return self.left_ix.shape[0]
+
+    @staticmethod
+    def from_events(events: Iterable[Event], *,
+                    weight_of: Optional[Callable[[Event], Optional[float]]] = None,
+                    left: Optional[BiMap] = None,
+                    right: Optional[BiMap] = None) -> "PairColumns":
+        """Pairs from events. `weight_of` maps an event to its weight
+        (None = skip; default 1.0); rows whose id a fixed `left` /
+        `right` BiMap lacks drop."""
+        weight_of = weight_of or (lambda e: 1.0)
+        rows: list = []
+        for e in events:
+            w = weight_of(e)
+            if w is None or e.entity_id is None or e.target_entity_id is None:
+                continue
+            rows.append((e.entity_id, e.target_entity_id, float(w)))
+        l_map = left if left is not None else BiMap.from_keys(
+            r[0] for r in rows)
+        r_map = right if right is not None else BiMap.from_keys(
+            r[1] for r in rows)
+        kept = [(l_map.get(a), r_map.get(b), w) for a, b, w in rows
+                if l_map.get(a) is not None and r_map.get(b) is not None]
+        if kept:
+            li, ri, ws = (np.array(x) for x in zip(*kept))
+        else:
+            li = ri = np.zeros(0, np.int32)
+            ws = np.zeros(0, np.float32)
+        return PairColumns(li.astype(np.int32), ri.astype(np.int32),
+                           ws.astype(np.float32), l_map, r_map)
+
+    @staticmethod
+    def from_store(store, app_id: int, channel_id=None,
+                   **kwargs) -> "PairColumns":
+        """`from_events(store.find(...))` on the columnar path; `kwargs`
+        go to `ingest.pipeline.pair_columns_from_store`, whose
+        `value_spec` stands for `weight_of`."""
+        from predictionio_tpu_torch.ingest.pipeline import (
+            pair_columns_from_store)
+        return pair_columns_from_store(store, app_id, channel_id, **kwargs)
 
 
 @dataclass

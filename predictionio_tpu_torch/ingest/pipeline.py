@@ -19,15 +19,18 @@ The port of `rating_columns_from_store` and its helpers from
             directory is a hit in the other, with equal columns.
 
 The result equals `RatingColumns.from_events(store.find(...))` array
-for array. Cache knobs: `PIO_INGEST_CACHE=off` disables it, unset or
+for array (`pair_columns_from_store`: `PairColumns.from_events`). Cache knobs: `PIO_INGEST_CACHE=off` disables it, unset or
 `default` uses the store's `ingest_cache_dir()` (PEVLOG:
 `<partition>/_prepared/`, SQLITE: `ingest_cache/<table>` beside the
 database), any other value is a cache directory; `PIO_INGEST_CACHE_MAX`
 (default 8) entries are kept per directory. Stage seconds accumulate per
 process under `ingest_scan_s` and `ingest_build_s`, lookups under
 `ingest_cache_hits` / `ingest_cache_misses`; `Engine.train` drains them
-(`take_phase_timings`) into the run's phase timings. The JAX package's
-remote ingest service and mesh pre-sharding are not ported.
+(`take_phase_timings`) into the run's phase timings. With
+`PIO_INGEST_SERVICE` set the scan runs on the remote ingest service
+(`ingest.client.maybe_remote`, as the JAX package's `_prepared`); the
+cache stays the consumer's. The JAX package's mesh pre-sharding is not
+ported.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import numpy as np
 
 from predictionio_tpu_torch.data import integrity
 from predictionio_tpu_torch.data.storage import base, columns as C
-from predictionio_tpu_torch.ingest.arrays import RatingColumns
+from predictionio_tpu_torch.ingest.arrays import PairColumns, RatingColumns
 from predictionio_tpu_torch.ingest.bimap import BiMap
 
 CACHE_FORMAT = 1
@@ -233,6 +236,23 @@ def _finalize_rating(cols: C.EventColumns, users: Optional[BiMap],
     return arrays, {"users": cols.entities, "items": cols.targets}
 
 
+def _finalize_pair(cols: C.EventColumns, left: Optional[BiMap],
+                   right: Optional[BiMap]):
+    """EventColumns -> (arrays, id tables) of `PairColumns`."""
+    l, r = cols.entity_ix.astype(np.int64), cols.target_ix.astype(np.int64)
+    w = cols.value
+    if left is not None or right is not None:
+        tl = _translate(cols.entities, left) if left is not None else None
+        tr = _translate(cols.targets, right) if right is not None else None
+        l = tl[l] if tl is not None and l.size else l
+        r = tr[r] if tr is not None and r.size else r
+        keep = (l >= 0) & (r >= 0)
+        l, r, w = l[keep], r[keep], w[keep]
+    arrays = {"left_ix": l.astype(np.int32), "right_ix": r.astype(np.int32),
+              "weight": w.astype(np.float32)}
+    return arrays, {"left": cols.entities, "right": cols.targets}
+
+
 def _bimap(table: List[str]) -> BiMap:
     # tables are dense first-seen order already: skip from_keys' dedup
     return BiMap({k: ix for ix, k in enumerate(table)})
@@ -265,32 +285,85 @@ def rating_columns_from_store(
         "fixed_users": users.keys() if users is not None else None,
         "fixed_items": items.keys() if items is not None else None,
     }
-    cache_dir = _cache_dir(store, app_id, channel_id)
-    got = path = watermark = None
-    if cache_dir is not None:
-        watermark = store.ingest_watermark(app_id, channel_id)
-        path = _cache_path(cache_dir, sig)
-        got = _cache_load(path, watermark, "rating")
-        _record("ingest_cache_hits" if got is not None
-                else "ingest_cache_misses", 1)
-    if got is None:
-        t0 = time.perf_counter()
-        cols = store.scan_columns(
-            app_id, channel_id, value_spec=spec, require_target=True,
-            start_time=start_time, until_time=until_time,
-            entity_type=entity_type, event_names=event_names,
-            target_entity_type=(base._UNSET if target_entity_type is None
-                                else target_entity_type))
-        _record("ingest_scan_s", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        got = _finalize_rating(cols, users, items, dedup_last_wins)
-        _record("ingest_build_s", time.perf_counter() - t0)
-        if path is not None:
-            _cache_store(path, watermark, "rating", *got)
-            _evict_cache(cache_dir)
-    arrays, tables = got
+    arrays, tables = _prepared(
+        store, app_id, channel_id, sig, "rating",
+        _filters(event_names, entity_type, target_entity_type, start_time,
+                 until_time), spec,
+        lambda cols: _finalize_rating(cols, users, items, dedup_last_wins))
     return RatingColumns(
         arrays["user_ix"], arrays["item_ix"], arrays["rating"],
         arrays["t_millis"],
         users if users is not None else _bimap(tables["users"]),
         items if items is not None else _bimap(tables["items"]))
+
+
+def pair_columns_from_store(
+        store, app_id: int, channel_id: Optional[int] = None, *,
+        event_names: Optional[Sequence[str]] = None,
+        value_spec=None,
+        left: Optional[BiMap] = None,
+        right: Optional[BiMap] = None,
+        entity_type: Optional[str] = None,
+        target_entity_type: Optional[str] = None,
+        start_time: Optional[datetime] = None,
+        until_time: Optional[datetime] = None) -> PairColumns:
+    """`PairColumns.from_events(store.find(...))` on the columnar path;
+    `value_spec` stands for `weight_of` (default: every match weighs
+    1); `left` / `right` fix the BiMaps."""
+    spec = C.normalize_value_spec(value_spec)
+    sig = {
+        "kind": "pair", "app": app_id, "channel": channel_id,
+        "event_names": sorted(event_names) if event_names else None,
+        "entity_type": entity_type,
+        "target_entity_type": target_entity_type,
+        "start_us": _t_us(start_time), "until_us": _t_us(until_time),
+        "value_spec": spec,
+        "fixed_left": left.keys() if left is not None else None,
+        "fixed_right": right.keys() if right is not None else None,
+    }
+    arrays, tables = _prepared(
+        store, app_id, channel_id, sig, "pair",
+        _filters(event_names, entity_type, target_entity_type, start_time,
+                 until_time), spec,
+        lambda cols: _finalize_pair(cols, left, right))
+    return PairColumns(
+        arrays["left_ix"], arrays["right_ix"], arrays["weight"],
+        left if left is not None else _bimap(tables["left"]),
+        right if right is not None else _bimap(tables["right"]))
+
+
+def _filters(event_names, entity_type, target_entity_type, start_time,
+             until_time) -> dict:
+    return dict(start_time=start_time, until_time=until_time,
+                entity_type=entity_type, event_names=event_names,
+                target_entity_type=(base._UNSET if target_entity_type is None
+                                    else target_entity_type))
+
+
+def _prepared(store, app_id, channel_id, sig, kind, filters, spec,
+              finalize):
+    """scan -> finalize -> cache, shared by both builders: `finalize`
+    maps the `EventColumns` to (arrays, id tables)."""
+    from predictionio_tpu_torch.ingest.client import maybe_remote
+    store = maybe_remote(store)    # PIO_INGEST_SERVICE scans remotely
+    cache_dir = _cache_dir(store, app_id, channel_id)
+    path = watermark = None
+    if cache_dir is not None:
+        watermark = store.ingest_watermark(app_id, channel_id)
+        path = _cache_path(cache_dir, sig)
+        got = _cache_load(path, watermark, kind)
+        _record("ingest_cache_hits" if got is not None
+                else "ingest_cache_misses", 1)
+        if got is not None:
+            return got
+    t0 = time.perf_counter()
+    cols = store.scan_columns(app_id, channel_id, value_spec=spec,
+                              require_target=True, **filters)
+    _record("ingest_scan_s", time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    got = finalize(cols)
+    _record("ingest_build_s", time.perf_counter() - t0)
+    if path is not None:
+        _cache_store(path, watermark, kind, *got)
+        _evict_cache(cache_dir)
+    return got

@@ -204,6 +204,7 @@ class _Replica:
         self.model_id = ""
         self.name = ""            # a supervised child's name
         self.shard = ""           # the catalog slice it serves, "i/n"
+        self.role = "serve"       # serve|ingest: only serve is routed to
 
     @property
     def key(self) -> str:
@@ -231,9 +232,7 @@ class _Replica:
                     "state": self.state, "admitted": self.admitted,
                     "failures": self.failures, "inflight": self.inflight,
                     "model": self.model_id, "name": self.name,
-                    # every member serves (the JAX ingest role is not
-                    # ported); the key keeps the JAX status shape
-                    "shard": self.shard, "role": "serve",
+                    "shard": self.shard, "role": self.role,
                     "beat_age_s": round(time.monotonic() - self.last_beat,
                                         3)}
 
@@ -615,7 +614,8 @@ class FleetServer(HTTPServerBase):
         restarted router admits them at once."""
         if self.registry is None:
             return
-        remote = [{"member": r.key, "model": r.model_id, "shard": r.shard}
+        remote = [{"member": r.key, "model": r.model_id, "shard": r.shard,
+                   "role": r.role}
                   for r in list(self._replicas) if r.remote]
         try:
             self.registry.get_model_data_models().insert(Model(
@@ -646,6 +646,7 @@ class FleetServer(HTTPServerBase):
             rep = self._add_member(host, int(port_s))
             rep.model_id = str(entry.get("model", ""))
             rep.shard = str(entry.get("shard", ""))
+            rep.role = str(entry.get("role", "")) or "serve"
             if self._probe(rep):
                 rep.beat()
                 self._admit(rep)
@@ -679,6 +680,8 @@ class FleetServer(HTTPServerBase):
             if name:
                 rep.name = name
             rep.shard = str(body.get("shard", ""))
+            # an ingest member beats and is admitted, never routed to
+            rep.role = str(body.get("role", "")) or "serve"
             busy = rep.state in ("reloading", "stopping")
             if rep.state == "dead":
                 rep.state = "starting"
@@ -795,8 +798,10 @@ class FleetServer(HTTPServerBase):
 
     # -- routing ------------------------------------------------------------
     def _rotation(self) -> List[_Replica]:
-        """The admitted members, rotated round-robin."""
-        admitted = [r for r in self._replicas if r.admitted]
+        """The admitted serving members, rotated round-robin (an
+        ingest member is never in it)."""
+        admitted = [r for r in self._replicas
+                    if r.admitted and r.role == "serve"]
         if not admitted:
             return []
         with self._rr_lock:
@@ -1222,19 +1227,22 @@ class ReplicaAgent:
     """The heartbeat loop of a standalone replica (`cli deploy --join
     http://router:8000[,http://standby:8000]`): registers the local
     server with every router, then beats {member, model, name, shard,
-    ready} each `heartbeat_s`. Beating every router keeps each
+    role, ready} each `heartbeat_s`. Beating every router keeps each
     membership table warm, so that a standby that wins the lease routes
     at once; a heartbeat registers too."""
 
     def __init__(self, server, routers: Sequence[str], advertise: str = "",
                  server_key: str = "", heartbeat_s: float = 0.0,
-                 member_name: str = ""):
+                 member_name: str = "", role: str = "serve"):
         self.server = server
         self.routers = [u.rstrip("/") for u in routers if u]
         self.advertise = advertise
         self.server_key = server_key
         self.heartbeat_s = heartbeat_s
         self.member_name = member_name
+        # "ingest" (`cli ingestd --join`) rides the same membership and
+        # beats, and the router keeps it out of the query rotation
+        self.role = role
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._router_down: Dict[str, bool] = {}
@@ -1279,6 +1287,7 @@ class ReplicaAgent:
         return json.dumps({"member": self.advertise,
                            "model": self.server.current_instance_id(),
                            "name": self.member_name, "shard": shard,
+                           "role": self.role,
                            "ready": bool(ready)}).encode()
 
     def _post(self, url: str, data: bytes) -> dict:

@@ -43,8 +43,12 @@ A `/reload` publishes a deployment of another instance: it calls
 `rebase()`, so that the next tick takes a fresh baseline, and a fold
 computed meanwhile from the replaced deployment is dropped (outcome
 `superseded`), its factor swaps undone.
-The JAX package's trace spans, watchdog beat, fault seam and remote
-ingest routing are not ported yet.
+
+With `PIO_INGEST_SERVICE` set, the tick's scans (the delta, the
+template's delta re-scan and its history reads) run on the remote ingest
+service (`ingest.client.maybe_remote`); the watermark and `find` stay on
+the local store. The JAX package's trace spans, watchdog beat and fault
+seam are not ported yet.
 """
 
 from __future__ import annotations
@@ -204,6 +208,9 @@ class Refresher:
         if located is None:
             return "no_app"
         events, app_id, channel_id, ds_params = located
+        # PIO_INGEST_SERVICE sends the scans below to the ingest service
+        from predictionio_tpu_torch.ingest.client import maybe_remote
+        events = maybe_remote(events)
         wm_now = events.ingest_watermark(app_id, channel_id)
         if wm_now is None:
             return "no_watermark"       # the driver cannot delta

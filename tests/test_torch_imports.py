@@ -65,7 +65,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "data.storage.resilient", "data.storage.localfs",
                      "data.storage.pgwire", "data.storage.postgres",
                      "data.storage.objectstore", "data.storage.replicated",
-                     "data.fsck"):
+                     "data.fsck", "ingest.blockproto", "ingest.client",
+                     "ingest.service", "data.view", "data.entitymap",
+                     "core.selfclean", "core.fakeworkflow"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
