@@ -10,7 +10,7 @@
                           [--only serve_sharded | train | lifecycle |
                                   streaming | quickstart | templates |
                                   classification | neural | wire |
-                                  fleet | storage]
+                                  fleet | storage | ingest | obs]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -147,6 +147,37 @@ the result line:
               line says which ran. Prints each part's seconds, the
               deploys' seconds and client-clock qps, p50 and p99, and
               each store's import and export events/s.
+  4e. obs     the observatory (traces, the tsdb ring, the sampling
+              profiler, the kernel probe), riding on phases that already
+              deploy and train; its line comes after phase 17. (a) In
+              phase 4b, once its selector pass is read, the same server
+              (its scraper every 0.5 s) traced at sample 1: 1,280
+              requests of phase 4b's mix from the same clients. Gates:
+              every answer against the plain version; K1 launches =
+              plan calls = drained chunks = the rise of
+              `pio_kernel_launches_total`; `/traces.json` holds
+              min(ring, 1,280) serve entries, each with `device_exec` >
+              0 and its segments tiling its duration in slot order (within
+              the 1-us fields' rounding); `pio_serve_seconds` rises by
+              1,280, its exemplars since the ring's oldest entry in the
+              ring; `/tsdb.json` has two serve-rate ticks since the pass
+              began and `pio_device_memory_bytes{device="cuda:0"}` with
+              128,000,000 <= in_use <= peak; `pio_plan_resident_bytes
+              {bucket="factors"}` = 128,000,000; `/profile.json` has
+              reactor, worker and drainer samples; no kernel build. (b)
+              In phase 4c (c), the router and children traced at 0.01:
+              32 requests with signed, sampled `X-PIO-Trace` headers,
+              each id one `kind="router"` entry with a `proxy:` span in
+              the router's ring and one `kind="serve"` entry in exactly
+              one child's, under the router's span. (c) In phase ingest
+              (c), its deploy traced at 0.01: `refresh_fold` spans =
+              the folds its refresher counted; ingestd's profiler and
+              scraper run and it stays off the card. (d) Phase 12's
+              `cli train` with `--profile-dir`: one Chrome trace that
+              parses, with CUDA kernel events; `kernelBuilds` 0. Prints
+              the traced pass's qps, p50 and p99 beside the untraced
+              selector pass, each segment's mean, and each part's
+              seconds.
   5. parity_sharded
               the kernel's sharded form (K2, `shard_local_candidates`)
               vs its plain version on shard slices of a 20,037-row
@@ -422,8 +453,11 @@ build and phases 3 and 15, `--only classification` the build and
 phases 3 and 16, `--only neural` the build and phase 17, `--only wire`
 the build and phases 3 and 4b, `--only fleet` the build, phase 3, one
 selector pass of phase 4b's requests (its reference) and phase 4c,
-`--only storage` the build and phases 3 and 4d; none prints the kernels
+`--only storage` the build and phases 3 and 4d, `--only obs` the build,
+phase 3, phase 4's model and phase 4e (a) behind phase 4b's selector pass;
+none prints the kernels
 line (whose K1 entry counts phase 4b's launches as `wire_launches`,
+phase 4e (a)'s as `obs_launches`,
 phase 4c's as `fleet_launches`: its in-process parts' and its
 supervised children's, the killed one's as read just before its kill,
 and phase 4d's as `storage_launches`). Every run
@@ -453,6 +487,7 @@ import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -1029,6 +1064,15 @@ SHED_DEADLINE_MS = "0.5"             # below the 2-ms batching window
 # REST ingest's events/s when the event server ran on the threaded wire
 # (NVIDIA H100 80GB HBM3, 700 W), printed beside phase quickstart's
 THREADED_REST_EVENTS_PER_S = (479, 656)
+# phase obs: (a) the traced pass, half of phase wire's mix, on the
+# selector pass's server, its scraper at OBS_TSDB_INTERVAL_S; (b) signed,
+# sampled requests through the supervised fleet; (b) and (c) deploy at
+# OBS_TRACE_SAMPLE (tracing on, few head samples, so that the rings keep
+# the stitched and background entries)
+OBS_PLAIN, OBS_BANNED, OBS_BIN = 640, 320, 320
+OBS_TSDB_INTERVAL_S = "0.5"
+OBS_STITCHED = 32
+OBS_TRACE_SAMPLE = "0.01"
 
 WIRE_CLIENT = r"""
 import http.client, json, sys, threading, time
@@ -1170,13 +1214,17 @@ def lat_summary(res, idx) -> dict:
 
 def wire_run(torch, ft, dev, model, reqs, tmp: Path, wire: str,
              max_inflight: int = 0,
-             log_file: Optional[Path] = None) -> dict:
+             log_file: Optional[Path] = None,
+             obs_reqs: Optional[list] = None) -> dict:
     """Deploy `model` through `cli.main.deploy` on `wire` with a registry
     of its own, send `reqs` from the client processes, read GET / and
     /metrics, stop. The kernel's counts are set to 0 just before the
     deploy and read after the last answer. With `log_file` the server's
     structured log runs at INFO, as a default deploy's does, its lines
-    written to that file; otherwise at this run's PIO_OBS_LOG_LEVEL."""
+    written to that file; otherwise at this run's PIO_OBS_LOG_LEVEL.
+    With `obs_reqs` the server's scraper ticks every OBS_TSDB_INTERVAL_S,
+    and after those reads the same server takes phase obs's traced pass
+    of `obs_reqs` (`obs_pass`, its result under "obs")."""
     import logging
     from predictionio_tpu_torch.cli.main import deploy
     from predictionio_tpu_torch.obs import MetricsRegistry, get_logger
@@ -1190,8 +1238,11 @@ def wire_run(torch, ft, dev, model, reqs, tmp: Path, wire: str,
         log_root.setLevel(logging.INFO)
     ft.LAUNCHES = 0
     ft.SHARD_LAUNCHES = 0
-    server = deploy(model, port=0, batch_max=64, wire=wire,
-                    max_inflight=max_inflight, metrics=MetricsRegistry())
+    with (env_set(PIO_TSDB_INTERVAL_S=OBS_TSDB_INTERVAL_S)
+          if obs_reqs is not None else contextlib.nullcontext()):
+        server = deploy(model, port=0, batch_max=64, wire=wire,
+                        max_inflight=max_inflight,
+                        metrics=MetricsRegistry())
     if server.wire != wire:
         fail(f"asked for the {wire} wire, got {server.wire}")
     plan = server.deployment.algos[0]._serve_plan
@@ -1217,6 +1268,8 @@ def wire_run(torch, ft, dev, model, reqs, tmp: Path, wire: str,
         with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/",
                                     timeout=60) as resp:
             status = json.loads(resp.read())
+        obs = (obs_pass(torch, ft, dev, model, server, plan, obs_reqs, tmp)
+               if obs_reqs is not None else None)
     finally:
         server.stop()
         server.deployment.predict_batch = predict
@@ -1237,7 +1290,176 @@ def wire_run(torch, ft, dev, model, reqs, tmp: Path, wire: str,
     return {"res": res, "series": series, "status": status,
             "sizes": sizes, "launches": launches, "plan_calls": plan_calls,
             "expected_calls": expected, "batch_s": batch_s,
-            "wall_s": t1 - t0, "buckets": list(plan.buckets)}
+            "wall_s": t1 - t0, "buckets": list(plan.buckets), "obs": obs}
+
+
+def chunks(sizes: dict, max_bucket: int) -> int:
+    """Plan calls of drained batches {size: count}: one per chunk."""
+    return sum(c * -(-n // max_bucket) for n, c in sizes.items())
+
+
+def trace_tiles(entry: dict) -> bool:
+    """An entry's stage segments in slot order, each starting where the
+    last ended and together spanning its duration, within the 1-us
+    rounding of the JSON fields (0.5 us a field)."""
+    stages = [s for s in entry["spans"] if ":" not in s["name"]]
+    if not stages:
+        return False
+    tol = 5e-4 * (len(stages) + 1)
+    if abs(sum(s["dur_ms"] for s in stages) - entry["duration_ms"]) > tol:
+        return False
+    return all(abs(a["start_ms"] + a["dur_ms"] - b["start_ms"]) <= 1.5e-3
+               for a, b in zip(stages, stages[1:]))
+
+
+def obs_pass(torch, ft, dev, model, server, plan, reqs, tmp: Path) -> dict:
+    """Phase obs (a), on the selector pass's server once that pass is
+    read: the flight recorder at sample 1 into the server's registry,
+    the profiler's samples cleared, then `reqs` from the same client
+    processes. Gates: every answer against the plain version; K1
+    launches = plan calls = drained chunks = the rise of
+    `pio_kernel_launches_total`; `/traces.json` holds min(ring, n) serve
+    entries, each with `device_exec` > 0 and its segments tiling its
+    duration in slot order; `pio_serve_seconds` rises by n, and its
+    exemplars since the ring's oldest entry are in the ring;
+    `/tsdb.json` has two ticks of the serve rate since the pass began
+    and `pio_device_memory_bytes{device="cuda:0"}` with the plan's item
+    table <= in_use <= peak; `pio_plan_resident_bytes{bucket="factors"}`
+    is the table's bytes; `/profile.json` has reactor, worker and
+    drainer samples; no kernel build. Tracing is off again after it.
+    The card's label ("cuda:0") is the plan's factors' device."""
+    from predictionio_tpu_torch.obs import get_profiler, trace
+    t_part = time.perf_counter()
+    base = f"http://127.0.0.1:{server.port}"
+    count_key = 'pio_serve_seconds_count{app=""}'
+    table_bytes = N_ITEMS * RANK * 4       # the plan's pinned item table
+    card = f"{plan.factors.device.type}:{plan.factors.device.index or 0}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as resp:
+            body = resp.read().decode()
+        return prom(body) if path == "/metrics" else json.loads(body)
+
+    m0 = get("/metrics")
+    launches0, calls0 = ft.LAUNCHES, plan.calls
+    sizes0 = server.batcher.batch_sizes()
+    rec = trace.configure(sample=1.0, metrics=server.metrics)
+    ring = trace.DEFAULT_RING
+    get_profiler().reset()
+    t_wall0 = time.time()
+    try:
+        res = wire_clients(server.port, reqs, tmp)
+        end = time.monotonic() + 30
+        # the last responses' traces finish after their bytes are sent;
+        # waited for in this process (a request now would be traced)
+        hist0 = server.metrics.histogram(
+            "pio_serve_seconds", "", labels=("app",),
+            buckets=trace.SERVE_BUCKETS).labels(app="")
+        while sum(e["kind"] == "serve" for e in rec.snapshot()) < min(
+                ring, len(reqs)) or hist0.count < m0.get(count_key,
+                                                         0.0) + len(reqs):
+            if time.monotonic() > end:
+                fail("obs (a): the traced requests' traces never finished")
+            time.sleep(0.01)
+        launches, calls = ft.LAUNCHES - launches0, plan.calls - calls0
+        sizes = server.batcher.batch_sizes()
+        drained = chunks({n: c - sizes0.get(n, 0) for n, c in sizes.items()},
+                         plan.max_bucket)
+        traces = get("/traces.json")
+        while True:
+            tsdb = get("/tsdb.json?series=pio_serve_seconds,"
+                       "pio_device_memory_bytes,pio_plan_resident_bytes")
+            rate = tsdb["series"].get("pio_serve_seconds{app=}:rate",
+                                      {"points": []})["points"]
+            ticks = [pt for pt in rate if pt[0] >= t_wall0]
+            if len(ticks) >= 2 or time.monotonic() > end:
+                break
+            time.sleep(0.1)
+        profile = get("/profile.json")
+        m1 = get("/metrics")
+        hist = server.metrics.snapshot()["pio_serve_seconds"]["series"]
+    finally:
+        trace.configure(sample=0.0)
+    bad = [r for r in res if r is None or r[0] != 200]
+    if bad:
+        fail(f"obs (a): {len(bad)} traced requests failed: {bad[0]}")
+    err = check_wire_answers(torch, ft, dev, model, reqs, res, "obs (a)")
+    k1 = 'pio_kernel_launches_total{kernel="fused_topk"}'
+    metric_launches = m1.get(k1, 0.0) - m0.get(k1, 0.0)
+    if not launches == calls == drained == metric_launches:
+        fail(f"obs (a): K1 launches {launches}, plan calls {calls}, drained "
+             f"chunks {drained}, pio_kernel_launches_total rose "
+             f"{metric_launches}")
+    builds = m1.get("pio_kernel_builds_total", 0.0) - m0.get(
+        "pio_kernel_builds_total", 0.0)
+    if builds:
+        fail(f"obs (a): {builds} kernel builds after warmup")
+    serve = [e for e in traces["traces"] if e["kind"] == "serve"]
+    if len(serve) != min(ring, len(reqs)):
+        fail(f"obs (a): /traces.json holds {len(serve)} serve entries, "
+             f"want min({ring}, {len(reqs)})")
+    no_exec = [e for e in serve if not any(
+        s["name"] == "device_exec" and s["dur_ms"] > 0 for s in e["spans"])]
+    untiled = [e for e in serve if not trace_tiles(e)]
+    if no_exec or untiled:
+        fail(f"obs (a): {len(no_exec)} entries without device_exec > 0, "
+             f"{len(untiled)} whose segments do not tile the duration: "
+             f"{(no_exec or untiled)[0]}")
+    counted = m1.get(count_key, 0.0) - m0.get(count_key, 0.0)
+    if counted != len(reqs):
+        fail(f"obs (a): pio_serve_seconds counted {counted} of {len(reqs)}")
+    in_ring = {e["trace_id"] for e in serve}
+    oldest = min(e["ts"] for e in serve)
+    exemplars = [x for row in hist if row["labels"] == {"app": ""}
+                 for x in row.get("exemplars", ())]
+    recent = [x for x in exemplars if x["ts"] >= oldest]
+    if not recent or any(x["trace_id"] not in in_ring for x in recent):
+        fail(f"obs (a): pio_serve_seconds exemplars {exemplars} not in the "
+             "ring")
+    mem = {k: v["points"] for k, v in tsdb["series"].items()
+           if k.startswith(f"pio_device_memory_bytes{{device={card},")}
+    in_use = dict(mem.get(f"pio_device_memory_bytes{{device={card},"
+                          "kind=in_use}", ()))
+    peak = dict(mem.get(f"pio_device_memory_bytes{{device={card},"
+                        "kind=peak}", ()))
+    both = sorted(set(in_use) & set(peak))
+    factors = tsdb["series"].get(
+        f"pio_plan_resident_bytes{{bucket=factors,device={card}}}",
+        {"points": []})["points"]
+    if len(ticks) < 2 or not both or not (
+            table_bytes <= in_use[both[-1]] <= peak[both[-1]]) or \
+            not factors or factors[-1][1] != table_bytes:
+        fail(f"obs (a): /tsdb.json serve-rate ticks {ticks}, device memory "
+             f"{mem}, plan factors {factors[-1:] if factors else None}")
+    roles = profile["roles"]
+    if any(roles.get(r, {}).get("samples", 0) <= 0
+           for r in ("reactor", "worker", "drainer")):
+        fail(f"obs (a): /profile.json roles {roles}")
+    segments = {}
+    for e in serve:
+        for sp in e["spans"]:
+            segments.setdefault(sp["name"], []).append(sp["dur_ms"])
+    return {
+        "requests": len(reqs), "answers_checked": len(reqs),
+        "max_abs_err": err, "launches": launches, "plan_calls": calls,
+        "pio_kernel_launches_rise": metric_launches, "kernel_builds": builds,
+        "kernel_builds_total": m1.get("pio_kernel_builds_total", 0.0),
+        "ring": ring, "serve_entries": len(serve),
+        "serve_seconds_counted": counted,
+        "exemplars_in_ring": len(recent), "exemplars": len(exemplars),
+        "serve_rate_ticks": len(ticks),
+        "device_memory_bytes": {"in_use": in_use[both[-1]],
+                                "peak": peak[both[-1]]},
+        "plan_factor_bytes": factors[-1][1],
+        "profile": {"samples": profile["samples"],
+                    "shares": {r: v["share"] for r, v in roles.items()}},
+        "all": lat_summary(res, range(len(res))),
+        "by_route": {kind: lat_summary(res, [
+            i for i, r in enumerate(reqs) if r["kind"] == kind])
+            for kind in ("plain", "banned", "binary")},
+        "segment_mean_ms": {k: sum(v) / len(v)
+                            for k, v in sorted(segments.items())},
+        "seconds": time.perf_counter() - t_part}
 
 
 def check_wire_answers(torch, ft, dev, model, reqs, res, what) -> float:
@@ -1270,11 +1492,16 @@ def phase_wire(torch, ft, dev, rng, model, card: str) -> dict:
     log at INFO (a default deploy's level; the run's own level is
     WARNING), then over the threaded one; then a shed run on the
     selector wire at max_inflight SHED_INFLIGHT with a quarter of its
-    requests carrying an unmeetable deadline."""
+    requests carrying an unmeetable deadline. The selector pass's server
+    then takes phase obs's traced pass (`obs_pass`; its result under
+    "obs" of the returned dict, not in the phase line)."""
     from predictionio_tpu_torch.utils.wire import reactor_count
     t_phase = time.perf_counter()
     reqs = wire_requests(torch, ft, dev, rng, model, WIRE_PLAIN,
                          WIRE_BANNED, WIRE_BIN)
+    obs_reqs = wire_requests(torch, ft, dev, rng, model, OBS_PLAIN,
+                             OBS_BANNED, OBS_BIN)
+    obs = None
     out = {"phase": "wire", "card": card, "users": N_USERS,
            "items": N_ITEMS, "rank": RANK, "k": K, "banned_width": WIDTH,
            "client_processes": WIRE_PROCS, "connections": WIRE_PROCS
@@ -1289,7 +1516,9 @@ def phase_wire(torch, ft, dev, rng, model, card: str) -> dict:
             log_file = tmp / "wire_info.log" if name.endswith("_log") \
                 else None
             run = wire_run(torch, ft, dev, model, reqs, tmp, wire,
-                           log_file=log_file)
+                           log_file=log_file,
+                           obs_reqs=obs_reqs if name == "selector" else None)
+            obs = obs or run["obs"]
             res = run["res"]
             codes = sorted({r[0] for r in res})
             if codes != [200]:
@@ -1388,7 +1617,7 @@ def phase_wire(torch, ft, dev, rng, model, card: str) -> dict:
                              for w in out["wires"].values())
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
-    return out
+    return {**out, "obs": obs}
 
 
 # -- phase fleet: serving across processes and tenancy ------------------------
@@ -1600,6 +1829,76 @@ def post_reload(port: int, key: str) -> dict:
         return json.loads(resp.read())
 
 
+def fleet_stitch(port: int, reqs: list, member_ports: list,
+                 table: list) -> dict:
+    """Phase obs (b) through a supervised fleet traced at
+    OBS_TRACE_SAMPLE: OBS_STITCHED requests of phase wire's mix, each
+    with its own trace id in an `X-PIO-Trace` signed with the fleet's
+    key and marked sampled. Gates: every answer the single-device K1
+    answer of `table`; each trace id in the router's ring as one
+    `kind="router"` entry under the sent span with a `proxy:` span, and
+    in exactly one child's `/traces.json` as one `kind="serve"` entry
+    under the router's span."""
+    import http.client
+    from predictionio_tpu_torch.obs import trace
+    t0 = time.perf_counter()
+    sent, bodies = [], []
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        for r in reqs[:OBS_STITCHED]:
+            tid, sid = os.urandom(16).hex(), os.urandom(8).hex()
+            conn.request(
+                "POST", "/queries.json",
+                bytes.fromhex(r["body"]) if r["bin"] else r["body"].encode(),
+                {"Content-Type": ("application/x-pio-bin" if r["bin"]
+                                  else "application/json"),
+                 trace.TRACE_HEADER: trace.encode_header(
+                     tid, sid, True, key=FLEET_KEY)})
+            resp = conn.getresponse()
+            data = resp.read().decode()
+            if resp.status != 200:
+                fail(f"obs (b): a traced request answered {resp.status}: "
+                     f"{data[:300]}")
+            sent.append((tid, sid))
+            bodies.append(data)
+    finally:
+        conn.close()
+    match_tables("obs (b)", bodies, [r["i"] for r in reqs[:OBS_STITCHED]],
+                 [table])
+
+    def problems():
+        out = []
+        for tid, sid in sent:
+            hops = http_json(port, f"/traces.json?trace_id={tid}")[1][
+                "traces"]
+            if len(hops) != 1 or hops[0]["kind"] != "router" or \
+                    hops[0]["parent_id"] != sid or not any(
+                        sp["name"].startswith("proxy:")
+                        for sp in hops[0]["spans"]):
+                out.append((tid, "router", hops))
+                continue
+            serve = [e for mp in member_ports
+                     for e in http_json(mp, f"/traces.json?trace_id={tid}")[
+                         1]["traces"]]
+            if len(serve) != 1 or serve[0]["kind"] != "serve" or \
+                    serve[0]["parent_id"] != hops[0]["span_id"]:
+                out.append((tid, "children", serve))
+        return out
+
+    end = time.monotonic() + 30
+    while True:
+        bad = problems()
+        if not bad or time.monotonic() > end:
+            break
+        time.sleep(0.2)
+    if bad:
+        fail(f"obs (b): {len(bad)} of {len(sent)} trace ids not stitched: "
+             f"{bad[0]}")
+    return {"requests": len(sent), "stitched": len(sent),
+            "members": len(member_ports),
+            "seconds": time.perf_counter() - t0}
+
+
 def proc_start_boottime(pid: int) -> Optional[float]:
     """A process's start on CLOCK_BOOTTIME, from /proc (None off Linux)."""
     try:
@@ -1803,7 +2102,8 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
         # (c) --supervised 2 as a subprocess: a child killed under load
         lib = ft.build_library()
         lib_mtime = lib.stat().st_mtime_ns
-        cli = cli_runner(tmp, {**config, "PIO_FLEET_HEARTBEAT_S": "0.5"})
+        cli = cli_runner(tmp, {**config, "PIO_FLEET_HEARTBEAT_S": "0.5",
+                               "PIO_TRACE_SAMPLE": OBS_TRACE_SAMPLE})
         t0 = time.perf_counter()
         proc, line = start_server(
             tmp, cli, "deploy", "--supervised", str(SUPERVISED),
@@ -1893,6 +2193,9 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
             children = [killed] + [
                 {**child_counts(m, "after the load"), "killed": False,
                  "respawned": m is reborn} for m in back]
+            # phase obs (b), after the children's counts were read
+            stitched = fleet_stitch(port, reqs, [m["port"] for m in back],
+                                    tables[0])
         finally:
             stop_deploy(proc, "supervised deploy")
         bad = [r for r in res if r[1] != 200]
@@ -1912,7 +2215,7 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
             "respawn_to_admitted_s": (boot_back - started
                                       if started is not None else None),
             "members": children, "launches": n_launch,
-            "library_rebuilt_by_a_child": False,
+            "library_rebuilt_by_a_child": False, "obs_b": stitched,
             "all": lat_summary(res, range(len(res))),
             "after_kill": lat_summary(res, [
                 n for n, r in enumerate(res) if r[3] >= t_kill])}
@@ -3720,9 +4023,12 @@ def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
         if imported["imported"] != n_train:
             fail(f"imported {imported['imported']} of {n_train} events")
         cli("build")
-        report, train_wall_s = cli("train")
+        # phase obs (d): the train under torch.profiler
+        report, train_wall_s = cli("train", "--profile-dir",
+                                   str(tmp / "train_profile"))
         if report["status"] != EngineInstanceStatus.COMPLETED:
             fail(f"the lifecycle instance is {report['status']}")
+        obs_d = train_profile_gates(tmp / "train_profile", report)
         iid = report["engineInstanceId"]
         model, _ = read_model(config, iid, dev)
         heldout = heldout_rmse(model, u, i, r, test)
@@ -3767,7 +4073,8 @@ def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
                      "solve_s": tm["solve_s"],
                      "solver_residual": tm["solver_residual"],
                      "blob_bytes": tm["blob_bytes"],
-                     "store_s": tm["store_s"]},
+                     "store_s": tm["store_s"],
+                     "kernel_builds": report["kernelBuilds"]},
            "deploy": {"command_to_serving_s": deploy_wall_s,
                       **status["deploy_timings"]},
            "serve": {"requests": n_requests, "answers_checked": n_requests,
@@ -3776,7 +4083,33 @@ def phase_lifecycle(torch, ft, dev, rng, seed: int, n_requests: int) -> dict:
                      "latency_ms": latency_ms(answers)},
            "operations": ops}
     emit(out)
-    return out
+    return {**out, "obs": obs_d}
+
+
+def train_profile_gates(profile_dir: Path, report: dict) -> dict:
+    """Phase obs (d): `cli train --profile-dir` wrote one Chrome trace
+    that parses and holds CUDA kernel events, and the run built no
+    kernel (`kernelBuilds` 0)."""
+    t0 = time.perf_counter()
+    files = sorted(profile_dir.glob("pio-train-*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"obs (d): --profile-dir wrote {[f.name for f in files]}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels or report["kernelBuilds"] != 0:
+        fail(f"obs (d): {len(kernels)} CUDA kernel events of "
+             f"{len(events)}, kernelBuilds {report['kernelBuilds']}")
+    by_name = {}
+    for e in kernels:
+        name = e["name"][:80]
+        by_name[name] = by_name.get(name, 0.0) + e.get("dur", 0.0)
+    return {"trace_bytes": files[0].stat().st_size, "events": len(events),
+            "kernel_events": len(kernels),
+            "kernel_us": sum(by_name.values()),
+            "top_kernels_us": dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:5]),
+            "kernel_builds": report["kernelBuilds"],
+            "parse_s": time.perf_counter() - t0}
 
 
 LIFECYCLE_KEY = "lifecycle-server-key"
@@ -5238,8 +5571,12 @@ def ingest_serve_fold(torch, ft, dev, rng, project: dict) -> dict:
          "--engine-json", "engine_ingest.json"], cwd=tmp, env=off_env,
         stdout=subprocess.DEVNULL, stderr=off_err, text=True)
     _BACKGROUND.add(off_proc)
+    # phase obs (c): the deploy traces at OBS_TRACE_SAMPLE, so that its
+    # refresher's spans land in its ring
+    traced = SimpleNamespace(env={**cli.env,
+                                  "PIO_TRACE_SAMPLE": OBS_TRACE_SAMPLE})
     dep, dport, deploy_wall_s = start_deploy(
-        tmp, cli, state["iid"], "--engine-json", "engine_ingest.json",
+        tmp, traced, state["iid"], "--engine-json", "engine_ingest.json",
         "--refresh-interval", str(STREAM_INTERVAL_S))
     try:
         spec = importlib.util.spec_from_file_location(
@@ -5264,6 +5601,11 @@ def ingest_serve_fold(torch, ft, dev, rng, project: dict) -> dict:
         seen_s = time.perf_counter() - t_drip
         answers1 = serve_http(dport, queries)
         st_end = http_status(dport)
+        t_obs = time.perf_counter()
+        spans = http_json(dport, "/traces.json")[1]["traces"]
+        ingestd_obs = {path: http_json(port, path)[1]
+                       for path in ("/profile.json", "/tsdb.json")}
+        obs_read_s = time.perf_counter() - t_obs
         dm = http_metrics(dport)
         m1 = http_metrics(port)
     finally:
@@ -5303,7 +5645,27 @@ def ingest_serve_fold(torch, ft, dev, rng, project: dict) -> dict:
              f"fallback {fallbacks}; the service scanned {tick_scans} "
              "times for the fold (want the delta, its re-scan and the "
              "histories)")
+    folds = [e for e in spans if e["name"] == "refresh_fold"]
+    if len(folds) != ticks["folded"] or any(e.get("error") for e in folds) \
+            or any(e["kind"] != "background" for e in folds):
+        fail(f"obs (c): {len(folds)} refresh_fold spans {folds[:2]} for "
+             f"{ticks['folded']} folds counted")
+    prof_c, tsdb_c = ingestd_obs["/profile.json"], ingestd_obs["/tsdb.json"]
+    if not prof_c["running"] or tsdb_c["scrapes"] < 1 or any(
+            k.startswith("pio_device_memory_bytes")
+            for k in tsdb_c["series"]):
+        fail(f"obs (c): ingestd's profiler running {prof_c['running']}, "
+             f"{tsdb_c['scrapes']} scrapes, series "
+             f"{sorted(tsdb_c['series'])[:20]}")
     card_c = off_card(proc, "ingest (c)")
+    obs_c = {"refresh_fold_spans": len(folds),
+             "refresh_tick_spans": sum(e["name"] == "refresh_tick"
+                                       for e in spans),
+             "folds_counted": ticks["folded"],
+             "fold_span_ms": [e["duration_ms"] for e in folds],
+             "ingestd_profiler_samples": prof_c["samples"],
+             "ingestd_scrapes": tsdb_c["scrapes"],
+             "ingestd_off_card": True, "seconds": obs_read_s}
     parts["c_s"] = time.perf_counter() - t_c
     c = {"requests": 2 * INGEST_REQUESTS, "drip_events": len(drip),
          "touched_users": len(delta.touched_users),
@@ -5318,7 +5680,7 @@ def ingest_serve_fold(torch, ft, dev, rng, project: dict) -> dict:
          "remote_scans_ok": remote_ok, "remote_fallbacks": fallbacks,
          "service_scans_for_the_fold": tick_scans,
          "latency_ms": latency_ms(answers1), **gate,
-         "off_card": card_c}
+         "off_card": card_c, "obs_c": obs_c}
     e = {**got, "command_wall_s": run_wall_s}
 
     # (d) the train with no fallback, then a SIGKILL during a scan
@@ -7528,6 +7890,48 @@ def phase_neural(torch, ft, dev, seed: int, card: str) -> dict:
     return out
 
 
+def obs_only(torch, ft, dev, rng, model) -> dict:
+    """`--only obs`: phase wire's selector pass of its whole mix on
+    phase 4's model (the untraced reference), then phase obs (a) on
+    that server."""
+    reqs = wire_requests(torch, ft, dev, rng, model, WIRE_PLAIN,
+                         WIRE_BANNED, WIRE_BIN)
+    obs_reqs = wire_requests(torch, ft, dev, rng, model, OBS_PLAIN,
+                             OBS_BANNED, OBS_BIN)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        run = wire_run(torch, ft, dev, model, reqs, Path(tmp), "selector",
+                       obs_reqs=obs_reqs)
+    if sorted({r[0] for r in run["res"]}) != [200]:
+        fail("obs: the untraced selector pass failed requests")
+    check_wire_answers(torch, ft, dev, model, reqs, run["res"], "selector")
+    return {"a": run["obs"],
+            "untraced_selector": lat_summary(run["res"],
+                                             range(len(run["res"])))}
+
+
+def phase_obs(card: str, parts: dict) -> dict:
+    """Phase obs's line: (a) the traced pass beside the untraced
+    selector pass (qps, p50, p99, the segments' means), and, in the
+    whole run, (b) the fleet's stitching, (c) the refresher's spans with
+    ingestd off the card, (d) the profiled train; each part's seconds
+    (its own work inside the phase that ran it) and their sum."""
+    a = parts["a"]
+    parts = {**parts, "a": {k: v for k, v in a.items()
+                            if k != "segment_mean_ms"}}
+    parts_s = {"a": a["seconds"]}
+    for k in ("b", "c", "d"):
+        if k in parts:
+            parts_s[k] = parts[k].get("seconds", parts[k].get("parse_s"))
+    out = {"phase": "obs", "card": card,
+           "traced": a["all"], "untraced": parts["untraced_selector"],
+           "traced_qps_over_untraced": a["all"]["qps"]
+           / parts["untraced_selector"]["qps"],
+           "segment_mean_ms": a["segment_mean_ms"], **parts,
+           "parts_s": parts_s, "seconds": sum(parts_s.values())}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7543,7 +7947,7 @@ def main() -> int:
                                        "streaming", "quickstart",
                                        "templates", "classification",
                                        "neural", "wire", "fleet",
-                                       "storage", "ingest"),
+                                       "storage", "ingest", "obs"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
@@ -7555,7 +7959,9 @@ def main() -> int:
                          "for parity and wire; fleet for parity, one "
                          "direct selector pass and fleet; storage for "
                          "parity and storage; ingest for parity, the "
-                         "PEVLOG project and ingest), no kernels line")
+                         "PEVLOG project and ingest; obs for parity and "
+                         "phase obs (a) on phase serve's model), no "
+                         "kernels line")
     args = ap.parse_args()
     t_script = time.perf_counter()
     # a SIGTERM (a phase process stopped by its parent) exits through
@@ -7663,6 +8069,10 @@ def main() -> int:
             phase_parity(torch, ft, dev, rng)
             model, _ = make_model(torch, rng)
             phase_storage(torch, ft, dev, rng, model, card, args.seed)
+        elif args.only == "obs":
+            phase_parity(torch, ft, dev, rng)
+            model, _ = make_model(torch, rng)
+            phase_obs(card, obs_only(torch, ft, dev, rng, model))
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
@@ -7701,6 +8111,11 @@ def main() -> int:
                                 args.templates_requests)
     classification = phase_classification(torch, ft, dev, args.seed, card)
     neural = finish_phase_process(neural_proc)
+    phase_obs(card, {
+        "a": wire["obs"],
+        "untraced_selector": wire["wires"]["selector"]["all"],
+        "b": fleet["supervised"]["obs_b"], "c": ingest["c"]["obs_c"],
+        "d": lifecycle["obs"]})
 
     main_row, shard_row = timing[64], timing_sh[64]
     emit({"script_s": time.perf_counter() - t_script})
@@ -7716,6 +8131,7 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "bucket": 64,
         "wire_launches": wire["launches"],
+        "obs_launches": wire["obs"]["launches"],
         "fleet_launches": fleet["launches"],
         "storage_launches": storage["launches"],
         "tiered_launches": tiered["launches"],

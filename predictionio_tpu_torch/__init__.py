@@ -10,8 +10,10 @@ Ported so far: every template's lifecycle (app new -> import -> train
 -> deploy over the MEM, SQLITE, EVLOG and PEVLOG stores), training,
 serving (/queries.json through the fused top-k kernel, on the selector
 wire with /metrics, deadlines, shedding, /reload and /stop), the REST
-event server, eval, batchpredict, and the streaming fold-in that keeps
-a deployment fresh (streaming.Refresher). See ROADMAP.md.
+event server, eval, batchpredict, the streaming fold-in that keeps a
+deployment fresh (streaming.Refresher), and the observatory's read side
+(traces, the tsdb ring, the sampling profiler, the kernel probe). See
+ROADMAP.md.
 """
 
 __version__ = "0.1.0"

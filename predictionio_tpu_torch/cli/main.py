@@ -18,7 +18,7 @@
     python -m predictionio_tpu_torch.cli build [--engine-json engine.json]
     python -m predictionio_tpu_torch.cli train [--engine-json engine.json] \
         [--stop-after-read | --stop-after-prepare] [--skip-sanity-check] \
-        [--device cpu]
+        [--device cpu] [--profile-dir DIR]
     python -m predictionio_tpu_torch.cli deploy [--engine-instance-id ID] \
         [--port 8000] [--batch-max 64] [--batch-window-ms 2] \
         [--items-on-host] [--device cpu] [--refresh-interval SECONDS] \
@@ -54,7 +54,10 @@ Storage comes from `PIO_STORAGE_*` (or a `pio-env` file); without any,
 one sqlite file at `./.pio_store/pio.db`, the JAX package's default.
 `train` reads the app's events, trains the engine.json variant and
 records an engine instance with its model blob; it prints the instance
-id, status, times and phase timings as JSON on stdout. `deploy` serves
+id, status, times, phase timings and the run's kernel builds
+(`kernelBuilds`) as JSON on stdout; `--profile-dir DIR` (or
+`PIO_TPU_PROFILE_DIR`) also writes a `torch.profiler` Chrome trace of
+the run into DIR. `deploy` serves
 the latest COMPLETED instance of the variant (or the one named) on
 `/queries.json`; `GET /` shows the instance id and the kernel's launch
 counts. `deploy --model m.npz` serves a model file
@@ -88,10 +91,15 @@ batching; `--tenant-*` set the defaults (`PIO_TENANT_*`), `app quota-set`
 an app's own override, which servers read within 10 s.
 `--server-key` (else `PIO_SERVER_ACCESS_KEY` of the storage config, the
 JAX name) guards the server's `/reload` and `/stop` (on a fleet, its
-membership routes too) and signs a router's tenant header; the JAX deploy's
+membership routes too) and signs a router's tenant header and the
+`X-PIO-Trace` headers of traced requests; the JAX deploy's
 `--accesskey` is the feedback key here too, so the server key has a
 flag of its own. `--batch-window-ms` is the micro-batcher's window.
-`PIO_SERVER_SSL_CERT` and `PIO_SERVER_SSL_KEY` serve TLS (on the
+`PIO_TRACE_SAMPLE` (a fraction; 0, the default, is off) traces requests
+into each server's `/traces.json`; every server also answers
+`/tsdb.json` (`PIO_TSDB_INTERVAL_S`, default 5 s) and `/profile.json`,
+`/profile.txt` (`PIO_PROF_HZ`, default 19). `PIO_SERVER_SSL_CERT` and
+`PIO_SERVER_SSL_KEY` serve TLS (on the
 threaded wire); `PIO_SERVE_WIRE=threaded` picks that wire without TLS.
 The deploy process exits 0 on SIGTERM or after `/stop`.
 
@@ -149,7 +157,7 @@ from typing import TYPE_CHECKING, Optional, Sequence
 from predictionio_tpu_torch.cli import ops
 from predictionio_tpu_torch.core.base import TrainingInterrupted
 from predictionio_tpu_torch.core.runtime import RuntimeContext
-from predictionio_tpu_torch.obs import train_report
+from predictionio_tpu_torch.obs import trace, train_report
 from predictionio_tpu_torch.serving.server import (FeedbackConfig,
                                                    PredictionServer,
                                                    _Deployment,
@@ -323,6 +331,10 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--stop-after-prepare", action="store_true")
     x.add_argument("--device", default=None,
                    help="torch device (default cuda)")
+    x.add_argument("--profile-dir",
+                   help="write a torch.profiler trace of the run here (a "
+                        "Chrome trace, CPU and CUDA activity); or set "
+                        "PIO_TPU_PROFILE_DIR")
     x = sub.add_parser("deploy", help="serve /queries.json")
     x.add_argument("--engine-instance-id")
     x.add_argument("--engine-json", default="engine.json")
@@ -544,6 +556,9 @@ def _deploy(args, argv: Sequence[str]) -> int:
     registry = _registry()
     server_key = (args.server_key if args.server_key is not None else
                   registry.config.get("PIO_SERVER_ACCESS_KEY", ""))
+    if server_key and trace.get_recorder().key != server_key:
+        # trace headers are signed and verified with the server key
+        trace.configure(key=server_key)
     tenancy = _tenancy(args, registry, server_key)
     mesh = _fleet_mesh(args.mesh)
     router = args.supervised > 0 or args.standby or args.replicas != 1
@@ -808,7 +823,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     skip_sanity_check=args.skip_sanity_check,
                     stop_after_read=args.stop_after_read,
                     stop_after_prepare=args.stop_after_prepare,
-                    device=args.device))
+                    device=args.device, profile_dir=args.profile_dir))
             except TrainingInterrupted as e:
                 # the reference ends a stop-after run normally; the
                 # instance stays FAILED, so deploy never serves it

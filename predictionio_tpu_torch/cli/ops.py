@@ -17,6 +17,7 @@ registry it works on.
 from __future__ import annotations
 
 import json
+import os
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
@@ -296,14 +297,27 @@ def build(engine_json: str = "engine.json") -> Dict[str, Any]:
 def train(registry, *, engine_json: str = "engine.json",
           engine_factory: Optional[str] = None, batch: str = "",
           skip_sanity_check: bool = False, stop_after_read: bool = False,
-          stop_after_prepare: bool = False, device=None) -> Dict[str, Any]:
+          stop_after_prepare: bool = False, device=None,
+          profile_dir: Optional[str] = None) -> Dict[str, Any]:
     """pio train (commands/Engine.scala:177-188): the engine.json
     variant trained through `CoreWorkflow.run_train` on `device` (None
-    = cuda), recorded as an engine instance with its model blob."""
+    = cuda), recorded as an engine instance with its model blob.
+
+    `profile_dir` (or PIO_TPU_PROFILE_DIR) wraps the whole run in
+    `torch.profiler.profile` with CPU activity, and CUDA activity where
+    CUDA is available, and writes its Chrome trace into that directory
+    as `pio-train-<pid>-<ms>.pt.trace.json` (the JAX package's
+    `jax.profiler.trace`). The report's `kernelBuilds` counts this run's
+    nvcc builds (`obs.kernelprobe`), where the JAX report has
+    `jaxCompiles`; a single process trains, so `distributed` is false
+    and the run always persists."""
+    import contextlib
+
     from predictionio_tpu_torch.core.runtime import (RuntimeContext,
                                                      WorkflowParams)
     from predictionio_tpu_torch.core.workflow import (CoreWorkflow,
                                                       resolve_engine)
+    from predictionio_tpu_torch.obs import build_count, install_kernel_probe
     variant = load_variant(engine_json)
     factory = resolve_factory_name(variant, engine_factory, engine_json)
     engine = resolve_engine(factory)
@@ -313,13 +327,34 @@ def train(registry, *, engine_json: str = "engine.json",
             batch=batch, skip_sanity_check=skip_sanity_check,
             stop_after_read=stop_after_read,
             stop_after_prepare=stop_after_prepare))
-    row = CoreWorkflow.run_train(
-        engine, engine.engine_params_from_variant(variant), ctx,
-        engine_factory=factory, engine_variant=variant.get("id", "default"))
+    profile_dir = profile_dir or os.environ.get("PIO_TPU_PROFILE_DIR")
+    prof = None
+    if profile_dir:
+        import torch
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+    # this run's builds, not the process's
+    install_kernel_probe()
+    builds_before = build_count()
+    with (prof if prof is not None else contextlib.nullcontext()):
+        row = CoreWorkflow.run_train(
+            engine, engine.engine_params_from_variant(variant), ctx,
+            engine_factory=factory,
+            engine_variant=variant.get("id", "default"))
+    if prof is not None:
+        out = Path(profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(
+            out / f"pio-train-{os.getpid()}-{int(time.time() * 1000)}"
+                  ".pt.trace.json"))
     return {"engineInstanceId": row.id, "status": row.status,
             "startTime": format_time(row.start_time),
             "endTime": format_time(row.end_time),
-            "phaseTimings": dict(ctx.phase_timings)}
+            "phaseTimings": dict(ctx.phase_timings),
+            "kernelBuilds": int(build_count() - builds_before),
+            "distributed": False, "persisted": True}
 
 
 def latest_completed(registry, variant_id: str):

@@ -13,7 +13,9 @@ with ctypes. Beside it:
     no fallback and no switch: the JAX package's `PIO_SERVE_FUSED` gate
     has no counterpart here.
   - `LAUNCHES`, a count of wrapper calls that launched the kernel, so a
-    run can show that its serving path went through it.
+    run can show that its serving path went through it (every server's
+    `/metrics` reads it as `pio_kernel_launches_total`, and each nvcc
+    build counts in `pio_kernel_builds_total`: `obs/kernelprobe.py`).
   - `shard_local_candidates`, the sharded form (the JAX package's
     `_kernel_dynamic`): the same kernel launched on one shard's rows
     with that shard's `n_valid` and first global row `id_base`, reading
@@ -40,6 +42,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -278,6 +281,7 @@ def build_library() -> Path:
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"fused_topk_{digest}.{os.getpid()}.tmp.so"
+    t0 = time.perf_counter()
     proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
                           capture_output=True, text=True, check=False)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
@@ -287,6 +291,8 @@ def build_library() -> Path:
             f"nvcc failed with code {proc.returncode} building {SOURCE}:\n"
             f"{proc.stderr[-4000:]}")
     os.replace(tmp, lib)   # atomic: a concurrent build never sees half a file
+    from predictionio_tpu_torch.obs.kernelprobe import record_build
+    record_build(time.perf_counter() - t0)
     return lib
 
 

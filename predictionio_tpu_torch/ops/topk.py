@@ -159,8 +159,19 @@ class DispatchPolicy:
 DISPATCH_POLICY = DispatchPolicy()
 
 
+_LAST_PATH = ""
+
+
+def last_dispatch() -> str:
+    """The dispatch path of the most recent topk call ("" before any):
+    what a trace entry's `dispatch` names."""
+    return _LAST_PATH
+
+
 def _record_dispatch(path: str, cells: int,
                      seconds: Optional[float] = None) -> None:
+    global _LAST_PATH
+    _LAST_PATH = path
     DISPATCH_COUNTS[path] += 1
     DISPATCH_POLICY.observe(path, cells, seconds)
 

@@ -8,7 +8,8 @@ watchdog` thread sweeps the beats' ages and reacts:
 
   stall    age past max(the role's budget, `DEFAULT_STALL_S`):
            counted in `pio_watchdog_stalls_total{role}` and logged with
-           the thread's stack; a restartable loop is superseded and
+           the thread's stack (`obs.profiler.format_thread_stack`, the
+           sampler's own frame walk); a restartable loop is superseded and
            respawned, any other degrades.
   death    the loop body raised (`guard` logs it and counts
            `pio_thread_deaths_total{role}`) or its thread vanished: a
@@ -21,18 +22,17 @@ watchdog` thread sweeps the beats' ages and reacts:
 `Beat.tick()` honors the fault seams `thread.<role>.stall` (a latency
 rule wedges the loop) and `thread.<role>.die` (an error rule kills it).
 
-Not ported yet (ROADMAP.md, Queue 1 item 5): the beats of the wire's
+Not ported yet (ROADMAP.md, Queue 1 item 5(a')): the beats of the wire's
 reactors, the drainer, the refresher, the page thread and the feedback
-loop, and the memory-pressure guard the JAX sweep also runs.
+loop, and the memory-pressure guard the JAX sweep also runs. The tsdb
+scraper (`obs/tsdb.py`) beats here as role "scraper".
 """
 
 from __future__ import annotations
 
 import random
-import sys
 import threading
 import time
-import traceback
 from typing import Callable, List, Optional
 
 from predictionio_tpu_torch.obs import get_logger, get_registry
@@ -139,11 +139,6 @@ def _degraded_gauge():
         "or a non-restartable loop died/stalled)", labels=("role",))
 
 
-def _thread_stack(ident: int) -> str:
-    frame = sys._current_frames().get(ident)
-    return "".join(traceback.format_stack(frame)) if frame else ""
-
-
 class Watchdog:
     """Sweeps the registered beats; one per process (`watchdog()`)."""
 
@@ -229,11 +224,14 @@ class Watchdog:
     def _on_stall(self, beat: Beat, now: float) -> None:
         beat.stalled = True
         self._stalls.labels(role=beat.role).inc()
+        stack = ""
+        if beat.thread_ident is not None:
+            from predictionio_tpu_torch.obs import profiler
+            stack = profiler.format_thread_stack(beat.thread_ident)
         _log.warning("thread_stalled", role=beat.role,
                      age_s=round(beat.age(now), 3),
                      budget_s=max(beat.budget_s, self.stall_s),
-                     stack=(_thread_stack(beat.thread_ident)
-                            if beat.thread_ident is not None else ""))
+                     stack=stack)
         if beat.restartable:
             # a wedged thread cannot be killed: supersede it (its next
             # tick raises Superseded) and respawn a fresh one

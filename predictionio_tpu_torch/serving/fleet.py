@@ -66,9 +66,19 @@ A router given a registry sweeps its stores once when it is made
 (`data.fsck.startup_check`) and runs the scheduled fsck when
 `PIO_FSCK_INTERVAL_S` is set; its replicas skip their own sweeps.
 
-Not ported yet (ROADMAP.md, Queue 1 item 5, with `obs/tsdb.py`): the
-member `/metrics` scrape and its derived gauges, `/federate`,
-`/fleet.html`, `/quality.json` and the autoscaler's tick.
+Traces (`obs/trace.py`): the router's own entry is `kind="router"`
+(outside `pio_serve_seconds`, which the replica's serve entry owns), with
+a `proxy:<member>` span per answered attempt, `proxy_retry:<member>` per
+transport failure, `shard:<i/n>:<member>` and `shard_retry:<member>` on
+the mesh fan-out; it asserts its signed child context in `X-PIO-Trace`
+to the member, and to the client of a standby's 307, so that the hops
+stitch under one trace id. A rolling reload is a `rolling_reload`
+background span.
+
+Not ported yet (ROADMAP.md, Queue 1 item 5(c)): the member `/metrics`
+scrape and its derived gauges, `/federate`, `/fleet.html`, and the
+autoscaler's tick from the tsdb ring; `/quality.json` waits for item
+5(b).
 """
 
 from __future__ import annotations
@@ -86,7 +96,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 from urllib.parse import urlencode
 
 from predictionio_tpu_torch.data.storage.base import Model, StorageError
-from predictionio_tpu_torch.obs import MetricsRegistry, get_logger
+from predictionio_tpu_torch.obs import MetricsRegistry, get_logger, trace
 from predictionio_tpu_torch.ops.topk_sharded import ShardSlice, parse_fleet_mesh
 from predictionio_tpu_torch.resilience import (DeadlineExceeded,
                                                OverloadedError,
@@ -105,9 +115,9 @@ from predictionio_tpu_torch.utils.wire import (BIN_CONTENT_TYPE,
 _log = get_logger("fleet")
 
 # forwarded to the member verbatim (deadline, request id, auth, body
-# type, the tenant assertion; the router's own assertion wins)
+# type, the tenant and trace assertions; the router's own assertions win)
 _FORWARD_HEADERS = ("X-PIO-Deadline-Ms", "X-Request-ID", "Authorization",
-                    "Content-Type", TENANT_HEADER)
+                    "Content-Type", TENANT_HEADER, trace.TRACE_HEADER)
 
 # the model-store id of the persisted member snapshot (per variant), as
 # the JAX package names it
@@ -361,8 +371,8 @@ class FleetServer(HTTPServerBase):
         self._lease_beat = wd.register(
             "lease", budget_s=self.fleet.lease_ttl_s + 5.0)
         self._spawn_monitor()
-        threading.Thread(target=self._lease_loop, name="pio-torch-fleet-"
-                         "lease", daemon=True).start()
+        threading.Thread(target=self._lease_loop,
+                         name="pio-torch-fleet-lease", daemon=True).start()
         wd.ensure_started()
         if not background and self._thread is not None:
             self._thread.join()
@@ -850,17 +860,22 @@ class FleetServer(HTTPServerBase):
             with rep.lock:
                 rep.inflight -= 1
 
-    def _leader_gate(self, req: Request) -> None:
+    def _leader_gate(self, req: Request, p=None) -> None:
         """Non-leaders redirect data traffic to the leader (307), or 503
-        while no leader is elected."""
+        while no leader is elected. The redirect carries the request's
+        trace context (`p`), so that a client re-asserting it at the
+        leader stitches the two hops under one trace id."""
         if self._is_leader:
             return
         leader = self._leader_hint
         if leader and leader != self._advertise:
             self._fleet_obs["routed"].labels(outcome="redirected").inc()
+            hdrs = {"Location": f"http://{leader}{req.path}"}
+            if p is not None:
+                trace.annotate_pending(p, kind="router")
+                hdrs[trace.TRACE_HEADER] = trace.child_header(p)
             raise HTTPError(307, f"not the fleet leader; try {leader}",
-                            headers={"Location":
-                                     f"http://{leader}{req.path}"})
+                            headers=hdrs)
         raise HTTPError(503, "no fleet leader elected",
                         headers={"Retry-After": "1"})
 
@@ -868,7 +883,8 @@ class FleetServer(HTTPServerBase):
                extra_headers: Optional[Dict[str, str]] = None) -> Response:
         """To an admitted member; a transport failure retries on the
         next one (each feeding the ejection count)."""
-        self._leader_gate(req)
+        p = trace.current()
+        self._leader_gate(req, p)
         deadline = current_deadline()
         rotation = self._rotation()
         if not rotation:
@@ -882,16 +898,21 @@ class FleetServer(HTTPServerBase):
         last_err: Optional[Exception] = None
         for rep in rotation:
             timeout = self._attempt_timeout(deadline, "a replica")
+            t_dial = time.perf_counter()
             try:
                 status, rheaders, rbody = self._send(
                     rep, req.method, path, body, headers, timeout)
             except OSError as e:
                 last_err = e
+                trace.add_span(p, f"proxy_retry:{rep.key}", t_dial,
+                               time.perf_counter())
                 self._record_failure(
                     rep, f"route error: {type(e).__name__}: {e}",
                     data_path=True)
                 self._fleet_obs["routed"].labels(outcome="retried").inc()
                 continue
+            trace.add_span(p, f"proxy:{rep.key}", t_dial,
+                           time.perf_counter())
             if status >= 500:
                 # the member answered: pass it on, but count it
                 self._record_failure(rep, f"HTTP {status}", data_path=True)
@@ -919,7 +940,8 @@ class FleetServer(HTTPServerBase):
         candidates merge by (-score, id) with id dedupe. A slice without
         a live owner degrades the answer (`partial: true`); a client
         error (4xx) of a member passes through."""
-        self._leader_gate(req)
+        p = trace.current()
+        self._leader_gate(req, p)
         deadline = current_deadline()
         n = self._mesh_shards
         shards = [f"{i}/{n}" for i in range(n)]
@@ -949,16 +971,21 @@ class FleetServer(HTTPServerBase):
             got = None
             for rep in owners[shard]:
                 timeout = self._attempt_timeout(deadline, "a slice owner")
+                t_dial = time.perf_counter()
                 try:
                     status, rheaders, rbody = self._send(
                         rep, "POST", path, body, headers, timeout)
                 except OSError as e:
+                    trace.add_span(p, f"shard_retry:{rep.key}", t_dial,
+                                   time.perf_counter())
                     self._record_failure(
                         rep, f"shard route error: {type(e).__name__}: {e}",
                         data_path=True)
                     self._fleet_obs["routed"].labels(
                         outcome="retried").inc()
                     continue
+                trace.add_span(p, f"shard:{shard}:{rep.key}", t_dial,
+                               time.perf_counter())
                 if status >= 500:
                     self._record_failure(rep, f"HTTP {status}",
                                          data_path=True)
@@ -1068,6 +1095,7 @@ class FleetServer(HTTPServerBase):
                      "holder may run a rolling reload")
         if not self._reload_lock.acquire(blocking=False):
             raise HTTPError(409, "a rolling reload is already running")
+        t_roll = time.perf_counter()
         try:
             members = list(self._replicas)
             if only is not None:
@@ -1137,6 +1165,11 @@ class FleetServer(HTTPServerBase):
             self._journal_roll([])
             self._fleet_obs["rolls"].labels(
                 outcome="aborted" if aborted else "ok").inc()
+            rec = trace.get_recorder()
+            if rec.enabled:
+                rec.record_background(
+                    "rolling_reload", t_roll, time.perf_counter(),
+                    error="aborted" if aborted else "")
             _log.info("rolling_reload_done", aborted=aborted,
                       results=len(results))
             return {"results": results, "aborted": aborted}
@@ -1176,6 +1209,17 @@ class FleetServer(HTTPServerBase):
                 extra = ({TENANT_HEADER:
                           self.admission.signed_header(tenant)}
                          if tenant is not None else None)
+                p = trace.current()
+                if p is not None:
+                    # the router's hop is kind=router (outside
+                    # pio_serve_seconds: the replica's serve entry owns
+                    # that observation) and asserts a signed child
+                    # context, so that the replica's spans stitch
+                    trace.annotate_pending(
+                        p, kind="router",
+                        app=tenant.label if tenant is not None else "")
+                    extra = dict(extra or ())
+                    extra[trace.TRACE_HEADER] = trace.child_header(p)
                 if self._mesh_shards:
                     return self._route_mesh(req, extra_headers=extra)
                 return self._route(req, extra_headers=extra)

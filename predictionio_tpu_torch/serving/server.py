@@ -88,18 +88,30 @@ Metrics (the JAX names): `pio_http_requests_total`,
 `pio_feedback_events_total{outcome,app}`,
 `pio_feedback_dropped_total{reason,app}`, `pio_tenant_admitted_total
 {app}`, `pio_tenant_serve_seconds{app}`, `pio_tenant_active`,
-`pio_slo_burn_rate{app,window}`.
+`pio_slo_burn_rate{app,window}`, and `pio_serve_seconds{app}`, the
+end-to-end serve latency, observed by the flight recorder at the wire
+write when tracing is on (`obs/trace.py`, with kept trace ids as
+exemplars) and here when it is off.
 
-Not ported yet (ROADMAP.md, Queue 1 item 5): the memory-pressure guard,
-quality accounting and the reload canary, traces, and the watchdog
-beats of the wire, the drainer, the refresher, the page thread and the
-feedback loop. The fast route has no stand-in for them.
+Traces (`PIO_TRACE_SAMPLE` > 0, on the selector wire): the fast route
+stamps its handler entry, admission and answer; the micro-batcher
+stamps the enqueue, the drain, the execution (`S_EXEC`, once the
+batch's answers are on the host: K1's launch is asynchronous, so the
+stamp follows the device-to-host copy inside `predict_batch`) and the
+splice; the generic route tags its entry `kind="serve"`. The tsdb
+scrape adds `pio_plan_resident_bytes{device,bucket}` (`_obs_collectors`).
+
+Not ported yet (ROADMAP.md, Queue 1 item 5): the memory-pressure guard
+and the recorder's `trim` under it, quality accounting and the reload
+canary, and the watchdog beats of the wire, the drainer, the refresher,
+the page thread and the feedback loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import http.client
+import itertools
 import json
 import os
 import queue
@@ -117,7 +129,7 @@ import numpy as np
 
 from predictionio_tpu_torch.core.params import extract_params
 from predictionio_tpu_torch.data.event import format_time, utcnow
-from predictionio_tpu_torch.obs import MetricsRegistry, get_logger
+from predictionio_tpu_torch.obs import MetricsRegistry, get_logger, trace
 from predictionio_tpu_torch.obs.slo import SLOTracker, dao_overrides_loader
 from predictionio_tpu_torch.resilience import (DEADLINE_HEADER,
                                                CircuitOpenError, Deadline,
@@ -429,8 +441,9 @@ class _MicroBatcher:
         self._lock = threading.Lock()
         self._full = threading.Condition(self._lock)
         # per-tenant lanes; items: (deployment, query, done event,
-        # result slot, enqueue t, tenant label)
+        # result slot, enqueue t, tenant label, pending trace or None)
         self._queue = DRRQueue()
+        self._batch_seq = itertools.count(1)
         self._draining = False
         self._closed = False
         self._delay_ewma = 0.0
@@ -465,21 +478,25 @@ class _MicroBatcher:
     def submit(self, deployment: _Deployment, query: Any,
                deadline: Optional[Deadline] = None,
                tenant: str = DEFAULT_TENANT, weight: float = 1.0,
-               tenant_queue_max: int = 0) -> Any:
+               tenant_queue_max: int = 0, pending=None) -> Any:
         return self.submit_slot(deployment, query, deadline, tenant,
-                                weight, tenant_queue_max)["result"]
+                                weight, tenant_queue_max, pending)["result"]
 
     def submit_slot(self, deployment: _Deployment, query: Any,
                     deadline: Optional[Deadline] = None,
                     tenant: str = DEFAULT_TENANT, weight: float = 1.0,
-                    tenant_queue_max: int = 0) -> Dict[str, Any]:
+                    tenant_queue_max: int = 0,
+                    pending=None) -> Dict[str, Any]:
         """submit(), returning the drained slot: "result" and, when the
         batch encoder ran, the pre-serialized "wire" body. `tenant`,
         `weight` and `tenant_queue_max` place the item in its DRR lane
-        (`AdmissionController.batch_params`)."""
+        (`AdmissionController.batch_params`). `pending` is the request's
+        trace stamps (`obs.trace.PendingTrace`) or None; the batcher
+        stamps its enqueue, drain, execution and splice on it."""
         done = threading.Event()
         slot: Dict[str, Any] = {}
-        item = (deployment, query, done, slot, time.perf_counter(), tenant)
+        item = (deployment, query, done, slot, time.perf_counter(), tenant,
+                pending)
         with self._lock:
             if self._closed:
                 self._shed("queries", tenant)
@@ -514,6 +531,7 @@ class _MicroBatcher:
                     f"per-tenant micro-batch queue full "
                     f"({tenant_queue_max} pending)",
                     retry_after=max(self.window_s, 0.05))
+            trace.mark(pending, trace.S_ENQ)
             self._depth_locked()
             if len(self._queue) >= self.batch_max:
                 self._full.notify()
@@ -561,6 +579,7 @@ class _MicroBatcher:
                         self._delay_ewma += self.DELAY_ALPHA * (
                             delay - self._delay_ewma)
                         self._queue.observe_delay(item[5], delay)
+                        trace.mark(item[6], trace.S_DRAIN)
                 t0 = time.perf_counter()
                 self._process(batch)
                 dt = time.perf_counter() - t0
@@ -575,7 +594,7 @@ class _MicroBatcher:
                 self._depth_locked()
                 self._draining = False
                 self._full.notify_all()
-            for _, _, done, slot, _, _ in stranded:
+            for _, _, done, slot, _, _, _ in stranded:
                 slot["error"] = e
                 done.set()
             _log.error("batch_drainer_crashed",
@@ -591,26 +610,41 @@ class _MicroBatcher:
         by_dep: Dict[int, List[tuple]] = {}
         for item in pending:
             by_dep.setdefault(id(item[0]), []).append(item)
+        from predictionio_tpu_torch.ops.topk import last_dispatch
         for items in by_dep.values():
             dep = items[0][0]
             try:
+                # the answers are host objects when this returns: the
+                # kernel's scores and ids were copied off the card
                 results = dep.predict_batch([item[1] for item in items])
             except Exception as e:  # noqa: BLE001 — reported per request
-                for _, _, done, slot, _, _ in items:
+                for _, _, done, slot, _, _, p in items:
                     slot["error"] = e
+                    trace.annotate_pending(p, error=type(e).__name__)
                     done.set()
                 continue
+            disp = last_dispatch()
+            bid = next(self._batch_seq)
+            for item in items:
+                p = item[6]
+                if p is not None:
+                    trace.mark(p, trace.S_EXEC)
+                    p.batch_id = bid
+                    p.batch_size = len(items)
+                    if disp:
+                        p.dispatch = disp
             wires = None
             if self.encoder is not None:
                 try:
                     wires = self.encoder(dep, results)
                 except Exception:  # noqa: BLE001 — json.dumps serves it
                     wires = None
-            for i, ((_, _, done, slot, _, _), r) in enumerate(
+            for i, ((_, _, done, slot, _, _, p), r) in enumerate(
                     zip(items, results)):
                 slot["result"] = r
                 if wires is not None:
                     slot["wire"] = wires[i]
+                trace.mark(p, trace.S_SPLICE)
                 done.set()
         hook = self.drain_hook
         if hook is not None:
@@ -668,12 +702,16 @@ class _Feedback:
                          name="pio-torch-feedback").start()
 
     def post(self, dep: _Deployment, query: Any, prediction: Any,
-             pr_id: str) -> None:
+             pr_id: str, trace_id: str = "") -> None:
+        props = {"engineInstanceId": dep.instance_id, "prId": pr_id,
+                 "query": to_jsonable(query),
+                 "prediction": to_jsonable(prediction)}
+        if trace_id:
+            # the served request's trace, so that the event joins it
+            props["traceId"] = trace_id
         data = {"event": "predict", "eventTime": format_time(utcnow()),
                 "entityType": "pio_pr", "entityId": pr_id,
-                "properties": {"engineInstanceId": dep.instance_id,
-                               "prId": pr_id, "query": to_jsonable(query),
-                               "prediction": to_jsonable(prediction)}}
+                "properties": props}
         try:
             self._queue.put_nowait(data)
         except queue.Full:
@@ -824,6 +862,14 @@ class PredictionServer(HTTPServerBase):
         self._fq_ok = self._req_counter.labels(
             route="/queries.json", method="POST", status="200")
         self._fq_hist = self._req_hist.labels(route="/queries.json")
+        # end-to-end serve latency: with tracing on the recorder observes
+        # it at the wire write (with trace-id exemplars); these children
+        # observe it when tracing is off, so the family exists either way
+        self._serve_seconds = self.metrics.histogram(
+            "pio_serve_seconds",
+            "End-to-end serve latency (wire read to wire write)",
+            labels=("app",), buckets=trace.SERVE_BUCKETS)
+        self._ss0 = self._serve_seconds.labels(app="")
         self._serve_obs.reloads.labels(outcome="ok").inc()
         self._routes()
 
@@ -834,6 +880,9 @@ class PredictionServer(HTTPServerBase):
         the bound port."""
         self._sync_pager(self.deployment)
         if self._refresher is not None:
+            # the recorder exists before the first tick, so that the
+            # baseline tick is traced too
+            trace.get_recorder()
             self._refresher.start()
         return super().start(background)
 
@@ -841,6 +890,37 @@ class PredictionServer(HTTPServerBase):
         # a drained batch nudges the selector wire to flush deferred
         # pipelined responses (the threaded wire has no hint)
         self.batcher.drain_hook = getattr(self._httpd, "flush_hint", None)
+
+    # -- the observatory ----------------------------------------------------
+    def _obs_collectors(self):
+        """The serve plane's tsdb tick also samples its plans' device
+        residency."""
+        return super()._obs_collectors() + [self._sample_plan_bytes]
+
+    def _sample_plan_bytes(self) -> None:
+        """The live plans' resident bytes into `pio_plan_resident_bytes
+        {device,bucket}`: bucket="factors" is the pinned item table's
+        exact bytes; numbered buckets estimate one launch's query block
+        and its top-k scores and ids, so a reload to a bigger catalog or
+        bucket ladder shows in the ring."""
+        import torch
+        gauge = self.metrics.gauge(
+            "pio_plan_resident_bytes",
+            "Device-resident bytes of live serving plans by bucket",
+            labels=("device", "bucket"))
+        for plan in self.deployment.plans():
+            factors = getattr(plan, "factors", None)
+            if not isinstance(factors, torch.Tensor):
+                continue
+            dev = factors.device
+            device = f"{dev.type}:{dev.index or 0}"
+            gauge.labels(device=device, bucket="factors").set(
+                float(factors.numel() * factors.element_size()))
+            rank = int(getattr(plan, "rank", 0) or 0)
+            k = int(getattr(plan, "k", 0) or 0)
+            for b in getattr(plan, "buckets", ()) or ():
+                gauge.labels(device=device, bucket=str(b)).set(
+                    float(b * (rank * 4 + k * 8)))
 
     def stop(self, timeout: float = 10.0) -> None:
         """Graceful shutdown: stop the refresher, drain accepted
@@ -962,6 +1042,13 @@ class PredictionServer(HTTPServerBase):
         batch it in the tenant's lane, post feedback, run the output
         blockers and sniffers; returns the JSON-ready answer."""
         t0 = time.perf_counter()
+        app = tenant.label if tenant is not None else ""
+        # the pending trace that _handle_raw made current: a serve entry,
+        # so that the recorder observes it in pio_serve_seconds
+        p = trace.current()
+        trace.annotate_pending(
+            p, kind="serve", app=app,
+            query=payload if isinstance(payload, dict) else None)
         dep = self.deployment
         obs = self._serve_obs
         query = (extract_params(dep.query_class, payload)
@@ -969,12 +1056,15 @@ class PredictionServer(HTTPServerBase):
         obs.stage.labels(stage="extract").observe(time.perf_counter() - t0)
         label, weight, tqmax = self.admission.batch_params(tenant)
         prediction = self.batcher.submit(dep, query, current_deadline(),
-                                         label, weight, tqmax)
+                                         label, weight, tqmax, pending=p)
         extra = {}
         if self._feedback is not None:
             tf = time.perf_counter()
             pr_id = getattr(prediction, "prId", None) or _gen_pr_id()
-            self._feedback.post(dep, query, prediction, pr_id)
+            if p is not None:
+                trace.ensure_ids(p)
+            self._feedback.post(dep, query, prediction, pr_id,
+                                trace_id=p.trace_id if p is not None else "")
             if hasattr(prediction, "prId"):
                 extra["prId"] = pr_id
             obs.stage.labels(stage="feedback").observe(
@@ -987,6 +1077,11 @@ class PredictionServer(HTTPServerBase):
         self._count_request(dt)
         if tenant is not None:
             obs.tenant_serve.labels(app=tenant.label).observe(dt)
+        if p is None:
+            # tracing off (or the threaded wire): observed here; with
+            # tracing on the recorder observes at the wire write
+            (self._ss0 if not app
+             else self._serve_seconds.labels(app=app)).observe(dt)
         out = to_jsonable(prediction)
         if isinstance(out, dict):
             out.update(extra)
@@ -1023,8 +1118,11 @@ class PredictionServer(HTTPServerBase):
             if decoded is None:
                 # a terminal 400: the generic fallback speaks JSON only
                 return self._fast_finish(400, "malformed binary query "
-                                         "frame", rid, keep, t0)
+                                         "frame", rid, keep, t0, raw=raw)
             user, num = decoded
+        if raw.trace is not None:
+            trace.begin_raw(raw, raw.header(trace.TRACE_HEADER),
+                            kind="serve")
         admitted = False
         tenant: Optional[TenantIdentity] = None
         try:
@@ -1032,7 +1130,7 @@ class PredictionServer(HTTPServerBase):
             if deadline is not None and deadline.expired:
                 return self._fast_finish(
                     504, "deadline expired before processing", rid, keep,
-                    t0)
+                    t0, raw=raw)
             if self.admission.enabled:
                 qs = raw.query_string
                 tenant = self.admission.resolve_raw(
@@ -1042,37 +1140,39 @@ class PredictionServer(HTTPServerBase):
             with self._limiter:
                 admitted = True
                 with self.admission.admit(tenant):
+                    trace.stamp(raw, trace.S_AUTH)
                     label, weight, tqmax = \
                         self.admission.batch_params(tenant)
                     slot = self.batcher.submit_slot(
                         dep, dep.fast_ctor(user, num), deadline, label,
-                        weight, tqmax)
+                        weight, tqmax, pending=raw.trace)
         except HTTPError as e:
             return self._fast_finish(e.status, e.message, rid, keep, t0,
-                                     tenant=tenant, extra=e.headers)
+                                     tenant=tenant, extra=e.headers,
+                                     raw=raw)
         except DeadlineExceeded as e:
             return self._fast_finish(504, str(e), rid, keep, t0,
-                                     tenant=tenant)
+                                     tenant=tenant, raw=raw)
         except OverloadedError as e:
             if not admitted:
                 self._shed_counter.labels(surface=self._limiter.surface,
                                           app="").inc()
             return self._fast_finish(e.status, e.message, rid, keep, t0,
                                      retry_after=e.retry_after,
-                                     tenant=tenant)
+                                     tenant=tenant, raw=raw)
         except CircuitOpenError as e:
             return self._fast_finish(503, str(e), rid, keep, t0,
                                      retry_after=e.retry_after,
-                                     tenant=tenant)
+                                     tenant=tenant, raw=raw)
         except ValueError as e:
             return self._fast_finish(400, str(e), rid, keep, t0,
-                                     tenant=tenant)
+                                     tenant=tenant, raw=raw)
         except Exception as e:  # noqa: BLE001 — request boundary
             _log.exception("unhandled_error", request_id=rid,
                            method="POST", path="/queries.json",
                            error=f"{type(e).__name__}: {e}")
             return self._fast_finish(500, str(e), rid, keep, t0,
-                                     tenant=tenant)
+                                     tenant=tenant, raw=raw)
         wire = slot.get("wire")
         if wire is None:
             wire = json.dumps(to_jsonable(slot["result"])).encode("utf-8")
@@ -1084,6 +1184,14 @@ class PredictionServer(HTTPServerBase):
         if tenant is not None:
             self._serve_obs.tenant_serve.labels(app=app).observe(dt)
         self._slo.record(app, dt, ok=True)
+        trace.annotate(raw, status=200, app=app, route="/queries.json",
+                       query=(user, num))
+        trace.stamp(raw, trace.S_DONE)
+        if raw.trace is None:
+            # tracing off: observed here (the recorder observes at the
+            # wire write when tracing is on)
+            (self._ss0 if not app
+             else self._serve_seconds.labels(app=app)).observe(dt)
         return build_response(200, "application/json", wire, rid,
                               keep_alive=keep)
 
@@ -1091,20 +1199,28 @@ class PredictionServer(HTTPServerBase):
                      keep: bool, t0: float,
                      retry_after: Optional[float] = None,
                      tenant: Optional[TenantIdentity] = None,
-                     extra: Optional[Dict[str, str]] = None) -> bytes:
+                     extra: Optional[Dict[str, str]] = None,
+                     raw: Optional[RawRequest] = None) -> bytes:
         """A fast-route answer other than 200: the metrics the generic
         middleware records, the same JSON error body."""
         extra = dict(extra or {})
         if retry_after is not None:
             extra.update(retry_after_header(retry_after))
         dt = time.perf_counter() - t0
+        app = tenant.label if tenant is not None else ""
         if status == 504:
             self._deadline_counter.labels(route="/queries.json").inc()
         self._req_counter.labels(route="/queries.json", method="POST",
                                  status=str(status)).inc()
         self._fq_hist.observe(dt)
-        self._slo.record(tenant.label if tenant is not None else "", dt,
-                         ok=status < 500)
+        self._slo.record(app, dt, ok=status < 500)
+        if raw is not None:
+            trace.annotate(raw, status=status, app=app,
+                           route="/queries.json", error=message)
+            trace.stamp(raw, trace.S_DONE)
+        if raw is None or raw.trace is None:
+            (self._ss0 if not app
+             else self._serve_seconds.labels(app=app)).observe(dt)
         body = b'{"message": ' + _json_str(message).encode("ascii") + b'}'
         return build_response(status, "application/json", body, rid,
                               extra or None, keep_alive=keep)

@@ -47,8 +47,13 @@ computed meanwhile from the replaced deployment is dropped (outcome
 With `PIO_INGEST_SERVICE` set, the tick's scans (the delta, the
 template's delta re-scan and its history reads) run on the remote ingest
 service (`ingest.client.maybe_remote`); the watermark and `find` stay on
-the local store. The JAX package's trace spans, watchdog beat and fault
-seam are not ported yet.
+the local store.
+
+With tracing on (`obs/trace.py`) each tick is a `refresh_tick`
+background span in the server's trace ring, and each fold of a
+non-empty delta a `refresh_fold` span inside it. The JAX package's
+watchdog beat and its `streaming.refresh.swap` fault seam are not
+ported yet (ROADMAP.md, Queue 1 item 5(a')).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ import time
 from typing import Dict, Optional, Tuple
 
 from predictionio_tpu_torch.data.storage.base import DeltaInvalidated
+from predictionio_tpu_torch.obs import trace
 from predictionio_tpu_torch.streaming.delta import Delta, scan_delta
 from predictionio_tpu_torch.streaming.updaters import FoldContext
 
@@ -191,7 +197,8 @@ class Refresher:
         `last_ticks`."""
         t0 = time.perf_counter()
         phases: Dict[str, float] = {}
-        outcome = self._tick_inner(phases)
+        with trace.background("refresh_tick"):
+            outcome = self._tick_inner(phases)
         phases["seconds"] = time.perf_counter() - t0
         self._count(outcome, phases)
         return outcome
@@ -252,6 +259,11 @@ class Refresher:
         if delta.empty:
             self.freshness_s = 0.0
             return "noop"
+        with trace.background("refresh_fold"):
+            return self._fold_and_swap_inner(dep, delta, fctx, phases)
+
+    def _fold_and_swap_inner(self, dep, delta: Delta, fctx: FoldContext,
+                             phases: Dict[str, float]) -> str:
         # phase 1: compute every new model (nothing a client sees moves)
         t = time.perf_counter()
         new_models = list(dep.models)

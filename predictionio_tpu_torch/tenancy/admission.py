@@ -50,7 +50,8 @@ from dataclasses import dataclass, field, replace
 from typing import Callable, Mapping, Optional, Tuple
 
 from predictionio_tpu_torch.data.storage.base import TenantQuota
-from predictionio_tpu_torch.obs import MetricsRegistry, get_logger, get_registry
+from predictionio_tpu_torch.obs import (MetricsRegistry, get_logger,
+                                        get_registry, trace)
 from predictionio_tpu_torch.resilience import OverloadedError
 from predictionio_tpu_torch.utils.http import (HTTPError, Request,
                                                parse_basic_auth_value)
@@ -481,6 +482,10 @@ class AdmissionController:
             if wait > 0.0:
                 self._shed.labels(surface="quota",
                                   app=tenant.state_key).inc()
+                # a quota shed never reaches the serve path: tag the
+                # pending trace with the shedding app here (its status
+                # and error land as the response is encoded)
+                trace.annotate_pending(trace.current(), app=tenant.label)
                 raise QuotaExceeded(
                     f"app '{tenant.label}' over its rate quota "
                     f"({st.quota.rate:g} req/s)",
@@ -489,6 +494,7 @@ class AdmissionController:
             if cap > 0 and st.inflight >= cap:
                 self._shed.labels(surface="quota",
                                   app=tenant.state_key).inc()
+                trace.annotate_pending(trace.current(), app=tenant.label)
                 raise QuotaExceeded(
                     f"app '{tenant.label}' at its concurrency quota "
                     f"({cap} in flight)", retry_after=0.05)

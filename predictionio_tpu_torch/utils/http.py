@@ -24,6 +24,13 @@ Every server answers
   GET /health   liveness: {"status": "ok"}
   GET /ready    readiness: {"ready": ...} from the `readiness()` hook,
                 503 when not ready
+  GET /traces.json   the flight recorder's ring (`obs/trace.py`;
+                ?app= ?min_ms= ?trace_id= ?limit=)
+  GET /profile.json  the sampling profiler's role shares and top frames;
+  GET /profile.txt   its collapsed stacks (?fmt=collapsed, the default)
+                or a short summary (?fmt=top) (`obs/profiler.py`)
+  GET /tsdb.json     this server's time-series ring (`obs/tsdb.py`;
+                ?series=prefix,prefix ?since=unix-ts)
 
 Middleware, per request: a request id (`X-Request-ID` in, else a fresh
 one; always echoed), one structured JSON log line (method, path, route,
@@ -43,8 +50,18 @@ raised `HTTPError` its own status, `DeadlineExceeded` 504, an
 matched on the raw (still percent-encoded) path and then decoded one by
 one, so that an id holding `%2F` stays reachable.
 
-Traces, the sampling profiler, the time-series ring and their endpoints
-are not ported yet (ROADMAP.md, Queue 1 item 5).
+Observatory: on the selector wire every request gets the flight
+recorder's stamps (the wire's `set_trace_hooks`; a no-op while
+`PIO_TRACE_SAMPLE` is 0), and the generic route's pending trace is the
+current one (`trace.current()`) for the handlers below it. `start()`
+starts the process's sampling profiler (`PIO_PROF_HZ`), hooks GC pauses
+into the registry, records kernel builds into it, and starts this
+server's tsdb scraper (`PIO_TSDB_INTERVAL_S`), whose collectors
+(`_obs_collectors`; subclasses add theirs) scrape the wire's counters,
+the host's RSS, CPU and threads, the card's allocator bytes (only where
+the process already made its CUDA context) and the kernels' launch
+counts. The memory-pressure guard that trims the rings is not ported
+yet (ROADMAP.md, Queue 1 item 5(a')).
 """
 
 from __future__ import annotations
@@ -63,7 +80,11 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 from urllib.parse import parse_qs, unquote, urlparse
 
 from predictionio_tpu_torch.obs import (MetricsRegistry, get_logger,
-                                        get_registry, new_request_id)
+                                        get_registry, kernelprobe,
+                                        new_request_id)
+from predictionio_tpu_torch.obs import profiler as prof_mod
+from predictionio_tpu_torch.obs import trace
+from predictionio_tpu_torch.obs import tsdb as tsdb_mod
 from predictionio_tpu_torch.resilience import (DEADLINE_HEADER,
                                                CircuitOpenError, Deadline,
                                                DeadlineExceeded,
@@ -73,7 +94,7 @@ from predictionio_tpu_torch.resilience import (DEADLINE_HEADER,
                                                deadline_scope)
 from predictionio_tpu_torch.utils.wire import (RawRequest, SelectorWire,
                                                ShardedWire, build_response,
-                                               reactor_count)
+                                               reactor_count, set_trace_hooks)
 
 _log = get_logger("http")
 
@@ -282,6 +303,16 @@ class HTTPServerBase:
         self.router.get("/metrics")(self._metrics_endpoint)
         self.router.get("/health")(self._health_endpoint)
         self.router.get("/ready")(self._ready_endpoint)
+        self.router.get("/traces.json")(self._traces_endpoint)
+        self.router.get("/profile.json")(self._profile_json_endpoint)
+        self.router.get("/profile.txt")(self._profile_txt_endpoint)
+        self.router.get("/tsdb.json")(self._tsdb_endpoint)
+        # every server keeps its own bounded time-series ring over its
+        # registry, scraped on a background tick (PIO_TSDB_INTERVAL_S=0
+        # disables the loop; the ring and the endpoint stay, empty)
+        self.tsdb = tsdb_mod.TSDB()
+        self._scraper: Optional[tsdb_mod.Scraper] = None
+        self._host_sampler = prof_mod.HostSampler(self.metrics)
         # the last absolute wire counters seen, so that the monotone
         # pio_wire_* counters advance by delta on each scrape
         self._wire_last: Dict[str, float] = {}
@@ -301,9 +332,61 @@ class HTTPServerBase:
 
     def _metrics_endpoint(self, req: Request) -> Response:
         self._sync_wire_metrics()
+        kernelprobe.sync_launches(self.metrics)
         return Response.text(
             self.metrics.render(),
             content_type="text/plain; version=0.0.4; charset=utf-8")
+
+    def _traces_endpoint(self, req: Request) -> Response:
+        """The flight recorder's keep ring (filter: ?app= / ?min_ms= /
+        ?trace_id= / ?limit=)."""
+        return Response(status=200, body=trace.traces_json_body(
+            req.query_get), content_type="application/json")
+
+    # -- continuous observatory ----------------------------------------------
+    def _profile_json_endpoint(self, req: Request) -> Response:
+        """Sampling-profiler snapshot: per-role CPU shares + top
+        frames by self and cumulative samples."""
+        try:
+            top = int(req.query_get("top") or 30)
+        except ValueError:
+            top = 30
+        return Response.json(
+            prof_mod.get_profiler().snapshot_json(top=max(1, top)))
+
+    def _profile_txt_endpoint(self, req: Request) -> Response:
+        """?fmt=collapsed (the default) serves flamegraph-ready
+        collapsed stacks; ?fmt=top a terminal-friendly summary."""
+        prof = prof_mod.get_profiler()
+        if (req.query_get("fmt") or "collapsed") != "collapsed":
+            snap = prof.snapshot_json(top=15)
+            lines = [f"samples={snap['samples']} hz={snap['hz']}"]
+            for role, st in snap["roles"].items():
+                lines.append(f"role {role:<12} {st['share']:>7.2%}"
+                             f"  ({st['samples']})")
+            for row in snap["top_self"]:
+                lines.append(f"self {row['share']:>7.2%}  {row['frame']}")
+            return Response.text("\n".join(lines) + "\n")
+        return Response.text(prof.collapsed())
+
+    def _tsdb_endpoint(self, req: Request) -> Response:
+        """The local time-series ring (?series=prefix,prefix &
+        ?since=unix-ts filter)."""
+        return Response.json(self.tsdb.to_json(
+            req.query_get("series"), req.query_get("since")))
+
+    def _obs_collectors(self) -> List[Callable[[], None]]:
+        """Collectors the tsdb scraper runs before each snapshot;
+        subclasses extend (the serve plane's plan bytes)."""
+
+        def _device_memory() -> None:
+            prof_mod.sample_device_memory(self.metrics)
+
+        def _kernel_launches() -> None:
+            kernelprobe.sync_launches(self.metrics)
+
+        return [self._sync_wire_metrics, self._host_sampler.sample,
+                _device_memory, _kernel_launches]
 
     def _sync_wire_metrics(self) -> None:
         """The selector wire's raw counters into `pio_wire_*` families
@@ -442,8 +525,24 @@ class HTTPServerBase:
                       query={k: v[0] for k, v in raw_q.items()},
                       headers=dict(raw.header_items()), body=raw.body,
                       client=raw.client, request_id=rid)
+        p = raw.trace
+        tok = None
+        if p is not None:
+            trace.begin_raw(raw, raw.header(trace.TRACE_HEADER))
+            p.rid = rid
+            # the handlers below (the fleet router's spans, the generic
+            # route's batch submit) find the pending trace here
+            tok = trace.set_current(p)
         started = time.perf_counter()
-        resp = self._handle(req)
+        try:
+            resp = self._handle(req)
+        finally:
+            if tok is not None:
+                trace.reset_current(tok)
+        if p is not None:
+            trace.annotate_pending(p, status=resp.status,
+                                   route=req.route or raw.path)
+            trace.mark(p, trace.S_DONE)
         self._observe_request(req, resp, time.perf_counter() - started)
         out = build_response(
             resp.status, resp.content_type, resp.encode(), rid,
@@ -534,6 +633,11 @@ class HTTPServerBase:
                              "(selector or threaded)")
         use_selector = want == "selector" and self._ssl_context is None
         self.wire = "selector" if use_selector else "threaded"
+        if use_selector:
+            # the flight recorder's hooks: process-wide and idempotent;
+            # with tracing off the recorder hands out no stamps
+            trace.get_recorder()
+            set_trace_hooks(trace.new_stamps, trace.on_sent)
         handler = self._threaded_handler()
         # a deep listen backlog: bursts of concurrent clients queue
         # instead of being reset (the socketserver default is 5)
@@ -564,6 +668,16 @@ class HTTPServerBase:
                 self._httpd.socket, server_side=True)
         self.port = self._httpd.server_address[1]
         self._on_bound()
+        # the observatory: one sampler for the process (it sees every
+        # thread), a GC pause hook and the kernel probe per registry,
+        # this server's scraper; each loop honours its =0 setting
+        prof_mod.ensure_started()
+        prof_mod.install_gc_callbacks(self.metrics)
+        kernelprobe.install_kernel_probe(self.metrics)
+        if self._scraper is None:
+            self._scraper = tsdb_mod.Scraper(
+                self.tsdb, self.metrics, collectors=self._obs_collectors())
+        self._scraper.start()
         if background:
             self._thread = threading.Thread(
                 target=self._httpd.serve_forever, daemon=True,
@@ -584,6 +698,9 @@ class HTTPServerBase:
         with self._lifecycle_lock:
             httpd, self._httpd = self._httpd, None
             thread, self._thread = self._thread, None
+            scraper, self._scraper = self._scraper, None
+        if scraper is not None:
+            scraper.stop()
         if httpd is not None:
             httpd.shutdown()
             httpd.server_close()

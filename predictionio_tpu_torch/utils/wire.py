@@ -31,9 +31,12 @@ servers:
 
 The wire knows nothing of routes, JSON or metrics: it calls one
 `handler(RawRequest) -> (response bytes, close?)` that
-`utils/http.HTTPServerBase` supplies. `set_trace_hooks` keeps the JAX
-package's two tracing callbacks; no recorder installs them yet, and the
-JAX reactor's watchdog beat is not ported (ROADMAP.md, Queue 1 item 5).
+`utils/http.HTTPServerBase` supplies. `set_trace_hooks` takes the JAX
+package's two tracing callbacks, which `HTTPServerBase.start` installs
+from the flight recorder (`obs/trace.py`): a stamp list as a request is
+framed, the trace finished once its response bytes are written. The
+JAX reactor's watchdog beat is not ported yet (ROADMAP.md, Queue 1 item
+5(a')).
 `HTTPConnectionPool` is the client side: kept-alive upstream
 connections, one stale-connection retry.
 """
@@ -69,8 +72,8 @@ _FLUSH_MAX_IOV = 64
 
 RawHandler = Callable[["RawRequest"], Tuple[bytes, bool]]
 
-# Tracing hooks, installed by set_trace_hooks(). None = tracing off (the
-# port has no recorder yet); the wire never imports obs.
+# Tracing hooks, installed by set_trace_hooks(). None = tracing off; the
+# wire never imports obs.
 _STAMP_NEW: Optional[Callable[[float], object]] = None
 _ON_SENT: Optional[Callable[["RawRequest"], None]] = None
 

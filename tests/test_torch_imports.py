@@ -67,7 +67,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "data.storage.objectstore", "data.storage.replicated",
                      "data.fsck", "ingest.blockproto", "ingest.client",
                      "ingest.service", "data.view", "data.entitymap",
-                     "core.selfclean", "core.fakeworkflow"):
+                     "core.selfclean", "core.fakeworkflow", "obs.trace",
+                     "obs.tsdb", "obs.profiler", "obs.kernelprobe"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -184,6 +185,75 @@ def test_the_scan_worker_loads_neither_torch_nor_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+OBSERVED_NO_JAX = """
+import json, sys, urllib.request
+sys.modules["jax"] = None                 # `import jax` now raises
+sys.modules["predictionio_tpu"] = None
+import numpy as np
+import torch
+from predictionio_tpu_torch.cli import main as cli_main
+from predictionio_tpu_torch.obs import get_profiler, trace
+from predictionio_tpu_torch.ops import als
+
+rng = np.random.default_rng(1)
+model = als.als_model_from_numpy(
+    rng.integers(-3, 4, (6, 4)).astype(np.float32),
+    rng.integers(-3, 4, (30, 4)).astype(np.float32),
+    [f"u{n}" for n in range(6)], [f"i{n}" for n in range(30)],
+    device="cpu")
+server = cli_main.deploy(model, port=0, batch_max=4)
+base = f"http://127.0.0.1:{server.port}"
+try:
+    for n in range(6):
+        req = urllib.request.Request(
+            base + "/queries.json",
+            data=json.dumps({"user": f"u{n}", "num": 3}).encode(),
+            headers={"Content-Type": "application/json"})
+        urllib.request.urlopen(req, timeout=30).read()
+    import time
+    end = time.monotonic() + 10
+    while time.monotonic() < end and sum(
+            e["kind"] == "serve" for e in trace.get_recorder().snapshot()) < 6:
+        time.sleep(0.01)
+    get_profiler().sample_once()
+    server._scraper.tick()
+    got = {}
+    for path in ("/traces.json", "/tsdb.json", "/profile.json"):
+        with urllib.request.urlopen(base + path, timeout=30) as resp:
+            got[path] = json.loads(resp.read())
+finally:
+    server.stop()
+print(json.dumps({
+    "traces": sum(e["kind"] == "serve"
+                  for e in got["/traces.json"]["traces"]),
+    "series": sorted(got["/tsdb.json"]["series"]),
+    "samples": got["/profile.json"]["samples"],
+    "profiler_running": get_profiler().running,
+    "cuda_initialized": torch.cuda.is_initialized(),
+    "loaded": sorted(m for m, v in sys.modules.items() if v is not None
+                     and m.split(".")[0] in ("jax", "predictionio_tpu"))}))
+"""
+
+
+def test_tracing_the_scraper_and_the_profiler_run_without_jax():
+    """A port server with tracing at sample 1, its scraper and the
+    process's sampling profiler running, in a process where `import jax`
+    and `import predictionio_tpu` fail: it traces, scrapes and samples,
+    loads neither, and makes no CUDA context."""
+    import os
+    env = {**os.environ, "PIO_TRACE_SAMPLE": "1", "PIO_TSDB_INTERVAL_S":
+           "0.05", "PIO_PROF_HZ": "50"}
+    out = subprocess.run([sys.executable, "-c", OBSERVED_NO_JAX], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["loaded"] == [] and got["cuda_initialized"] is False
+    assert got["traces"] == 6 and got["samples"] > 0
+    assert got["profiler_running"] is True
+    assert "pio_host_rss_bytes" in got["series"]
 
 
 def test_a_supervised_child_runs_the_ports_cli_without_jax():
