@@ -10,7 +10,8 @@
                           [--only serve_sharded | train | lifecycle |
                                   streaming | quickstart | templates |
                                   classification | neural | wire |
-                                  fleet | storage | ingest | obs]
+                                  fleet | storage | ingest | obs |
+                                  quality | pressure | steps]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -178,6 +179,55 @@ the result line:
               the traced pass's qps, p50 and p99 beside the untraced
               selector pass, each segment's mean, and each part's
               seconds.
+  4f. quality prediction quality and the reload canary, riding on phases
+              that already serve; its line comes after phase 17. (a) In
+              phase 4b, after 4e (a), the same server (quality on, the
+              default): `/quality.json` counts every request it answered
+              (app ""), with top-1 and margin quantiles and a frozen
+              reference; then 1,280 requests of phase 4b's mix from the
+              same clients on it and on a server deployed beside it with
+              `quality=False` (`deploy --quality off`), untraced; every
+              answer against the plain version; its count rises by
+              1,280; the other answers `{"enabled": false}`; K1
+              launches = plan calls. Prints both passes' qps, p50, p99.
+              (b) In phase 4c (b), traced at 0.05 so that the ring holds
+              serve entries: each replica's canary replays up to 16 of
+              them through its old and new plans before the swap,
+              report-only: a pass per replica, the overlap and score
+              delta printed; per replica, the plans' calls = warmed
+              buckets + drained chunks + the replays. (c) After it, the
+              first instance served in this process with
+              `canary_min_overlap` 0.5 under looping clients, then
+              /reload, whose latest instance is the second table: a
+              `CanaryVeto` (500), the first instance still serving, no
+              failed request, every answer the first table's. (d) In
+              phase 14, on its `deploy --feedback --attribution-s 600`:
+              a conversion event (carrying `prId`) for each of the 32
+              newest predict events; the deploy's joiner joins all 32
+              (reward rate above 0) and its quality count equals the
+              requests it answered.
+  4g. pressure the memory-pressure guard and the watchdog's beats on
+              servers in this process, after phase ingest, over the
+              ML-1M PEVLOG project: its instance deployed as `deploy
+              --refresh-interval 2 --feedback --tenancy on` (an event
+              server in this process), a tiered deploy of its model
+              beside it, keyed clients looping. The beats of the
+              reactors, the drainer, the feedback loop, the page
+              thread, the refresher and the joiner on
+              `pio_thread_beat_age_seconds`; the guard's watermarks set
+              2% and 4% of the card above this process's
+              `memory_allocated` (the host's reading off), real device
+              bytes allocated to cross them: at soft each trim (tsdb,
+              trace, quality, tenant keys, prepared-ingest cache) runs
+              once and releases bytes, 8 new requests get 503 with
+              Retry-After (`pio_shed_total{surface="memory"}`), a
+              request in flight answers right, /ready stays 200; freed,
+              it serves again; `thread.refresher.stall` wedges the
+              refresher for 15 s (its budget 11 s): one stall, one
+              restart, a drip folded by the new thread, one refresher
+              thread once the wedged one wakes; at hard the drain fires
+              once, /ready fails and the server stops; a `cli ingestd`
+              holds no /dev/nvidia* file. K1 launches = plan calls.
   5. parity_sharded
               the kernel's sharded form (K2, `shard_local_candidates`)
               vs its plain version on shard slices of a 20,037-row
@@ -422,7 +472,10 @@ the result line:
               one more epoch's call, peak device bytes; seqrec's encode
               ms at batches 1/64/256. Gates: the first 20 step losses
               equal the CPU port's from the same init and batches within
-              rtol 3e-6 (beside, not gated, the same reading with TF32
+              rtol 3e-6, the CPU's computed on one intra-op thread (its
+              multi-threaded sums differ from run to run; one thread's
+              do not), and the card's 20 again from the same init equal
+              to them bit for bit (beside, not gated, the same reading with TF32
               matmuls: the net and its Adam are built first, the
               precision set after them, and the phase fails unless the
               control's steps ran with TF32 allowed; the flag it read is
@@ -454,18 +507,28 @@ phases 3 and 16, `--only neural` the build and phase 17, `--only wire`
 the build and phases 3 and 4b, `--only fleet` the build, phase 3, one
 selector pass of phase 4b's requests (its reference) and phase 4c,
 `--only storage` the build and phases 3 and 4d, `--only obs` the build,
-phase 3, phase 4's model and phase 4e (a) behind phase 4b's selector pass;
-none prints the kernels
-line (whose K1 entry counts phase 4b's launches as `wire_launches`,
-phase 4e (a)'s as `obs_launches`,
-phase 4c's as `fleet_launches`: its in-process parts' and its
-supervised children's, the killed one's as read just before its kill,
-and phase 4d's as `storage_launches`). Every run
-prints its seconds (`script_s`), and every phase line the seconds from
-its process's start to the line (`at_s`). The whole run makes phase 17
-in a second process (`--only neural`) that starts as
-phase 15 does and runs beside phases 15 and 16; its phase lines are
-passed on when it ends, and its failure fails the run.
+phase 3, phase 4's model and phase 4e (a) behind phase 4b's selector pass,
+`--only quality` the build, phase 3, phase 4's model, phase 4b's selector
+pass with 4e (a) and 4f (a), and phase 4c with 4f (b) and (c), `--only
+pressure` the build, phase 3, phase 13's import and train and phase 4g,
+`--only steps` the build and a diagnostic of phase 17's seqrec step
+parity (the card's steps three times and beside a loaded card and host,
+the CPU's at 1, 2, 4 and the default intra-op threads, twice each; it
+gates nothing); none prints the kernels line (whose K1 entry counts phase
+4b's launches as `wire_launches`, phase 4e (a)'s as `obs_launches`, phase
+4c's as `fleet_launches`: its in-process parts' and its supervised
+children's, the killed one's as read just before its kill, phase 4d's as
+`storage_launches`, phase 4f's (a) and (c) as `quality_launches`, phase
+4g's as `pressure_launches`). Every run prints its seconds (`script_s`),
+and every phase line its second in the run (`at_s`).
+
+The whole run's order: phases 1-4, 4b (with 4e (a) and 4f (a)) and
+phase 8's timing, timing_ecommerce and timing_sharded, which have the
+card and the host to themselves; phase 4c (with 4f (b) and (c)); then phases 9-11 (`--only
+train`), 15, 16 and 17, each in a process of its own, started together
+and run beside the rest: phases 4d, 5-7, 12-14 (the ML-1M chain, 4f (d)
+inside 14) and 4g. Their lines are passed on when they end (with run
+`at_s`), and a failure of one fails the run.
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -517,6 +580,10 @@ PEAKS = (("H100 PCIe", 2.0e12, 51e12, 756e12),
 
 
 _T_START = time.perf_counter()
+# a phase process of a whole run (`start_phase_process`) counts its lines'
+# at_s from the run's start, which the run exports here
+if "CHIP_SMOKE_T0" in os.environ:
+    _T_START -= max(0.0, time.time() - float(os.environ["CHIP_SMOKE_T0"]))
 
 
 def emit(obj) -> None:
@@ -562,19 +629,24 @@ def start_phase_process(only: str, seed: int):
     process group), its standard output to a file (its standard error
     is this run's); `finish_phase_process` waits for it."""
     out = tempfile.TemporaryFile("w+")
+    t0 = time.time() - (time.perf_counter() - _T_START)
     proc = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--only", only,
          "--seed", str(seed)],
-        stdout=out, text=True)
+        stdout=out, text=True,
+        env={**os.environ, "CHIP_SMOKE_T0": repr(t0),
+             "CHIP_SMOKE_PHASE_PROCESS": "1"})
     proc.phase, proc.out = only, out
     _BACKGROUND.add(proc)
     return proc
 
 
-def finish_phase_process(proc) -> dict:
-    """Wait for a `start_phase_process` run, pass its phase lines on to
-    this run's output and return its line of phase `proc.phase`; fail if
-    it failed or printed no such line."""
+def finish_phase_process(proc, also: tuple = ()) -> dict:
+    """Wait for a `start_phase_process` run, pass its phase lines (those
+    of phases named `proc.phase...` or in `also`) on to this run's
+    output and return its line of phase `proc.phase`, with the lines of
+    `also` under their names; fail if it failed or printed no such
+    line."""
     code = proc.wait(timeout=1200)
     _BACKGROUND.discard(proc)
     proc.out.seek(0)
@@ -583,18 +655,25 @@ def finish_phase_process(proc) -> dict:
     if code != 0:
         fail(f"phase {proc.phase}'s process exited {code}; its last "
              f"lines: {lines[-3:]}")
-    found = None
+    found, extra = None, {}
     for line in lines:
         if not line.startswith("{"):
             continue
         obj = json.loads(line)
-        if str(obj.get("phase", "")).startswith(proc.phase):
+        name = str(obj.get("phase", ""))
+        if name.startswith(proc.phase) or name in also:
             print(line, flush=True)
-            if obj["phase"] == proc.phase:
+            if name == proc.phase:
                 found = obj
+            elif name in also:
+                extra[name] = obj
+    missing = [n for n in also if n not in extra]
     if found is None:
-        fail(f"phase {proc.phase}'s process printed no phase line")
-    return found
+        missing.insert(0, proc.phase)
+    if missing:
+        fail(f"phase {proc.phase}'s process printed no line of phase "
+             f"{', '.join(missing)}")
+    return {**found, **extra}
 
 
 def smi_line() -> str:
@@ -1071,6 +1150,7 @@ THREADED_REST_EVENTS_PER_S = (479, 656)
 # the stitched and background entries)
 OBS_PLAIN, OBS_BANNED, OBS_BIN = 640, 320, 320
 OBS_TSDB_INTERVAL_S = "0.5"
+QUALITY_REQUESTS = 1_280    # phase quality (a): each pass, half the mix
 OBS_STITCHED = 32
 OBS_TRACE_SAMPLE = "0.01"
 
@@ -1224,7 +1304,8 @@ def wire_run(torch, ft, dev, model, reqs, tmp: Path, wire: str,
     written to that file; otherwise at this run's PIO_OBS_LOG_LEVEL.
     With `obs_reqs` the server's scraper ticks every OBS_TSDB_INTERVAL_S,
     and after those reads the same server takes phase obs's traced pass
-    of `obs_reqs` (`obs_pass`, its result under "obs")."""
+    of `obs_reqs` (`obs_pass`, its result under "obs"), then phase
+    quality (a) (`quality_pass`, under "quality")."""
     import logging
     from predictionio_tpu_torch.cli.main import deploy
     from predictionio_tpu_torch.obs import MetricsRegistry, get_logger
@@ -1270,6 +1351,9 @@ def wire_run(torch, ft, dev, model, reqs, tmp: Path, wire: str,
             status = json.loads(resp.read())
         obs = (obs_pass(torch, ft, dev, model, server, plan, obs_reqs, tmp)
                if obs_reqs is not None else None)
+        quality = (quality_pass(torch, ft, dev, model, server, plan,
+                                reqs[:QUALITY_REQUESTS], tmp)
+                   if obs_reqs is not None else None)
     finally:
         server.stop()
         server.deployment.predict_batch = predict
@@ -1290,7 +1374,8 @@ def wire_run(torch, ft, dev, model, reqs, tmp: Path, wire: str,
     return {"res": res, "series": series, "status": status,
             "sizes": sizes, "launches": launches, "plan_calls": plan_calls,
             "expected_calls": expected, "batch_s": batch_s,
-            "wall_s": t1 - t0, "buckets": list(plan.buckets), "obs": obs}
+            "wall_s": t1 - t0, "buckets": list(plan.buckets), "obs": obs,
+            "quality": quality}
 
 
 def chunks(sizes: dict, max_bucket: int) -> int:
@@ -1462,6 +1547,94 @@ def obs_pass(torch, ft, dev, model, server, plan, reqs, tmp: Path) -> dict:
         "seconds": time.perf_counter() - t_part}
 
 
+def quality_json(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/quality.json",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def quality_pass(torch, ft, dev, model, server, plan, reqs,
+                 tmp: Path) -> dict:
+    """Phase quality (a), on the selector pass's server after phase obs
+    (a): `/quality.json` counts every answered request of the server
+    (the selector pass's and obs (a)'s, all app ""), with top-1 and
+    margin quantiles and a frozen reference; then `reqs` from the client
+    processes, in turns, on a server deployed beside it with
+    `quality=False` (`deploy --quality off`) and on it (quality on, the
+    default): off, on, off, on, untraced. Gates: every answer against
+    the plain version; the quality-on server's count rises by 2 x
+    len(reqs); the quality-off server answers `{"enabled": false}`; K1
+    launches = plan calls = drained chunks on the first, warmed buckets +
+    drained chunks on the second."""
+    from predictionio_tpu_torch.cli.main import deploy
+    from predictionio_tpu_torch.obs import MetricsRegistry
+    t_part = time.perf_counter()
+    q0 = quality_json(server.port)
+    app0 = q0["apps"].get("", {})
+    served = server.request_count
+    if not q0["enabled"] or app0.get("n") != served or \
+            set(q0["apps"]) != {""} or not app0["quantiles"].get("top1") \
+            or not app0["quantiles"].get("margin") or \
+            (app0.get("reference") or {}).get("n", 0) < 50:
+        fail(f"quality (a): /quality.json {json.dumps(q0)[:600]} after "
+             f"{served} answered requests")
+    launches0, calls0 = ft.LAUNCHES, plan.calls
+    sizes0 = server.batcher.batch_sizes()
+    off = deploy(model, port=0, batch_max=64, quality=False,
+                 metrics=MetricsRegistry())
+    try:
+        plan_off = off.deployment.algos[0]._serve_plan
+        passes = {"on": [], "off": []}
+        for name in ("off", "on", "off", "on"):
+            passes[name].append(wire_clients(
+                (server if name == "on" else off).port, reqs, tmp))
+        q_off = quality_json(off.port)
+        want_off = len(plan_off.buckets) + chunks(
+            off.batcher.batch_sizes(), plan_off.max_bucket)
+    finally:
+        off.stop()
+    launches = ft.LAUNCHES - launches0
+    calls = plan.calls - calls0
+    sizes = server.batcher.batch_sizes()
+    drained = chunks({n: c - sizes0.get(n, 0) for n, c in sizes.items()},
+                     plan.max_bucket)
+    q1 = quality_json(server.port)
+    if q1["apps"][""]["n"] != served + 2 * len(reqs):
+        fail(f"quality (a): the count rose {q1['apps']['']['n'] - served} "
+             f"for {2 * len(reqs)} requests")
+    if not calls == drained or launches != calls + plan_off.calls:
+        fail(f"quality (a): K1 launches {launches}, plan calls {calls} + "
+             f"{plan_off.calls}, drained chunks {drained}")
+    if q_off != {"enabled": False, "apps": {}}:
+        fail(f"quality (a): the quality-off server's /quality.json {q_off}")
+    if plan_off.calls != want_off:
+        fail(f"quality (a): the quality-off server's plan calls "
+             f"{plan_off.calls}, expected {want_off}")
+    err = 0.0
+    for name, runs in passes.items():
+        for res in runs:
+            bad = [r for r in res if r is None or r[0] != 200]
+            if bad:
+                fail(f"quality (a), quality {name}: {len(bad)} requests "
+                     f"failed: {bad[0]}")
+            err = max(err, check_wire_answers(torch, ft, dev, model, reqs,
+                                              res, f"quality (a) {name}"))
+    lat = {name: [lat_summary(res, range(len(res))) for res in runs]
+           for name, runs in passes.items()}
+    qps = {name: sum(x["qps"] for x in v) / len(v) for name, v in lat.items()}
+    a = q1["apps"][""]
+    return {"answered_before": served, "counted_before": app0["n"],
+            "counted_after": a["n"], "reference_n": a["reference"]["n"],
+            "top1": a["quantiles"].get("top1"),
+            "margin": a["quantiles"].get("margin"),
+            "windows_5m": a["windows"]["5m"],
+            "requests_per_pass": len(reqs), "max_abs_err": err,
+            "launches": launches,
+            "quality_on": lat["on"], "quality_off": lat["off"],
+            "qps_on_over_off": qps["on"] / qps["off"],
+            "seconds": time.perf_counter() - t_part}
+
+
 def check_wire_answers(torch, ft, dev, model, reqs, res, what) -> float:
     """Every 200 against the plain version (`check_answers`)."""
     ok = [i for i, r in enumerate(res) if r[0] == 200]
@@ -1501,7 +1674,7 @@ def phase_wire(torch, ft, dev, rng, model, card: str) -> dict:
                          WIRE_BANNED, WIRE_BIN)
     obs_reqs = wire_requests(torch, ft, dev, rng, model, OBS_PLAIN,
                              OBS_BANNED, OBS_BIN)
-    obs = None
+    obs = quality = None
     out = {"phase": "wire", "card": card, "users": N_USERS,
            "items": N_ITEMS, "rank": RANK, "k": K, "banned_width": WIDTH,
            "client_processes": WIRE_PROCS, "connections": WIRE_PROCS
@@ -1519,6 +1692,7 @@ def phase_wire(torch, ft, dev, rng, model, card: str) -> dict:
                            log_file=log_file,
                            obs_reqs=obs_reqs if name == "selector" else None)
             obs = obs or run["obs"]
+            quality = quality or run["quality"]
             res = run["res"]
             codes = sorted({r[0] for r in res})
             if codes != [200]:
@@ -1617,7 +1791,7 @@ def phase_wire(torch, ft, dev, rng, model, card: str) -> dict:
                              for w in out["wires"].values())
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
-    return {**out, "obs": obs}
+    return {**out, "obs": obs, "quality": quality}
 
 
 # -- phase fleet: serving across processes and tenancy ------------------------
@@ -1629,6 +1803,7 @@ TENANT_REQUESTS = 1_280   # (d) half per app
 FLOOD_RATE = 50.0         # (d) the over-quota app's rate and burst
 FLEET_KEY = "fleet-server-key"
 LOOP_PAD_S = 0.5          # load before a roll or a kill, and after it
+QUALITY_TRACE_SAMPLE = 0.05   # (b), (c): kept traces for the canary
 
 # a client process that cycles through its requests over kept-alive
 # connections until its stop file appears; every answer is recorded
@@ -1820,6 +1995,114 @@ def member_calls(server) -> dict:
             "warmed_buckets": len(plan.buckets)}
 
 
+def canary_gates(fleet, old_plans) -> dict:
+    """Phase quality (b), after fleet (b)'s roll: each in-process
+    replica's canary ran report-only and passed (one
+    `pio_canary_total{outcome="pass"}` per replica in the replicas'
+    registries, at least one replayed query each); each replica's old
+    and new plans' calls = both plans' warmed buckets + the drained
+    chunks across the roll + one call per plan per 64 replayed
+    queries."""
+    out = []
+    registries = {}
+    for rep, old in zip(fleet.replicas(), old_plans):
+        srv = rep.server
+        registries[id(srv.metrics)] = srv.metrics
+        new = srv.deployment.algos[0]._serve_plan
+        last = srv.quality_snapshot().get("canary") or {}
+        sampled = last.get("sampled", 0)
+        replays = 2 * -(-sampled // new.max_bucket)
+        want = len(old.buckets) + len(new.buckets) + chunks(
+            srv.batcher.batch_sizes(), new.max_bucket) + replays
+        if last.get("outcome") != "pass" or sampled < 1 \
+                or old.calls + new.calls != want:
+            fail(f"quality (b): replica {rep.key}'s canary {last}; plan "
+                 f"calls {old.calls} + {new.calls}, expected {want} "
+                 "(warmup + drained chunks + replays)")
+        out.append({"member": rep.key, "sampled": sampled,
+                    "overlap": last["overlap"],
+                    "score_delta": last["score_delta"],
+                    "replay_calls": replays,
+                    "plan_calls": old.calls + new.calls})
+    passes = sum(m.value("pio_canary_total", outcome="pass") or 0
+                 for m in registries.values())
+    if passes != len(out):
+        fail(f"quality (b): {passes} canary passes counted for "
+             f"{len(out)} replicas")
+    return {"replicas": out, "canary_pass_total": passes}
+
+
+def canary_veto(torch, ft, dev, engine, ctx, instances, iid, reqs, tables,
+                tmp: Path) -> dict:
+    """Phase quality (c): instance `iid` (the first table) served in this
+    process with `canary_min_overlap` 0.5 (`deploy --canary-min-overlap
+    0.5`) under looping clients, then /reload, whose latest instance is
+    the second table, sharing none of the answers: the canary refuses it
+    (`CanaryVeto`, a 500 naming the overlap), the server keeps serving
+    `iid`, no request fails and every answer before and after is the
+    first table's. K1 launches = plan calls: the served plan's warmed
+    buckets + drained chunks + its replay, and the refused plan's warmed
+    buckets + its replay."""
+    from predictionio_tpu_torch.cli.main import deploy_instance
+    from predictionio_tpu_torch.obs import MetricsRegistry
+    from predictionio_tpu_torch.ops import topk
+    t_part = time.perf_counter()
+    ft.LAUNCHES = 0
+    topk.PLAN_CALLS = 0
+    server = deploy_instance(engine, instances.get(iid), ctx, port=0,
+                             batch_max=64, server_key=FLEET_KEY,
+                             canary_min_overlap=0.5,
+                             metrics=MetricsRegistry())
+    try:
+        plan = server.deployment.algos[0]._serve_plan
+        load = FleetLoad(server.port, reqs, tmp, "veto").start()
+        try:
+            time.sleep(LOOP_PAD_S)
+            t0 = time.monotonic()
+            try:
+                post_reload(server.port, FLEET_KEY)
+                code, message = 200, ""
+            except urllib.error.HTTPError as e:
+                code, message = e.code, json.loads(e.read())["message"]
+            reload_s = time.monotonic() - t0
+            time.sleep(LOOP_PAD_S)
+        finally:
+            res = load.stop()
+        serving = server.deployment.instance_id
+        last = server.quality_snapshot()["canary"] or {}
+        fails = server.metrics.value("pio_canary_total", outcome="fail")
+        sampled = last.get("sampled", 0)
+        replay = -(-sampled // plan.max_bucket)
+        want = len(plan.buckets) + chunks(server.batcher.batch_sizes(),
+                                          plan.max_bucket) + replay
+        launches, calls = ft.LAUNCHES, topk.PLAN_CALLS
+    finally:
+        server.stop()
+    if code != 500 or "CanaryVeto" not in message or serving != iid or \
+            last.get("outcome") != "fail" or fails != 1 or sampled < 1:
+        fail(f"quality (c): /reload answered {code} {message!r}, serving "
+             f"{serving}, canary {last}, {fails} vetoes")
+    bad = [r for r in res if r[1] != 200]
+    if bad:
+        fail(f"quality (c): {len(bad)} of {len(res)} requests failed: "
+             f"{bad[0][:3]}")
+    which = match_tables("quality (c)", [r[2] for r in res],
+                         [r[0] for r in res], tables)
+    if set(which) != {0}:
+        fail(f"quality (c): answers from tables {sorted(set(which))}")
+    if not (launches == calls and plan.calls == want
+            and launches - plan.calls == len(plan.buckets) + replay):
+        fail(f"quality (c): K1 launches {launches}, plan calls {calls}; "
+             f"the served plan's {plan.calls} (expected {want})")
+    return {"requests": len(res), "failed": 0, "old_table_answers": len(res),
+            "reload_status": code, "message": message,
+            "overlap": last["overlap"], "min_overlap": last["min_overlap"],
+            "sampled": sampled, "reload_s": reload_s,
+            "launches": launches, "plan_calls": calls,
+            "all": lat_summary(res, range(len(res))),
+            "seconds": time.perf_counter() - t_part}
+
+
 def post_reload(port: int, key: str) -> dict:
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/reload", data=b"", method="POST",
@@ -1941,7 +2224,7 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
     from predictionio_tpu_torch.core.runtime import RuntimeContext
     from predictionio_tpu_torch.core.workflow import resolve_engine
     from predictionio_tpu_torch.data.storage import StorageRegistry
-    from predictionio_tpu_torch.obs import MetricsRegistry
+    from predictionio_tpu_torch.obs import MetricsRegistry, trace
     from predictionio_tpu_torch.ops import topk
     from predictionio_tpu_torch.ops.als import als_model_from_numpy
     from predictionio_tpu_torch.serving.fleet import FleetConfig, FleetServer
@@ -2053,10 +2336,15 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
                 i for i, r in enumerate(mreqs) if r["kind"] == kind])
                 for kind in ("plain", "banned", "binary")}}
 
-        # (b) a rolling /reload to a new item table under load
+        # (b) a rolling /reload to a new item table under load; phase
+        # quality (b): each replica's canary replays kept serve traces
+        # (sampled at QUALITY_TRACE_SAMPLE) through both plans, report-only
         iid2 = fleet_instance(registry, model2)
+        trace.configure(sample=QUALITY_TRACE_SAMPLE)
         fleet, start_s = start_fleet(iid1, ROLL_REPLICAS)
         try:
+            old_plans = [rep.server.deployment.algos[0]._serve_plan
+                         for rep in fleet.replicas()]
             load = FleetLoad(fleet.port, reqs, tmp, "roll").start()
             try:
                 time.sleep(LOOP_PAD_S)
@@ -2070,6 +2358,7 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
                        for rep in fleet.replicas()]
             members, n_launch = gate_inprocess("rolling reload", fleet,
                                                per_member=False)
+            canary_b = canary_gates(fleet, old_plans)
         finally:
             fleet.stop()
         if report["aborted"] or [r["outcome"] for r in report["results"]] \
@@ -2098,6 +2387,14 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
             "all": lat_summary(res, range(len(res))),
             "during_roll": lat_summary(res, [
                 n for n, r in enumerate(res) if t_roll0 <= r[3] <= t_roll1])}
+
+        # phase quality (c): a reload refused by the canary
+        try:
+            veto = canary_veto(torch, ft, dev, engine, ctx, instances, iid1,
+                               reqs, tables, tmp)
+        finally:
+            trace.configure(sample=0.0)
+        out["quality_bc"] = {"b": canary_b, "c": veto}
 
         # (c) --supervised 2 as a subprocess: a child killed under load
         lib = ft.build_library()
@@ -4673,6 +4970,8 @@ INGEST_EVENTS, INGEST_BATCH, INGEST_CLIENTS = 20_000, 50, 8
 # up with; its queue drops what it cannot (160 queries/s overflowed it
 # beside an NVIDIA H100 80GB HBM3 at 700 W)
 QS_PACE_S = 0.5
+QUALITY_CONVERSIONS = 32      # phase quality (d): predictions converted
+QUALITY_ATTRIBUTION_S = 600.0  # the quickstart deploy's --attribution-s
 EVAL_FOLDS, EVAL_RANKS = 3, (8, 64)
 # Precision@10 counts an item the user rated 4 or 5 stars in the test
 # fold (`planted` quantizes to 1-5 stars), as the upstream template's
@@ -4844,6 +5143,54 @@ def pevlog_insert_ms(tmp: Path, n: int = 200) -> float:
     return ms
 
 
+def quality_conversions(events, app_id: int, rest, port: int,
+                        proc) -> dict:
+    """Phase quality (d), on phase quickstart's `deploy --feedback`
+    instance: a `conversion` event (entity type `pio_pr`, so that the
+    refresher folds nothing) for each of the QUALITY_CONVERSIONS newest
+    `predict` events, carrying its `prId`, posted through the event
+    server's batch route. Gates: each stored; the deploy's
+    `/quality.json` joiner view for app ml1m reaches that many joins
+    with a reward rate above 0 and no join outside the window; its
+    per-app count equals the requests the deploy answered."""
+    t_part = time.perf_counter()
+    predicts = sorted(events.find(app_id, event_names=["predict"]),
+                      key=lambda e: e.event_time)[-QUALITY_CONVERSIONS:]
+    conv = [{"event": "conversion", "entityType": "pio_pr",
+             "entityId": e.entity_id, "properties": {"prId": e.entity_id}}
+            for e in predicts]
+    code, reply = rest("POST", "/batch/events.json", conv)
+    if code != 200 or [r["status"] for r in reply] != [201] * len(conv):
+        fail(f"quality (d): the conversions' batch answered {code} {reply}")
+    t_post = time.perf_counter()
+    end = t_post + 60
+    while True:
+        if proc.poll() is not None:
+            fail(f"quality (d): the deploy exited {proc.returncode}")
+        q = quality_json(port)
+        joined = ((q.get("joiner") or {}).get("apps") or {}).get("ml1m", {})
+        if joined.get("joined_total", 0) >= len(conv) or \
+                time.perf_counter() > end:
+            break
+        time.sleep(0.1)
+    st = http_status(port)
+    q = quality_json(port)
+    served = q["apps"].get("", {}).get("n")
+    joined = q["joiner"]["apps"].get("ml1m", {})
+    if joined.get("joined_total") != len(conv) or not joined.get(
+            "reward_rate", 0) > 0 or served != st["requests"]:
+        fail(f"quality (d): joiner {q.get('joiner')}, quality count "
+             f"{served} for {st['requests']} requests")
+    return {"conversions": len(conv), "joined": joined["joined_total"],
+            "unjoined": joined["unjoined_total"],
+            "reward_rate": joined["reward_rate"],
+            "pending": q["joiner"]["pending"],
+            "attribution_s": q["joiner"]["attribution_s"],
+            "joined_after_s": time.perf_counter() - t_post,
+            "served_counted": served,
+            "seconds": time.perf_counter() - t_part}
+
+
 def popularity_precision(folds, metric) -> float:
     """The metric of recommending each fold's most rated training items
     to every test user (numpy counts)."""
@@ -4922,7 +5269,8 @@ def phase_quickstart(torch, ft, dev, rng, project: dict, n_requests: int,
         dep_proc, port, deploy_wall_s = start_deploy(
             tmp, cli, iid, "--refresh-interval", str(STREAM_INTERVAL_S),
             "--feedback", "--accesskey", key, "--event-server-ip",
-            "127.0.0.1", "--event-server-port", str(es_port))
+            "127.0.0.1", "--event-server-port", str(es_port),
+            "--attribution-s", str(QUALITY_ATTRIBUTION_S))
         st0 = wait_status(port, dep_proc, "the refresher's baseline",
                           lambda s: s["refresh"]["ticks"].get("baseline"),
                           120)
@@ -5070,6 +5418,11 @@ def phase_quickstart(torch, ft, dev, rng, project: dict, n_requests: int,
                 or got[0] != 200 or got[1]["eventId"] != wid:
             fail(f"webhook {code} {reply}, listed {listed}, got {got}")
 
+        # phase quality (d): conversions of the latest predictions, joined
+        # back to them by the deploy's feedback joiner
+        quality_d = quality_conversions(events, app_id, rest, port,
+                                        dep_proc)
+
         # 4. the feedback: one predict event per served query
         st_end = http_status(port)
         gate = launch_gate("quickstart", st_end, st_end["requests"],
@@ -5203,6 +5556,7 @@ def phase_quickstart(torch, ft, dev, rng, project: dict, n_requests: int,
                       "ticks": ticks2,
                       "last_ticks": st2["refresh"]["last_ticks"],
                       "queries": load.summary()},
+           "quality_d": quality_d,
            "feedback": {"served": st_end["requests"],
                         "predict_events": len(predicts),
                         **st_end["feedback"]},
@@ -5743,6 +6097,367 @@ def ingest_serve_fold(torch, ft, dev, rng, project: dict) -> dict:
            "a": state["a"], "b": state["b"], "c": c, "e": e, "d": d,
            "parts_s": parts, "first_half_s": state["seconds"],
            "seconds": seconds, "launches": gate["launches"]}
+    emit(out)
+    return out
+
+
+# -- phase 4g: the memory-pressure guard and the watchdog's beats --------------
+
+PRESSURE_SOFT_MARGIN = 0.02   # watermarks above the server's card reading,
+PRESSURE_HARD_MARGIN = 0.04   # as fractions of the card's memory
+PRESSURE_STALL_S = 15.0       # the wedge: past the refresher's 11-s budget
+PRESSURE_CLIENTS = 4
+PRESSURE_SHED = 8             # new requests sent at the soft watermark
+BEAT_ROLES = ("reactor", "drainer", "feedback", "tier-pager", "refresher",
+              "joiner")
+TRIM_TARGETS = ("tsdb", "trace", "quality", "tenant_keys", "ingest_cache")
+
+
+class KeyedLoad:
+    """PRESSURE_CLIENTS threads posting `queries` to `port` with the
+    app's access key until stopped; each answer kept as [query index,
+    status, body, Retry-After, t_send, t_recv]."""
+
+    def __init__(self, port: int, key: str, queries):
+        import threading
+        self.port, self.key, self.queries = port, key, queries
+        self.res, self._stop = [], threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(n,),
+                                          daemon=True)
+                         for n in range(PRESSURE_CLIENTS)]
+
+    def one(self, n: int) -> list:
+        q = self.queries[n % len(self.queries)]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{self.port}/queries.json?accessKey={self.key}",
+            data=json.dumps(q).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        t = time.monotonic()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return [n % len(self.queries), resp.status,
+                        json.loads(resp.read()), None, t, time.monotonic()]
+        except urllib.error.HTTPError as e:
+            return [n % len(self.queries), e.code, json.loads(e.read()),
+                    e.headers.get("Retry-After"), t, time.monotonic()]
+
+    def _run(self, n: int) -> None:
+        while not self._stop.is_set():
+            self.res.append(self.one(n))
+            n += PRESSURE_CLIENTS
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(120)
+
+
+def phase_pressure(torch, ft, dev, rng, project: dict, card: str) -> dict:
+    """Phase 4g: the memory-pressure guard and the watchdog's beats on
+    servers in this process, over the ML-1M PEVLOG project. The project's
+    instance is deployed here as `cli deploy --refresh-interval 2
+    --feedback --tenancy on` would (refresher, feedback loop to an event
+    server in this process, quality joiner, per-app keys), beside a
+    tiered deploy of its model (`PIO_SERVE_TIER=on`, a page thread);
+    keyed clients loop on the first. Gates, in order:
+      - roles: the watchdog's `pio_thread_beat_age_seconds` carries every
+        role of BEAT_ROLES, each beat live on these servers;
+      - soft: the guard reads the card alone (its host limit 0), its
+        watermarks set PRESSURE_SOFT_MARGIN and PRESSURE_HARD_MARGIN of
+        the card above this process's reading; real device bytes
+        allocated here cross the soft one: every trim target of
+        TRIM_TARGETS counted in `pio_mem_trims_total` and releasing
+        bytes, PRESSURE_SHED new requests answered 503 with Retry-After
+        and counted `pio_shed_total{surface="memory"}`, a request in
+        flight (held 1 s in its predict) answered right, /ready 200; the
+        bytes freed, serving resumes;
+      - stall: `thread.refresher.stall` wedges the refresher past its
+        11-s budget: one stall, one restart, a drip of ratings folded by
+        the new thread, and one refresher thread once the wedged one
+        wakes;
+      - hard: more device bytes cross the hard watermark: the drain fires
+        once, /ready fails, the server stops;
+      - a `cli ingestd` holds no /dev/nvidia* file.
+    Every 200 before the drip is checked against the plain version; K1
+    launches = plan calls = the served plan's warmed buckets + drained
+    chunks + the tiered plan's calls."""
+    from predictionio_tpu_torch.cli.main import deploy, deploy_instance
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    from predictionio_tpu_torch.core.workflow import resolve_engine
+    from predictionio_tpu_torch.data import store as pstore
+    from predictionio_tpu_torch.data.eventserver import (EventServer,
+                                                         EventServerConfig)
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    from predictionio_tpu_torch.obs import MetricsRegistry, get_registry
+    from predictionio_tpu_torch.obs import trace
+    from predictionio_tpu_torch.ops import topk
+    from predictionio_tpu_torch.ops.als import ALSModel
+    from predictionio_tpu_torch.resilience import faults
+    from predictionio_tpu_torch.resilience.pressure import device_memory_frac
+    from predictionio_tpu_torch.resilience.watchdog import watchdog
+    from predictionio_tpu_torch.serving.server import FeedbackConfig
+    from predictionio_tpu_torch.tenancy import TenancyConfig
+    t_phase = time.perf_counter()
+    tmp, config, cli = project["tmp"], project["config"], project["cli"]
+    app_id, row, model = project["app_id"], project["row"], project["model"]
+    key = project["app"]["accessKey"]
+    n_items = model.item_factors.shape[0]
+    reg = get_registry()
+    registry = StorageRegistry(config)
+    events = registry.get_events()
+    # a prepared-cache entry of this process: the ingest-cache trim's
+    pstore.pair_columns(registry, "ml1m", event_names=["rate"])
+    queries = make_queries(torch, ft, dev, rng, model, 256, n_items)
+    es = EventServer(EventServerConfig(ip="127.0.0.1", port=0), registry,
+                     metrics=MetricsRegistry())
+    es.start()
+    trace.configure(sample=QUALITY_TRACE_SAMPLE)
+    ft.LAUNCHES = 0
+    topk.PLAN_CALLS = 0
+    server = tiered = None
+    blobs = []
+    out = {"phase": "pressure", "card": card}
+    try:
+        with env_set(PIO_TSDB_INTERVAL_S=OBS_TSDB_INTERVAL_S):
+            server = deploy_instance(
+                resolve_engine("recommendation"), row,
+                RuntimeContext(registry=registry, device=dev), port=0,
+                batch_max=64, refresh_interval_s=STREAM_INTERVAL_S,
+                feedback=FeedbackConfig("127.0.0.1", es.port, key),
+                tenancy=TenancyConfig(enabled=True),
+                metrics=MetricsRegistry())
+        with env_set(PIO_SERVE_TIER="on", PIO_TIER_HOT_FRAC="0.25"):
+            tiered = deploy(ALSModel(model.user_factors,
+                                     model.item_factors.cpu(), model.users,
+                                     model.items),
+                            port=0, batch_max=64, metrics=MetricsRegistry())
+        plan = server.deployment.algos[0]._serve_plan
+        wait_status(server.port, SimpleNamespace(poll=lambda: None),
+                    "the refresher's baseline",
+                    lambda st: st["refresh"]["ticks"].get("baseline"), 60)
+        load = KeyedLoad(server.port, key, queries)
+        tload = KeyedLoad(tiered.port, "", queries)
+        res_soft = []
+        with load:
+            # -- the roles, live on these servers under load
+            own = set()
+            with tload:
+                end = time.perf_counter() + 2.5
+                while time.perf_counter() < end:
+                    own |= {b.role for b in server._own_beats()}
+                    own |= {b.role for b in tiered._own_beats()}
+                    time.sleep(0.01)
+                watchdog().sweep()
+            ages = {r: reg.value("pio_thread_beat_age_seconds", role=r)
+                    for r in BEAT_ROLES}
+            own |= {r.beat.role for r in server._httpd.reactors
+                    if r.beat is not None and not r.beat.closed}
+            if any(ages[r] is None for r in BEAT_ROLES) or \
+                    set(BEAT_ROLES) - own:
+                fail(f"pressure: beat ages {ages}, these servers' live "
+                     f"roles {sorted(own)}")
+            # -- soft
+            guard = server._pressure
+            guard.limit_bytes = 0          # the card's reading decides
+            reading = device_memory_frac()
+            guard.soft_frac = reading + PRESSURE_SOFT_MARGIN
+            guard.hard_frac = reading + PRESSURE_HARD_MARGIN
+            frac_of = getattr(torch.cuda, "get_per_process_memory_fraction",
+                              lambda d: 1.0)
+            limit = torch.cuda.get_device_properties(dev).total_memory * \
+                frac_of(dev)
+            trims0 = {t: (reg.value("pio_mem_trims_total", target=t) or 0,
+                          reg.value("pio_mem_trimmed_bytes_total",
+                                    target=t) or 0) for t in TRIM_TARGETS}
+            sheds = lambda: prom_sum(prom(server.metrics.render()),  # noqa: E731
+                                     'pio_shed_total{surface="memory"')
+            shed0 = sheds()
+            n0 = len(load.res)
+            faults().arm("serve.predict", latency=1.0, times=1)
+            inflight = []
+            import threading
+            th = threading.Thread(target=lambda: inflight.append(
+                load.one(0)))
+            th.start()
+            time.sleep(0.2)
+            blobs.append(torch.empty(int((PRESSURE_SOFT_MARGIN + 0.005)
+                                         * limit), dtype=torch.uint8,
+                                     device=dev))
+            t_soft = time.perf_counter()
+            end = t_soft + 10
+            while guard.state != "soft" and time.perf_counter() < end:
+                time.sleep(0.02)
+            soft_after_s = time.perf_counter() - t_soft
+            shed = [load.one(n) for n in range(PRESSURE_SHED)]
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}/ready",
+                    timeout=30) as resp:
+                ready_soft = resp.status
+            th.join(60)
+            soft_frac = guard.observed_frac()
+            trims1 = {t: (reg.value("pio_mem_trims_total", target=t) or 0,
+                          reg.value("pio_mem_trimmed_bytes_total",
+                                    target=t) or 0) for t in TRIM_TARGETS}
+            shed1 = sheds()
+            blobs.pop()
+            torch.cuda.empty_cache()
+            end = time.perf_counter() + 10
+            while guard.state != "ok" and time.perf_counter() < end:
+                time.sleep(0.02)
+            time.sleep(0.5)
+            res_soft = list(load.res[n0:])
+            resumed = load.one(1)
+        if guard.state == "soft" or soft_frac is None or \
+                soft_frac < guard.soft_frac:
+            fail(f"pressure (soft): the guard {guard.detail()} read "
+                 f"{soft_frac} after {soft_after_s:.2f} s")
+        released = {t: trims1[t][1] - trims0[t][1] for t in TRIM_TARGETS}
+        if any(trims1[t][0] != trims0[t][0] + 1 for t in TRIM_TARGETS) or \
+                any(v <= 0 for v in released.values()):
+            fail(f"pressure (soft): trims {trims0} -> {trims1}")
+        if any(r[1] != 503 or not r[3] or "memory pressure" not in
+               r[2].get("message", "") for r in shed) or \
+                shed1 - shed0 < PRESSURE_SHED or ready_soft != 200:
+            fail(f"pressure (soft): new requests {[r[1] for r in shed]}, "
+                 f"sheds {shed1 - shed0}, /ready {ready_soft}")
+        if not inflight or inflight[0][1] != 200 or resumed[1] != 200:
+            fail(f"pressure (soft): in flight {inflight[:1]}, after the "
+                 f"release {resumed[1]}")
+        answered = [r for r in load.res + inflight + [resumed]
+                    if r[1] == 200]
+        others = [r for r in load.res if r[1] not in (200, 503)]
+        if others or any(r[1] == 503 and "memory pressure" not in
+                         r[2].get("message", "") for r in load.res):
+            fail(f"pressure: answers other than 200 or the memory 503: "
+                 f"{(others or load.res)[0][:3]}")
+        err = check_answers(torch, ft, dev, model,
+                            [queries[r[0]] for r in answered],
+                            [r[2]["itemScores"] for r in answered], n_items)
+        tres = [r for r in tload.res if r[1] != 200]
+        if tres:
+            fail(f"pressure: the tiered server answered {tres[0][:3]}")
+        # -- stall: the refresher wedged past its budget, then a fold
+        ref = server._refresher
+        stalls0 = reg.value("pio_watchdog_stalls_total",
+                            role="refresher") or 0
+        restarts0 = reg.value("pio_thread_restarts_total",
+                              role="refresher") or 0
+        wedged = ref.threads()
+        folded0 = ref.ticks.get("folded", 0)
+        t_stall = time.perf_counter()
+        faults().arm("thread.refresher.stall", latency=PRESSURE_STALL_S,
+                     times=1)
+        end = t_stall + PRESSURE_STALL_S + 20
+        while (reg.value("pio_thread_restarts_total", role="refresher")
+               or 0) <= restarts0 and time.perf_counter() < end:
+            time.sleep(0.05)
+        restarted_s = time.perf_counter() - t_stall
+        drip = drip_events(model, rng, time.time())
+        events.insert_batch(drip, app_id)
+        end = time.perf_counter() + 120
+        while ref.ticks.get("folded", 0) <= folded0 and \
+                time.perf_counter() < end:
+            time.sleep(0.05)
+        folded_s = time.perf_counter() - t_stall
+        end = time.perf_counter() + PRESSURE_STALL_S + 10
+        while any(t.is_alive() for t in wedged) and \
+                time.perf_counter() < end:
+            time.sleep(0.05)
+        threads = ref.threads()
+        stalls = (reg.value("pio_watchdog_stalls_total", role="refresher")
+                  or 0) - stalls0
+        restarts = (reg.value("pio_thread_restarts_total", role="refresher")
+                    or 0) - restarts0
+        if stalls != 1 or restarts != 1 or \
+                ref.ticks.get("folded", 0) != folded0 + 1 or \
+                len(threads) != 1 or threads[0] in wedged or \
+                ref.beat is None or ref.beat.degraded:
+            fail(f"pressure (stall): {stalls} stalls, {restarts} restarts, "
+                 f"ticks {ref.ticks}, {len(threads)} refresher threads")
+        # -- hard
+        fired = []
+        guard.on_hard(lambda: fired.append(time.perf_counter()))
+        t_hard = time.perf_counter()
+        blobs.append(torch.empty(int((PRESSURE_HARD_MARGIN + 0.005)
+                                     * limit), dtype=torch.uint8,
+                                 device=dev))
+        end = t_hard + 10
+        while guard.state != "hard" and time.perf_counter() < end:
+            time.sleep(0.02)
+        ready_hard, detail = server.readiness()
+        hard_frac = guard.observed_frac()
+        end = time.perf_counter() + 60
+        while server.is_running() and time.perf_counter() < end:
+            time.sleep(0.05)
+        time.sleep(2.5)                    # two more sweeps in hard
+        drained_s = time.perf_counter() - t_hard
+        stopped = not server.is_running()
+        blobs.pop()
+        torch.cuda.empty_cache()
+        if guard.state != "hard" or ready_hard or len(fired) != 1 or \
+                detail.get("memPressure", {}).get("state") != "hard" or \
+                not stopped:
+            fail(f"pressure (hard): state {guard.state}, /ready "
+                 f"{ready_hard} {detail.get('memPressure')}, drains "
+                 f"{len(fired)}, stopped {stopped}")
+        members = member_calls(server)
+        tplan = tiered.deployment.algos[0]._serve_plan
+        launches, calls = ft.LAUNCHES, topk.PLAN_CALLS
+        if not launches == calls or members["plan_calls"] != \
+                members["expected_calls"]:
+            fail(f"pressure: K1 launches {launches}, plan calls {calls}, "
+                 f"the served plan's {members}")
+    finally:
+        faults().clear()
+        trace.configure(sample=0.0)
+        blobs.clear()
+        for srv in (server, tiered):
+            if srv is not None:
+                srv.stop()
+        es.shutdown()
+    # -- ingestd holds no device file
+    proc, iport = start_ingestd(tmp, cli)
+    try:
+        ingestd_metrics = len(http_metrics(iport))
+        card_ingestd = off_card(proc, "pressure")
+    finally:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        _BACKGROUND.discard(proc)
+    registry.close()
+    out.update({
+        "roles": {r: ages[r] for r in BEAT_ROLES},
+        "soft": {"reading_before": reading, "soft_frac": guard.soft_frac,
+                 "hard_frac": guard.hard_frac, "read_at_soft": soft_frac,
+                 "card_limit_bytes": limit,
+                 "soft_after_s": soft_after_s,
+                 "trims": {t: trims1[t][0] - trims0[t][0]
+                           for t in TRIM_TARGETS},
+                 "released_bytes": released,
+                 "new_requests_shed": len(shed),
+                 "memory_sheds_counted": shed1 - shed0,
+                 "retry_after": shed[0][3], "ready": ready_soft,
+                 "inflight_status": inflight[0][1],
+                 "load_requests": len(res_soft),
+                 "load_shed": sum(r[1] == 503 for r in res_soft)},
+        "stall": {"stall_s": PRESSURE_STALL_S, "budget_s":
+                  STREAM_INTERVAL_S * 3 + 5, "stalls": stalls,
+                  "restarts": restarts, "restarted_after_s": restarted_s,
+                  "drip_events": len(drip), "folded_after_s": folded_s,
+                  "refresher_threads": len(threads)},
+        "hard": {"read_at_hard": hard_frac, "drains": len(fired),
+                 "ready": ready_hard, "stopped_after_s": drained_s},
+        "answers_checked": len(answered), "max_abs_err": err,
+        "tiered_requests": len(tload.res), "tiered_plan_calls": tplan.calls,
+        "served_plan": members, "launches": launches, "plan_calls": calls,
+        "ingestd_metrics_series": ingestd_metrics,
+        "ingestd_off_card": card_ingestd,
+        "seconds": time.perf_counter() - t_phase})
     emit(out)
     return out
 
@@ -7269,12 +7984,22 @@ def step_parity(torch, what: str, card_losses, cpu_losses, make_step,
     THEN the precision is set to `high`, and the PARITY_STEPS steps run
     through the step function it returns; the phase fails unless
     cuBLAS may still take TF32 at the end of them. The bfloat16 control
-    runs one epoch (`train_epoch(losses)`) under autocast."""
+    runs one epoch (`train_epoch(losses)`) under autocast. Before the
+    controls, the card's steps again from the same init through
+    `make_step()` at float32 must give the same losses bit for bit (the
+    card's step is deterministic; the CPU reference runs on one thread,
+    whose sums are too, ROADMAP F8)."""
+    card = [float(x) for x in card_losses[:PARITY_STEPS]]
     rel = max_rel(card_losses, cpu_losses)
     if not rel <= STEP_RTOL:
         fail(f"{what}: the card's step losses "
-             f"{[float(x) for x in card_losses[:4]]} ... differ from the "
+             f"{card[:4]} ... differ from the "
              f"CPU port's {cpu_losses[:4]} ... by {rel} (tol {STEP_RTOL})")
+    step = make_step()
+    again = [float(step(s)) for s in range(PARITY_STEPS)]
+    if again != card:
+        fail(f"{what}: the card's step losses from the same init and "
+             f"batches differ between two runs: {card} and {again}")
     step = make_step()
     prior = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
@@ -7290,7 +8015,8 @@ def step_parity(torch, what: str, card_losses, cpu_losses, make_step,
     with torch.autocast("cuda", dtype=torch.bfloat16):
         train_epoch(bf16)
     tf32_rel = max_rel(tf32, cpu_losses)
-    return {"max_rel": rel, "tol": STEP_RTOL,
+    return {"max_rel": rel, "tol": STEP_RTOL, "card_losses": card,
+            "card_repeat_identical": True, "cpu_threads": 1,
             "tf32_control_flag": flag,
             "tf32_control_max_rel": tf32_rel,
             "tf32_control_within_tol": tf32_rel <= STEP_RTOL,
@@ -7319,14 +8045,23 @@ def neural_twotower_op(torch, dev) -> dict:
     order = np.random.RandomState(0).permutation(n)[:steps * TT_BATCH]
     init = tw.random_params(0, TT_USERS, TT_ITEMS, TT_EMB, TT_HIDDEN,
                             TT_OUT)
-    net = tw.TwoTowerNet(init, "cpu")
-    adam = Adam(list(net.parameters()), lr)
-    cpu_losses = []
-    for s in range(PARITY_STEPS):
-        sel = order[s * TT_BATCH:(s + 1) * TT_BATCH]
-        cpu_losses.append(float(tw.train_step(
-            net, adam, torch.from_numpy(ut[sel].astype(np.int64)),
-            torch.from_numpy(it[sel].astype(np.int64)), temp)))
+    # one intra-op thread: the CPU's multi-threaded sums change from run
+    # to run, one thread's do not (ROADMAP F8); a copy of the init, which
+    # a CPU net's parameters share and Adam updates in place
+    import copy
+    prior = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        net = tw.TwoTowerNet(copy.deepcopy(init), "cpu")
+        adam = Adam(list(net.parameters()), lr)
+        cpu_losses = []
+        for s in range(PARITY_STEPS):
+            sel = order[s * TT_BATCH:(s + 1) * TT_BATCH]
+            cpu_losses.append(float(tw.train_step(
+                net, adam, torch.from_numpy(ut[sel].astype(np.int64)),
+                torch.from_numpy(it[sel].astype(np.int64)), temp)))
+    finally:
+        torch.set_num_threads(prior)
     tw.twotower_train(ut[:2 * TT_BATCH], it[:2 * TT_BATCH], epochs=1,
                       device=dev, **kw)                  # CUDA set-up
     torch.cuda.synchronize()
@@ -7387,23 +8122,12 @@ def neural_seqrec_op(torch, dev) -> dict:
     profiled; then `seqrec_encode` ms at batches 1, 64 and 256."""
     from predictionio_tpu_torch.ops import seqrec as sq
     from predictionio_tpu_torch.ops.adam import Adam
-    d = seqrec_data(SR_USERS)
-    st, tt_ = d["seqs"][~d["held"]], d["targets"][~d["held"]]
+    d, st, tt_, init, kw = seqrec_parity_inputs()
     sh, th = d["seqs"][d["held"]], d["targets"][d["held"]]
     lr, temp = 3e-3, 0.07                    # seqrec_train's defaults
-    kw = dict(n_items=SR_ITEMS, seq_len=SR_SEQ, dim=SR_DIM,
-              n_heads=SR_HEADS, n_layers=SR_LAYERS, batch_size=SR_BATCH,
-              seed=0)
-    init = sq.random_params(0, SR_ITEMS, SR_SEQ, SR_DIM, SR_LAYERS)
-    net = sq.SeqRecNet(init, n_items=SR_ITEMS, n_heads=SR_HEADS,
-                       device="cpu")
-    adam = Adam(list(net.parameters()), lr)
-    cpu_losses = []
-    for s in range(PARITY_STEPS):
-        rows = slice(s * SR_BATCH, (s + 1) * SR_BATCH)
-        cpu_losses.append(float(sq.train_step(
-            net, adam, torch.from_numpy(st[rows].astype(np.int64)),
-            torch.from_numpy(tt_[rows].astype(np.int64)), temp)))
+    # one intra-op thread: the CPU's multi-threaded sums change from run
+    # to run, one thread's do not (ROADMAP F8)
+    cpu_losses = seqrec_steps(torch, "cpu", init, st, tt_, threads=1)
     sq.seqrec_train(st[:2 * SR_BATCH], tt_[:2 * SR_BATCH], epochs=1,
                     device=dev, **kw)                    # CUDA set-up
     torch.cuda.synchronize()
@@ -7471,6 +8195,120 @@ def neural_seqrec_op(torch, dev) -> dict:
             "popularity_hitrate_at_10": pop_hr,
             "hitrate_vs_popularity": hr / max(pop_hr, 1e-9),
             "encode": encode, "peak_device_bytes": peak}
+
+
+def seqrec_parity_inputs():
+    """Phase neural's seqrec step-parity inputs: the training sequences
+    and targets, the init (random_params, seed 0) and the trainer's
+    keyword arguments."""
+    from predictionio_tpu_torch.ops import seqrec as sq
+    d = seqrec_data(SR_USERS)
+    st, tt_ = d["seqs"][~d["held"]], d["targets"][~d["held"]]
+    kw = dict(n_items=SR_ITEMS, seq_len=SR_SEQ, dim=SR_DIM,
+              n_heads=SR_HEADS, n_layers=SR_LAYERS, batch_size=SR_BATCH,
+              seed=0)
+    return d, st, tt_, sq.random_params(0, SR_ITEMS, SR_SEQ, SR_DIM,
+                                        SR_LAYERS), kw
+
+
+def seqrec_steps(torch, dev, init, st, tt_, threads: int = 0) -> list:
+    """The port's first PARITY_STEPS seqrec steps (`train_step`, lr and
+    temperature as `seqrec_train`'s defaults) on `dev` from a copy of
+    `init` (the net's parameters share a CPU init's memory, and Adam
+    updates them in place); on the CPU at `threads` intra-op threads
+    when given. Returns the losses as floats."""
+    import copy
+    from predictionio_tpu_torch.ops import seqrec as sq
+    from predictionio_tpu_torch.ops.adam import Adam
+    prior = torch.get_num_threads()
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        net = sq.SeqRecNet(copy.deepcopy(init), n_items=SR_ITEMS,
+                           n_heads=SR_HEADS, device=dev)
+        adam = Adam(list(net.parameters()), 3e-3)
+        out = []
+        for s in range(PARITY_STEPS):
+            rows = slice(s * SR_BATCH, (s + 1) * SR_BATCH)
+            out.append(sq.train_step(
+                net, adam, torch.from_numpy(st[rows].astype(np.int64)).to(dev),
+                torch.from_numpy(tt_[rows].astype(np.int64)).to(dev), 0.07))
+        return [float(x) for x in out]
+    finally:
+        torch.set_num_threads(prior)
+
+
+STEP_LOAD = r"""
+import sys, time
+if sys.argv[1] == "card":
+    import torch
+    a = torch.randn(4096, 4096, device="cuda")
+    end = time.time() + float(sys.argv[2])
+    while time.time() < end:
+        for _ in range(20):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize()
+else:
+    end = time.time() + float(sys.argv[2])
+    while time.time() < end:
+        pass
+"""
+
+
+def phase_steps(torch, dev, card: str) -> dict:
+    """`--only steps`: what moves seqrec's step parity from run to run.
+    The card's PARITY_STEPS losses from the same init three times, and
+    `seqrec_train`'s first ones; the CPU port's at 1, 2 and 4 intra-op
+    threads and at the process's default, twice each; then the card's
+    and the CPU's once more beside a loaded card (another process's
+    matrix products) and a loaded host (a busy process per CPU). Gates
+    nothing; prints every loss and which runs agree bit for bit."""
+    from predictionio_tpu_torch.ops import seqrec as sq
+    t_phase = time.perf_counter()
+    _, st, tt_, init, kw = seqrec_parity_inputs()
+    card_runs = [seqrec_steps(torch, dev, init, st, tt_) for _ in range(3)]
+    trained = []
+    sq.seqrec_train(st[:PARITY_STEPS * SR_BATCH], tt_[:PARITY_STEPS
+                                                     * SR_BATCH],
+                    epochs=1, device=dev, step_losses=trained, **kw)
+    trained = [float(x) for x in trained]
+    default = torch.get_num_threads()
+    counts = sorted({1, 2, 4, default})
+    cpu = {n: [seqrec_steps(torch, "cpu", init, st, tt_, n)
+               for _ in range(2)] for n in counts}
+    loads = [subprocess.Popen([sys.executable, "-c", STEP_LOAD, "card",
+                               "120"])]
+    loads += [subprocess.Popen([sys.executable, "-c", STEP_LOAD, "host",
+                                "120"]) for _ in range(os.cpu_count() or 1)]
+    for proc in loads:
+        _BACKGROUND.add(proc)
+    try:
+        time.sleep(10)                  # the card's load under way
+        card_loaded = seqrec_steps(torch, dev, init, st, tt_)
+        cpu_loaded = {n: seqrec_steps(torch, "cpu", init, st, tt_, n)
+                      for n in (1, default)}
+    finally:
+        for proc in loads:
+            proc.kill()
+            proc.wait()
+            _BACKGROUND.discard(proc)
+    ref = card_runs[0]
+    out = {"phase": "steps", "card": card, "default_threads": default,
+           "card_losses": ref,
+           "card_runs_identical": all(r == ref for r in card_runs),
+           "seqrec_train_identical": trained[:PARITY_STEPS] == ref,
+           "card_loaded_identical": card_loaded == ref,
+           "cpu": {str(n): {"losses": runs[0],
+                            "repeat_identical": runs[0] == runs[1],
+                            "max_rel_card": max_rel(ref, runs[0])}
+                   for n, runs in cpu.items()},
+           "cpu_loaded_identical": {str(n): v == cpu[n][0]
+                                    for n, v in cpu_loaded.items()},
+           "cpu_loaded_max_rel_card": {str(n): max_rel(ref, v)
+                                       for n, v in cpu_loaded.items()},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
 
 
 def neural_ingest(events, app_id: int, users, items, t_ms) -> dict:
@@ -7904,9 +8742,23 @@ def obs_only(torch, ft, dev, rng, model) -> dict:
     if sorted({r[0] for r in run["res"]}) != [200]:
         fail("obs: the untraced selector pass failed requests")
     check_wire_answers(torch, ft, dev, model, reqs, run["res"], "selector")
-    return {"a": run["obs"],
+    return {"a": run["obs"], "quality": run["quality"],
             "untraced_selector": lat_summary(run["res"],
                                              range(len(run["res"])))}
+
+
+def phase_quality(card: str, a: dict, bc: dict, d: Optional[dict]) -> dict:
+    """Phase quality's line, from the parts its hosts ran and gated: (a)
+    phase wire's selector server (`quality_pass`), (b) and (c) inside
+    phase fleet (`canary_gates`, `canary_veto`), (d) inside phase
+    quickstart (`quality_conversions`; None under `--only quality`).
+    Its launches: (a)'s two passes and (c)'s server; (b)'s canary
+    replays are fleet (b)'s launches."""
+    out = {"phase": "quality", "card": card, "a": a, "b": bc["b"],
+           "c": bc["c"], "d": d,
+           "launches": a["launches"] + bc["c"]["launches"]}
+    emit(out)
+    return out
 
 
 def phase_obs(card: str, parts: dict) -> dict:
@@ -7947,7 +8799,8 @@ def main() -> int:
                                        "streaming", "quickstart",
                                        "templates", "classification",
                                        "neural", "wire", "fleet",
-                                       "storage", "ingest", "obs"),
+                                       "storage", "ingest", "obs",
+                                       "quality", "pressure", "steps"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
@@ -7960,8 +8813,12 @@ def main() -> int:
                          "direct selector pass and fleet; storage for "
                          "parity and storage; ingest for parity, the "
                          "PEVLOG project and ingest; obs for parity and "
-                         "phase obs (a) on phase serve's model), no "
-                         "kernels line")
+                         "phase obs (a) on phase serve's model; quality "
+                         "for parity, phase wire's selector pass with "
+                         "quality (a), phase fleet with (b) and (c); "
+                         "pressure for parity, the PEVLOG project and "
+                         "phase pressure; steps for the seqrec step "
+                         "diagnostic), no kernels line")
     args = ap.parse_args()
     t_script = time.perf_counter()
     # a SIGTERM (a phase process stopped by its parent) exits through
@@ -8009,13 +8866,14 @@ def main() -> int:
         return trained[0], served
 
     def pevlog_phases(streaming: bool, quickstart: bool, ingest: bool,
-                      beside=None):
-        """Phases streaming, quickstart and ingest over one PEVLOG
-        project: one import and one train for all. `beside`, phase
+                      beside=None, pressure: bool = False):
+        """Phases streaming, quickstart, ingest and pressure over one
+        PEVLOG project: one import and one train for all. `beside`, phase
         lifecycle, runs while the PEVLOG import does (their imports
         overlap, one process each). Phase ingest's scans and train run
         on the project's thread after its train (beside phase
-        lifecycle), its deploy, drip and kill after phase quickstart."""
+        lifecycle), its deploy, drip and kill after phase quickstart;
+        phase pressure last."""
         with tempfile.TemporaryDirectory(prefix="chip_smoke_pevlog_") as tmp:
             started = pevlog_import(
                 Path(tmp), args.seed,
@@ -8034,8 +8892,13 @@ def main() -> int:
                                   import_eps) if quickstart else None
             ing = ingest_serve_fold(torch, ft, dev, rng, project) \
                 if ingest else None
-        return ran, st, qs, ing
+            pr = phase_pressure(torch, ft, dev, rng, project, card) \
+                if pressure else None
+        return ran, st, qs, ing, pr
 
+    # a phase process of a whole run: that run held the kernel to its
+    # plain version already
+    in_phase_process = os.environ.get("CHIP_SMOKE_PHASE_PROCESS") == "1"
     if args.only is not None:
         if args.only == "serve_sharded":
             model, _ = make_model(torch, rng)
@@ -8048,14 +8911,18 @@ def main() -> int:
             phase_lifecycle(torch, ft, dev, rng, args.seed,
                             args.lifecycle_requests)
         elif args.only == "templates":
-            phase_parity(torch, ft, dev, rng)
+            if not in_phase_process:
+                phase_parity(torch, ft, dev, rng)
             phase_templates(torch, ft, dev, rng, args.seed,
                             args.templates_requests)
         elif args.only == "classification":
-            phase_parity(torch, ft, dev, rng)
+            if not in_phase_process:
+                phase_parity(torch, ft, dev, rng)
             phase_classification(torch, ft, dev, args.seed, card)
         elif args.only == "neural":
             phase_neural(torch, ft, dev, args.seed, card)
+        elif args.only == "steps":
+            phase_steps(torch, dev, card)
         elif args.only == "wire":
             phase_parity(torch, ft, dev, rng)
             model, _ = make_model(torch, rng)
@@ -8073,6 +8940,16 @@ def main() -> int:
             phase_parity(torch, ft, dev, rng)
             model, _ = make_model(torch, rng)
             phase_obs(card, obs_only(torch, ft, dev, rng, model))
+        elif args.only == "quality":
+            phase_parity(torch, ft, dev, rng)
+            model, _ = make_model(torch, rng)
+            a = obs_only(torch, ft, dev, rng, model)
+            fleet = phase_fleet(torch, ft, dev, rng, model, card,
+                                a["untraced_selector"])
+            phase_quality(card, a["quality"], fleet["quality_bc"], None)
+        elif args.only == "pressure":
+            phase_parity(torch, ft, dev, rng)
+            pevlog_phases(False, False, False, pressure=True)
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
@@ -8086,31 +8963,37 @@ def main() -> int:
     err = phase_parity(torch, ft, dev, rng)
     model, setup_s = make_model(torch, rng)
     serve = phase_serve(torch, ft, dev, rng, model, setup_s, args.requests)
+    # phase wire's qps and the timing phases have the card and the host
+    # to themselves
     wire = phase_wire(torch, ft, dev, rng, model, card)
+    timing = phase_timing(torch, ft, dev, rng, card)
+    timing_ec = phase_timing_ecommerce(torch, ft, dev, rng, card)
+    timing_sh = phase_timing_sharded(torch, ft, dev, rng, model, card)
     fleet = phase_fleet(torch, ft, dev, rng, model, card,
                         wire["wires"]["selector"]["all"])
+    # the phases that need nothing of the ML-1M chain run beside it, each
+    # in a process of its own (F7): the ML-25M train, the templates,
+    # classification and the neural recommenders
+    side = {name: start_phase_process(name, args.seed)
+            for name in ("train", "templates", "classification", "neural")}
     storage = phase_storage(torch, ft, dev, rng, model, card, args.seed)
     err_sh = phase_parity_sharded(torch, ft, dev, rng, model)
     serve_sh = phase_serve_sharded(torch, ft, dev, rng, model,
                                    args.sharded_requests)
     tiered = phase_serve_tiered(torch, ft, dev, rng, model,
                                 args.tiered_queries)
-    timing = phase_timing(torch, ft, dev, rng, card)
-    timing_ec = phase_timing_ecommerce(torch, ft, dev, rng, card)
-    timing_sh = phase_timing_sharded(torch, ft, dev, rng, model, card)
     del model
-    _, served = train_phases()
-    lifecycle, streaming, quickstart, ingest = pevlog_phases(
+    lifecycle, streaming, quickstart, ingest, pressure = pevlog_phases(
         True, True, True,
         lambda: phase_lifecycle(torch, ft, dev, rng, args.seed,
-                                args.lifecycle_requests))
-    # phase neural launches no K1 or K2 and is host-bound, as are the
-    # two phases it runs beside
-    neural_proc = start_phase_process("neural", args.seed)
-    templates = phase_templates(torch, ft, dev, rng, args.seed,
-                                args.templates_requests)
-    classification = phase_classification(torch, ft, dev, args.seed, card)
-    neural = finish_phase_process(neural_proc)
+                                args.lifecycle_requests), pressure=True)
+    served = finish_phase_process(side["train"],
+                                  also=("serve_trained",))["serve_trained"]
+    templates = finish_phase_process(side["templates"])
+    classification = finish_phase_process(side["classification"])
+    neural = finish_phase_process(side["neural"])
+    quality = phase_quality(card, wire["quality"], fleet["quality_bc"],
+                            quickstart["quality_d"])
     phase_obs(card, {
         "a": wire["obs"],
         "untraced_selector": wire["wires"]["selector"]["all"],
@@ -8143,6 +9026,8 @@ def main() -> int:
         "templates_launches": templates["templates_launches"],
         "classification_launches": classification["k1_launches"],
         "neural_launches": neural["k1_launches"],
+        "quality_launches": quality["launches"],
+        "pressure_launches": pressure["launches"],
         "by_bucket": {str(b): r for b, r in timing.items()},
         "by_width": {str(EC_WIDTH): {str(b): r
                                      for b, r in timing_ec.items()}}}, {

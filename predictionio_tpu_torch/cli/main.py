@@ -27,7 +27,9 @@
         [--replicas N | --supervised N | --standby | --join URL[,URL]] \
         [--advertise HOST:PORT] [--member-name NAME] \
         [--mesh items=N@fleet[:i]] [--tenancy on|off] [--tenant-rate R] \
-        [--tenant-burst B] [--tenant-concurrency C] [--tenant-queue-max Q]
+        [--tenant-burst B] [--tenant-concurrency C] [--tenant-queue-max Q] \
+        [--quality on|off] [--attribution-s S] [--canary-sample N] \
+        [--canary-min-overlap F]
     python -m predictionio_tpu_torch.cli undeploy [--ip 127.0.0.1] \
         [--port 8000] [--accesskey SERVER_KEY]
     python -m predictionio_tpu_torch.cli redeploy [--engine-json engine.json] \
@@ -89,6 +91,14 @@ supervised child i) as slice i % N; `--mesh items=N@fleet:i` makes a
 enforces per-app quotas (429 with Retry-After) and weighted-fair
 batching; `--tenant-*` set the defaults (`PIO_TENANT_*`), `app quota-set`
 an app's own override, which servers read within 10 s.
+`--quality on|off` (default `PIO_QUALITY`, on) keeps score sketches and
+drift per app on the serve path (`/quality.json`), joins `--feedback`'s
+events back to their predictions within `--attribution-s` (default
+`PIO_ATTRIBUTION_S`, 300), and runs the reload canary: `--canary-sample`
+kept traces (default `PIO_CANARY_SAMPLE`, 16; 0 turns it off) replayed
+through the old and the new model, and a reload refused below
+`--canary-min-overlap` (default `PIO_CANARY_MIN_OVERLAP`, 0: report
+only).
 `--server-key` (else `PIO_SERVER_ACCESS_KEY` of the storage config, the
 JAX name) guards the server's `/reload` and `/stop` (on a fleet, its
 membership routes too) and signs a router's tenant header and the
@@ -399,6 +409,21 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--tenant-queue-max", type=int,
                    help="default per-app micro-batch lane cap "
                         "(PIO_TENANT_QUEUE_MAX)")
+    x.add_argument("--quality", choices=["on", "off"],
+                   help="score sketches and drift on the serve path, the "
+                        "feedback join (with --feedback) and the reload "
+                        "canary (default: PIO_QUALITY, on)")
+    x.add_argument("--attribution-s", type=float, default=0.0,
+                   help="the feedback join's window, seconds "
+                        "(PIO_ATTRIBUTION_S, default 300)")
+    x.add_argument("--canary-sample", type=int, default=-1,
+                   help="kept traces replayed through the old and the new "
+                        "model per reload (PIO_CANARY_SAMPLE, default 16; "
+                        "0 turns the canary off)")
+    x.add_argument("--canary-min-overlap", type=float, default=-1.0,
+                   help="refuse a reload whose replayed top-k overlap is "
+                        "below this (PIO_CANARY_MIN_OVERLAP, default 0: "
+                        "report only)")
     x = sub.add_parser("undeploy", help="POST /stop to a running server")
     x.add_argument("--ip", default="127.0.0.1")
     x.add_argument("--port", type=int, default=8000)
@@ -571,7 +596,11 @@ def _deploy(args, argv: Sequence[str]) -> int:
                          "items=N@fleet:i with a single or --join replica")
     server_kw = dict(
         window_s=args.batch_window_ms / 1000.0, server_key=server_key,
-        ssl_context=ssl_context_from_config(registry.config))
+        ssl_context=ssl_context_from_config(registry.config),
+        quality=(args.quality == "on" if args.quality else None),
+        attribution_s=args.attribution_s,
+        canary_sample=args.canary_sample,
+        canary_min_overlap=args.canary_min_overlap)
     if router:
         if args.model:
             raise ValueError("a fleet serves engine instances, not --model")

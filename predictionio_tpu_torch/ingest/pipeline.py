@@ -95,9 +95,43 @@ def _cache_dir(store, app_id: int,
     if store.ingest_watermark(app_id, channel_id) is None:
         return None
     if mode and mode.lower() != "default":
-        return Path(mode)
+        return _track_cache_dir(Path(mode))
     d = store.ingest_cache_dir(app_id, channel_id)
-    return Path(d) if d is not None else None
+    return _track_cache_dir(Path(d)) if d is not None else None
+
+
+# every cache directory this process used, so that the memory-pressure
+# trim finds the prepared blobs without a store handle
+_seen_cache_dirs: set = set()
+_seen_lock = threading.Lock()
+
+
+def _track_cache_dir(d: Path) -> Path:
+    with _seen_lock:
+        _seen_cache_dirs.add(d)
+    return d
+
+
+def trim_prepared_cache() -> int:
+    """The memory-pressure trim: delete every prepared-cache entry in
+    every cache directory this process used (the next prepare pays one
+    full scan). Returns the bytes released."""
+    with _seen_lock:
+        dirs = list(_seen_cache_dirs)
+    freed = 0
+    for d in dirs:
+        try:
+            entries = list(d.glob("*.pioc"))
+        except OSError:
+            continue
+        for p in entries:
+            try:
+                size = p.stat().st_size
+                p.unlink()
+                freed += size
+            except OSError:
+                pass
+    return freed
 
 
 def _encode_sig(v):

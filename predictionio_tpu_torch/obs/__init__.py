@@ -3,8 +3,8 @@
 report, the flight recorder (`trace`), the time-series ring (`tsdb`),
 the sampling profiler with the runtime gauges (`profiler`) and the
 kernel build and launch probe (`kernelprobe`, in place of the JAX
-package's `jaxprobe`). Prediction quality (the JAX `obs/quality.py`) is
-not ported yet (ROADMAP.md, Queue 1 item 5(b))."""
+package's `jaxprobe`), and prediction quality (`quality`: score sketches,
+drift, the feedback join and the reload canary)."""
 
 from predictionio_tpu_torch.obs.metrics import (  # noqa: F401
     DEFAULT_BUCKETS, Counter, Gauge, Histogram, MetricsRegistry,
@@ -31,4 +31,8 @@ from predictionio_tpu_torch.obs.profiler import (  # noqa: F401
 )
 from predictionio_tpu_torch.obs.tsdb import (  # noqa: F401
     Scraper, TSDB, series_key,
+)
+from predictionio_tpu_torch.obs.quality import (  # noqa: F401
+    CanaryGate, CanaryVeto, QualityJoiner, QualityStats,
+    QuantileSketch, js_divergence, psi, quality_enabled,
 )

@@ -71,12 +71,14 @@ _ROLE_PREFIXES: Tuple[Tuple[str, str], ...] = (
     ("pio-torch-heartbeat-", "heartbeat"),
     ("pio-torch-ingestd-janitor", "heartbeat"),
     ("pio-fsck-sched", "heartbeat"),
+    ("pio-torch-quality-join", "joiner"),
     ("pio-torch-prof", "obs"),
     ("pio-torch-tsdb", "obs"),
     ("pio-torch-watchdog", "obs"),
     ("pio-torch-supervisor", "supervisor"),
     ("pio-torch-server-stop", "supervisor"),
     ("pio-torch-signal-stop", "supervisor"),
+    ("pio-torch-mem-drain", "supervisor"),
     ("pio-torch-http-", "http"),
     ("MainThread", "main"),
 )

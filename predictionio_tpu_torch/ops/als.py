@@ -512,7 +512,9 @@ def _run_als(x: torch.Tensor, y: torch.Tensor, user_slabs: Sequence[tuple],
     it = _Iteration(x, y, user_slabs, item_slabs, reg, alpha,
                     implicit=implicit, rank=rank, cg_iters=cg_iters,
                     cast=cast)
+    from predictionio_tpu_torch.resilience.watchdog import progress
     for _ in range(n_iter):
+        progress()          # an iteration of a refresher's rebuild
         it()
     return x, y, it.res
 

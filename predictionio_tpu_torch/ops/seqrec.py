@@ -257,7 +257,9 @@ def seqrec_train(sequences: np.ndarray, targets: np.ndarray, *,
     tgt_all = torch.from_numpy(np.asarray(targets[:n], np.int64)
                                .reshape(-1, batch_size)).to(dev)
     steps = seq_all.shape[0]
+    from predictionio_tpu_torch.resilience.watchdog import progress
     for epoch in range(epochs):
+        progress()          # an epoch of a refresher's rebuild stamps it
         for s in range(steps):
             loss = train_step(net, adam, seq_all[s], tgt_all[s], temperature)
             if step_losses is not None:

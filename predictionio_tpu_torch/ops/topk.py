@@ -54,9 +54,17 @@ DISPATCH_COUNTS = {"host": 0, "device": 0, "fused": 0, "sharded": 0}
 PLAN_CALLS = 0
 
 
-def count_plan_call() -> None:
+_CALLS_LOCK = threading.Lock()
+
+
+def count_plan_call(plan=None) -> None:
+    """One call of a K1 plan: the process count and `plan.calls`, under
+    one lock (the reload canary calls a plan beside the drainer)."""
     global PLAN_CALLS
-    PLAN_CALLS += 1
+    with _CALLS_LOCK:
+        PLAN_CALLS += 1
+        if plan is not None:
+            plan.calls += 1
 
 # below this many cells the policy never promotes to the device
 PROMOTE_FLOOR_CELLS = int(os.environ.get(
@@ -480,8 +488,7 @@ class BucketedTopK:
 
     def _launch(self, vecs: torch.Tensor, banned: np.ndarray):
         from predictionio_tpu_torch.ops import fused_topk
-        self.calls += 1
-        count_plan_call()
+        count_plan_call(self)
         return fused_topk.fused_topk(
             vecs, self.factors, torch.from_numpy(banned).to(self.device),
             k=self.k, n_valid=self.n_items)

@@ -173,7 +173,9 @@ def twotower_train(u_ix: np.ndarray, i_ix: np.ndarray, *,
     steps = max(n // batch_size, 1)
     m = steps * batch_size
     u_ix, i_ix = np.asarray(u_ix), np.asarray(i_ix)
+    from predictionio_tpu_torch.resilience.watchdog import progress
     for epoch in range(epochs):
+        progress()          # an epoch of a refresher's rebuild stamps it
         order = rng.permutation(n)[:m]
         ub_all = torch.from_numpy(
             u_ix[order].astype(np.int64).reshape(steps, batch_size)).to(dev)

@@ -1,6 +1,7 @@
 """Resilience primitives of the port: deadlines, bounded retry with
-backoff, per-source retry budgets, circuit breakers, load shedding and
-fault-injection seams."""
+backoff, per-source retry budgets, circuit breakers, load shedding,
+fault-injection seams, the thread watchdog and the memory-pressure
+guard."""
 
 from predictionio_tpu_torch.resilience.breaker import (  # noqa: F401
     CircuitBreaker, CircuitOpenError,
@@ -18,4 +19,10 @@ from predictionio_tpu_torch.resilience.retry import (  # noqa: F401
 )
 from predictionio_tpu_torch.resilience.shed import (  # noqa: F401
     InflightLimiter, OverloadedError,
+)
+from predictionio_tpu_torch.resilience.watchdog import (  # noqa: F401
+    Beat, Superseded, Watchdog, watchdog,
+)
+from predictionio_tpu_torch.resilience.pressure import (  # noqa: F401
+    MemoryGuard,
 )

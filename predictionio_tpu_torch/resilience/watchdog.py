@@ -1,9 +1,7 @@
 """Thread-liveness watchdog: beats, stall detection, loop restart.
 
-The port of the part of `predictionio_tpu/resilience/watchdog.py` that the
-serving fleet runs: the router's health monitor and lease loop, the
-replica agent's heartbeat loop and the supervisor's watch loop each
-register a named `Beat` and stamp it once per tick; the `pio-torch-
+The port of `predictionio_tpu/resilience/watchdog.py`. Every long-lived
+loop thread registers a named `Beat` and stamps it; the `pio-torch-
 watchdog` thread sweeps the beats' ages and reacts:
 
   stall    age past max(the role's budget, `DEFAULT_STALL_S`):
@@ -15,17 +13,29 @@ watchdog` thread sweeps the beats' ages and reacts:
            `pio_thread_deaths_total{role}`) or its thread vanished: a
            restartable loop respawns with jittered exponential backoff.
   breaker  BREAKER_K deaths inside BREAKER_WINDOW_S, or the first death
-           or stall of a loop that cannot restart (the lease loop):
-           the beat is degraded (`pio_thread_degraded{role}` 1), and its
-           owner's `/ready` fails, so a standby router takes the lease.
+           or stall of a loop that cannot restart (a wire reactor, the
+           lease loop): the beat is degraded (`pio_thread_degraded{role}`
+           1), and its owner's `/ready` fails.
 
-`Beat.tick()` honors the fault seams `thread.<role>.stall` (a latency
-rule wedges the loop) and `thread.<role>.die` (an error rule kills it).
+The roles, with the JAX budgets: `reactor` (10 s, one per selector-wire
+reactor, `beat()` only), `drainer` (the micro-batcher's submit timeout,
+live while a drainer runs), `feedback` (no stall budget, respawned),
+`tier-pager`, `refresher` and `joiner` (from their intervals,
+respawned), the router's `health` and `lease`, the replica agent's
+`agent`, the supervisor's `supervisor` and the tsdb `scraper`.
 
-Not ported yet (ROADMAP.md, Queue 1 item 5(a')): the beats of the wire's
-reactors, the drainer, the refresher, the page thread and the feedback
-loop, and the memory-pressure guard the JAX sweep also runs. The tsdb
-scraper (`obs/tsdb.py`) beats here as role "scraper".
+`Beat.beat()` is one store of the monotonic clock, safe on a hot path.
+`Beat.tick()`, once per background iteration, also honors the fault seams
+`thread.<role>.stall` (a latency rule wedges the loop) and
+`thread.<role>.die` (an error rule kills it). A long stage inside one
+iteration calls `progress()`, which stamps the calling thread's own beat
+(a thread outside a `Beat.guard` stamps nothing; a superseded or stopped
+one raises `Superseded` and ends its iteration), so that a tick making
+progress is never a stall and a wedged one still is.
+
+Guards (`attach_guard`: the memory-pressure guard of
+`resilience/pressure.py`) are checked on every sweep, so they need no
+thread of their own.
 """
 
 from __future__ import annotations
@@ -46,6 +56,9 @@ BACKOFF_BASE_S = 0.2
 BACKOFF_MAX_S = 5.0
 BREAKER_K = 5
 BREAKER_WINDOW_S = 30.0
+
+# the beat of each loop thread inside `Beat.guard`, for `progress()`
+_bound = threading.local()
 
 
 class Superseded(Exception):
@@ -77,6 +90,10 @@ class Beat:
         self.death_times: List[float] = []
         self.next_restart_at: Optional[float] = None
 
+    def beat(self) -> None:
+        """Hot-path stamp: one store of the monotonic clock."""
+        self.stamp = time.monotonic()
+
     def tick(self) -> None:
         """The loop's stamp, once per iteration: honors the fault seams
         and ends a superseded thread."""
@@ -106,6 +123,7 @@ class Beat:
         """Run the loop body; an escaping exception is logged and counted
         before the thread exits."""
         self.attach()
+        _bound.beat = self
         try:
             body()
         except Superseded:
@@ -115,6 +133,8 @@ class Beat:
             self.dead = True
             _log.exception("thread_died", role=self.role,
                            error=f"{type(e).__name__}: {e}")
+        finally:
+            _bound.beat = None
 
     def age(self, now: Optional[float] = None) -> float:
         return (now if now is not None else time.monotonic()) - self.stamp
@@ -123,6 +143,21 @@ class Beat:
         self.degraded = True
         self.reason = reason
         _degraded_gauge().labels(role=self.role).set(1.0)
+
+
+def progress() -> None:
+    """Stamp the calling thread's beat from inside a long stage of one
+    loop iteration (a scan, a history read, a fold, an epoch): nothing
+    for a thread outside a `Beat.guard`. In a thread the watchdog
+    superseded, or whose beat was closed (its owner stopped), it raises
+    `Superseded`, so that the stale iteration ends at its next stage
+    instead of running on beside its replacement."""
+    beat = getattr(_bound, "beat", None)
+    if beat is None:
+        return
+    if beat.closed or beat.thread_ident != threading.get_ident():
+        raise Superseded(beat.role)
+    beat.stamp = time.monotonic()
 
 
 def _deaths():
@@ -149,6 +184,7 @@ class Watchdog:
             else max(min(1.0, self.stall_s / 4.0), 0.05)
         self._lock = threading.Lock()
         self._beats: List[Beat] = []
+        self._guards: List = []       # checked on every sweep
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         reg = get_registry()
@@ -173,6 +209,18 @@ class Watchdog:
         with self._lock:
             self._beats.append(beat)
         return beat
+
+    def attach_guard(self, guard) -> None:
+        """Check `guard.check()` on every sweep (the memory-pressure
+        guard)."""
+        with self._lock:
+            if guard not in self._guards:
+                self._guards.append(guard)
+
+    def detach_guard(self, guard) -> None:
+        with self._lock:
+            if guard in self._guards:
+                self._guards.remove(guard)
 
     def beats(self) -> List[Beat]:
         with self._lock:
@@ -203,6 +251,7 @@ class Watchdog:
         with self._lock:
             self._beats = [b for b in self._beats if not b.closed]
             beats = list(self._beats)
+            guards = list(self._guards)
         for beat in beats:
             self._age_gauge.labels(role=beat.role).set(beat.age(now))
             if beat.degraded:
@@ -220,6 +269,12 @@ class Watchdog:
             limit = max(beat.budget_s, self.stall_s)
             if beat.age(now) > limit and not beat.stalled:
                 self._on_stall(beat, now)
+        for guard in guards:
+            try:
+                guard.check()
+            except Exception as e:  # noqa: BLE001 — a guard never kills
+                _log.warning("pressure_check_failed",
+                             error=f"{type(e).__name__}: {e}")
 
     def _on_stall(self, beat: Beat, now: float) -> None:
         beat.stalled = True

@@ -75,10 +75,12 @@ to the member, and to the client of a standby's 307, so that the hops
 stitch under one trace id. A rolling reload is a `rolling_reload`
 background span.
 
+`GET /quality.json` gathers each admitted member's `/quality.json` under
+its key (a member that does not answer is reported with its error).
+
 Not ported yet (ROADMAP.md, Queue 1 item 5(c)): the member `/metrics`
 scrape and its derived gauges, `/federate`, `/fleet.html`, and the
-autoscaler's tick from the tsdb ring; `/quality.json` waits for item
-5(b).
+autoscaler's tick from the tsdb ring.
 """
 
 from __future__ import annotations
@@ -1248,6 +1250,25 @@ class FleetServer(HTTPServerBase):
             report = self.rolling_reload()
             return Response.json(report,
                                  status=500 if report["aborted"] else 200)
+
+        @r.get("/quality.json")
+        def quality_json(req: Request) -> Response:
+            # each admitted member's snapshot; a member that does not
+            # answer is reported, never fatal
+            members = {}
+            for rep in list(self._replicas):
+                if not rep.admitted:
+                    continue
+                try:
+                    with urllib.request.urlopen(
+                            f"http://{rep.host}:{rep.port}/quality.json",
+                            timeout=2) as resp:
+                        members[rep.key] = json.loads(
+                            resp.read().decode("utf-8"))
+                except (OSError, ValueError) as e:
+                    members[rep.key] = {
+                        "error": f"{type(e).__name__}: {e}"}
+            return Response.json({"role": "fleet", "members": members})
 
         @r.post("/stop")
         def stop(req: Request) -> Response:

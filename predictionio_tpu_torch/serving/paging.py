@@ -6,7 +6,9 @@ tiered plan's access buffer into its per-item EWMA and runs one batched
 promotion/eviction pass. Everything expensive (the fold, the
 argpartition, the slab gather and upload) happens here, off the serve
 path. `PIO_TIER_PAGE_INTERVAL_S` (default 1.0) is the JAX package's
-knob. Its metrics and watchdog beat come with the server stack.
+knob. The thread is the watchdog's restartable role `tier-pager` (budget
+`interval_s * 5 + 5`, the JAX one): a dead pager only lets the hot set
+go stale, so it is respawned.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ class PageManager:
         self._plans_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self.beat = None          # the watchdog's stamp (start)
 
     def bind(self, plans) -> None:
         """Replace the tracked tiered plans."""
@@ -47,18 +50,39 @@ class PageManager:
         if self._thread is not None and self._thread.is_alive():
             return
         self._stop.clear()
+        if self.beat is None:
+            from predictionio_tpu_torch.resilience.watchdog import watchdog
+            self.beat = watchdog().register(
+                "tier-pager", budget_s=self.interval_s * 5.0 + 5.0,
+                restart=self._spawn)
+        self._spawn()
+
+    def _spawn(self) -> None:
         self._thread = threading.Thread(
             target=self._loop, name="pio-torch-tier-pager", daemon=True)
         self._thread.start()
 
     def stop(self, timeout: float = 5.0) -> None:
         self._stop.set()
+        beat, self.beat = self.beat, None
+        if beat is not None:
+            beat.close()
         if self._thread is not None:
             self._thread.join(timeout)
             self._thread = None
 
     def _loop(self) -> None:
+        beat = self.beat
+        if beat is not None:
+            beat.guard(self._loop_body)
+        else:
+            self._loop_body()
+
+    def _loop_body(self) -> None:
+        beat = self.beat
         while not self._stop.wait(self.interval_s):
+            if beat is not None:
+                beat.tick()
             self.tick()
 
     def tick(self) -> int:

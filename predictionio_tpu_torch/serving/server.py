@@ -101,10 +101,28 @@ stamp follows the device-to-host copy inside `predict_batch`) and the
 splice; the generic route tags its entry `kind="serve"`. The tsdb
 scrape adds `pio_plan_resident_bytes{device,bucket}` (`_obs_collectors`).
 
-Not ported yet (ROADMAP.md, Queue 1 item 5): the memory-pressure guard
-and the recorder's `trim` under it, quality accounting and the reload
-canary, and the watchdog beats of the wire, the drainer, the refresher,
-the page thread and the feedback loop.
+Prediction quality (`obs/quality.py`, on unless `quality=False` or
+`PIO_QUALITY=off`): every answered request, on the fast route, the
+generic route and the fleet's shard route, is observed into per-app
+score sketches (`observe_result`, one list append), whose reference is
+frozen after each successful reload; `GET /quality.json` serves them,
+the feedback joiner's reward view (with `feedback`) and the last canary
+report. The reload canary replays up to `PIO_CANARY_SAMPLE` kept serve
+traces through the serving and the new deployment before the publish
+(each replay one `predict_batch`, so K1 through both plans); below
+`PIO_CANARY_MIN_OVERLAP` it raises `CanaryVeto`, a load failure that
+keeps the old deployment.
+
+Memory pressure (`resilience/pressure.py`): the server's `MemoryGuard`,
+checked on the watchdog's sweep, trims the tsdb rings, the trace ring,
+the quality accumulators, the tenant key cache and the prepared-ingest
+cache past its soft watermark and sheds new requests with 503, Retry-
+After and `pio_shed_total{surface="memory"}` on every route while over
+it; past the hard one `/ready` fails and the graceful `stop()` starts
+once. `/status.json` and GET / carry `memPressure`; `/ready` carries it
+when it fails, and `degradedLoops`, the roles of this server's loops
+(drainer, refresher, feedback, joiner, page thread, scraper) that the
+watchdog gave up on.
 """
 
 from __future__ import annotations
@@ -130,6 +148,8 @@ import numpy as np
 from predictionio_tpu_torch.core.params import extract_params
 from predictionio_tpu_torch.data.event import format_time, utcnow
 from predictionio_tpu_torch.obs import MetricsRegistry, get_logger, trace
+from predictionio_tpu_torch.obs.quality import (CanaryGate, QualityStats,
+                                                quality_enabled)
 from predictionio_tpu_torch.obs.slo import SLOTracker, dao_overrides_loader
 from predictionio_tpu_torch.resilience import (DEADLINE_HEADER,
                                                CircuitOpenError, Deadline,
@@ -138,6 +158,8 @@ from predictionio_tpu_torch.resilience import (DEADLINE_HEADER,
                                                RetryPolicy, call_with_retry,
                                                current_deadline,
                                                deadline_from_header, faults)
+from predictionio_tpu_torch.resilience.pressure import MemoryGuard
+from predictionio_tpu_torch.resilience.watchdog import watchdog
 from predictionio_tpu_torch.serving.plugins import (
     EngineServerPluginContext, QueryInfo)
 from predictionio_tpu_torch.tenancy import (DEFAULT_TENANT, TENANT_HEADER,
@@ -345,6 +367,10 @@ class _Deployment:
             None)
         # the fast route's (user, num) constructor, derived once
         self.fast_ctor = _derive_fast_ctor(self.query_class)
+        # user maps for the quality accumulators' unknown-entity ratio
+        self.user_maps = tuple(
+            um for um in (getattr(m, "users", None) for m in self.models)
+            if um is not None and hasattr(um, "get"))
         # item name -> global id, for /shard/queries.json's candidates
         self.item_maps = tuple(
             im for im in (getattr(m, "items", None) for m in self.models)
@@ -451,6 +477,8 @@ class _MicroBatcher:
         self._drain_t = time.perf_counter()
         # drained batch size -> count
         self._sizes: Dict[int, int] = {}
+        # the live drainer's watchdog beat (None while none runs)
+        self._drain_beat = None
 
     def batch_sizes(self) -> Dict[int, int]:
         """Drained batch sizes -> how many batches had that size."""
@@ -555,8 +583,15 @@ class _MicroBatcher:
 
     def _drain_loop(self) -> None:
         batch: List[tuple] = []
+        # registered for one busy burst: while a drainer lives, a stall
+        # past the submit timeout means its waiters are timing out
+        beat = watchdog().register("drainer",
+                                   budget_s=self.submit_timeout_s)
+        beat.attach()
+        self._drain_beat = beat
         try:
             while True:
+                beat.tick()
                 with self._lock:
                     self._full.wait_for(
                         lambda: len(self._queue) >= self.batch_max,
@@ -597,10 +632,16 @@ class _MicroBatcher:
             for _, _, done, slot, _, _, _ in stranded:
                 slot["error"] = e
                 done.set()
+            from predictionio_tpu_torch.resilience.watchdog import _deaths
+            _deaths().labels(role="drainer").inc()
             _log.error("batch_drainer_crashed",
                        error=f"{type(e).__name__}: {e}",
                        stranded=len(stranded))
             raise
+        finally:
+            beat.close()
+            if self._drain_beat is beat:
+                self._drain_beat = None
 
     def _process(self, pending: List[tuple]) -> None:
         if self.obs is not None:
@@ -698,8 +739,28 @@ class _Feedback:
         self._policy = RetryPolicy(attempts=self.RETRIES,
                                    base_delay=0.1, max_delay=2.0,
                                    retryable=(OSError,))
-        threading.Thread(target=self._drain, daemon=True,
+        # a blocking get has no cadence to budget against: no stall
+        # verdict, the beat counts deaths and respawns
+        self.beat = watchdog().register("feedback", budget_s=float("inf"),
+                                        restart=self._spawn)
+        self._spawn()
+
+    def _spawn(self) -> None:
+        threading.Thread(target=self._run, daemon=True,
                          name="pio-torch-feedback").start()
+
+    def _run(self) -> None:
+        beat = self.beat
+        if beat is not None:
+            beat.guard(self._drain)
+        else:
+            self._drain()
+
+    def close(self) -> None:
+        """Retire the worker's beat (the daemon thread stays parked)."""
+        beat, self.beat = self.beat, None
+        if beat is not None:
+            beat.close()
 
     def post(self, dep: _Deployment, query: Any, prediction: Any,
              pr_id: str, trace_id: str = "") -> None:
@@ -749,8 +810,11 @@ class _Feedback:
             raise OSError(f"event server replied {resp.status}")
 
     def _drain(self) -> None:
+        beat = self.beat
         while True:
             data = self._queue.get()
+            if beat is not None:
+                beat.tick()
             try:
                 call_with_retry(self._send, data, policy=self._policy)
                 with self._lock:
@@ -798,7 +862,12 @@ class PredictionServer(HTTPServerBase):
     `PIO_TENANT_*`), turns on per-app admission; `mesh`, an
     `ops.topk_sharded.ShardSlice`, marks a fleet member that serves one
     catalog slice (`shard_spec`), which /reload rebuilds.
-    `startup_check` runs the store sweep of a server given a `ctx`."""
+    `startup_check` runs the store sweep of a server given a `ctx`.
+    `quality` (default: `PIO_QUALITY`, on) turns the quality
+    accumulators and the reload canary on; `attribution_s` is the
+    feedback joiner's window (default `PIO_ATTRIBUTION_S`),
+    `canary_sample` and `canary_min_overlap` the canary's (defaults
+    `PIO_CANARY_SAMPLE`, `PIO_CANARY_MIN_OVERLAP`)."""
 
     def __init__(self, deployment: _Deployment, *, host: str = "127.0.0.1",
                  port: int = 8000, batch_max: int = 64,
@@ -810,7 +879,9 @@ class PredictionServer(HTTPServerBase):
                  ssl_context=None, metrics: Optional[MetricsRegistry] = None,
                  wire: Optional[str] = None,
                  tenancy: Optional[TenancyConfig] = None, mesh=None,
-                 startup_check: bool = True):
+                 startup_check: bool = True,
+                 quality: Optional[bool] = None, attribution_s: float = 0.0,
+                 canary_sample: int = -1, canary_min_overlap: float = -1.0):
         super().__init__(host=host, port=port, ssl_context=ssl_context,
                          metrics=metrics, max_inflight=max_inflight,
                          wire=wire)
@@ -871,6 +942,33 @@ class PredictionServer(HTTPServerBase):
             labels=("app",), buckets=trace.SERVE_BUCKETS)
         self._ss0 = self._serve_seconds.labels(app="")
         self._serve_obs.reloads.labels(outcome="ok").inc()
+        # prediction quality: the serve path's accumulators and the
+        # reload canary; the joiner reads the feedback this server posts
+        q_on = quality if quality is not None else quality_enabled()
+        self._quality = (QualityStats(metrics=self.metrics)
+                         if q_on else None)
+        self._canary = (CanaryGate(sample=canary_sample,
+                                   min_overlap=canary_min_overlap,
+                                   metrics=self.metrics)
+                        if q_on else None)
+        self._joiner = None
+        if feedback is not None and q_on:
+            from predictionio_tpu_torch.obs.quality import QualityJoiner
+            self._joiner = QualityJoiner(self, attribution_s=attribution_s,
+                                         metrics=self.metrics)
+        # memory pressure: trims and sheds past the soft watermark,
+        # drains past the hard one; checked on the watchdog's sweep
+        from predictionio_tpu_torch.ingest.pipeline import (
+            trim_prepared_cache)
+        self._pressure = MemoryGuard()
+        self._pressure.add_trim("tsdb", self.tsdb.trim)
+        self._pressure.add_trim("trace",
+                                lambda: trace.get_recorder().trim())
+        if self._quality is not None:
+            self._pressure.add_trim("quality", self._quality.trim)
+        self._pressure.add_trim("tenant_keys", self.admission.trim_key_cache)
+        self._pressure.add_trim("ingest_cache", trim_prepared_cache)
+        self._pressure.on_hard(self._drain_on_pressure)
         self._routes()
 
     # -- lifecycle ----------------------------------------------------------
@@ -884,7 +982,13 @@ class PredictionServer(HTTPServerBase):
             # baseline tick is traced too
             trace.get_recorder()
             self._refresher.start()
-        return super().start(background)
+        if self._joiner is not None:
+            self._joiner.start()
+        port = super().start(background)
+        wd = watchdog()
+        wd.attach_guard(self._pressure)
+        wd.ensure_started()
+        return port
 
     def _on_bound(self) -> None:
         # a drained batch nudges the selector wire to flush deferred
@@ -932,21 +1036,40 @@ class PredictionServer(HTTPServerBase):
                 return
             self._stopping = True
         t0 = time.perf_counter()
+        watchdog().detach_guard(self._pressure)
         try:
             if self._refresher is not None:
                 self._refresher.stop()
+            if self._joiner is not None:
+                self._joiner.stop()
             if not self.batcher.close(timeout):
                 _log.warning("stop_drain_incomplete",
                              waited_s=round(time.perf_counter() - t0, 3))
             if self._feedback is not None:
                 self._feedback.flush(max(0.0, timeout
                                          - (time.perf_counter() - t0)))
+                self._feedback.close()
             self.shutdown()
             if self._pager is not None:
                 self._pager.stop()
                 self._pager = None
         finally:
             self.stopped.set()
+
+    def shutdown(self) -> None:
+        # every way out (stop() ends here; tests call shutdown()) drops
+        # the guard from the process's watchdog, so that a dead server's
+        # guard is not swept
+        watchdog().detach_guard(self._pressure)
+        super().shutdown()
+
+    def _drain_on_pressure(self) -> None:
+        """The hard watermark: the graceful stop() on a thread of its
+        own (the watchdog's sweep must go on); /ready already fails."""
+        _log.error("mem_hard_watermark_draining",
+                   detail=self._pressure.detail())
+        threading.Thread(target=self.stop, daemon=True,
+                         name="pio-torch-mem-drain").start()
 
     def publish(self, dep: _Deployment,
                 expected: Optional[_Deployment] = None) -> bool:
@@ -1018,6 +1141,11 @@ class PredictionServer(HTTPServerBase):
                 new = _Deployment(algos, models, serving, engine=engine,
                                   instance=inst, timings=timings,
                                   obs=self._serve_obs)
+                # the canary: kept serve traces replayed through both
+                # deployments before the publish; a veto is a load
+                # failure, so the old deployment keeps serving
+                if self._canary is not None:
+                    self._canary.check(prev, new, self._canary_replay)
             except Exception:
                 self._serve_obs.reloads.labels(outcome="failed").inc()
                 raise
@@ -1026,7 +1154,20 @@ class PredictionServer(HTTPServerBase):
             self._sync_pager(new)
             if self._refresher is not None:
                 self._refresher.rebase()
+            # the new model's own scores are the new drift reference
+            if self._quality is not None:
+                self._quality.freeze_reference()
             return new
+
+    def _canary_replay(self, dep: _Deployment,
+                       qdicts: List[Dict]) -> List[Any]:
+        """The canary's replay: the traced query dicts parsed as the
+        deployment parses them, predicted as one batch."""
+        if dep.query_class is not None:
+            queries = [extract_params(dep.query_class, qd) for qd in qdicts]
+        else:
+            queries = list(qdicts)
+        return dep.predict_batch(queries)
 
     # -- serving ------------------------------------------------------------
     def _count_request(self, dt: float) -> None:
@@ -1057,6 +1198,10 @@ class PredictionServer(HTTPServerBase):
         label, weight, tqmax = self.admission.batch_params(tenant)
         prediction = self.batcher.submit(dep, query, current_deadline(),
                                          label, weight, tqmax, pending=p)
+        if self._quality is not None:
+            self._quality.observe_result(app, prediction,
+                                         getattr(query, "user", None),
+                                         dep.user_maps)
         extra = {}
         if self._feedback is not None:
             tf = time.perf_counter()
@@ -1131,6 +1276,11 @@ class PredictionServer(HTTPServerBase):
                 return self._fast_finish(
                     504, "deadline expired before processing", rid, keep,
                     t0, raw=raw)
+            if self._pressure.shedding():
+                self._shed_counter.labels(surface="memory", app="").inc()
+                return self._fast_finish(
+                    503, "memory pressure: shedding new work", rid, keep,
+                    t0, retry_after=1.0, raw=raw)
             if self.admission.enabled:
                 qs = raw.query_string
                 tenant = self.admission.resolve_raw(
@@ -1184,6 +1334,9 @@ class PredictionServer(HTTPServerBase):
         if tenant is not None:
             self._serve_obs.tenant_serve.labels(app=app).observe(dt)
         self._slo.record(app, dt, ok=True)
+        if self._quality is not None:
+            self._quality.observe_result(app, slot["result"], user,
+                                         dep.user_maps)
         trace.annotate(raw, status=200, app=app, route="/queries.json",
                        query=(user, num))
         trace.stamp(raw, trace.S_DONE)
@@ -1267,8 +1420,26 @@ class PredictionServer(HTTPServerBase):
         if slo:
             detail["slo"] = slo
             detail["sloDegraded"] = self._slo.degraded()
+        degraded = [b.role for b in self._own_beats() if b.degraded]
+        if degraded:
+            detail["degradedLoops"] = degraded
+        if not self._pressure.ready():
+            detail["memPressure"] = self._pressure.detail()
+            return (False, detail)
         open_breakers = [n for n, st in states.items() if st == "open"]
-        return (not self._stopping and not open_breakers, detail)
+        return (not self._stopping and not open_breakers and not degraded,
+                detail)
+
+    def _own_beats(self) -> List[Any]:
+        """The watchdog beats whose degradation fails THIS server's
+        /ready (the process may run several servers)."""
+        beats = [getattr(self._refresher, "beat", None),
+                 getattr(self._joiner, "beat", None),
+                 self.batcher._drain_beat,
+                 getattr(self._pager, "beat", None),
+                 getattr(self._feedback, "beat", None),
+                 getattr(self._scraper, "_beat", None)]
+        return [b for b in beats if b is not None]
 
     # -- status -------------------------------------------------------------
     def status(self) -> Dict[str, Any]:
@@ -1310,6 +1481,8 @@ class PredictionServer(HTTPServerBase):
                             if self._refresher is not None else None),
                 "feedback": (self._feedback.status()
                              if self._feedback is not None else None),
+                "quality": self._quality is not None,
+                "memPressure": self._pressure.detail(),
                 **stats}
 
     def status_json(self) -> Dict[str, Any]:
@@ -1326,6 +1499,26 @@ class PredictionServer(HTTPServerBase):
                     "lastServingSec": self.last_serving_sec}
         return {**self.status(), **head}
 
+    def quality_snapshot(self) -> Dict[str, Any]:
+        """`/quality.json`: the per-app accumulators, the feedback
+        joiner's reward view and the last canary report."""
+        out: Dict[str, Any] = {
+            "enabled": self._quality is not None,
+            "apps": (self._quality.snapshot()
+                     if self._quality is not None else {})}
+        if self._joiner is not None:
+            out["joiner"] = self._joiner.snapshot()
+        if self._canary is not None:
+            out["canary"] = self._canary.last
+        return out
+
+    def _shed_on_pressure(self, app: str) -> None:
+        """503 with Retry-After while the memory guard sheds."""
+        if self._pressure.shedding():
+            self._shed_counter.labels(surface="memory", app=app).inc()
+            raise OverloadedError("memory pressure: shedding new work",
+                                  retry_after=1.0)
+
     # -- routes -------------------------------------------------------------
     def _routes(self) -> None:
         r = self.router
@@ -1336,6 +1529,7 @@ class PredictionServer(HTTPServerBase):
             # app's quotas (429 with Retry-After past them)
             tenant = self.admission.resolve(req)
             app = tenant.label if tenant is not None else ""
+            self._shed_on_pressure(app)
             t0 = time.perf_counter()
             try:
                 with self.admission.admit(tenant):
@@ -1355,6 +1549,8 @@ class PredictionServer(HTTPServerBase):
             none) with GLOBAL item ids, which the router merges by
             (-score, id)."""
             tenant = self.admission.resolve(req)
+            self._shed_on_pressure(tenant.label if tenant is not None
+                                   else "")
             with self.admission.admit(tenant):
                 dep = self.deployment
                 payload = self._query_payload(req)
@@ -1363,6 +1559,10 @@ class PredictionServer(HTTPServerBase):
                 label, weight, tqmax = self.admission.batch_params(tenant)
                 prediction = self.batcher.submit(
                     dep, query, current_deadline(), label, weight, tqmax)
+            if self._quality is not None:
+                self._quality.observe_result(
+                    tenant.label if tenant is not None else "", prediction,
+                    getattr(query, "user", None), dep.user_maps)
             out = to_jsonable(prediction)
             scores = (out.get("itemScores") or ()) \
                 if isinstance(out, dict) else ()
@@ -1410,6 +1610,10 @@ class PredictionServer(HTTPServerBase):
             threading.Thread(target=self.stop, daemon=True,
                              name="pio-torch-server-stop").start()
             return Response.json({"message": "Shutting down"})
+
+        @r.get("/quality.json")
+        def quality_json(req: Request) -> Response:
+            return Response.json(self.quality_snapshot())
 
         @r.get("/plugins.json")
         def plugins_json(req: Request) -> Response:

@@ -33,7 +33,7 @@ the stub child of the tests: a minimal HTTP replica (a canned
 Metrics: `pio_supervisor_children{state}` (alive/backoff/given_up) and
 `pio_supervisor_respawns_total{child}`.
 
-Not ported yet (ROADMAP.md, Queue 1 item 5): `grow` and `retire`, the
+Not ported yet (ROADMAP.md, Queue 1 item 5(c)): `grow` and `retire`, the
 autoscaler's calls.
 """
 

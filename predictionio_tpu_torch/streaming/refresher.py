@@ -51,9 +51,19 @@ the local store.
 
 With tracing on (`obs/trace.py`) each tick is a `refresh_tick`
 background span in the server's trace ring, and each fold of a
-non-empty delta a `refresh_fold` span inside it. The JAX package's
-watchdog beat and its `streaming.refresh.swap` fault seam are not
-ported yet (ROADMAP.md, Queue 1 item 5(a')).
+non-empty delta a `refresh_fold` span inside it.
+
+Liveness: the loop is the watchdog's restartable role `refresher`, with
+the JAX budget (`interval_s * 3 + 5`). Each stage of a tick stamps it
+(`resilience.watchdog.progress`: the watermark, the delta scan, each
+history read, each algorithm's fold, the full rebuild's read and each
+epoch or iteration of its train), so a tick that takes longer than the
+budget while making progress is not a stall, and a wedged one is: the
+watchdog supersedes its thread and starts another. Ticks never overlap:
+the new thread waits for the tick lock (stamping its beat) while a
+superseded thread ends its tick at its next stage. `stop()` joins every
+thread the refresher started. The `streaming.refresh.swap` fault seam
+fires before a fold's commit.
 """
 
 from __future__ import annotations
@@ -62,10 +72,13 @@ import json
 import logging
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from predictionio_tpu_torch.data.storage.base import DeltaInvalidated
 from predictionio_tpu_torch.obs import trace
+from predictionio_tpu_torch.resilience.faults import faults
+from predictionio_tpu_torch.resilience.watchdog import (Superseded, progress,
+                                                        watchdog)
 from predictionio_tpu_torch.streaming.delta import Delta, scan_delta
 from predictionio_tpu_torch.streaming.updaters import FoldContext
 
@@ -108,7 +121,10 @@ class Refresher:
         self.interval_s = float(interval_s)
         self.stagger_s = float(stagger_s)
         self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+        self._thread: Optional[threading.Thread] = None   # the newest
+        self._threads: List[threading.Thread] = []
+        self._tick_lock = threading.Lock()
+        self.beat = None                # the watchdog's stamp (start)
         self._wm: Optional[Dict[str, int]] = None
         # the templates' history columns at the last fold's watermark
         # (FoldContext.history_columns)
@@ -138,27 +154,69 @@ class Refresher:
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
-        self._thread = threading.Thread(
-            target=self._loop, name="pio-torch-refresher", daemon=True)
-        self._thread.start()
+        if self.beat is None:
+            # a tick may be a full rebuild: several intervals of slack
+            self.beat = watchdog().register(
+                "refresher", budget_s=self.interval_s * 3.0 + 5.0,
+                restart=self._spawn)
+        self._spawn()
+
+    def _spawn(self) -> None:
+        t = threading.Thread(target=self._loop, name="pio-torch-refresher",
+                             daemon=True)
+        with self._lock:
+            self._threads = [x for x in self._threads if x.is_alive()]
+            self._threads.append(t)
+            self._thread = t
+        t.start()
+
+    def threads(self) -> List[threading.Thread]:
+        """The refresher's live threads (one, but for a superseded
+        thread still ending its tick)."""
+        with self._lock:
+            return [t for t in self._threads if t.is_alive()]
 
     def stop(self) -> None:
+        """End the loop: a tick in flight ends at its next stage; every
+        thread started is joined."""
         self._stop.set()
-        t = self._thread
-        if t is not None:
-            t.join(max(10.0, self.interval_s + 5.0))
+        beat, self.beat = self.beat, None
+        if beat is not None:
+            beat.close()
+        end = time.monotonic() + max(10.0, self.interval_s + 5.0)
+        for t in self.threads():
+            t.join(max(0.0, end - time.monotonic()))
 
     def _loop(self) -> None:
+        beat = self.beat
+        if beat is not None:
+            beat.guard(self._loop_body)
+        else:
+            self._loop_body()
+
+    def _loop_body(self) -> None:
+        beat = self.beat
         # replicas start offset by the stagger, so that at most one
         # folds at a time
         if self.stagger_s > 0 and self._stop.wait(self.stagger_s):
             return
         while not self._stop.is_set():
+            if beat is not None:
+                beat.tick()
+            # a superseded thread may still hold the tick: wait, beating
+            if not self._tick_lock.acquire(timeout=self.interval_s):
+                continue
             try:
-                self.tick()
+                if self._stop.is_set():
+                    return
+                self._tick_locked()
+            except Superseded:
+                raise
             except Exception:  # noqa: BLE001 — the loop must keep ticking
                 self._count("failed", {})
                 _log.exception("refresh_tick_failed")
+            finally:
+                self._tick_lock.release()
             if self._stop.wait(self.interval_s):
                 return
 
@@ -195,6 +253,10 @@ class Refresher:
         as failed),
         also counted in `ticks`, with the pass's seconds in
         `last_ticks`."""
+        with self._tick_lock:
+            return self._tick_locked()
+
+    def _tick_locked(self) -> str:
         t0 = time.perf_counter()
         phases: Dict[str, float] = {}
         with trace.background("refresh_tick"):
@@ -219,6 +281,7 @@ class Refresher:
         from predictionio_tpu_torch.ingest.client import maybe_remote
         events = maybe_remote(events)
         wm_now = events.ingest_watermark(app_id, channel_id)
+        progress()
         if wm_now is None:
             return "no_watermark"       # the driver cannot delta
         if self._wm is None:
@@ -233,6 +296,7 @@ class Refresher:
             t = time.perf_counter()
             delta = scan_delta(events, app_id, channel_id, self._wm, wm_now)
             phases["scan_s"] = time.perf_counter() - t
+            progress()
             fctx = FoldContext(store=events, app_id=app_id,
                                channel_id=channel_id, since=self._wm,
                                upto=wm_now, ds_params=ds_params,
@@ -245,6 +309,8 @@ class Refresher:
             phases["rebuild_s"] = time.perf_counter() - t
             outcome = "full_rebuild"
             self.freshness_s = 0.0
+        except Superseded:
+            raise
         except Exception:  # noqa: BLE001 — rolled back; retried next tick
             # the last good model keeps serving; the watermark stays, so
             # the same delta is tried again next tick
@@ -274,6 +340,7 @@ class Refresher:
             if hook is None or model is None:
                 continue
             new_model = hook(model, delta, fctx)
+            progress()
             if new_model is None:
                 continue
             new_models[i] = new_model
@@ -292,8 +359,10 @@ class Refresher:
         # phase 2: commit (device swap, then the publish), rolling back
         # to the last good factors on any failure
         done = []                       # (plan, previous factors)
+        progress()
         try:
             t = time.perf_counter()
+            faults().check("streaming.refresh.swap")
             for plan, factors in swaps:
                 done.append((plan, plan.swap_factors(factors)))
             phases["swap_s"] = time.perf_counter() - t
@@ -327,8 +396,14 @@ class Refresher:
         ctx = server.ctx
         engine_params = engine_params_from_instance(dep.engine, dep.instance)
         ds, prep, _, _ = dep.engine.make_components(engine_params)
-        pd = prep.prepare(ctx, ds.read_training(ctx))
-        new_models = [algo.train(ctx, pd) for algo in dep.algos]
+        td = ds.read_training(ctx)
+        progress()
+        pd = prep.prepare(ctx, td)
+        new_models = []
+        for algo in dep.algos:
+            progress()
+            new_models.append(algo.train(ctx, pd))
+        progress()
         done, rewarm = [], []
         try:
             for algo, model in zip(dep.algos, new_models):

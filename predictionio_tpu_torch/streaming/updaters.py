@@ -38,6 +38,7 @@ from predictionio_tpu_torch.data.storage import columns
 from predictionio_tpu_torch.data.storage.base import DeltaInvalidated
 from predictionio_tpu_torch.ingest.bimap import BiMap
 from predictionio_tpu_torch.ops import als
+from predictionio_tpu_torch.resilience.watchdog import progress
 
 
 @dataclass
@@ -113,6 +114,7 @@ class FoldContext:
         if cache is not None and snapshot:
             cache[key] = (self.upto, cols)
         self.history_s += time.perf_counter() - t0
+        progress()                      # a refresher stage (watchdog)
         return cols
 
 

@@ -227,6 +227,12 @@ class BoundedTenantMap:
     def pop(self, key: str):
         return self._entries.pop(key, None)
 
+    def clear(self) -> int:
+        """Drop every entry; returns how many there were."""
+        n = len(self._entries)
+        self._entries.clear()
+        return n
+
     def items(self):
         """(key, value) pairs, oldest first (under the owner's lock)."""
         return list(self._entries.items())
@@ -272,6 +278,13 @@ class AdmissionController:
     @property
     def enabled(self) -> bool:
         return self.config.enabled
+
+    def trim_key_cache(self) -> int:
+        """The memory-pressure trim: drop the access-key cache (a key
+        seen again is read from the store once more). Returns about the
+        bytes released."""
+        with self._lock:
+            return self._keys.clear() * 256
 
     # -- authentication -----------------------------------------------------
     def resolve(self, req: Request) -> Optional[TenantIdentity]:

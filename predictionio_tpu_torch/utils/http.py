@@ -60,8 +60,8 @@ server's tsdb scraper (`PIO_TSDB_INTERVAL_S`), whose collectors
 (`_obs_collectors`; subclasses add theirs) scrape the wire's counters,
 the host's RSS, CPU and threads, the card's allocator bytes (only where
 the process already made its CUDA context) and the kernels' launch
-counts. The memory-pressure guard that trims the rings is not ported
-yet (ROADMAP.md, Queue 1 item 5(a')).
+counts. A prediction server's memory-pressure guard
+(`resilience/pressure.py`) trims these rings past its soft watermark.
 """
 
 from __future__ import annotations

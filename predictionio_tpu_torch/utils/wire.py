@@ -34,9 +34,11 @@ The wire knows nothing of routes, JSON or metrics: it calls one
 `utils/http.HTTPServerBase` supplies. `set_trace_hooks` takes the JAX
 package's two tracing callbacks, which `HTTPServerBase.start` installs
 from the flight recorder (`obs/trace.py`): a stamp list as a request is
-framed, the trace finished once its response bytes are written. The
-JAX reactor's watchdog beat is not ported yet (ROADMAP.md, Queue 1 item
-5(a')).
+framed, the trace finished once its response bytes are written. Each
+reactor is the watchdog's role `reactor` (budget 10 s, the JAX one): it
+stamps its beat with one store per pass of its loop, whose 1-s select
+timeout bounds the stamps' spacing when idle; a reactor owns live
+sockets and cannot be restarted, so a stalled one degrades its beat.
 `HTTPConnectionPool` is the client side: kept-alive upstream
 connections, one stale-connection retry.
 """
@@ -484,6 +486,7 @@ class SelectorWire:
         self._handler = handler
         self._stop = False
         self._done = threading.Event()
+        self.beat = None              # the watchdog's stamp (serve_forever)
         self._lifecycle = threading.Lock()
         self._conns: Dict[int, _Conn] = {}
         self._to_close: Deque[_Conn] = deque()
@@ -524,8 +527,12 @@ class SelectorWire:
             sel.register(self._listener, selectors.EVENT_READ, "accept")
         sel.register(self._wake_r, selectors.EVENT_READ, "wake")
         last_sweep = time.monotonic()
+        from predictionio_tpu_torch.resilience.watchdog import watchdog
+        beat = self.beat = watchdog().register("reactor", budget_s=10.0)
+        beat.attach()
         try:
             while not self._stop:
+                beat.beat()
                 for key, _ in sel.select(1.0):
                     data = key.data
                     if data == "accept":
@@ -549,6 +556,7 @@ class SelectorWire:
                     last_sweep = now
                     self._sweep_idle(now)
         finally:
+            beat.close()
             self._done.set()
 
     def _accept(self) -> None:

@@ -68,7 +68,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "data.fsck", "ingest.blockproto", "ingest.client",
                      "ingest.service", "data.view", "data.entitymap",
                      "core.selfclean", "core.fakeworkflow", "obs.trace",
-                     "obs.tsdb", "obs.profiler", "obs.kernelprobe"):
+                     "obs.tsdb", "obs.profiler", "obs.kernelprobe",
+                     "obs.quality", "resilience.pressure"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -254,6 +255,72 @@ def test_tracing_the_scraper_and_the_profiler_run_without_jax():
     assert got["traces"] == 6 and got["samples"] > 0
     assert got["profiler_running"] is True
     assert "pio_host_rss_bytes" in got["series"]
+
+
+QUALITY_GUARD_NO_JAX = """
+import json, sys, urllib.request
+sys.modules["jax"] = None                 # `import jax` now raises
+sys.modules["predictionio_tpu"] = None
+import numpy as np
+import torch
+from predictionio_tpu_torch.cli import main as cli_main
+from predictionio_tpu_torch.ops import als
+from predictionio_tpu_torch.resilience import faults, watchdog
+
+rng = np.random.default_rng(1)
+model = als.als_model_from_numpy(
+    rng.integers(-3, 4, (6, 4)).astype(np.float32),
+    rng.integers(-3, 4, (30, 4)).astype(np.float32),
+    [f"u{n}" for n in range(6)], [f"i{n}" for n in range(30)],
+    device="cpu")
+server = cli_main.deploy(model, port=0, batch_max=4)
+base = f"http://127.0.0.1:{server.port}"
+
+def post():
+    req = urllib.request.Request(
+        base + "/queries.json",
+        data=json.dumps({"user": "u1", "num": 3}).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        return urllib.request.urlopen(req, timeout=30).status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+try:
+    codes = [post() for _ in range(5)]
+    with urllib.request.urlopen(base + "/quality.json", timeout=30) as r:
+        quality = json.loads(r.read())
+    guarded = server._pressure in watchdog()._guards
+    faults().arm("mem.pressure.soft", times=1)
+    state = server._pressure.check()
+    codes.append(post())
+    roles = sorted({b.role for b in watchdog().beats()})
+finally:
+    server.stop()
+print(json.dumps({
+    "codes": codes, "n": quality["apps"][""]["n"], "state": state,
+    "guarded": guarded, "roles": roles,
+    "cuda_initialized": torch.cuda.is_initialized(),
+    "loaded": sorted(m for m, v in sys.modules.items() if v is not None
+                     and m.split(".")[0] in ("jax", "predictionio_tpu"))}))
+"""
+
+
+def test_quality_and_the_memory_guard_run_without_jax():
+    """A port server with quality on and its memory guard on the
+    watchdog's sweep, in a process where `import jax` and `import
+    predictionio_tpu` fail: it counts every answer in `/quality.json`,
+    sheds at the soft watermark, loads neither and makes no CUDA
+    context."""
+    out = subprocess.run([sys.executable, "-c", QUALITY_GUARD_NO_JAX],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["loaded"] == [] and got["cuda_initialized"] is False
+    assert got["codes"] == [200] * 5 + [503]
+    assert got["n"] == 5 and got["state"] == "soft" and got["guarded"]
+    assert "reactor" in got["roles"]
 
 
 def test_a_supervised_child_runs_the_ports_cli_without_jax():
