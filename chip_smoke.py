@@ -11,7 +11,7 @@
                                   streaming | quickstart | templates |
                                   classification | neural | wire |
                                   fleet | storage | ingest | obs |
-                                  quality | pressure | steps]
+                                  quality | pressure | elastic | steps]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -228,6 +228,42 @@ the result line:
               thread once the wedged one wakes; at hard the drain fires
               once, /ready fails and the server stops; a `cli ingestd`
               holds no /dev/nvidia* file. K1 launches = plan calls.
+  4h. elastic the elastic fleet, in a process of its own (after every
+              other phase): phase 4's model recorded as a
+              COMPLETED instance in a SQLITE store, served by `cli
+              deploy --supervised 1 --autoscale on --autoscale-min 1
+              --autoscale-max 3 --batch-max 64` (the phase's
+              PIO_AUTOSCALE_* and PIO_TSDB_INTERVAL_S, the JAX names)
+              under `cli loadsim` (one process): one app over the
+              model's users and items (Zipf 1.1, loadsim's fast,
+              generic, binary and banned shapes), idle, a flash to 200
+              req/s, idle again. (a) The autoscaler grows during the
+              flash: most base ticks' member p99 below the threshold,
+              the breach streak behind the first up on ticks inside the
+              flash, the first up inside the flash, `scale1` admitted
+              and answering; (b)
+              every loadsim arrival is answered 200; (c) after the grow
+              a checked pass of a quarter of phase 4b's mix through the
+              router, every answer bit-identical to the single-device
+              K1 answer, and on each child (a retired one at its last
+              read, taken while it drained) K1 launches = plan calls =
+              warmed buckets + drained chunks, no K2 launch, the
+              children's answers summing to the router's; (d) after the load the
+              target returns to 1, the retired children's processes are
+              gone and none respawned, `retire` transitions rose and
+              `eject` and the respawns did not; (e) /federate, the
+              member qps and p99 gauges and /fleet.html cover every
+              admitted member; (f) no child rebuilt the kernel library.
+              Prints ready_s, each decision's second with the member
+              p99 and qps points of the router's ring behind it,
+              decision-to-admitted and retire-to-gone seconds, the peak
+              child count and, before, during and after the flash,
+              loadsim's arrivals scheduled and sent, late ones, and p50
+              and p99 from the send and from the schedule.
+              `CHIP_SMOKE_ELASTIC_CALIBRATE=r1,r2,...`
+              with `--only elastic` runs the deploy with the autoscaler
+              off instead and prints each rate's member p99, qps and
+              batch queue-delay p99 (phase `elastic_calibration`).
   5. parity_sharded
               the kernel's sharded form (K2, `shard_local_candidates`)
               vs its plain version on shard slices of a 20,037-row
@@ -511,6 +547,7 @@ phase 3, phase 4's model and phase 4e (a) behind phase 4b's selector pass,
 `--only quality` the build, phase 3, phase 4's model, phase 4b's selector
 pass with 4e (a) and 4f (a), and phase 4c with 4f (b) and (c), `--only
 pressure` the build, phase 3, phase 13's import and train and phase 4g,
+`--only elastic` the build, phase 3, phase 4's model and phase 4h,
 `--only steps` the build and a diagnostic of phase 17's seqrec step
 parity (the card's steps three times and beside a loaded card and host,
 the CPU's at 1, 2, 4 and the default intra-op threads, twice each; it
@@ -519,8 +556,10 @@ gates nothing); none prints the kernels line (whose K1 entry counts phase
 4c's as `fleet_launches`: its in-process parts' and its supervised
 children's, the killed one's as read just before its kill, phase 4d's as
 `storage_launches`, phase 4f's (a) and (c) as `quality_launches`, phase
-4g's as `pressure_launches`). Every run prints its seconds (`script_s`),
-and every phase line its second in the run (`at_s`).
+4g's as `pressure_launches`, phase 4h's as `elastic_launches`: its
+children's, a retired one's at its last read before it stopped). Every
+run prints its seconds (`script_s`), and every phase line its second in
+the run (`at_s`).
 
 The whole run's order: phases 1-4, 4b (with 4e (a) and 4f (a)) and
 phase 8's timing, timing_ecommerce and timing_sharded, which have the
@@ -528,7 +567,8 @@ card and the host to themselves; phase 4c (with 4f (b) and (c)); then phases 9-1
 train`), 15, 16 and 17, each in a process of its own, started together
 and run beside the rest: phases 4d, 5-7, 12-14 (the ML-1M chain, 4f (d)
 inside 14) and 4g. Their lines are passed on when they end (with run
-`at_s`), and a failure of one fails the run.
+`at_s`), and a failure of one fails the run. Then phase 4h, in a process
+of its own, with the host to itself.
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -546,6 +586,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -626,17 +667,27 @@ def _stop_background() -> None:
 
 def start_phase_process(only: str, seed: int):
     """`chip_smoke.py --only <only>` started beside this run (in its
-    process group), its standard output to a file (its standard error
-    is this run's); `finish_phase_process` waits for it."""
+    process group), its standard output to a file, its standard error
+    copied line by line to this run's (the last lines kept for
+    `finish_phase_process`, which waits for it)."""
     out = tempfile.TemporaryFile("w+")
     t0 = time.time() - (time.perf_counter() - _T_START)
     proc = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--only", only,
          "--seed", str(seed)],
-        stdout=out, text=True,
+        stdout=out, stderr=subprocess.PIPE, text=True,
         env={**os.environ, "CHIP_SMOKE_T0": repr(t0),
              "CHIP_SMOKE_PHASE_PROCESS": "1"})
-    proc.phase, proc.out = only, out
+    proc.phase, proc.out, proc.err_tail = only, out, []
+
+    def copy_stderr():
+        for line in proc.stderr:
+            sys.stderr.write(line)
+            sys.stderr.flush()
+            proc.err_tail = (proc.err_tail + [line.rstrip("\n")])[-200:]
+
+    proc.copier = threading.Thread(target=copy_stderr, daemon=True)
+    proc.copier.start()
     _BACKGROUND.add(proc)
     return proc
 
@@ -649,12 +700,18 @@ def finish_phase_process(proc, also: tuple = ()) -> dict:
     line."""
     code = proc.wait(timeout=1200)
     _BACKGROUND.discard(proc)
+    proc.copier.join(30)
     proc.out.seek(0)
     lines = proc.out.read().splitlines()
     proc.out.close()
     if code != 0:
+        # its own failure last, where the end of this run's standard
+        # error shows it
+        why = [e for e in proc.err_tail
+               if e.startswith("chip_smoke: FAILED")] or proc.err_tail[-5:]
         fail(f"phase {proc.phase}'s process exited {code}; its last "
-             f"lines: {lines[-3:]}")
+             f"lines: {[line[:200] for line in lines[-3:]]}; its failure: "
+             f"{why[-1][:3000] if why else None}")
     found, extra = None, {}
     for line in lines:
         if not line.startswith("{"):
@@ -2192,6 +2249,44 @@ def proc_start_boottime(pid: int) -> Optional[float]:
     return ticks / os.sysconf("SC_CLK_TCK")
 
 
+def read_counts(port: int):
+    """One read of a child's GET / counts, and whether they agree: K1
+    launches = plan calls = warmed buckets + drained chunks, no K2
+    launch."""
+    st = http_status(port)
+    sizes = {int(k): v for k, v in st["batch_sizes"].items()}
+    buckets, = st["plan_buckets"]
+    expected = len(buckets) + sum(
+        c * -(-n // max(buckets)) for n, c in sizes.items())
+    k1 = st["kernel_launches"]["fused_topk"]
+    k2 = st["kernel_launches"]["shard_local_candidates"]
+    return {"pid": st["pid"], "launches": k1, "plan_calls": st["plan_calls"],
+            "expected_calls": expected, "k2_launches": k2,
+            "requests": sum(n * c for n, c in sizes.items()),
+            "deploy_timings": st["deploy_timings"]}, (
+        k1 == st["plan_calls"] == expected and not k2)
+
+
+def child_counts(m, what, settle_s=0.0):
+    """A child's GET / counts (`read_counts`). Under load a read can
+    fall inside a batch (its size counted, its plan call or launch not
+    yet), so it is read again for up to `settle_s` until the three agree
+    between batches."""
+    end = time.monotonic() + settle_s
+    while True:
+        counts, ok = read_counts(m["port"])
+        if ok:
+            break
+        if time.monotonic() >= end:
+            fail(f"supervised child {m['name']} ({what}): K1 launches "
+                 f"{counts['launches']}, plan calls {counts['plan_calls']}, "
+                 f"expected {counts['expected_calls']}, K2 "
+                 f"{counts['k2_launches']}")
+        time.sleep(0.005)
+    del counts["k2_launches"]
+    return {"name": m["name"], **counts}
+
+
 def wire_reference(torch, ft, dev, rng, model) -> dict:
     """`--only fleet`'s stand-in for phase wire's selector pass: the same
     request mix served by one process on the selector wire, checked."""
@@ -2430,34 +2525,6 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
                 time.sleep(0.05)
             fail(f"supervised deploy: timed out waiting for {what}")
 
-        def child_counts(m, what, settle_s=0.0):
-            """A child's GET / counts: K1 launches = plan calls = warmed
-            buckets + drained chunks, no K2 launch. Under load a read can
-            fall inside a batch (its size counted, its plan call or launch
-            not yet), so it is read again for up to `settle_s` until the
-            three agree between batches."""
-            end = time.monotonic() + settle_s
-            while True:
-                st = http_status(m["port"])
-                sizes = {int(k): v for k, v in st["batch_sizes"].items()}
-                buckets, = st["plan_buckets"]
-                expected = len(buckets) + sum(
-                    c * -(-n // max(buckets)) for n, c in sizes.items())
-                k1 = st["kernel_launches"]["fused_topk"]
-                k2 = st["kernel_launches"]["shard_local_candidates"]
-                if k1 == st["plan_calls"] == expected and not k2:
-                    break
-                if time.monotonic() >= end:
-                    fail(f"supervised child {m['name']} ({what}): K1 "
-                         f"launches {k1}, plan calls {st['plan_calls']}, "
-                         f"expected {expected}, K2 {k2}")
-                time.sleep(0.005)
-            return {"name": m["name"], "pid": st["pid"], "launches": k1,
-                    "plan_calls": st["plan_calls"],
-                    "expected_calls": expected,
-                    "requests": sum(n * c for n, c in sizes.items()),
-                    "deploy_timings": st["deploy_timings"]}
-
         try:
             first = wait_members(lambda m: len(m) == SUPERVISED,
                                  "both children")
@@ -2576,6 +2643,629 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
+
+
+# phase 4h, elastic: `cli deploy --supervised 1 --autoscale on` under a
+# `cli loadsim` flash crowd. The router, not a child, bounds the fleet:
+# loadsim opens a connection per arrival, and from 8 loadsim processes
+# the router neared one core at 300 req/s (client p99 5.3 s) while the
+# child used 0.8. Beside other work one loadsim process fell behind a
+# 400-req/s flash (client-bound, PERF.md); alone on the host it kept
+# its schedule, and the router passed it on. So a flash never loads a
+# child past its knee, and its member p99, the only up-signal the
+# router's ring has here, moves little: 7.8-12.5 ms at 50 req/s and
+# 16.3-23.6 in this flash on a quiet host, 15.0-24.2 at 50 beside three
+# busy loops, and 9.6-10.0 in most ticks of this flash on another host.
+# What separates is an idle child: with no queries it answers only the
+# router's /ready probes and /metrics scrapes, whose p99 read 1.0-2.4
+# ms (none took 10 ms in any calibration), while a flash's read at least
+# 9.6. So the flash comes to an idle service (a launch), the threshold is
+# the histogram's 5-ms bound between the two, and the phase runs last,
+# on a host of its own. Its peak is 200 req/s: any query rate from 50 up
+# reads at least 9.6 ms, and at 400 the router sits at its one core, so
+# a slower host queues the flash past loadsim's 10-s timeout (88 of 793
+# arrivals of one process beside three busy loops)
+ELASTIC_BASE_RPS = 0.0
+ELASTIC_PEAK_RPS = 200.0
+ELASTIC_BEFORE_S, ELASTIC_RAMP_S = 20.0, 2.0
+ELASTIC_HOLD_S, ELASTIC_AFTER_S = 45.0, 30.0
+ELASTIC_MAX = 3
+ELASTIC_TSDB_INTERVAL_S = 5.0       # the router's scrape and decision tick
+ELASTIC_P99_MS = 5.0                # the breach threshold
+# loadsim processes sharing each rate, each a Poisson process at its
+# share with a seed of its own (their sum is one at the whole rate)
+ELASTIC_LOADSIM_PROCS = int(os.environ.get("CHIP_SMOKE_ELASTIC_PROCS", "1"))
+LOADSIM_TIMEOUT_S = 10.0            # LoadRunner's per-request timeout
+LATE_S = 0.05                       # loadsim's own bound for a late send
+ELASTIC_CHECKED = (WIRE_PLAIN // 4, WIRE_BANNED // 4, WIRE_BIN // 4)
+ELASTIC_CAL_S = 30.0                # a calibration rate's steady phase
+# the phase's own PIO_AUTOSCALE_* (the JAX names): the p99 threshold
+# above; a breach held for three 5-s ticks; the cooldown above a child's
+# join on the card (10.2-17.8 s from respawn to admitted in phase fleet
+# (c); 9.97-22.25 s from decision to admitted here); six flips in the
+# window let one flash go 1 -> 3 -> 1 with room for one more pair; idle
+# below IDLE_QPS a survivor (below half the peak); the 5-minute SLO burn
+# outlasts the phase, so it does not vote
+ELASTIC_KNOBS = {
+    "PIO_AUTOSCALE_P99_MS": repr(ELASTIC_P99_MS),
+    "PIO_AUTOSCALE_BREACH_TICKS": "3",
+    "PIO_AUTOSCALE_IDLE_TICKS": "4",
+    "PIO_AUTOSCALE_IDLE_QPS": "100",
+    "PIO_AUTOSCALE_COOLDOWN_S": "30",
+    "PIO_AUTOSCALE_FLAP_WINDOW_S": "300",
+    "PIO_AUTOSCALE_MAX_FLIPS": "6",
+    "PIO_AUTOSCALE_BURN": "1e9",
+}
+
+
+def http_text(port: int, path: str) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        return resp.read().decode()
+
+
+def ring_points(port: int, series: str, since: float) -> dict:
+    """A server's /tsdb.json points of the series starting `series`
+    since unix second `since`: {key: [(unix second, value), ...]}."""
+    doc = json.loads(http_text(port, f"/tsdb.json?series={series}"
+                                     f"&since={since}"))
+    return {k: [tuple(p) for p in s["points"]]
+            for k, s in doc["series"].items()}
+
+
+class ElasticWatch:
+    """Reads the autoscaled router on threads of its own. Every 0.25 s:
+    the target and decision counts of its /metrics, and at each decision
+    the member p99 and qps points of the router's ring that drove it.
+    Every 0.02 s: the members of its /status.json (when each child was
+    first admitted, first retiring, gone from the table). Once a tick
+    interval, each admitted grown child's GET / counts (`read_counts`):
+    the last read is kept, the disagreeing ones counted (a read can
+    fall inside a batch). A child's p99 counts every request it
+    answers, so these reads come no oftener than the router's scrape,
+    and none goes to `replica0`, whose idle ticks before the flash gate
+    (a). From the moment a child turns `retiring` (out of rotation,
+    drained, then stopped) its counts are read without pause until it
+    stops answering: its last read is `final`."""
+
+    def __init__(self, port: int, t0: float):
+        self.port, self.t0 = port, t0
+        self.t0_unix = time.time() - (time.perf_counter() - t0)
+        self.decisions, self.admitted_at, self.retiring_at = [], {}, {}
+        self.gone_at, self.ports = {}, {}
+        self.last, self.final = {}, {}
+        self.disagreed = {}
+        self._read_at = {}
+        self.peak = 0
+        self.target = None
+        self._seen = {"up": 0.0, "down": 0.0}
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, daemon=True,
+                                          args=(f, dt))
+                         for f, dt in ((self._read, 0.25),
+                                       (self._members, 0.02))]
+        for th in self._threads:
+            th.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        for th in self._threads:
+            th.join(30)
+
+    def _run(self, read, period: float) -> None:
+        while not self._stop.wait(period):
+            try:
+                read()
+            except (OSError, ValueError, KeyError):
+                continue     # a router or child between states
+
+    def _read(self) -> None:
+        series = prom(http_text(self.port, "/metrics"))
+        at = time.perf_counter() - self.t0
+        self.target = series.get("pio_autoscale_children")
+        self.peak = max(self.peak, int(self.target or 0))
+        for d in ("up", "down"):
+            got = series.get(
+                f'pio_autoscale_decisions_total{{direction="{d}"}}', 0.0)
+            while self._seen[d] < got:
+                self._seen[d] += 1
+                since = time.time() - 4 * ELASTIC_TSDB_INTERVAL_S
+                ring = ring_points(self.port, "pio_fleet_member_", since)
+                self.decisions.append({
+                    "direction": d, "at_s": at,
+                    "member_p99_ms": {k: [1e3 * v for _, v in pts]
+                                      for k, pts in ring.items()
+                                      if "p99" in k},
+                    "member_qps": {k: [v for _, v in pts]
+                                   for k, pts in ring.items()
+                                   if "_qps" in k}})
+
+    def _members(self) -> None:
+        members = json.loads(http_text(self.port, "/status.json"))[
+            "replicas"]
+        at = time.perf_counter() - self.t0
+        names = {m["name"] for m in members}
+        for m in members:
+            name = m["name"]
+            if not name:
+                continue
+            if m["admitted"] and name not in self.admitted_at:
+                self.admitted_at[name] = at
+            self.ports[name] = m["port"]
+            if m["state"] == "retiring" and name not in self.retiring_at:
+                self.retiring_at[name] = at
+                threading.Thread(target=self._final_reads, daemon=True,
+                                 args=(name, m["port"])).start()
+            if m["admitted"] and name != "replica0" and at - \
+                    self._read_at.get(name, -1e9) >= ELASTIC_TSDB_INTERVAL_S:
+                self._read_at[name] = at
+                self._note(name, *read_counts(m["port"]))
+        for name in self.admitted_at:
+            if name not in names and name not in self.gone_at:
+                self.gone_at[name] = at
+
+    def _note(self, name: str, got: dict, ok: bool) -> None:
+        self.last[name] = (got, ok)
+        if not ok:
+            self.disagreed[name] = self.disagreed.get(name, 0) + 1
+
+    def _final_reads(self, name: str, port: int) -> None:
+        end = time.monotonic() + 120
+        while not self._stop.is_set() and time.monotonic() < end:
+            try:
+                self.final[name] = read_counts(port)
+            except (OSError, ValueError, KeyError):
+                return       # stopped answering: the last read stands
+            time.sleep(0.002)
+
+
+class Loadsim:
+    """ELASTIC_LOADSIM_PROCS `cli loadsim` processes of one scenario."""
+
+    def __init__(self, procs: list, name: str, duration_s: float):
+        self.procs, self.name, self.duration_s = procs, name, duration_s
+
+    def poll(self):
+        """None while any process runs."""
+        codes = [p.poll() for p in self.procs]
+        return None if None in codes else codes
+
+
+def elastic_loadsim(tmp: Path, cli, port: int, name: str,
+                    phases: list) -> Loadsim:
+    """`cli loadsim` of one app over phase 4's population (users u<n>,
+    items i<n>, Zipf 1.1, loadsim's shape mix) against `port`, in
+    ELASTIC_LOADSIM_PROCS processes each with its share of every rate and
+    a seed of its own, started in the background; `elastic_loadsim_end`
+    waits for them."""
+    k = ELASTIC_LOADSIM_PROCS
+    procs = []
+    for j in range(k):
+        share = [{**p, **{r: p[r] / k for r in ("rps", "peak_rps")
+                          if r in p}} for p in phases]
+        doc = {"name": name, "seed": 11 + j, "apps": [{
+            "key": "ELASTIC", "name": "elastic", "n_users": N_USERS,
+            "n_items": N_ITEMS, "zipf_s": 1.1, "phases": share}]}
+        stem = tmp / f"{name}_{j}"
+        Path(f"{stem}.json").write_text(json.dumps(doc))
+        out = open(f"{stem}.out", "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", "loadsim",
+             "--", "--scenario", f"{stem}.json", "--port", str(port),
+             "--samples", f"{stem}.samples.json"], cwd=tmp, env=cli.env,
+            stdout=out, stderr=subprocess.STDOUT, text=True)
+        proc.out, proc.samples = out, Path(f"{stem}.samples.json")
+        _BACKGROUND.add(proc)
+        procs.append(proc)
+    return Loadsim(procs, name, sum(p["duration_s"] for p in phases))
+
+
+def elastic_loadsim_end(load: Loadsim) -> dict:
+    """Wait for an `elastic_loadsim`; (b): every process exits 0 and
+    every arrival was answered 200. Returns the summed records, the
+    merged timeline ([scheduled s, status, latency s, sent s] on each
+    process's own clock) and each process's unix start."""
+    recs, timeline, starts = {}, [], []
+    prefix = f"loadsim_{load.name}_"
+    for proc in load.procs:
+        code = proc.wait(timeout=load.duration_s + 2 * LOADSIM_TIMEOUT_S
+                         + 120)
+        _BACKGROUND.discard(proc)
+        proc.out.seek(0)
+        text = proc.out.read()
+        proc.out.close()
+        if code != 0:
+            fail(f"elastic (b): loadsim exited {code}: {text[-2000:]}")
+        mine = {}
+        for line in text.splitlines():
+            if line.startswith("{"):
+                rec = json.loads(line)
+                mine[rec["metric"][len(prefix):]] = rec["value"]
+        doc = json.loads(proc.samples.read_text())
+        statuses = sorted({s for _, s, _, _ in doc["timeline"]})
+        if statuses != [200] or len(doc["timeline"]) != mine.get("requests"):
+            fail(f"elastic (b): loadsim statuses {statuses}, "
+                 f"{len(doc['timeline'])} samples, records {mine}")
+        for key in ("requests", "ok", "shed", "errors"):
+            recs[key] = recs.get(key, 0) + mine[key]
+        recs["late"] = recs.get("late", 0) + doc["late"]
+        timeline += doc["timeline"]
+        starts.append(doc["started"])
+    return {"records": recs, "timeline": sorted(timeline),
+            "starts": starts}
+
+
+def loadsim_windows(timeline: list, bounds: dict) -> dict:
+    """Per window [lo, hi) of the schedule: the arrivals scheduled in it
+    and those sent in it, each as a count and a rate; the late ones
+    (sent more than LATE_S behind); p50 and p99 ms from the send (what
+    loadsim reports) and from the scheduled second (where the client
+    fell behind, the truer one)."""
+    out = {}
+    for name, (lo, hi) in bounds.items():
+        rows = [(dt, sent - t) for t, _, dt, sent in timeline
+                if lo <= t < hi]
+        sent = sum(1 for _, _, _, s in timeline if lo <= s < hi)
+        span = hi - lo
+        w = {"scheduled": len(rows), "scheduled_rps": len(rows) / span,
+             "sent": sent, "sent_rps": sent / span,
+             "late": sum(1 for _, lag in rows if lag > LATE_S)}
+        if rows:
+            send = np.sort([dt for dt, _ in rows])
+            sched = np.sort([dt + lag for dt, lag in rows])
+            at = (len(rows) // 2, int(0.99 * (len(rows) - 1)))
+            w.update({"p50_ms": 1e3 * send[at[0]], "p99_ms": 1e3 * send[at[1]],
+                      "from_schedule_p50_ms": 1e3 * sched[at[0]],
+                      "from_schedule_p99_ms": 1e3 * sched[at[1]]})
+        out[name] = w
+    return out
+
+
+def cpu_seconds(pid: int) -> float:
+    """User plus system CPU seconds of process `pid` (/proc)."""
+    fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def route_latency(port: int) -> dict:
+    """A server's request histogram by route: {route: [requests, over
+    10 ms, over 25 ms]}."""
+    buckets = {}
+    for key, v in prom(http_text(port, "/metrics")).items():
+        if key.startswith("pio_http_request_duration_seconds_bucket{"):
+            labels = dict(kv.split("=", 1)
+                          for kv in key[key.index("{") + 1:-1].split(","))
+            buckets.setdefault(labels["route"].strip('"'), {})[
+                labels["le"].strip('"')] = v
+    return {r: [b["+Inf"], b["+Inf"] - b["0.01"], b["+Inf"] - b["0.025"]]
+            for r, b in buckets.items()}
+
+
+def elastic_calibration(tmp: Path, cli, port: int, router_pid: int,
+                        child: dict, rates: list) -> None:
+    """With the autoscaler off: for each rate a steady loadsim of
+    ELASTIC_CAL_S, then one line (phase `elastic_calibration_rate`): the
+    child's member p99 and qps from the router's ring and its batch
+    queue-delay p99 from its own over the last three quarters of the
+    run, the client's schedule against what it sent, the child's
+    requests by route over 10 and 25 ms, and the router's and the
+    child's CPU seconds per second. CHIP_SMOKE_ELASTIC_BUSY=n runs n
+    busy-loop processes beside it (a host's other work)."""
+    busy = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+            for _ in range(int(os.environ.get("CHIP_SMOKE_ELASTIC_BUSY",
+                                              "0")))]
+    _BACKGROUND.update(busy)
+    pids = {"router": router_pid, "child": http_status(child["port"])["pid"]}
+    for rate in rates:
+        cpu0, routes0 = ({k: cpu_seconds(v) for k, v in pids.items()},
+                         route_latency(child["port"]))
+        t0 = time.perf_counter()
+        load = elastic_loadsim(tmp, cli, port, f"cal_{int(rate)}", [
+            {"kind": "steady", "duration_s": ELASTIC_CAL_S, "rps": rate}])
+        res = elastic_loadsim_end(load)
+        wall = time.perf_counter() - t0
+        cpu1, routes1 = ({k: cpu_seconds(v) for k, v in pids.items()},
+                         route_latency(child["port"]))
+        since = time.time() - 0.75 * ELASTIC_CAL_S
+        ring = ring_points(port, "pio_fleet_member_", since)
+        delay = ring_points(child["port"], "pio_queue_delay_seconds", since)
+        emit({
+            "phase": "elastic_calibration_rate", "rate": rate,
+            "loadsim_procs": ELASTIC_LOADSIM_PROCS, "busy_loops": len(busy),
+            "loadsim": res["records"],
+            "client": loadsim_windows(res["timeline"], {
+                "all": (0.0, ELASTIC_CAL_S),
+                "last_three_quarters": (0.25 * ELASTIC_CAL_S,
+                                        ELASTIC_CAL_S)}),
+            "member_p99_ms": [1e3 * v for k, pts in ring.items()
+                              if "p99" in k for _, v in pts],
+            "member_qps": [v for k, pts in ring.items() if "_qps" in k
+                           for _, v in pts],
+            "delay_p99_ms": [1e3 * v for k, pts in delay.items()
+                             if k.endswith(":p99") for _, v in pts],
+            "child_routes": {r: [n - routes0.get(r, [0, 0, 0])[i]
+                                 for i, n in enumerate(v)]
+                             for r, v in routes1.items()},
+            "cpu_s_per_s": {k: (cpu1[k] - cpu0[k]) / wall for k in pids}})
+    for proc in busy:
+        proc.kill()
+        proc.wait()
+        _BACKGROUND.discard(proc)
+
+
+def phase_elastic(torch, ft, dev, rng, model, card: str,
+                  calibrate: Optional[list] = None) -> dict:
+    """Phase 4's model recorded as a COMPLETED instance in a SQLITE store
+    of its own, served by `cli deploy --supervised 1 --autoscale on
+    --autoscale-min 1 --autoscale-max ELASTIC_MAX` (the phase's
+    PIO_AUTOSCALE_* and PIO_TSDB_INTERVAL_S) under `cli loadsim`: base
+    rate, a flash to ELASTIC_PEAK_RPS, base again. Gates: (a) the
+    autoscaler grows during the flash and `scale1` is admitted and
+    answers; (b) every loadsim arrival is answered 200; (c) a checked
+    pass of phase wire's mix through the router after the grow, every
+    answer bit-identical to the single-device K1 answer, and on each
+    child K1 launches = plan calls = warmed buckets + drained chunks, no
+    K2 launch; (d) after the load the target returns to 1, the retired
+    children's processes are gone and none respawned, `retire`
+    transitions rose, `eject` and the respawns did not; (e) /federate,
+    the member gauges and /fleet.html cover every admitted member; (f)
+    no child rebuilt the kernel library. `calibrate` (rates) runs the
+    deploy with the autoscaler off and reports each rate's signals."""
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    t_phase = time.perf_counter()
+    reqs = wire_requests(torch, ft, dev, rng, model, *ELASTIC_CHECKED)
+    for n, r in enumerate(reqs):
+        r["i"] = n
+    queries = [r["query"] for r in reqs]
+    table = k1_answers(torch, ft, dev, model, queries)
+    out = {"phase": "elastic", "card": card, "users": N_USERS,
+           "items": N_ITEMS, "rank": RANK, "k": K,
+           "table_max_abs_err": check_answers(
+               torch, ft, dev, model, queries,
+               [[{"item": a, "score": b} for a, b in zip(*row)]
+                for row in table]),
+           "knobs": {**ELASTIC_KNOBS,
+                     "PIO_TSDB_INTERVAL_S": ELASTIC_TSDB_INTERVAL_S},
+           "rates": {"base": ELASTIC_BASE_RPS, "peak": ELASTIC_PEAK_RPS}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as tmp:
+        tmp = Path(tmp)
+        config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+                  "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db")}
+        registry = StorageRegistry(config)
+        t0 = time.perf_counter()
+        iid = fleet_instance(registry, model)
+        out["store_instance_s"] = time.perf_counter() - t0
+        registry.close()
+        lib = ft.build_library()
+        lib_mtime = lib.stat().st_mtime_ns
+        cli = cli_runner(tmp, {
+            **config, **ELASTIC_KNOBS, "PIO_FLEET_HEARTBEAT_S": "0.5",
+            "PIO_TSDB_INTERVAL_S": str(ELASTIC_TSDB_INTERVAL_S)})
+        t0 = time.perf_counter()
+        proc, line = start_server(
+            tmp, cli, "deploy", "--supervised", "1", "--autoscale",
+            "off" if calibrate else "on", "--autoscale-min", "1",
+            "--autoscale-max", str(ELASTIC_MAX), "--engine-instance-id", iid,
+            "--port", "0", "--batch-max", "64", "--server-key", FLEET_KEY)
+        banner = ("(1 supervised replica processes" + (
+            ")" if calibrate else f", autoscale [1, {ELASTIC_MAX}])"))
+        if not (line.startswith("Fleet control plane started on ")
+                and line.rstrip().endswith(banner)):
+            proc.kill()
+            fail(f"autoscaled deploy: {line!r} {stderr_tail(proc)}")
+        port = int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
+        watch = None
+        try:
+            end = time.monotonic() + 300
+            while True:
+                members = json.loads(http_text(port, "/status.json"))[
+                    "replicas"]
+                if [m["name"] for m in members if m["admitted"]] == [
+                        "replica0"]:
+                    break
+                if proc.poll() is not None or time.monotonic() > end:
+                    fail(f"autoscaled deploy: replica0 not admitted "
+                         f"{stderr_tail(proc)}")
+                time.sleep(0.05)
+            out["ready_s"] = time.perf_counter() - t0
+            if calibrate:
+                out["phase"] = "elastic_calibration"
+                elastic_calibration(tmp, cli, port, proc.pid, members[0],
+                                    calibrate)
+            else:
+                watch = ElasticWatch(port, t_phase)
+                elastic_flash(out, tmp, cli, port, reqs, table, watch)
+        finally:
+            if watch is not None:
+                watch.stop()
+            stop_deploy(proc, "autoscaled deploy")
+        if lib.stat().st_mtime_ns != lib_mtime:
+            fail("elastic (f): a child rebuilt the kernel library")
+    out["library_rebuilt_by_a_child"] = False
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def elastic_flash(out: dict, tmp: Path, cli, port: int, reqs: list,
+                  table: list, watch) -> None:
+    """Phase elastic's flash, its checked pass and its gates (a)-(e)."""
+    def router():
+        return prom(http_text(port, "/metrics"))
+
+    def table_members():
+        return json.loads(http_text(port, "/status.json"))["replicas"]
+
+    def respawns(series):
+        return prom_sum(series, "pio_supervisor_respawns_total")
+
+    before = router()
+    flash_s = 2 * ELASTIC_RAMP_S + ELASTIC_HOLD_S
+    load = elastic_loadsim(tmp, cli, port, "flash", [
+        {"kind": "steady", "duration_s": ELASTIC_BEFORE_S,
+         "rps": ELASTIC_BASE_RPS},
+        {"kind": "flash", "duration_s": flash_s, "rps": ELASTIC_BASE_RPS,
+         "peak_rps": ELASTIC_PEAK_RPS, "at_s": 0.0,
+         "ramp_s": ELASTIC_RAMP_S, "hold_s": ELASTIC_HOLD_S},
+        {"kind": "steady", "duration_s": ELASTIC_AFTER_S,
+         "rps": ELASTIC_BASE_RPS}])
+    t_load = time.perf_counter() - watch.t0
+    # (a) a grow under the flash, scale1 admitted
+    end = time.monotonic() + load.duration_s + 60
+    while "scale1" not in watch.admitted_at:
+        if load.poll() is not None or time.monotonic() > end:
+            ring = {k: [(round(t - watch.t0_unix, 1), v) for t, v in pts]
+                    for k, pts in ring_points(
+                        port, "pio_fleet_member_", watch.t0_unix).items()
+                    if "p99" in k or "_qps" in k}
+            fail(f"elastic (a): no grown child admitted during the flash; "
+                 f"decisions {watch.decisions}, target {watch.target}, "
+                 f"member p99 s and qps by phase second {ring}")
+        time.sleep(0.1)
+    # (c) the checked pass through the router, then every child's counts
+    members = [m for m in table_members() if m["admitted"]]
+    res = wire_clients(port, reqs, tmp)
+    codes = sorted({r[0] for r in res})
+    if codes != [200]:
+        fail(f"elastic (c): statuses {codes}")
+    match_tables("elastic (c)", [r[2] for r in res], range(len(res)),
+                 [table])
+    checked = [child_counts(m, "after the checked pass", settle_s=10.0)
+               for m in members]
+    if not any(c["name"] == "scale1" and c["requests"] > 0
+               for c in checked):
+        fail(f"elastic (a): scale1 answered no request: {checked}")
+    # (e) federation over every admitted member
+    end = time.monotonic() + 6 * ELASTIC_TSDB_INTERVAL_S
+    keys = [m["member"] for m in members]
+    while True:
+        fed, series = http_text(port, "/federate"), router()
+        missing = [k for k in keys if f'member="{k}"' not in fed or not all(
+            f'{g}{{member="{k}"}}' in series for g in (
+                "pio_fleet_member_qps", "pio_fleet_member_p99_seconds"))]
+        if not missing:
+            break
+        if time.monotonic() > end:
+            fail(f"elastic (e): members {missing} missing from /federate "
+                 "or the member gauges")
+        time.sleep(0.2)
+    page = http_text(port, "/fleet.html")
+    if any(f"<td>{k}</td>" not in page for k in keys):
+        fail("elastic (e): /fleet.html lacks a member row")
+    # (b) every arrival answered
+    sim = elastic_loadsim_end(load)
+    # (a) the grow came from the flash: the breach streak behind the
+    # first up (replica0's last BREACH_TICKS ticks before it) read over
+    # the threshold on ticks inside the flash, the first up fell inside
+    # the flash (or one tick after it, the tick that closed its last
+    # breach), and most ticks of the base read below the threshold. A
+    # lone base tick over it (one slow /ready or /metrics of the dozen
+    # an idle tick counts) cannot grow the fleet: it is counted
+    starts = sim["starts"]
+    ups = [d for d in watch.decisions if d["direction"] == "up"]
+    flash_unix = min(starts) + ELASTIC_BEFORE_S
+    flash_at = (flash_unix - watch.t0_unix,
+                max(starts) - watch.t0_unix + ELASTIC_BEFORE_S + flash_s
+                + ELASTIC_TSDB_INTERVAL_S)
+    first = next(m["member"] for m in members if m["name"] == "replica0")
+    pts = ring_points(port, "pio_fleet_member_p99_seconds", min(starts)).get(
+        f"pio_fleet_member_p99_seconds{{member={first}}}", [])
+    base = [1e3 * v for ts, v in pts
+            if max(starts) + ELASTIC_TSDB_INTERVAL_S <= ts <= flash_unix]
+    breach_ticks = int(ELASTIC_KNOBS["PIO_AUTOSCALE_BREACH_TICKS"])
+    streak = [] if not ups else [
+        (ts - watch.t0_unix, 1e3 * v) for ts, v in pts
+        if ts <= watch.t0_unix + ups[0]["at_s"]][-breach_ticks:]
+    if len(base) < 2 or 2 * sum(b >= ELASTIC_P99_MS for b in base) >= len(
+            base) or not (ups and flash_at[0] <= ups[0]["at_s"]
+                          <= flash_at[1]) or len(streak) < breach_ticks \
+            or not all(at > flash_at[0] and ms > ELASTIC_P99_MS
+                       for at, ms in streak):
+        fail(f"elastic (a): base ticks {base} ms against {ELASTIC_P99_MS}, "
+             f"first up at {ups[0]['at_s'] if ups else None} s on the "
+             f"streak (phase s, ms) {streak}, the flash {flash_at}")
+    # (d) back to one child: the retired ones gone, none respawned
+    end = time.monotonic() + 180
+    while True:
+        series = router()
+        names = [m["name"] for m in table_members()]
+        if (series.get("pio_autoscale_children") == 1.0
+                and names == ["replica0"]
+                and series.get('pio_supervisor_children{state="alive"}')
+                == 1.0):
+            break
+        if time.monotonic() > end:
+            fail(f"elastic (d): target {series.get('pio_autoscale_children')}"
+                 f", members {names}, decisions {watch.decisions}")
+        time.sleep(0.2)
+    ups = [d for d in watch.decisions if d["direction"] == "up"]
+    downs = [d for d in watch.decisions if d["direction"] == "down"]
+    grown = [f"scale{k + 1}" for k in range(len(ups))]
+    gone, retired = [], []
+    for name in grown:
+        # its reads from the moment it turned `retiring`, else its last
+        # read of the watch; the last must agree (the sum below shows
+        # that it came after the child's last answer)
+        got = watch.final.get(name) or watch.last.get(name)
+        if got is None:
+            fail(f"elastic (d): {name} retired before a counts read (not "
+                 f"admitted within the cooldown?): {watch.admitted_at}")
+        counts, ok = got
+        if not ok:
+            fail(f"elastic (c): {name}'s last read before it left the "
+                 f"rotation disagrees: {counts}")
+        retired.append({"name": name, "read_while_retiring":
+                        name in watch.final, **counts})
+        try:
+            os.kill(counts["pid"], 0)
+        except ProcessLookupError:
+            gone.append(name)
+    delta = {ev: series.get(f'pio_fleet_transitions_total{{event="{ev}"}}',
+                            0.0) - before.get(
+        f'pio_fleet_transitions_total{{event="{ev}"}}', 0.0)
+        for ev in ("retire", "eject")}
+    if gone != grown or len(downs) != len(grown) \
+            or delta != {"retire": float(len(grown)), "eject": 0.0} \
+            or respawns(series) != respawns(before):
+        fail(f"elastic (d): grown {grown}, gone {gone}, decisions "
+             f"{len(ups)} up {len(downs)} down, transitions {delta}, "
+             f"respawns {respawns(before)} -> {respawns(series)}")
+    final = child_counts({"name": "replica0",
+                          "port": watch.ports["replica0"]}, "after the load",
+                         settle_s=10.0)
+    children = [final] + retired
+    # every answer the router counted was counted by a child at its last
+    # read: no retired child answered after it
+    routed = series.get('pio_fleet_routed_total{outcome="ok"}', 0.0)
+    if sum(c["requests"] for c in children) != routed:
+        fail(f"elastic (c): the children's last reads count "
+             f"{sum(c['requests'] for c in children)} answers, the router "
+             f"{routed}: {children}")
+    out["launches"] = sum(c["launches"] for c in children)
+    t0 = ELASTIC_BEFORE_S
+    out.update({
+        "load_started_at_s": t_load,
+        "loadsim_started_at_s": [s - watch.t0_unix for s in starts],
+        "flash_window_s": list(flash_at),
+        "base_p99_ms": base,
+        "base_ticks_over_threshold": sum(b >= ELASTIC_P99_MS for b in base),
+        "first_up_streak": streak,
+        "decisions": watch.decisions, "peak_children": watch.peak,
+        "decision_to_admitted_s": {
+            f"scale{k + 1}": watch.admitted_at[f"scale{k + 1}"] - d["at_s"]
+            for k, d in enumerate(ups)},
+        "retire_to_gone_s": {n: watch.gone_at[n] - watch.retiring_at[n]
+                             for n in grown if n in watch.retiring_at
+                             and n in watch.gone_at},
+        "loadsim": {**sim["records"], **loadsim_windows(sim["timeline"], {
+            "before": (0.0, t0), "during": (t0, t0 + flash_s),
+            "after": (t0 + flash_s, load.duration_s)})},
+        "checked": {"requests": len(res), "answers_bit_identical": len(res),
+                    "all": lat_summary(res, range(len(res))),
+                    "children": checked},
+        "children": children, "routed_ok": routed,
+        "disagreeing_reads": watch.disagreed,
+        "transitions": delta})
 
 
 STORAGE_REQUESTS = 256        # (a), (b): phase wire's mix, a tenth of it
@@ -8800,7 +9490,8 @@ def main() -> int:
                                        "templates", "classification",
                                        "neural", "wire", "fleet",
                                        "storage", "ingest", "obs",
-                                       "quality", "pressure", "steps"),
+                                       "quality", "pressure", "elastic",
+                                       "steps"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
@@ -8817,7 +9508,8 @@ def main() -> int:
                          "for parity, phase wire's selector pass with "
                          "quality (a), phase fleet with (b) and (c); "
                          "pressure for parity, the PEVLOG project and "
-                         "phase pressure; steps for the seqrec step "
+                         "phase pressure; elastic for parity and phase "
+                         "elastic; steps for the seqrec step "
                          "diagnostic), no kernels line")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -8950,6 +9642,13 @@ def main() -> int:
         elif args.only == "pressure":
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(False, False, False, pressure=True)
+        elif args.only == "elastic":
+            if not in_phase_process:
+                phase_parity(torch, ft, dev, rng)
+            model, _ = make_model(torch, rng)
+            rates = os.environ.get("CHIP_SMOKE_ELASTIC_CALIBRATE", "")
+            phase_elastic(torch, ft, dev, rng, model, card, calibrate=[
+                float(r) for r in rates.split(",") if r] or None)
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
@@ -8992,6 +9691,11 @@ def main() -> int:
     templates = finish_phase_process(side["templates"])
     classification = finish_phase_process(side["classification"])
     neural = finish_phase_process(side["neural"])
+    # the elastic fleet last, on a host of its own: beside the chain or
+    # three busy loops the member p99 of its base rate read as high as
+    # its flash (PERF.md), and its flash beside the templates pushed the
+    # e-commerce template's first request past its 30-s deadline
+    elastic = finish_phase_process(start_phase_process("elastic", args.seed))
     quality = phase_quality(card, wire["quality"], fleet["quality_bc"],
                             quickstart["quality_d"])
     phase_obs(card, {
@@ -9028,6 +9732,7 @@ def main() -> int:
         "neural_launches": neural["k1_launches"],
         "quality_launches": quality["launches"],
         "pressure_launches": pressure["launches"],
+        "elastic_launches": elastic["launches"],
         "by_bucket": {str(b): r for b, r in timing.items()},
         "by_width": {str(EC_WIDTH): {str(b): r
                                      for b, r in timing_ec.items()}}}, {

@@ -26,6 +26,7 @@
         [--event-server-ip localhost] [--event-server-port 7070]] \
         [--replicas N | --supervised N | --standby | --join URL[,URL]] \
         [--advertise HOST:PORT] [--member-name NAME] \
+        [--autoscale on|off] [--autoscale-min N] [--autoscale-max N] \
         [--mesh items=N@fleet[:i]] [--tenancy on|off] [--tenant-rate R] \
         [--tenant-burst B] [--tenant-concurrency C] [--tenant-queue-max Q] \
         [--quality on|off] [--attribution-s S] [--canary-sample N] \
@@ -51,6 +52,9 @@
         [--join URL[,URL]] [--advertise HOST:PORT]
     python -m predictionio_tpu_torch.cli run my.module.function
     python -m predictionio_tpu_torch.cli shell
+    python -m predictionio_tpu_torch.cli loadsim -- --scenario NAME|FILE \
+        --port P [--port P2] [--key KEY] [--seed S] [--scale F] \
+        [--dry-run] [--timeout S] [--samples FILE]
 
 Storage comes from `PIO_STORAGE_*` (or a `pio-env` file); without any,
 one sqlite file at `./.pio_store/pio.db`, the JAX package's default.
@@ -87,6 +91,13 @@ a router merges N catalog slices, served by in-process replica i (or
 supervised child i) as slice i % N; `--mesh items=N@fleet:i` makes a
 `--join` member serve slice i. `PIO_FLEET_LEASE_TTL_S`,
 `PIO_FLEET_HEARTBEAT_S` and `PIO_FLEET_SUSPECT_N` tune the fleet.
+`--autoscale on` (default `PIO_AUTOSCALE`, off) with `--supervised N`
+lets the router grow and retire child processes off its own tsdb ring
+(`serving/autoscaler.py`) within [`--autoscale-min`, `--autoscale-max`]
+(`PIO_AUTOSCALE_MIN`, `PIO_AUTOSCALE_MAX`; thresholds and damping from
+the other `PIO_AUTOSCALE_*`); a grown child is named `scale<n>`.
+`loadsim -- ...` replays a scenario open loop against servers
+(`tools/loadsim.py`; `-- --help` lists its flags).
 `--tenancy on` authenticates `/queries.json` with the app access keys and
 enforces per-app quotas (429 with Retry-After) and weighted-fair
 batching; `--tenant-*` set the defaults (`PIO_TENANT_*`), `app quota-set`
@@ -157,6 +168,7 @@ preloaded.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import signal
@@ -390,6 +402,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default 127.0.0.1:<port>)")
     x.add_argument("--member-name",
                    help="with --join: the member's name in heartbeats")
+    x.add_argument("--autoscale", choices=["on", "off"],
+                   help="with --supervised: grow and retire child "
+                        "processes off the router's tsdb ring "
+                        "(default: PIO_AUTOSCALE, off)")
+    x.add_argument("--autoscale-min", type=int,
+                   help="the autoscaler's floor on children "
+                        "(PIO_AUTOSCALE_MIN, default 1)")
+    x.add_argument("--autoscale-max", type=int,
+                   help="the autoscaler's ceiling on children "
+                        "(PIO_AUTOSCALE_MAX, default 4)")
     x.add_argument("--mesh",
                    help="items=N@fleet on a router: merge N catalog "
                         "slices; items=N@fleet:i on a --join member: "
@@ -483,6 +505,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "a fleet member of role ingest")
     x.add_argument("--advertise", default="",
                    help="host:port other hosts reach this service at")
+    x = sub.add_parser("loadsim", help="open-loop traffic from a "
+                                       "scenario (tools/loadsim.py)")
+    x.add_argument("loadsim_argv", nargs=argparse.REMAINDER,
+                   help="the simulator's arguments after --, e.g. -- "
+                        "--scenario flash-crowd --port 8000 --scale 0.2")
     x = sub.add_parser("run", help="run a function by its dotted path with "
                                    "the storage configured")
     x.add_argument("target", help="module.function")
@@ -568,6 +595,31 @@ def _fleet_mesh(spec: Optional[str]):
     return parsed
 
 
+def _autoscale_on(args, registry) -> bool:
+    """`--autoscale`, else PIO_AUTOSCALE of the storage config."""
+    return (args.autoscale == "on" if args.autoscale else
+            registry.config.get("PIO_AUTOSCALE", "") in ("1", "true", "on"))
+
+
+def _autoscaler(args, registry, sup, server, spec_factory):
+    """An Autoscaler over the supervisor and the router when
+    `_autoscale_on`, its thresholds from PIO_AUTOSCALE_*,
+    `--autoscale-min`/`--autoscale-max` over theirs; None when off."""
+    if not _autoscale_on(args, registry):
+        return None
+    from predictionio_tpu_torch.serving.autoscaler import (AutoscaleConfig,
+                                                           Autoscaler)
+    cfg = AutoscaleConfig.from_env()
+    cfg = dataclasses.replace(
+        cfg, enabled=True,
+        min_children=(args.autoscale_min if args.autoscale_min is not None
+                      else cfg.min_children),
+        max_children=(args.autoscale_max if args.autoscale_max is not None
+                      else cfg.max_children))
+    return Autoscaler(cfg, supervisor=sup, fleet=server,
+                      spec_factory=spec_factory)
+
+
 def _deploy(args, argv: Sequence[str]) -> int:
     from predictionio_tpu_torch.ops.topk_sharded import ShardSlice
     from predictionio_tpu_torch.serving.fleet import (FleetServer,
@@ -594,6 +646,12 @@ def _deploy(args, argv: Sequence[str]) -> int:
         raise ValueError(f"--mesh {args.mesh}: items=N@fleet goes with a "
                          "router (--replicas, --supervised), "
                          "items=N@fleet:i with a single or --join replica")
+    if mesh is not None and args.supervised and _autoscale_on(args, registry):
+        # a grown child would serve no slice, and the mesh routes only to
+        # members that declare one
+        raise ValueError(f"--mesh {args.mesh}: the autoscaler grows "
+                         "whole-catalog children; no --autoscale on (or "
+                         "PIO_AUTOSCALE) with --mesh")
     server_kw = dict(
         window_s=args.batch_window_ms / 1000.0, server_key=server_key,
         ssl_context=ssl_context_from_config(registry.config),
@@ -628,25 +686,37 @@ def _deploy(args, argv: Sequence[str]) -> int:
         what = (f"{args.supervised} supervised replica processes"
                 if args.supervised else
                 f"{fleet_cfg.replicas} local replicas")
-        print(f"Fleet {'standby router' if args.standby else 'control plane'}"
-              f" started on {args.ip}:{port} ({what})", flush=True)
-        sup = None
+        sup = asc = None
         if args.supervised:
             from predictionio_tpu_torch.serving.supervisor import (
                 ChildSpec, Supervisor, child_argv_from_parent)
+            router_url = f"http://127.0.0.1:{port}"
+
+            def _child_spec(name: str, i: Optional[int] = None) -> ChildSpec:
+                # a grown child has no index (no mesh with the autoscaler)
+                extra = ["--member-name", name]
+                if mesh is not None and i is not None:
+                    extra += ["--mesh", f"items={mesh[0]}@fleet:{i % mesh[0]}"]
+                return ChildSpec(name, child_argv_from_parent(
+                    argv, router_url, extra=extra))
+
+            sup = Supervisor([_child_spec(f"replica{i}", i)
+                              for i in range(args.supervised)])
+            asc = _autoscaler(args, registry, sup, server, _child_spec)
+            if asc is not None:
+                cfg = asc.config
+                what += (f", autoscale [{cfg.min_children}, "
+                         f"{cfg.max_children}]")
+        print(f"Fleet {'standby router' if args.standby else 'control plane'}"
+              f" started on {args.ip}:{port} ({what})", flush=True)
+        if sup is not None:
             # the kernel library, built once before the children load it
             if args.device != "cpu":
                 from predictionio_tpu_torch.ops import fused_topk
                 fused_topk.build_library()
-            router_url = f"http://127.0.0.1:{port}"
-            specs = []
-            for i in range(args.supervised):
-                extra = ["--member-name", f"replica{i}"]
-                if mesh is not None:
-                    extra += ["--mesh", f"items={mesh[0]}@fleet:{i % mesh[0]}"]
-                specs.append(ChildSpec(f"replica{i}", child_argv_from_parent(
-                    argv, router_url, extra=extra)))
-            sup = Supervisor(specs).start()
+            sup.start()
+            # the router's tsdb tick drives it from now on
+            server.autoscaler = asc
         install_signal_handlers(server)
         try:
             server.stopped.wait()
@@ -811,6 +881,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             return _eventserver(args)
         elif cmd == "ingestd":
             return _ingestd(args)
+        elif cmd == "loadsim":
+            from predictionio_tpu_torch.tools import loadsim
+            sim_argv = list(args.loadsim_argv)
+            if sim_argv and sim_argv[0] == "--":
+                sim_argv = sim_argv[1:]
+            return loadsim.main(sim_argv)
         elif cmd == "run":
             _run(args.target)
         elif cmd == "shell":

@@ -69,6 +69,13 @@ class _Family:
                 self._children[key] = child
         return child
 
+    def remove(self, **labels) -> bool:
+        """Drop one labelset's child (a series whose subject is gone,
+        such as a retired fleet member); False when there was none."""
+        key = tuple(str(labels.get(n, "")) for n in self.labelnames)
+        with self._lock:
+            return self._children.pop(key, None) is not None
+
     def _default(self):
         """The label-less child (only valid when the family has no labels)."""
         if self.labelnames:

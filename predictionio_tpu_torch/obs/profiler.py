@@ -59,6 +59,7 @@ DEFAULT_MAX_NODES = 4096
 _ROLE_PREFIXES: Tuple[Tuple[str, str], ...] = (
     ("wire-reactor-", "reactor"),
     ("wire-", "worker"),
+    ("pio-torch-loadsim-", "worker"),   # loadsim's open-loop arrivals
     ("replica-", "worker"),             # REPLICATED's per-target writes
     ("pio-torch-batch-drain", "drainer"),
     ("pio-torch-feedback", "drainer"),
@@ -75,7 +76,7 @@ _ROLE_PREFIXES: Tuple[Tuple[str, str], ...] = (
     ("pio-torch-prof", "obs"),
     ("pio-torch-tsdb", "obs"),
     ("pio-torch-watchdog", "obs"),
-    ("pio-torch-supervisor", "supervisor"),
+    ("pio-torch-supervisor", "supervisor"),   # with the retire drains
     ("pio-torch-server-stop", "supervisor"),
     ("pio-torch-signal-stop", "supervisor"),
     ("pio-torch-mem-drain", "supervisor"),

@@ -198,6 +198,17 @@ class TSDB:
         with self._lock:
             return list(self._series)
 
+    def forget(self, match: Callable[[str], bool]) -> int:
+        """Drop every series whose key `match`es (the history of a
+        subject that is gone); returns how many."""
+        with self._lock:
+            keys = [k for k in self._series if match(k)]
+            for k in keys:
+                del self._series[k]
+            for k in [k for k in self._last_raw if match(k)]:
+                del self._last_raw[k]
+        return len(keys)
+
     def trim(self, keep_frac: float = 0.5) -> int:
         """Soft-memory-pressure hook: drop the oldest points of every
         ring down to `keep_frac` of their current length (recent

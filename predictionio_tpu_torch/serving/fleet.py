@@ -23,7 +23,9 @@ health-gated and rolled alike. The control plane:
     pooled kept-alive connections (`utils.wire.HTTPConnectionPool`) and
     retries a transport failure on the next member, so a member dying
     mid-request costs the client nothing; an HTTP answer (a 503 shed, a
-    400) passes through. A request whose deadline is spent is shed 504
+    400) passes through. A member that left the rotation after a
+    request picked it (an eject, a reload, a retirement) is skipped, so
+    a drain that saw nothing in flight sees no later request. A request whose deadline is spent is shed 504
     before dialling (`pio_shed_total{surface="deadline"}`).
   - elects a leader through a TTL lease in the store every router
     shares (`Leases`): non-leaders answer `/queries.json` with 307 to
@@ -78,9 +80,26 @@ background span.
 `GET /quality.json` gathers each admitted member's `/quality.json` under
 its key (a member that does not answer is reported with its error).
 
-Not ported yet (ROADMAP.md, Queue 1 item 5(c)): the member `/metrics`
-scrape and its derived gauges, `/federate`, `/fleet.html`, and the
-autoscaler's tick from the tsdb ring.
+Federation: the router's tsdb tick (`PIO_TSDB_INTERVAL_S`) also scrapes
+every admitted member's `/metrics` over the pooled upstream connections
+(2-s timeout each, the whole scrape inside the scraper's watchdog beat):
+the last good text of each member is served again by `GET /federate`
+with a `member` label on every sample, and the scrape derives the
+per-member gauges `pio_fleet_member_qps`, `pio_fleet_member_p99_seconds`,
+`pio_fleet_member_burn` and `pio_fleet_member_reactor_balance` into the
+router's own ring (one `/tsdb.json` holds the fleet's history; `GET
+/fleet.html` charts it, `tools/dashboard.py`). A failed scrape counts
+`pio_fleet_metrics_scrapes_total{outcome="error"}` and is probe-grade
+suspicion; the member's last good text stays. The same tick drives the
+attached `autoscaler` (`serving/autoscaler.py`), which reads that ring.
+
+Elastic scale-down: `retire_member` takes a member out of rotation as
+state `retiring` (its beats neither re-admit nor eject it) and drains it;
+it counts `pio_fleet_transitions_total{event="retire"}`, never an eject,
+and leaves the suspicion counters alone. `forget_member` then drops it
+from the table, the persisted snapshot, its `member` series of the
+registry and the ring (unlike the JAX router, whose ring keeps a retired
+member's last qps and p99 in the autoscaler's signals for good).
 """
 
 from __future__ import annotations
@@ -88,6 +107,7 @@ from __future__ import annotations
 import base64
 import dataclasses
 import json
+import re
 import secrets
 import threading
 import time
@@ -207,7 +227,7 @@ class _Replica:
         self.port = port
         self.lock = threading.Lock()
         self.admitted = False
-        # starting|serving|ejected|reloading|dead|stopping
+        # starting|serving|ejected|reloading|dead|stopping|retiring
         self.state = "starting"
         self.failures = 0         # consecutive suspicions
         self.inflight = 0
@@ -314,6 +334,15 @@ class FleetServer(HTTPServerBase):
         self._monitor_beat = None
         self._lease_beat = None
         self._fleet_obs = _fleet_metrics(self.metrics)
+        # the attached control loop (serving/autoscaler.py), ticked by
+        # the tsdb scrape once set
+        self.autoscaler = None
+        # federation: each member's last good /metrics text, and its
+        # previous parsed scrape (rates and p99 are deltas between two)
+        self._federate_lock = threading.Lock()
+        self._federated: Dict[str, str] = {}
+        self._member_prom_last: Dict[str, tuple] = {}
+        self._scrape_next = 0
         self._members_lock = threading.Lock()
         self._advertise = self.fleet.advertise
         self._holder = self._advertise
@@ -694,7 +723,9 @@ class FleetServer(HTTPServerBase):
             rep.shard = str(body.get("shard", ""))
             # an ingest member beats and is admitted, never routed to
             rep.role = str(body.get("role", "")) or "serve"
-            busy = rep.state in ("reloading", "stopping")
+            # a retiring member beats on while it drains: no re-admit,
+            # no eject
+            busy = rep.state in ("reloading", "stopping", "retiring")
             if rep.state == "dead":
                 rep.state = "starting"
         if not busy:
@@ -786,7 +817,8 @@ class FleetServer(HTTPServerBase):
                 beat.tick()
             for rep in list(self._replicas):
                 with rep.lock:
-                    skip = rep.state in ("reloading", "stopping")
+                    skip = rep.state in ("reloading", "stopping",
+                                         "retiring")
                 self._fleet_obs["beat_age"].labels(member=rep.key).set(
                     time.monotonic() - rep.last_beat)
                 if skip:
@@ -807,6 +839,164 @@ class FleetServer(HTTPServerBase):
                 self._fleet_obs["shard_owner"].labels(
                     shard=rep.shard, member=rep.key).set(
                         1.0 if rep.admitted else 0.0)
+
+    # -- elastic scale-down (a drain, not a death) ---------------------------
+    def member_by_name(self, name: str) -> Optional[_Replica]:
+        """The member a supervised child registered as: its heartbeat's
+        name, else the stub child's model id `stub-<name>`."""
+        for rep in list(self._replicas):
+            if rep.name == name or rep.model_id == f"stub-{name}":
+                return rep
+        return None
+
+    def retire_member_named(self, name: str) -> bool:
+        rep = self.member_by_name(name)
+        if rep is None:
+            return False
+        return self.retire_member(rep)
+
+    def retire_member(self, rep: _Replica) -> bool:
+        """Out of rotation as `retiring`, then drained: a `retire`
+        transition, never an eject, and the suspicion counters stay as
+        they are. Returns whether the drain ended inside
+        `drain_timeout_s`."""
+        with rep.lock:
+            rep.admitted = False
+            rep.state = "retiring"
+        self._fleet_obs["transitions"].labels(event="retire").inc()
+        self._update_gauges()
+        _log.info("member_retiring", member=rep.key, name=rep.name)
+        drained = self._await_drain(rep)
+        if not drained:
+            _log.warning("retire_drain_timeout", member=rep.key,
+                         inflight=rep.inflight)
+        return drained
+
+    def forget_member(self, key: str) -> None:
+        """Drop a retired member from the table and the persisted
+        snapshot (a later beat of a lingering process registers it
+        again)."""
+        with self._members_lock:
+            self._replicas = [r for r in self._replicas if r.key != key]
+        with self._federate_lock:
+            self._federated.pop(key, None)
+        self._member_prom_last.pop(key, None)
+        # its last gauge values would stay in the ring for good and hold
+        # the autoscaler's signals (a retired member's flash-time qps
+        # and p99): its series go with it
+        for fam in ("member_qps", "member_p99", "member_burn",
+                    "member_balance", "beat_age"):
+            self._fleet_obs[fam].remove(member=key)
+        self.tsdb.forget(lambda k: f"member={key}}}" in k
+                         or f"member={key}," in k)
+        self._persist_members()
+        self._update_gauges()
+        _log.info("member_forgotten", member=key)
+
+    # -- metrics federation -------------------------------------------------
+    def _obs_collectors(self):
+        """The tsdb tick also scrapes the members (their derived gauges
+        land in this router's ring) and then ticks the autoscaler, which
+        reads them."""
+        return super()._obs_collectors() + [self._scrape_members,
+                                            self._autoscale_tick]
+
+    def _autoscale_tick(self) -> None:
+        a = self.autoscaler
+        if a is not None:
+            a.tick()
+
+    def _scrape_budget_s(self) -> float:
+        """The whole scrape's time: the scraper's watchdog budget
+        (interval x 3 + 5) less the wait before the tick and the
+        autoscaler's share."""
+        sc = self._scraper
+        interval = sc.interval_s if sc is not None else 0.0
+        return max(2.0, interval * 2.0 + 2.0)
+
+    def _scrape_members(self) -> None:
+        """Each admitted member's /metrics over the pooled upstream
+        connections (2-s timeout): the text is kept for /federate and
+        folded into the member gauges. A failed scrape counts
+        outcome="error" and is probe-grade suspicion (never a lone
+        ejection cause); the last good text stays. Members past the
+        tick's budget wait for the next tick, which starts after the
+        last one scraped."""
+        members = [r for r in list(self._replicas) if r.admitted]
+        if not members:
+            return
+        start = self._scrape_next % len(members)
+        members = members[start:] + members[:start]
+        end = time.monotonic() + self._scrape_budget_s()
+        for n, rep in enumerate(members):
+            left = end - time.monotonic()
+            if left <= 0.05:
+                self._scrape_next = start + n
+                return
+            try:
+                status, _rh, body = self._upstream.request(
+                    rep.host, rep.port, "GET", "/metrics", None, {},
+                    timeout=min(2.0, left))
+                if status != 200:
+                    raise OSError(f"scrape status {status}")
+            except OSError as e:
+                self._fleet_obs["scrapes"].labels(outcome="error").inc()
+                self._record_failure(rep, f"metrics scrape failed: {e}")
+                continue
+            text = body.decode("utf-8", "replace")
+            with self._federate_lock:
+                self._federated[rep.key] = text
+            self._fleet_obs["scrapes"].labels(outcome="ok").inc()
+            try:
+                self._derive_member_gauges(rep.key, text)
+            except (ValueError, KeyError, ZeroDivisionError):
+                pass     # a malformed exposition still federates
+        self._scrape_next = start + len(members)
+
+    def _derive_member_gauges(self, member: str, text: str) -> None:
+        """One member scrape into the `pio_fleet_member_*` gauges: the
+        burn lands at once, the rates and the p99 need two scrapes."""
+        now = time.monotonic()
+        parsed = _parse_prom(text)
+        prev = self._member_prom_last.get(member)
+        self._member_prom_last[member] = (now, parsed)
+        obs = self._fleet_obs
+        burn = 0.0
+        for (name, labels), v in parsed.items():
+            if (name == "pio_slo_burn_rate"
+                    and dict(labels).get("window") == "5m"):
+                burn = max(burn, v)
+        obs["member_burn"].labels(member=member).set(burn)
+        if prev is None:
+            return
+        pts, pparsed = prev
+        dt = now - pts
+        if dt <= 0:
+            return
+
+        def _sum(cur: Dict, name: str) -> float:
+            return sum(v for (n, _l), v in cur.items() if n == name)
+
+        dreq = (_sum(parsed, "pio_http_requests_total")
+                - _sum(pparsed, "pio_http_requests_total"))
+        if dreq >= 0:
+            obs["member_qps"].labels(member=member).set(dreq / dt)
+        obs["member_p99"].labels(member=member).set(
+            _prom_hist_p99(parsed, pparsed,
+                           "pio_http_request_duration_seconds_bucket"))
+        # reactor balance: max/mean of the per-reactor request deltas
+        # (1.0 = evenly sharded accepts)
+        per_reactor: Dict[str, float] = {}
+        for (name, labels), v in parsed.items():
+            if name == "pio_wire_requests_total":
+                r = dict(labels).get("reactor", "0")
+                pv = pparsed.get((name, labels), 0.0)
+                per_reactor[r] = per_reactor.get(r, 0.0) + (v - pv)
+        deltas = [d for d in per_reactor.values() if d >= 0]
+        if deltas and sum(deltas) > 0:
+            mean = sum(deltas) / len(deltas)
+            obs["member_balance"].labels(member=member).set(
+                max(deltas) / mean if mean > 0 else 1.0)
 
     # -- routing ------------------------------------------------------------
     def _rotation(self) -> List[_Replica]:
@@ -849,11 +1039,16 @@ class FleetServer(HTTPServerBase):
     def _send(self, rep: _Replica, method: str, path: str,
               body: Optional[bytes], headers: Dict[str, str],
               timeout: float):
-        """One pooled request to one member; only transport failures
-        raise (OSError)."""
+        """One pooled request to one member; transport failures raise
+        OSError, and `_LeftRotation` a member that left the rotation
+        (ejected, reloading, retiring) after the request picked it: the
+        admitted check and the in-flight count share its lock, so that a
+        drain that saw zero in flight sees no later request."""
         if faults().dropped(f"fleet.net.{rep.key}.data"):
             raise OSError(f"injected partition: fleet.net.{rep.key}.data")
         with rep.lock:
+            if not rep.admitted:
+                raise _LeftRotation(rep.key)
             rep.inflight += 1
         try:
             return self._upstream.request(rep.host, rep.port, method, path,
@@ -904,6 +1099,8 @@ class FleetServer(HTTPServerBase):
             try:
                 status, rheaders, rbody = self._send(
                     rep, req.method, path, body, headers, timeout)
+            except _LeftRotation:
+                continue
             except OSError as e:
                 last_err = e
                 trace.add_span(p, f"proxy_retry:{rep.key}", t_dial,
@@ -977,6 +1174,8 @@ class FleetServer(HTTPServerBase):
                 try:
                     status, rheaders, rbody = self._send(
                         rep, "POST", path, body, headers, timeout)
+                except _LeftRotation:
+                    continue
                 except OSError as e:
                     trace.add_span(p, f"shard_retry:{rep.key}", t_dial,
                                    time.perf_counter())
@@ -1270,12 +1469,41 @@ class FleetServer(HTTPServerBase):
                         "error": f"{type(e).__name__}: {e}"}
             return Response.json({"role": "fleet", "members": members})
 
+        @r.get("/fleet.html")
+        def fleet_html(req: Request) -> Response:
+            from predictionio_tpu_torch.tools.dashboard import _fleet_page
+            return Response.text(
+                _fleet_page(self.tsdb,
+                            [rep.snapshot() for rep in self._replicas]),
+                content_type="text/html")
+
+        @r.get("/federate")
+        def federate(req: Request) -> Response:
+            # each member's last good /metrics text with a `member`
+            # label on every sample: one scrape target for the fleet (a
+            # member's failures never fail the endpoint)
+            with self._federate_lock:
+                items = sorted(self._federated.items())
+            out: List[str] = []
+            for member, text in items:
+                for line in text.splitlines():
+                    if not line or line.startswith("#"):
+                        continue
+                    out.append(_federate_line(line, member))
+            return Response.text(
+                "\n".join(out) + ("\n" if out else ""),
+                content_type="text/plain; version=0.0.4; charset=utf-8")
+
         @r.post("/stop")
         def stop(req: Request) -> Response:
             self.auth.check(req)
             threading.Thread(target=self.stop, daemon=True,
                              name="pio-torch-fleet-stop").start()
             return Response.json({"message": "Fleet shutting down"})
+
+
+class _LeftRotation(Exception):
+    """A member picked for a request left the rotation before the send."""
 
 
 def _json_doc(text: str) -> dict:
@@ -1402,8 +1630,99 @@ class ReplicaAgent:
             self._beat_all("/fleet/heartbeat")
 
 
+_PROM_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def _parse_prom(text: str) -> Dict[tuple, float]:
+    """Prometheus text exposition -> {(name, sorted label tuple):
+    value}; a line that does not parse is skipped (a member of a newer
+    build still federates)."""
+    out: Dict[tuple, float] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, val = line.rpartition(" ")
+        if not head:
+            continue
+        try:
+            value = float(val)
+        except ValueError:
+            continue
+        brace = head.find("{")
+        if brace < 0:
+            out[(head, ())] = value
+        else:
+            labels = tuple(sorted(_PROM_LABEL_RE.findall(head[brace:])))
+            out[(head[:brace], labels)] = value
+    return out
+
+
+def _prom_hist_p99(parsed: Dict[tuple, float], prev: Dict[tuple, float],
+                   bucket_name: str) -> float:
+    """p99 of the histogram's growth between two scrapes, over every
+    series of `bucket_name` together (linear within the bucket, the
+    registry's own estimator); 0.0 when nothing was observed."""
+    by_le: Dict[float, float] = {}
+    for (name, labels), v in parsed.items():
+        if name != bucket_name:
+            continue
+        le_s = dict(labels).get("le", "+Inf")
+        le = float("inf") if le_s == "+Inf" else float(le_s)
+        delta = v - prev.get((name, labels), 0.0)
+        if delta > 0:
+            by_le[le] = by_le.get(le, 0.0) + delta
+    if not by_le:
+        return 0.0
+    bounds = sorted(by_le)
+    total = by_le[bounds[-1]] if bounds[-1] == float("inf") else max(
+        by_le.values())
+    if total <= 0:
+        return 0.0
+    target = 0.99 * total
+    lower = 0.0
+    prev_cum = 0.0
+    for le in bounds:
+        cum = by_le[le]
+        if cum >= target:
+            if le == float("inf"):
+                return lower
+            span = cum - prev_cum
+            frac = ((target - prev_cum) / span) if span > 0 else 1.0
+            return lower + (le - lower) * frac
+        prev_cum = cum
+        lower = le if le != float("inf") else lower
+    return lower
+
+
+def _federate_line(line: str, member: str) -> str:
+    """One exposition sample with `member=` added to its labels."""
+    head, _, val = line.rpartition(" ")
+    if head.endswith("}"):
+        return f'{head[:-1]},member="{member}"}} {val}'
+    return f'{head}{{member="{member}"}} {val}'
+
+
 def _fleet_metrics(metrics: MetricsRegistry) -> Dict[str, Any]:
     return {
+        "scrapes": metrics.counter(
+            "pio_fleet_metrics_scrapes_total",
+            "Member /metrics federation scrapes by outcome",
+            labels=("outcome",)),
+        "member_qps": metrics.gauge(
+            "pio_fleet_member_qps",
+            "Per-member HTTP request rate derived from federation "
+            "scrapes", labels=("member",)),
+        "member_p99": metrics.gauge(
+            "pio_fleet_member_p99_seconds",
+            "Per-member request p99 over the last scrape interval",
+            labels=("member",)),
+        "member_burn": metrics.gauge(
+            "pio_fleet_member_burn",
+            "Per-member worst 5m SLO burn rate", labels=("member",)),
+        "member_balance": metrics.gauge(
+            "pio_fleet_member_reactor_balance",
+            "Per-member max/mean reactor request skew (1.0 = balanced)",
+            labels=("member",)),
         "routed": metrics.counter(
             "pio_fleet_routed_total",
             "Router outcomes (ok/retried/redirected/no_replica/exhausted)",

@@ -30,11 +30,15 @@ the stub child of the tests: a minimal HTTP replica (a canned
 `/queries.json`, an honest `/ready`) that registers through a real
 `ReplicaAgent`, with no model load.
 
+The autoscaler (`serving/autoscaler.py`) changes the set at runtime:
+`grow(spec)` adds a slot and spawns it (a duplicate name is refused),
+`retire(name)` marks the child retiring, SIGTERMs it, SIGKILLs it after
+`grace_s` and removes its slot. A retiring child's exit is a decision,
+not a death: the watch loop skips it, so it is never respawned, backed
+off or counted by the breaker or `pio_supervisor_respawns_total`.
+
 Metrics: `pio_supervisor_children{state}` (alive/backoff/given_up) and
 `pio_supervisor_respawns_total{child}`.
-
-Not ported yet (ROADMAP.md, Queue 1 item 5(c)): `grow` and `retire`, the
-autoscaler's calls.
 """
 
 from __future__ import annotations
@@ -81,6 +85,8 @@ class _Child:
         self.given_up = False
         self.respawns = 0
         self.last_rc: Optional[int] = None
+        # scale-down in progress: the exit is a decision, not a death
+        self.retiring = False
 
     @property
     def alive(self) -> bool:
@@ -90,7 +96,7 @@ class _Child:
         return {"name": self.spec.name, "alive": self.alive,
                 "pid": self.proc.pid if self.proc is not None else None,
                 "respawns": self.respawns, "givenUp": self.given_up,
-                "lastRc": self.last_rc}
+                "retiring": self.retiring, "lastRc": self.last_rc}
 
 
 class Supervisor:
@@ -155,16 +161,7 @@ class Supervisor:
                 pass
         deadline = time.monotonic() + self.grace_s
         for proc in procs:
-            left = deadline - time.monotonic()
-            try:
-                proc.wait(timeout=max(left, 0.05))
-            except subprocess.TimeoutExpired:
-                _log.warning("supervisor_sigkill_straggler", pid=proc.pid)
-                try:
-                    proc.kill()
-                    proc.wait(timeout=5.0)
-                except (OSError, subprocess.TimeoutExpired):
-                    pass
+            _reap(proc, max(deadline - time.monotonic(), 0.05))
         t = self._thread
         if t is not None:
             t.join(timeout=self.poll_s * 10.0 + 5.0)
@@ -178,6 +175,47 @@ class Supervisor:
     def alive_count(self) -> int:
         with self._lock:
             return sum(1 for c in self._children if c.alive)
+
+    def find(self, name: str) -> Optional[_Child]:
+        with self._lock:
+            for c in self._children:
+                if c.spec.name == name:
+                    return c
+        return None
+
+    # -- elastic grow/retire ------------------------------------------------
+    def grow(self, spec: ChildSpec) -> None:
+        """Add one slot at runtime and spawn it (the autoscaler's scale-
+        up); it is respawned and breaker-guarded like the others."""
+        if self.find(spec.name) is not None:
+            raise ValueError(f"child {spec.name!r} already supervised")
+        child = _Child(spec)
+        with self._lock:
+            self._children.append(child)
+        self._spawn_child(child)
+        self._export_states()
+
+    def retire(self, name: str, grace_s: Optional[float] = None) -> bool:
+        """Stop one child, SIGTERM first, SIGKILL after `grace_s`, and
+        remove its slot (the autoscaler's scale-down). The retiring flag
+        keeps the watch loop from counting the exit as a death. False
+        when no such child exists."""
+        child = self.find(name)
+        if child is None:
+            return False
+        child.retiring = True
+        proc = child.proc
+        if proc is not None and child.alive:
+            try:
+                proc.send_signal(signal.SIGTERM)
+            except OSError:
+                pass
+            _reap(proc, self.grace_s if grace_s is None else grace_s)
+        with self._lock:
+            self._children = [c for c in self._children if c is not child]
+        _log.info("supervisor_child_retired", child=name)
+        self._export_states()
+        return True
 
     # -- spawning -----------------------------------------------------------
     def _spawn_child(self, child: _Child) -> None:
@@ -236,7 +274,7 @@ class Supervisor:
         with self._lock:
             children = list(self._children)
         for child in children:
-            if child.given_up:
+            if child.given_up or child.retiring:
                 continue
             if child.next_spawn_at is not None:
                 if now >= child.next_spawn_at and not self._stop.is_set():
@@ -271,15 +309,29 @@ class Supervisor:
         g.labels(state="given_up").set(float(given_up))
 
 
+def _reap(proc: subprocess.Popen, grace_s: float) -> None:
+    """Wait `grace_s` for a SIGTERMed child, then SIGKILL it."""
+    try:
+        proc.wait(timeout=grace_s)
+    except subprocess.TimeoutExpired:
+        _log.warning("supervisor_sigkill_straggler", pid=proc.pid)
+        try:
+            proc.kill()
+            proc.wait(timeout=5.0)
+        except (OSError, subprocess.TimeoutExpired):
+            pass
+
+
 def child_argv_from_parent(argv: Sequence[str], router_url: str,
                            extra: Sequence[str] = ()) -> List[str]:
     """A supervised child's argv from the parent's CLI argv (after the
     program): the same deploy flags, less those a child must not
-    inherit (supervision, replica count, port, join, advertise, member
-    name, standby), plus `--join` back to the router and an ephemeral
-    port. The child runs the port's own CLI."""
+    inherit (supervision, replica count, port, join, advertise, the
+    autoscaler's, member name, standby), plus `--join` back to the router
+    and an ephemeral port. The child runs the port's own CLI."""
     drop_with_value = {"--supervised", "--replicas", "--port", "--join",
-                       "--advertise", "--member-name"}
+                       "--advertise", "--autoscale", "--autoscale-min",
+                       "--autoscale-max", "--member-name"}
     drop_bare = {"--standby"}
     out: List[str] = []
     skip = False

@@ -469,6 +469,11 @@ class AdmissionController:
             st.quota_loaded = time.monotonic()
             return st
 
+    def quota(self, tenant: TenantIdentity) -> TenantQuota:
+        """The tenant's effective quota (the defaults merged with its
+        stored overrides), from the TTL cache."""
+        return self._state(tenant).quota
+
     def batch_params(self, tenant: Optional[TenantIdentity]
                      ) -> Tuple[str, float, int]:
         """(lane label, DRR weight, lane cap) for the micro-batcher; an

@@ -69,7 +69,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "ingest.service", "data.view", "data.entitymap",
                      "core.selfclean", "core.fakeworkflow", "obs.trace",
                      "obs.tsdb", "obs.profiler", "obs.kernelprobe",
-                     "obs.quality", "resilience.pressure"):
+                     "obs.quality", "resilience.pressure",
+                     "serving.autoscaler", "tools.dashboard",
+                     "tools.loadsim"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"

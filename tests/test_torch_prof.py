@@ -8,8 +8,9 @@ counter rates, the scraper's tick), the kernel probe
 
 Mirrors `tests/test_prof.py`'s TestSamplingProfiler, TestGCPauseHook,
 TestTSDB and TestObservatoryEndpoints (its `pio-tpu top` case waits for
-the admin tools, and TestFleetFederation and TestDashboardHistory for
-the fleet's scrape and the dashboard: ROADMAP.md, Queue 1 item 5(c)-(d)).
+the admin tools and TestDashboardHistory for the rest of the dashboard:
+ROADMAP.md, Queue 1 item 5(d)); its TestFleetFederation runs against the
+port in `tests/test_torch_elastic.py`.
 Across the packages: `series_key` and `TSDB.to_json` are equal for the
 same inputs; every thread name the port starts maps to a JAX role, never
 "other". Sampling is driven by `sample_once()` and `Scraper.tick(now=)`,
@@ -129,7 +130,9 @@ class TestSamplingProfiler:
         names = _port_thread_names()
         for expected in ("pio-torch-batch-drain", "wire-reactor-0",
                          "wire-0-worker-0", "pio-torch-prof-sampler",
-                         "pio-torch-tsdb-scraper", "pio-torch-fleet-lease"):
+                         "pio-torch-tsdb-scraper", "pio-torch-fleet-lease",
+                         "pio-torch-supervisor-retire",
+                         "pio-torch-loadsim-fire"):
             assert expected in names
         unmapped = [n for n in names if role_of(n) == "other"]
         assert unmapped == []
@@ -150,6 +153,8 @@ class TestSamplingProfiler:
         ("pio-torch-tsdb-scraper", "pio-tsdb-scraper"),
         ("pio-torch-watchdog", "pio-watchdog"),
         ("pio-torch-supervisor", "pio-supervisor"),
+        ("pio-torch-supervisor-retire", "pio-supervisor"),
+        ("pio-torch-loadsim-fire", "wire-0-worker-0"),
         ("pio-torch-http-8000", "pio-http-serve-8000"),
         ("MainThread", "MainThread"),
     ])
