@@ -11,7 +11,8 @@
                                   streaming | quickstart | templates |
                                   classification | neural | wire |
                                   fleet | storage | ingest | obs |
-                                  quality | pressure | elastic | steps]
+                                  quality | pressure | elastic | chaos |
+                                  steps]
 
 Needs one CUDA card; imports nothing of JAX or of `predictionio_tpu`.
 Phases, each printing one JSON line; any failure exits non-zero before
@@ -264,6 +265,39 @@ the result line:
               with `--only elastic` runs the deploy with the autoscaler
               off instead and prints each rate's member p99, qps and
               batch queue-delay p99 (phase `elastic_calibration`).
+  4i. chaos   the chaos drills, `cli top` and the service commands, in a
+              process of its own once phases 9-11, 15, 16 and 17 have
+              ended, beside the rest of the ML-1M chain: phase 4's model
+              recorded as a COMPLETED instance in a SQLITE store whose
+              app `chaos` (key CHAOSKEY, 2,000 ratings) its refresher
+              reads. (a) The instance through `cli.main.deploy_instance`
+              on the card: 64 of phase 4's queries against the plain
+              version, K1 launches = plan calls; `cli top --port` prints
+              its view, exit 0. (b) `cli chaos list` prints the nine
+              drills; `cli chaos run refresher-die --json` (its tiny
+              model trained on the card) exits 0 with an ok report. (c)
+              `resilience.scenarios.run(name, trained=<that instance>,
+              device=cuda:0)` for every drill (the six in-process ones
+              first, the three over stub child processes last, beside
+              the chain's tail), each a line of phase
+              `chaos_drill` (requests, failures, notes, K1 launches,
+              plan calls, the refresher's ticks): every report ok; in
+              refresher-stall, refresher-die, lease-failover, mem-soft,
+              hot-key and handoff-budget (the topologies that serve in
+              this process) K1 launches rise and equal plan calls, none
+              in replica-kill, flash-crowd, diurnal-1-N-1 (stub
+              children); the refreshers tick a baseline, never `no_app`;
+              no kernel build. (d) A store of its own where `cli eval`
+              of the recommendation template ran on the card (300 x 200,
+              6,000 planted ratings, two folds); `cli start-all` on free
+              ports with its own pid and log directories: the
+              dashboard's / lists the evaluation, its
+              /engine_instances/<id>.json equals the stored results,
+              /metrics.html and /traces.html answer; the admin server
+              lists, creates and deletes an app; the event server
+              stores an event; `cli daemon --name extra -- eventserver`
+              starts a fourth; `cli stop-all` stops all four, their
+              processes gone and their pidfiles removed.
   5. parity_sharded
               the kernel's sharded form (K2, `shard_local_candidates`)
               vs its plain version on shard slices of a 20,037-row
@@ -548,6 +582,7 @@ phase 3, phase 4's model and phase 4e (a) behind phase 4b's selector pass,
 pass with 4e (a) and 4f (a), and phase 4c with 4f (b) and (c), `--only
 pressure` the build, phase 3, phase 13's import and train and phase 4g,
 `--only elastic` the build, phase 3, phase 4's model and phase 4h,
+`--only chaos` the build, phase 3, phase 4's model and phase 4i,
 `--only steps` the build and a diagnostic of phase 17's seqrec step
 parity (the card's steps three times and beside a loaded card and host,
 the CPU's at 1, 2, 4 and the default intra-op threads, twice each; it
@@ -557,7 +592,8 @@ gates nothing); none prints the kernels line (whose K1 entry counts phase
 children's, the killed one's as read just before its kill, phase 4d's as
 `storage_launches`, phase 4f's (a) and (c) as `quality_launches`, phase
 4g's as `pressure_launches`, phase 4h's as `elastic_launches`: its
-children's, a retired one's at its last read before it stopped). Every
+children's, a retired one's at its last read before it stopped, phase
+4i's (a) and (c) as `chaos_launches`). Every
 run prints its seconds (`script_s`), and every phase line its second in
 the run (`at_s`).
 
@@ -566,9 +602,11 @@ phase 8's timing, timing_ecommerce and timing_sharded, which have the
 card and the host to themselves; phase 4c (with 4f (b) and (c)); then phases 9-11 (`--only
 train`), 15, 16 and 17, each in a process of its own, started together
 and run beside the rest: phases 4d, 5-7, 12-14 (the ML-1M chain, 4f (d)
-inside 14) and 4g. Their lines are passed on when they end (with run
-`at_s`), and a failure of one fails the run. Then phase 4h, in a process
-of its own, with the host to itself.
+inside 14) and 4g; once those four processes have ended, phase 4i
+(`--only chaos`) in a process of its own beside what remains of the
+chain. Their lines are passed on when they end (with run `at_s`), and a
+failure of one fails the run. Then phase 4h, in a process of its own,
+with the host to itself.
 
 Then the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1956,11 +1994,12 @@ class FleetLoad:
                 for r in json.loads(out_f.read_text())]
 
 
-def fleet_instance(registry, model) -> str:
+def fleet_instance(registry, model, app_name: Optional[str] = None) -> str:
     """Record `model` as a COMPLETED instance of the recommendation
     template in `registry` (blob and row as `cli train` writes them),
     through `CoreWorkflow.run_train` with an algorithm that hands the
-    model over; returns its id."""
+    model over; returns its id. `app_name` names the data source's app
+    in the instance (what a refresher reads), else it names none."""
     from predictionio_tpu_torch.core.base import (DataSource, FirstServing,
                                                   IdentityPreparator)
     from predictionio_tpu_torch.core.engine import Engine
@@ -1977,11 +2016,16 @@ def fleet_instance(registry, model) -> str:
         def read_training(self, ctx):
             return None
 
+    variant = {"algorithms": [{"name": "als", "params": {}}]}
+    if app_name is not None:
+        from predictionio_tpu_torch.models.recommendation import \
+            DataSourceParams
+        NoEvents.params_class = DataSourceParams
+        variant["datasource"] = {"params": {"app_name": app_name}}
     engine = Engine(NoEvents, IdentityPreparator, {"als": GivenModel},
                     FirstServing)
     row = CoreWorkflow.run_train(
-        engine, engine.engine_params_from_variant(
-            {"algorithms": [{"name": "als", "params": {}}]}),
+        engine, engine.engine_params_from_variant(variant),
         RuntimeContext(registry=registry, device=model.device,
                        workflow_params=WorkflowParams(
                            skip_sanity_check=True)),
@@ -3266,6 +3310,362 @@ def elastic_flash(out: dict, tmp: Path, cli, port: int, reqs: list,
         "children": children, "routed_ok": routed,
         "disagreeing_reads": watch.disagreed,
         "transitions": delta})
+
+
+CHAOS_CHECKED = 64         # (a): phase 4's queries held to the plain version
+CHAOS_APP, CHAOS_KEY = "chaos", "CHAOSKEY"   # the drills' tenant key
+CHAOS_EVENTS = 2_000       # the app's ratings: its refresher's watermark
+# the drills whose topology serves in this process, run first; the other
+# three route to stub child processes, whose cold starts wait on a host
+# that the ML-1M chain loads, so they run last, beside the chain's tail
+CHAOS_IN_PROCESS = ("handoff-budget", "hot-key", "lease-failover",
+                    "mem-soft", "refresher-die", "refresher-stall")
+CHAOS_CHILDREN = ("diurnal-1-N-1", "flash-crowd", "replica-kill")
+SVC_USERS, SVC_ITEMS, SVC_RATINGS = 300, 200, 6_000   # (d)'s eval store
+SVC_EVAL_MODULE = """
+from predictionio_tpu_torch.core.evaluation import (EngineParamsGenerator,
+                                                    Evaluation)
+from predictionio_tpu_torch.core.params import EngineParams
+from predictionio_tpu_torch.models import recommendation as rec
+
+ChaosEvaluation = Evaluation(
+    engine=rec.RecommendationEngine.apply(),
+    metric=rec.PrecisionAtK(k=10, rating_threshold=4.0))
+ChaosParams = EngineParamsGenerator([EngineParams(
+    data_source_params=("", rec.DataSourceParams(
+        app_name="svc", eval_params=rec.EvalParams(k_fold=2, query_num=10))),
+    algorithm_params_list=(("als", rec.ALSAlgorithmParams(
+        rank=8, num_iterations=4, seed=3)),))])
+"""
+
+
+def chaos_store(registry, model, rng) -> tuple:
+    """The drills' store: app `chaos` with the key CHAOSKEY and
+    CHAOS_EVENTS ratings of the model's users and items (its refresher's
+    watermark), and phase 4's model as a COMPLETED instance whose data
+    source names the app; returns (engine, instance)."""
+    from predictionio_tpu_torch.core.workflow import resolve_engine
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import AccessKey, App
+    app_id = registry.get_meta_data_apps().insert(App(0, CHAOS_APP))
+    registry.get_meta_data_access_keys().insert(
+        AccessKey(CHAOS_KEY, app_id, ()))
+    events = registry.get_events()
+    events.init(app_id)
+    users = rng.integers(0, N_USERS, CHAOS_EVENTS)
+    items = rng.integers(0, N_ITEMS, CHAOS_EVENTS)
+    for u, i in zip(users, items):
+        events.insert(Event(
+            event="rate", entity_type="user", entity_id=f"u{u}",
+            target_entity_type="item", target_entity_id=f"i{i}",
+            properties=DataMap({"rating": float(1 + (u + i) % 5)})), app_id)
+    iid = fleet_instance(registry, model, app_name=CHAOS_APP)
+    return (resolve_engine("recommendation"),
+            registry.get_meta_data_engine_instances().get(iid))
+
+
+def chaos_answers(torch, ft, dev, rng, model, tmp: Path, cli,
+                  trained) -> dict:
+    """(a) The instance deployed on the card (`deploy_instance`), 64 of
+    phase 4's queries against the plain version, K1 launches = plan
+    calls, one `cli top` view of it."""
+    from predictionio_tpu_torch.cli.main import deploy_instance
+    from predictionio_tpu_torch.core.runtime import RuntimeContext
+    from predictionio_tpu_torch.ops import topk
+    registry, engine, inst = trained
+    n_items = model.item_factors.shape[0]
+    queries = make_queries(torch, ft, dev, rng, model, CHAOS_CHECKED,
+                           n_items)
+    ft.LAUNCHES = 0
+    topk.PLAN_CALLS = 0
+    t0 = time.perf_counter()
+    server = deploy_instance(engine, inst, RuntimeContext(
+        registry=registry, device=dev), port=0, batch_max=64)
+    out = {"deploy_s": time.perf_counter() - t0}
+    try:
+        answers = serve_http(server.port, queries, clients=16)
+        launches, calls = ft.LAUNCHES, topk.PLAN_CALLS
+        if not 0 < launches == calls:
+            fail(f"chaos (a): K1 launches {launches}, plan calls {calls}")
+        out["max_abs_err"] = check_answers(
+            torch, ft, dev, model, queries,
+            [body["itemScores"] for body, _ in answers], n_items)
+        out["launches"] = launches
+        top = subprocess.run(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", "top",
+             "--port", str(server.port)], cwd=tmp, env=cli.env,
+            capture_output=True, text=True, timeout=120)
+        lines = top.stdout.splitlines()
+        if top.returncode != 0 or not lines or not lines[0].startswith(
+                f"pio-tpu top — 127.0.0.1:{server.port}") or not any(
+                "profiler:" in ln for ln in lines):
+            fail(f"chaos (a): cli top exited {top.returncode}: "
+                 f"{top.stdout[-2000:]} {top.stderr[-2000:]}")
+        out["top"] = lines
+    finally:
+        server.stop()
+    return out
+
+
+def chaos_cli(tmp: Path, cli) -> dict:
+    """(b) `cli chaos list` prints the nine drills with their
+    descriptions; `cli chaos run refresher-die --json` (its tiny model
+    trained on the card) exits 0 with an ok report."""
+    from predictionio_tpu_torch.resilience import scenarios
+    listed, _ = cli("chaos", "list")
+    want = [{"name": n, "description": scenarios.get(n).description}
+            for n in scenarios.names()]
+    if listed != want or len(listed) != 9:
+        fail(f"chaos (b): cli chaos list printed {listed}")
+    reports, run_s = cli("chaos", "run", "refresher-die", "--json")
+    if len(reports) != 1 or not reports[0]["ok"] \
+            or reports[0]["failures"] or not reports[0]["requests"]:
+        fail(f"chaos (b): cli chaos run refresher-die reported {reports}")
+    return {"listed": len(listed), "refresher_die": reports[0],
+            "run_s": run_s}
+
+
+def chaos_drills(ft, dev, trained, names) -> dict:
+    """(c) The drills `names` at full width, in this process: each
+    report ok; in each in-process topology K1 launches rise and equal
+    plan calls; no kernel build after the process's first; the
+    refreshers' ticks read the app's watermark."""
+    from predictionio_tpu_torch.obs import get_registry, kernelprobe
+    from predictionio_tpu_torch.ops import topk
+    from predictionio_tpu_torch.resilience import scenarios
+    import logging
+    # the fleet's member events (register, admit, retire, forget) on the
+    # run's standard error: what a failed fleet drill is read from
+    for name in ("fleet", "serving.autoscaler", "supervisor"):
+        logging.getLogger(f"pio.torch.obs.{name}").setLevel(logging.INFO)
+    builds = kernelprobe.build_count()
+    reg = get_registry()
+    outcomes = ("baseline", "noop", "no_app", "no_watermark", "failed")
+
+    def ticks():
+        return {o: reg.value("pio_streaming_refresh_total", outcome=o) or 0.0
+                for o in outcomes}
+
+    drills, launches = {}, 0
+    for name in names:
+        ft.LAUNCHES = 0
+        topk.PLAN_CALLS = 0
+        before = ticks()
+        report = scenarios.run(name, trained=trained, device=dev)
+        k1, calls = ft.LAUNCHES, topk.PLAN_CALLS
+        after = ticks()
+        row = {**report.to_json(), "k1_launches": k1, "plan_calls": calls,
+               "refresh_ticks": {o: after[o] - before[o] for o in outcomes
+                                 if after[o] > before[o]}}
+        drills[name] = row
+        emit({"phase": "chaos_drill", **row})
+        if not report.ok:
+            fail(f"chaos (c): {name} violated: {report.violations}")
+        if name in CHAOS_IN_PROCESS and not 0 < k1 == calls:
+            fail(f"chaos (c): {name}: K1 launches {k1}, plan calls {calls}")
+        if name not in CHAOS_IN_PROCESS and k1:
+            fail(f"chaos (c): {name} routes to stub children, yet K1 "
+                 f"launched {k1} times in this process")
+        if name.startswith("refresher-") and (
+                not row["refresh_ticks"].get("baseline")
+                or any(row["refresh_ticks"].get(o)
+                       for o in ("no_app", "no_watermark"))):
+            fail(f"chaos (c): {name}'s refresher ticked "
+                 f"{row['refresh_ticks']}")
+        launches += k1
+    if kernelprobe.build_count() != builds:
+        fail("chaos (c): a drill rebuilt the kernel library")
+    return {"drills": drills, "launches": launches}
+
+
+def free_ports(n: int) -> list:
+    import socket
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def http_call(port: int, method: str, path: str, body=None):
+    """(status, parsed JSON or text) of one request."""
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            raw = resp.read().decode()
+            ct = resp.headers.get("Content-Type", "")
+            return resp.status, json.loads(raw) if "json" in ct else raw
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def proc_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().split()[2] != "Z"
+    except OSError:
+        return True
+
+
+def chaos_services(tmp: Path, rng) -> dict:
+    """(d) A store of its own where `cli eval` of the recommendation
+    template ran on the card (two folds over planted ratings); `cli
+    start-all` on free ports with its own pid and log directories: the
+    dashboard lists the evaluation, its JSON document equals the stored
+    one, /metrics.html and /traces.html answer; the admin server lists,
+    creates and deletes an app; the event server stores an event; `cli
+    daemon` starts a fourth event server; `cli stop-all` stops all four,
+    their processes gone and their pidfiles removed."""
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    t_part = time.perf_counter()
+    svc = tmp / "svc"
+    svc.mkdir()
+    config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+              "PIO_STORAGE_SOURCES_DB_PATH": str(svc / "pio.db")}
+    cli = cli_runner(svc, config)
+    app, _ = cli("app", "new", "svc")
+    registry = StorageRegistry(config)
+    events = registry.get_events()
+    u = rng.integers(0, SVC_USERS, SVC_RATINGS)
+    i = rng.integers(0, SVC_ITEMS, SVC_RATINGS)
+    for a, b in zip(u, i):
+        events.insert(Event(
+            event="rate", entity_type="user", entity_id=f"u{a}",
+            target_entity_type="item", target_entity_id=f"i{b}",
+            properties=DataMap({"rating": 5.0 if (a + b) % 3 == 0
+                                else 2.0})), app["id"])
+    (svc / "svc_eval.py").write_text(SVC_EVAL_MODULE)
+    t0 = time.perf_counter()
+    ev, _ = cli("eval", "svc_eval.ChaosEvaluation", "svc_eval.ChaosParams")
+    out = {"eval_s": time.perf_counter() - t0}
+    iid = ev["evaluationInstanceId"]
+    stored = registry.get_meta_data_evaluation_instances().get(iid)
+    registry.close()
+    ports = free_ports(4)
+    run, log = svc / "run", svc / "log"
+    pids = {}
+    try:
+        t0 = time.perf_counter()
+        started, _ = cli("start-all", "--ip", "127.0.0.1",
+                         "--event-server-port", str(ports[0]),
+                         "--dashboard-port", str(ports[1]),
+                         "--admin-port", str(ports[2]),
+                         "--pid-dir", str(run), "--log-dir", str(log))
+        out["start_all_s"] = time.perf_counter() - t0
+        pids = {d["name"]: d["pid"] for d in started}
+        if sorted(pids) != ["adminserver", "dashboard", "eventserver"] or \
+                any(d["status"] != "up" for d in started):
+            fail(f"chaos (d): start-all started {started}")
+        status, index = http_call(ports[1], "GET", "/")
+        if status != 200 or iid not in index:
+            fail(f"chaos (d): the dashboard's / ({status}) lists no "
+                 f"evaluation {iid}")
+        status, doc = http_call(ports[1], "GET",
+                                f"/engine_instances/{iid}.json")
+        if status != 200 or doc != json.loads(
+                stored.evaluator_results_json):
+            fail(f"chaos (d): /engine_instances/{iid}.json ({status}) is "
+                 "not the stored results")
+        for path in ("/metrics.html", "/traces.html",
+                     f"/engine_instances/{iid}"):
+            if http_call(ports[1], "GET", path)[0] != 200:
+                fail(f"chaos (d): the dashboard's {path} did not answer 200")
+        steps = [http_call(ports[2], "GET", "/cmd/app"),
+                 http_call(ports[2], "POST", "/cmd/app", {"name": "svc2"}),
+                 http_call(ports[2], "GET", "/cmd/app"),
+                 http_call(ports[2], "DELETE", "/cmd/app/svc2"),
+                 http_call(ports[2], "GET", "/cmd/app")]
+        names = [sorted(a["name"] for a in body)
+                 for status, body in steps[0::2]]
+        if [s for s, _ in steps] != [200, 201, 200, 200, 200] or names != [
+                ["svc"], ["svc", "svc2"], ["svc"]]:
+            fail(f"chaos (d): the admin server answered {steps}")
+        status, body = http_call(
+            ports[0], "POST", f"/events.json?accessKey={app['accessKey']}",
+            {"event": "rate", "entityType": "user", "entityId": "u1",
+             "targetEntityType": "item", "targetEntityId": "i1",
+             "properties": {"rating": 5}})
+        if status != 201:
+            fail(f"chaos (d): the event server answered {status} {body}")
+        extra, _ = cli("daemon", "--name", "extra", "--pid-dir", str(run),
+                       "--log-dir", str(log), "--", "eventserver", "--ip",
+                       "127.0.0.1", "--port", str(ports[3]))
+        pids["extra"] = extra["pid"]
+        end = time.monotonic() + 60
+        while True:
+            try:
+                if http_call(ports[3], "GET", "/")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > end:
+                fail("chaos (d): the daemon's event server never answered "
+                     f"{(log / 'pio-extra.log').read_text()[-2000:]}")
+            time.sleep(0.1)
+    finally:
+        stopped, _ = cli("stop-all", "--pid-dir", str(run))
+    by_name = {d["name"]: d["status"] for d in stopped}
+    alive = [n for n, pid in pids.items() if proc_alive(pid)]
+    if by_name != {n: "stopped" for n in ("adminserver", "dashboard",
+                                          "eventserver", "extra")} \
+            or alive or list(run.glob("pio-*.pid")):
+        fail(f"chaos (d): stop-all reported {stopped}; alive {alive}; "
+             f"pidfiles {sorted(p.name for p in run.glob('pio-*.pid'))}")
+    out.update({"evaluation": iid, "best_score": ev.get("bestScore"),
+                "daemons_stopped": len(stopped),
+                "seconds": time.perf_counter() - t_part})
+    return out
+
+
+def phase_chaos(torch, ft, dev, rng, model, card: str) -> dict:
+    """Phase 4i: the chaos drills, `cli top` and the service commands
+    over phase 4's model recorded in a SQLITE store of its own whose
+    refresher ticks (app `chaos`): (a) its answers, (b) the CLI, (c) the
+    nine drills, (d) the service commands."""
+    from predictionio_tpu_torch.data.storage import StorageRegistry
+    t_phase = time.perf_counter()
+    out = {"phase": "chaos", "card": card, "users": N_USERS,
+           "items": N_ITEMS, "rank": RANK}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
+        tmp = Path(tmp)
+        config = {"PIO_STORAGE_SOURCES_DB_TYPE": "SQLITE",
+                  "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db")}
+        registry = StorageRegistry(config)
+        t0 = time.perf_counter()
+        engine, inst = chaos_store(registry, model, rng)
+        out["store_s"] = time.perf_counter() - t0
+        trained = (registry, engine, inst)
+        cli = cli_runner(tmp, config)
+        t0 = time.perf_counter()
+        out["a"] = chaos_answers(torch, ft, dev, rng, model, tmp, cli,
+                                 trained)
+        out["a"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["b"] = chaos_cli(tmp, cli)
+        out["b"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["c"] = chaos_drills(ft, dev, trained,
+                                CHAOS_IN_PROCESS + CHAOS_CHILDREN)
+        out["c"]["seconds"] = time.perf_counter() - t0
+        out["d"] = chaos_services(tmp, rng)
+        registry.close()
+    out["launches"] = out["a"]["launches"] + out["c"]["launches"]
+    out["max_abs_err"] = out["a"]["max_abs_err"]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
 
 
 STORAGE_REQUESTS = 256        # (a), (b): phase wire's mix, a tenth of it
@@ -9491,7 +9891,7 @@ def main() -> int:
                                        "neural", "wire", "fleet",
                                        "storage", "ingest", "obs",
                                        "quality", "pressure", "elastic",
-                                       "steps"),
+                                       "chaos", "steps"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
                          "train_parity, train and serve_trained; lifecycle "
@@ -9509,7 +9909,8 @@ def main() -> int:
                          "quality (a), phase fleet with (b) and (c); "
                          "pressure for parity, the PEVLOG project and "
                          "phase pressure; elastic for parity and phase "
-                         "elastic; steps for the seqrec step "
+                         "elastic; chaos for parity and phase chaos; "
+                         "steps for the seqrec step "
                          "diagnostic), no kernels line")
     args = ap.parse_args()
     t_script = time.perf_counter()
@@ -9649,6 +10050,11 @@ def main() -> int:
             rates = os.environ.get("CHIP_SMOKE_ELASTIC_CALIBRATE", "")
             phase_elastic(torch, ft, dev, rng, model, card, calibrate=[
                 float(r) for r in rates.split(",") if r] or None)
+        elif args.only == "chaos":
+            if not in_phase_process:
+                phase_parity(torch, ft, dev, rng)
+            model, _ = make_model(torch, rng)
+            phase_chaos(torch, ft, dev, rng, model, card)
         else:
             phase_parity(torch, ft, dev, rng)
             pevlog_phases(args.only == "streaming",
@@ -9675,6 +10081,18 @@ def main() -> int:
     # classification and the neural recommenders
     side = {name: start_phase_process(name, args.seed)
             for name in ("train", "templates", "classification", "neural")}
+    # phase chaos in a process of its own once those four have ended,
+    # beside the rest of the chain (its drills' 0.1-s probes and 0.5-s
+    # lease want a host that the four no longer load)
+    chaos_proc = []
+
+    def start_chaos():
+        for proc in side.values():
+            proc.wait()
+        chaos_proc.append(start_phase_process("chaos", args.seed))
+
+    chaos_starter = threading.Thread(target=start_chaos, daemon=True)
+    chaos_starter.start()
     storage = phase_storage(torch, ft, dev, rng, model, card, args.seed)
     err_sh = phase_parity_sharded(torch, ft, dev, rng, model)
     serve_sh = phase_serve_sharded(torch, ft, dev, rng, model,
@@ -9691,6 +10109,8 @@ def main() -> int:
     templates = finish_phase_process(side["templates"])
     classification = finish_phase_process(side["classification"])
     neural = finish_phase_process(side["neural"])
+    chaos_starter.join()
+    chaos = finish_phase_process(chaos_proc[0])
     # the elastic fleet last, on a host of its own: beside the chain or
     # three busy loops the member p99 of its base rate read as high as
     # its flash (PERF.md), and its flash beside the templates pushed the
@@ -9713,7 +10133,8 @@ def main() -> int:
         "launches": serve["launches"],
         "max_abs_err": max(err, serve["max_abs_err"], wire["max_abs_err"],
                            fleet["table_max_abs_err"],
-                           storage["model"]["table_max_abs_err"]),
+                           storage["model"]["table_max_abs_err"],
+                           chaos["max_abs_err"]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "bucket": 64,
@@ -9733,6 +10154,7 @@ def main() -> int:
         "quality_launches": quality["launches"],
         "pressure_launches": pressure["launches"],
         "elastic_launches": elastic["launches"],
+        "chaos_launches": chaos["launches"],
         "by_bucket": {str(b): r for b, r in timing.items()},
         "by_width": {str(EC_WIDTH): {str(b): r
                                      for b, r in timing_ec.items()}}}, {

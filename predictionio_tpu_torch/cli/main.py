@@ -55,6 +55,21 @@
     python -m predictionio_tpu_torch.cli loadsim -- --scenario NAME|FILE \
         --port P [--port P2] [--key KEY] [--seed S] [--scale F] \
         [--dry-run] [--timeout S] [--samples FILE]
+    python -m predictionio_tpu_torch.cli chaos list
+    python -m predictionio_tpu_torch.cli chaos run NAME|all [--json] \
+        [--device cpu]
+    python -m predictionio_tpu_torch.cli dashboard [--ip 127.0.0.1] \
+        [--port 9000]
+    python -m predictionio_tpu_torch.cli adminserver [--ip 127.0.0.1] \
+        [--port 7071]
+    python -m predictionio_tpu_torch.cli top [--host 127.0.0.1] \
+        [--port 8000] [--watch SECONDS]
+    python -m predictionio_tpu_torch.cli start-all [--ip 127.0.0.1] \
+        [--event-server-port 7070] [--dashboard-port 9000] \
+        [--admin-port 7071] [--pid-dir DIR] [--log-dir DIR]
+    python -m predictionio_tpu_torch.cli stop-all [--pid-dir DIR]
+    python -m predictionio_tpu_torch.cli daemon --name NAME [--pid-dir DIR] \
+        [--log-dir DIR] -- SUBCOMMAND [ARGS]
 
 Storage comes from `PIO_STORAGE_*` (or a `pio-env` file); without any,
 one sqlite file at `./.pio_store/pio.db`, the JAX package's default.
@@ -158,6 +173,21 @@ it and falls back to its own scan if none answers, unless
 `PIO_INGEST_FALLBACK=off`. `--block-rows` sizes its blocks, `--workers`
 its PEVLOG scan pool; `--join` registers it with fleet routers as a
 member of role `ingest`, which beats and is never routed queries.
+`chaos list` prints the chaos drills (`resilience/scenarios.py`) and
+`chaos run NAME|all` runs them against loopback servers of a tiny model
+trained on the card (`--device cpu` trains and serves on the CPU); a
+report per drill (`--json`: one JSON list), exit 1 on any violated
+invariant, 2 on an unknown name. `dashboard` serves the completed
+evaluations, `/metrics.html` and `/traces.html` (`tools/dashboard.py`);
+`adminserver` the app CRUD API on `/cmd/app` (`tools/admin.py`); `top`
+prints a running server's vitals from its `/tsdb.json`, `/profile.json`
+and `/quality.json` (`--watch N` redraws every N seconds). `start-all`
+starts the event server, the dashboard and the admin server as daemons
+of this CLI with pidfiles (`cli/service.py`; default run and log
+directories `~/.pio_store/run` and `~/.pio_store/log`), `daemon` any
+subcommand so, and `stop-all` stops every pidfile's daemon whose
+command line names this package. These are host services and take no
+device.
 `run` calls a function by its dotted path (the working directory is on
 the import path) with the storage configured and prints what it returns
 as JSON; `shell` is an interactive Python with `registry`, `events` (the
@@ -510,6 +540,51 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("loadsim_argv", nargs=argparse.REMAINDER,
                    help="the simulator's arguments after --, e.g. -- "
                         "--scenario flash-crowd --port 8000 --scale 0.2")
+    x = sub.add_parser(
+        "chaos",
+        help="self-healing drills: timed fault scenarios (thread "
+             "stall/death, lease failover, memory pressure, replica "
+             "SIGKILL) against a real loopback topology, gated on "
+             "invariants; non-zero exit on any violation")
+    chaos = x.add_subparsers(dest="chaos_command", required=True)
+    chaos.add_parser("list", help="list scenarios")
+    y = chaos.add_parser("run", help="run one scenario (or 'all')")
+    y.add_argument("scenario", help="scenario name, or 'all'")
+    y.add_argument("--json", action="store_true",
+                   help="machine-readable reports on stdout")
+    y.add_argument("--device", default=None,
+                   help="torch device of the drills' model (default cuda)")
+    x = sub.add_parser("dashboard", help="completed evaluations, live "
+                                         "metrics and traces over HTTP")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=9000)
+    x = sub.add_parser("adminserver", help="app CRUD over REST")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=7071)
+    x = sub.add_parser("top", help="terminal observatory view of a running "
+                       "server (qps, p50/p99, shed, burn, RSS, top frames "
+                       "from /tsdb.json + /profile.json)")
+    x.add_argument("--host", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--watch", type=float, default=0.0, metavar="SECONDS",
+                   help="redraw every N seconds (0 = one-shot)")
+    x = sub.add_parser("start-all", help="start event server + dashboard + "
+                                         "admin server as daemons")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--event-server-port", type=int, default=7070)
+    x.add_argument("--dashboard-port", type=int, default=9000)
+    x.add_argument("--admin-port", type=int, default=7071)
+    x.add_argument("--pid-dir")
+    x.add_argument("--log-dir")
+    x = sub.add_parser("stop-all", help="stop all pidfile-tracked services")
+    x.add_argument("--pid-dir")
+    x = sub.add_parser("daemon", help="run a subcommand of this CLI "
+                                      "detached with a pidfile")
+    x.add_argument("--name", required=True)
+    x.add_argument("--pid-dir")
+    x.add_argument("--log-dir")
+    x.add_argument("daemon_argv", nargs=argparse.REMAINDER,
+                   help="subcommand to run, e.g. -- eventserver --port 7070")
     x = sub.add_parser("run", help="run a function by its dotted path with "
                                    "the storage configured")
     x.add_argument("target", help="module.function")
@@ -807,6 +882,67 @@ def _ingestd(args) -> int:
     return 0
 
 
+def _host_service(server, what: str, ip: str) -> int:
+    """Start a host service (dashboard, admin server), announce it and
+    serve until SIGINT or SIGTERM."""
+    port = server.start()
+    stop = _sigterm_event()
+    print(f"{what} started on {ip}:{port}", flush=True)
+    stop.wait()
+    server.shutdown()
+    return 0
+
+
+def _chaos(args) -> int:
+    """`cli chaos list|run`: the JAX CLI's output; an unknown scenario
+    exits 2, a violated invariant 1."""
+    from predictionio_tpu_torch.resilience import scenarios
+    if args.chaos_command == "list":
+        _emit([{"name": n, "description": scenarios.get(n).description}
+               for n in scenarios.names()])
+        return 0
+    wanted = (scenarios.names() if args.scenario == "all"
+              else [args.scenario])
+    unknown = [n for n in wanted if n not in scenarios.names()]
+    if unknown:
+        print(f"[ERROR] unknown scenario(s): {', '.join(unknown)}; have: "
+              f"{', '.join(scenarios.names())}", file=sys.stderr)
+        return 2
+    trained = scenarios.train_tiny(device=args.device)
+    rc = 0
+    reports = []
+    for n in wanted:
+        report = scenarios.run(n, trained=trained, device=args.device)
+        reports.append(report.to_json())
+        if not report.ok:
+            rc = 1
+        if not args.json:
+            print(scenarios.format_report(report), flush=True)
+    if args.json:
+        _emit(reports)
+    return rc
+
+
+def _service(args) -> None:
+    """`cli start-all|stop-all|daemon` (`cli/service.py`)."""
+    from predictionio_tpu_torch.cli import service
+    if args.command == "start-all":
+        _emit(service.start_all(
+            ip=args.ip, event_server_port=args.event_server_port,
+            dashboard_port=args.dashboard_port, admin_port=args.admin_port,
+            pid_dir=args.pid_dir, log_dir=args.log_dir))
+    elif args.command == "stop-all":
+        _emit(service.stop_all(pid_dir=args.pid_dir))
+    else:
+        rest = list(args.daemon_argv)
+        if rest and rest[0] == "--":
+            rest = rest[1:]
+        if not rest:
+            raise ValueError("daemon needs a subcommand after --")
+        _emit(service.daemonize(rest, name=args.name, pid_dir=args.pid_dir,
+                                log_dir=args.log_dir))
+
+
 def _run(target: str) -> None:
     """`cli run`: call `module.function()` and print what it returns."""
     import importlib
@@ -887,6 +1023,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             if sim_argv and sim_argv[0] == "--":
                 sim_argv = sim_argv[1:]
             return loadsim.main(sim_argv)
+        elif cmd == "chaos":
+            return _chaos(args)
+        elif cmd == "dashboard":
+            from predictionio_tpu_torch.tools.dashboard import (
+                Dashboard, DashboardConfig)
+            return _host_service(
+                Dashboard(DashboardConfig(ip=args.ip, port=args.port),
+                          _registry()), "Dashboard", args.ip)
+        elif cmd == "adminserver":
+            from predictionio_tpu_torch.tools.admin import (AdminConfig,
+                                                            AdminServer)
+            return _host_service(
+                AdminServer(AdminConfig(ip=args.ip, port=args.port),
+                            _registry()), "Admin server", args.ip)
+        elif cmd == "top":
+            from predictionio_tpu_torch.tools.admin import run_top
+            return run_top(args.host, args.port, watch_s=args.watch)
+        elif cmd in ("start-all", "stop-all", "daemon"):
+            _service(args)
         elif cmd == "run":
             _run(args.target)
         elif cmd == "shell":

@@ -350,12 +350,18 @@ def warm_deploy(algos: Sequence[Algorithm], models: Sequence[Any],
     """Warm every algorithm's serve plan for the pow2 batch buckets up
     to `warm_batch_max`, pinning model state on the device or sharding
     it over `mesh`; returns the number of buckets warmed. Raises on any
-    warmup failure."""
+    warmup failure. Its wall time lands in `pio_serve_warmup_seconds` of
+    the process-default registry."""
     buckets = derive_warm_buckets(warm_batch_max, observed_sizes)
     t0 = time.perf_counter()
     warmed = 0
     for algo, model in zip(algos, models):
         warmed += int(algo.warm_serving(model, buckets, mesh=mesh) or 0)
+    from predictionio_tpu_torch.obs import get_registry
+    get_registry().gauge(
+        "pio_serve_warmup_seconds",
+        "Wall time of the last deploy serve warmup").set(
+        time.perf_counter() - t0)
     _log.info("serve_warmup buckets=%s warmed=%d seconds=%.3f", buckets,
               warmed, time.perf_counter() - t0)
     return warmed

@@ -1542,10 +1542,24 @@ def _scan_pool(procs: int):
                 _SCAN_POOL.shutdown(wait=False)
             _SCAN_POOL, _SCAN_POOL_PROCS = pool, procs
             POOL_SPAWNS += 1
+            _count_pool_spawn()
             return pool
         except Exception:
             _SCAN_POOL_PROCS = -1
             return None
+
+
+def _count_pool_spawn() -> None:
+    """`pio_ingest_pool_spawns_total` of the process-default registry:
+    `POOL_SPAWNS` as the JAX package publishes it."""
+    try:
+        from predictionio_tpu_torch.obs import get_registry
+        get_registry().counter(
+            "pio_ingest_pool_spawns_total",
+            "Spawn-start scan worker pools created (flat in steady "
+            "state: the pool is shared across scans)").inc()
+    except Exception:   # noqa: BLE001 — metrics never break a scan
+        pass
 
 
 def _frame_chunks(path: Path, size: int, procs: int):

@@ -26,7 +26,10 @@ database), any other value is a cache directory; `PIO_INGEST_CACHE_MAX`
 (default 8) entries are kept per directory. Stage seconds accumulate per
 process under `ingest_scan_s` and `ingest_build_s`, lookups under
 `ingest_cache_hits` / `ingest_cache_misses`; `Engine.train` drains them
-(`take_phase_timings`) into the run's phase timings. With
+(`take_phase_timings`) into the run's phase timings. The process-default
+registry gets the JAX package's families: `pio_ingest_stage_seconds
+{stage}`, `pio_ingest_cache_{hits,misses,evictions}_total` and
+`pio_ingest_scan_events_per_s`. With
 `PIO_INGEST_SERVICE` set the scan runs on the remote ingest service
 (`ingest.client.maybe_remote`, as the JAX package's `_prepared`); the
 cache stays the consumer's. The JAX package's mesh pre-sharding is not
@@ -57,6 +60,10 @@ _ONE_US = timedelta(microseconds=1)
 # newest-N prepared-data cache entries kept per directory
 _CACHE_MAX = 8
 
+# the JAX package's buckets of `pio_ingest_stage_seconds`
+_STAGE_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+                  2.5, 5.0, 10.0, 30.0, 60.0, 120.0)
+
 _timings_lock = threading.Lock()
 _timings: Dict[str, float] = {}
 
@@ -73,6 +80,34 @@ def take_phase_timings() -> Dict[str, float]:
 def _record(key: str, amount: float) -> None:
     with _timings_lock:
         _timings[key] = _timings.get(key, 0.0) + amount
+
+
+def _record_stage(stage: str, seconds: float) -> None:
+    """A stage's seconds: `pio_ingest_stage_seconds{stage}` of the
+    process-default registry and the phase timings' `ingest_<stage>_s`."""
+    from predictionio_tpu_torch.obs import get_registry
+    get_registry().histogram(
+        "pio_ingest_stage_seconds", "Training ingest stage wall time",
+        labels=("stage",),
+        buckets=_STAGE_BUCKETS).labels(stage=stage).observe(seconds)
+    _record(f"ingest_{stage}_s", seconds)
+
+
+def _record_cache(hit: bool) -> None:
+    from predictionio_tpu_torch.obs import get_registry
+    get_registry().counter(
+        "pio_ingest_cache_hits_total" if hit
+        else "pio_ingest_cache_misses_total",
+        "Prepared-data cache lookups").inc()
+    _record("ingest_cache_hits" if hit else "ingest_cache_misses", 1)
+
+
+def _record_scan_rate(n_rows: int, seconds: float) -> None:
+    if seconds > 0:
+        from predictionio_tpu_torch.obs import get_registry
+        get_registry().gauge(
+            "pio_ingest_scan_events_per_s",
+            "Rows/s decoded by the last columnar scan").set(n_rows / seconds)
 
 
 # -- cache --------------------------------------------------------------------
@@ -167,11 +202,19 @@ def _evict_cache(cache_dir: Path) -> None:
                          key=lambda p: p.stat().st_mtime, reverse=True)
     except OSError:
         return
+    evicted = 0
     for p in entries[keep:]:
         try:
             p.unlink()
+            evicted += 1
         except OSError:
             pass
+    if evicted:
+        from predictionio_tpu_torch.obs import get_registry
+        get_registry().counter(
+            "pio_ingest_cache_evictions_total",
+            "Prepared-data cache entries evicted by the newest-N "
+            "retention bound").inc(evicted)
 
 
 def _cache_store(path: Path, watermark: Dict[str, int], kind: str,
@@ -386,17 +429,18 @@ def _prepared(store, app_id, channel_id, sig, kind, filters, spec,
         watermark = store.ingest_watermark(app_id, channel_id)
         path = _cache_path(cache_dir, sig)
         got = _cache_load(path, watermark, kind)
-        _record("ingest_cache_hits" if got is not None
-                else "ingest_cache_misses", 1)
+        _record_cache(got is not None)
         if got is not None:
             return got
     t0 = time.perf_counter()
     cols = store.scan_columns(app_id, channel_id, value_spec=spec,
                               require_target=True, **filters)
-    _record("ingest_scan_s", time.perf_counter() - t0)
+    scan_s = time.perf_counter() - t0
+    _record_stage("scan", scan_s)
+    _record_scan_rate(cols.n, scan_s)
     t0 = time.perf_counter()
     got = finalize(cols)
-    _record("ingest_build_s", time.perf_counter() - t0)
+    _record_stage("build", time.perf_counter() - t0)
     if path is not None:
         _cache_store(path, watermark, kind, *got)
         _evict_cache(cache_dir)

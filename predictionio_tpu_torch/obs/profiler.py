@@ -42,6 +42,7 @@ import os
 import sys
 import threading
 import time
+from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from predictionio_tpu_torch.obs.logs import get_logger
@@ -60,6 +61,11 @@ _ROLE_PREFIXES: Tuple[Tuple[str, str], ...] = (
     ("wire-reactor-", "reactor"),
     ("wire-", "worker"),
     ("pio-torch-loadsim-", "worker"),   # loadsim's open-loop arrivals
+    # the chaos drills (resilience/scenarios.py): the scripted autoscaler
+    # loop acts as the supervisor does; the client hammers (the failover
+    # loader, the tenant budget hammer, the loadsim thread) are load
+    ("pio-torch-chaos-autoscale", "supervisor"),
+    ("pio-torch-chaos-", "worker"),
     ("replica-", "worker"),             # REPLICATED's per-target writes
     ("pio-torch-batch-drain", "drainer"),
     ("pio-torch-feedback", "drainer"),
@@ -367,6 +373,13 @@ def install_gc_callbacks(metrics: Optional[MetricsRegistry] = None) -> bool:
             return False
         _gc_registries.add(id(metrics))
 
+    # a collection runs in whichever thread allocated: one that holds the
+    # histogram's lock (inside its own `labels`, `observe` or a snapshot
+    # of it) would wait for itself forever. Such a pause waits here, and
+    # the next collection that finds the lock free records it.
+    pending: deque = deque(maxlen=1024)
+    lock = hist._lock
+
     def _on_gc(phase: str, info: Dict) -> None:
         # CPython runs collections (and hence callbacks) under a
         # per-interpreter guard, so one start slot suffices
@@ -375,8 +388,13 @@ def install_gc_callbacks(metrics: Optional[MetricsRegistry] = None) -> bool:
             _gc_start_ns = time.perf_counter_ns()
         elif phase == "stop" and _gc_start_ns:
             dt = (time.perf_counter_ns() - _gc_start_ns) / 1e9
-            hist.labels(generation=str(info.get("generation", "?"))
-                        ).observe(dt)
+            pending.append((str(info.get("generation", "?")), dt))
+            if not lock.acquire(blocking=False):
+                return
+            lock.release()
+            while pending:
+                generation, seconds = pending.popleft()
+                hist.labels(generation=generation).observe(seconds)
 
     gc.callbacks.append(_on_gc)
     return True

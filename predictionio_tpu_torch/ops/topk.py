@@ -21,7 +21,9 @@ promises on every path.
     1e-9), an fp32 product, the mask, the stable top-k. It is XLA there
     and plain torch ops here (no Pallas kernel).
 
-Every dispatch lands in `DISPATCH_COUNTS` and the policy's EWMAs.
+Every dispatch lands in `pio_topk_dispatch_total{path=host|device|
+fused|sharded}` of the process-default registry, in `DISPATCH_COUNTS`
+and in the policy's EWMAs.
 """
 
 from __future__ import annotations
@@ -176,11 +178,32 @@ def last_dispatch() -> str:
     return _LAST_PATH
 
 
+_DISPATCH_TOTAL = None
+
+
+def _dispatch_total():
+    """`pio_topk_dispatch_total{path=...}` in the process-default
+    registry, made at the first dispatch (the JAX package's family)."""
+    global _DISPATCH_TOTAL
+    if _DISPATCH_TOTAL is None:
+        from predictionio_tpu_torch.obs import get_registry
+        _DISPATCH_TOTAL = get_registry().counter(
+            "pio_topk_dispatch_total",
+            "Top-k serve dispatches by path taken (host BLAS, "
+            "single-device program, or mesh-sharded program; traced "
+            "calls count as device)", labels=("path",))
+    return _DISPATCH_TOTAL
+
+
 def _record_dispatch(path: str, cells: int,
                      seconds: Optional[float] = None) -> None:
     global _LAST_PATH
     _LAST_PATH = path
     DISPATCH_COUNTS[path] += 1
+    try:
+        _dispatch_total().labels(path=path).inc()
+    except Exception:   # noqa: BLE001 — metrics never fail a serve call
+        pass
     DISPATCH_POLICY.observe(path, cells, seconds)
 
 

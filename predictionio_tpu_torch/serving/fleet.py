@@ -119,7 +119,6 @@ from urllib.parse import urlencode
 
 from predictionio_tpu_torch.data.storage.base import Model, StorageError
 from predictionio_tpu_torch.obs import MetricsRegistry, get_logger, trace
-from predictionio_tpu_torch.ops.topk_sharded import ShardSlice, parse_fleet_mesh
 from predictionio_tpu_torch.resilience import (DeadlineExceeded,
                                                OverloadedError,
                                                current_deadline, faults)
@@ -305,6 +304,9 @@ class FleetServer(HTTPServerBase):
         self.registry = registry
         self.server_key = server_key
         self.engine_variant = engine_variant or "default"
+        # torch loads with the router's plans, not with `ReplicaAgent`
+        # (the supervisor's stub children import this module)
+        from predictionio_tpu_torch.ops.topk_sharded import parse_fleet_mesh
         parsed = parse_fleet_mesh(mesh)
         if parsed is not None and parsed[1] is not None:
             raise ValueError(f"a router merges slices: {mesh!r} names a "
@@ -371,6 +373,7 @@ class FleetServer(HTTPServerBase):
         """Start the in-process replicas (replica i serves slice i % N
         in mesh mode), bind, take or observe the lease, then start the
         health monitor and the lease loop; returns the bound port."""
+        from predictionio_tpu_torch.ops.topk_sharded import ShardSlice
         n = self._mesh_shards
         tenancy = self.admission.config.replica_variant()
         for i in range(self.fleet.replicas):
@@ -445,6 +448,20 @@ class FleetServer(HTTPServerBase):
         self._upstream.close()
         self.shutdown()
         self.stopped.set()
+
+    def crash(self) -> None:
+        """Die as a SIGKILLed router does, for chaos drills: no drain, no
+        snapshot and no lease release, so a standby takes over only when
+        the lease's TTL expires. In-process replicas are left running (a
+        router-only fleet models a leader crash across hosts)."""
+        with self._rr_lock:
+            self._stopping = True
+        self._monitor_stop.set()
+        self._lease_stop.set()
+        self._close_beats()
+        if self._fsck_sched is not None:
+            self._fsck_sched.stop()
+        self.shutdown()
 
     def _close_beats(self) -> None:
         for beat in (self._monitor_beat, self._lease_beat):
@@ -754,8 +771,15 @@ class FleetServer(HTTPServerBase):
         except Exception:  # noqa: BLE001 — unready, unreachable alike
             return False
 
-    def _admit(self, rep: _Replica) -> None:
+    def _admit(self, rep: _Replica, *, unless_busy: bool = False) -> None:
+        """Into the rotation. `unless_busy` (a probe's or a beat's good
+        evidence) leaves a member alone that a retire, a roll or a stop
+        took out of the rotation after the caller looked: checked under
+        the member's lock, so that such evidence never re-admits it."""
         with rep.lock:
+            if unless_busy and rep.state in ("reloading", "stopping",
+                                             "retiring"):
+                return
             was = rep.admitted
             rep.admitted = True
             rep.state = "serving"
@@ -773,7 +797,7 @@ class FleetServer(HTTPServerBase):
                            and time.monotonic() - rep.ejected_at
                            < self._grace_s())
         if not quarantined:
-            self._admit(rep)
+            self._admit(rep, unless_busy=True)
 
     def _eject(self, rep: _Replica, reason: str) -> None:
         with rep.lock:
@@ -833,6 +857,7 @@ class FleetServer(HTTPServerBase):
         members = list(self._replicas)
         self._fleet_obs["admitted"].set(
             float(sum(1 for r in members if r.admitted)))
+        self._fleet_obs["size"].set(float(len(members)))
         self._fleet_obs["members"].set(float(len(members)))
         for rep in members:
             if rep.shard:
@@ -1737,6 +1762,8 @@ def _fleet_metrics(metrics: MetricsRegistry) -> Dict[str, Any]:
         "admitted": metrics.gauge(
             "pio_fleet_replicas_admitted",
             "Members currently admitted to routing"),
+        "size": metrics.gauge(
+            "pio_fleet_replicas_total", "Members managed by the fleet"),
         "members": metrics.gauge(
             "pio_fleet_members",
             "Members in the routing table (in-process + remote)"),

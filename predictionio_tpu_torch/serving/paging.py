@@ -8,7 +8,11 @@ argpartition, the slab gather and upload) happens here, off the serve
 path. `PIO_TIER_PAGE_INTERVAL_S` (default 1.0) is the JAX package's
 knob. The thread is the watchdog's restartable role `tier-pager` (budget
 `interval_s * 5 + 5`, the JAX one): a dead pager only lets the hot set
-go stale, so it is respawned.
+go stale, so it is respawned. It publishes the JAX package's tier
+families on the registry it is given (else the process default), per
+plan: `pio_tier_hot_items`, `pio_tier_hit_ratio`,
+`pio_tier_promotions_total` and `pio_tier_page_seconds` (the wall time
+of one slab rebuild and upload).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ def page_interval_s() -> float:
 class PageManager:
     """The page thread over a server's tiered plans."""
 
-    def __init__(self, interval_s: Optional[float] = None):
+    def __init__(self, interval_s: Optional[float] = None, metrics=None):
         self.interval_s = (interval_s if interval_s is not None
                            else page_interval_s())
         self._plans: List = []
@@ -40,6 +44,24 @@ class PageManager:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.beat = None          # the watchdog's stamp (start)
+        if metrics is None:
+            from predictionio_tpu_torch.obs import get_registry
+            metrics = get_registry()
+        self._hot_items = metrics.gauge(
+            "pio_tier_hot_items",
+            "Device-resident hot-slab size of each tiered plan",
+            labels=("plan",))
+        self._hit_ratio = metrics.gauge(
+            "pio_tier_hit_ratio",
+            "Fraction of served top-k entries answered by the hot slab",
+            labels=("plan",))
+        self._promotions = metrics.counter(
+            "pio_tier_promotions_total",
+            "Items promoted into the hot slab by the page thread",
+            labels=("plan",))
+        self._page_seconds = metrics.histogram(
+            "pio_tier_page_seconds",
+            "Wall time of one batched slab promotion pass")
 
     def bind(self, plans) -> None:
         """Replace the tracked tiered plans."""
@@ -93,10 +115,24 @@ class PageManager:
             plans = list(self._plans)
         promoted_total = 0
         for i, plan in enumerate(plans):
+            label = str(i)
             try:
                 plan.fold_accesses()
-                promoted_total += plan.rebalance()
+                promoted = plan.rebalance()
             except Exception as e:   # noqa: BLE001 — paging must not die
                 _log.warning("tier_page_failed plan=%d error=%s: %s", i,
                              type(e).__name__, e)
+                continue
+            promoted_total += promoted
+            try:
+                self._publish(label, plan, promoted)
+            except Exception:   # noqa: BLE001 — metrics never stop paging
+                pass
         return promoted_total
+
+    def _publish(self, label: str, plan, promoted: int) -> None:
+        if promoted:
+            self._promotions.labels(plan=label).inc(promoted)
+            self._page_seconds.observe(plan.last_page_seconds)
+        self._hot_items.labels(plan=label).set(float(plan.hot_items))
+        self._hit_ratio.labels(plan=label).set(plan.hit_ratio())

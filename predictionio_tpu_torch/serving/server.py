@@ -1102,7 +1102,7 @@ class PredictionServer(HTTPServerBase):
             if self._pager is None:
                 from predictionio_tpu_torch.serving.paging import (
                     PageManager)
-                self._pager = PageManager()
+                self._pager = PageManager(metrics=self.metrics)
             self._pager.bind(plans)
             self._pager.start()
         elif self._pager is not None:

@@ -71,7 +71,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                      "obs.tsdb", "obs.profiler", "obs.kernelprobe",
                      "obs.quality", "resilience.pressure",
                      "serving.autoscaler", "tools.dashboard",
-                     "tools.loadsim"):
+                     "tools.loadsim", "resilience.scenarios",
+                     "tools.admin", "cli.service"):
         assert f"predictionio_tpu_torch.{required}" in mods
     code = (
         "import importlib, json, sys\n"

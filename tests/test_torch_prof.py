@@ -249,6 +249,35 @@ class TestGCPauseHook:
         gens = {s["labels"]["generation"] for s in fam["series"]}
         assert "2" in gens
 
+    def test_a_collection_under_the_hooks_own_lock_never_waits(
+            self, clean_gc_hooks):
+        """A collection can start in a thread that holds the histogram's
+        lock (inside its `labels`, `observe` or a snapshot): the hook
+        must not wait for that thread, i.e. for itself. The pause is
+        recorded by the next collection."""
+        reg = MetricsRegistry()
+        install_gc_callbacks(reg)
+        hist = reg.histogram(
+            "pio_gc_pause_seconds",
+            buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5),
+            labels=("generation",))
+        done = threading.Event()
+
+        def collect_under_the_lock():
+            with hist._lock:
+                gc.collect()
+            done.set()
+
+        t = threading.Thread(target=collect_under_the_lock, daemon=True)
+        t.start()
+        assert done.wait(20), "the GC hook waited for its own lock"
+        before = sum(s["count"] for s in
+                     reg.snapshot()["pio_gc_pause_seconds"]["series"])
+        gc.collect()
+        after = sum(s["count"] for s in
+                    reg.snapshot()["pio_gc_pause_seconds"]["series"])
+        assert after >= before + 2      # the deferred pause and this one
+
 
 # -- the device gauge and the kernel probe --------------------------------------
 
