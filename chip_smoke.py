@@ -385,6 +385,31 @@ the result line:
               (`CoreWorkflow.prepare_deploy(engine, instance, ctx)`):
               /queries.json requests over its 59,047 items, checked as
               phase 4 checks them; K1's launches must equal plan calls.
+ 11b. train_mesh
+              phase 10's ratings and held-out split trained again
+              through `CoreWorkflow.run_train`, over a 4-shard "data"
+              mesh on the one card (`make_mesh(MeshSpec({"data": 4}),
+              [card] * 4)`, runtime_conf mesh data=4): the owner packing,
+              the per-shard half-steps, the gathered bf16 table, the
+              residual's max. Gates: the instance COMPLETED with its blob
+              stored and the mesh recorded; held-out RMSE within 1e-3 of
+              phase 10's; solver residual below 1e-2; zero factors on
+              unrated rows; `torch.cuda.max_memory_allocated` over the
+              run at most 4x `ops.als.hbm_footprint(..., n_devices=4)`'s
+              peak (the shards share the card). Prints pack_s and the
+              owner packing's seconds and its slab rows and padded
+              entries over every shard (beside phase 10's padded
+              entries), solve_s, CUDA-event ms per
+              iteration beside phase 10's, peak bytes beside the bound,
+              and the largest factor difference from phase 10's model
+              (read, not gated). Then that instance through
+              `CoreWorkflow.prepare_deploy` over `ServeMesh((card,) * 4,
+              forced=True)`: 64 queries of phase 4's mix through the
+              sharded plan, checked as phase 4 checks them; K1 and K2
+              launches must equal 4x plan calls. `serve_mesh_from_conf`
+              of the recorded conf is printed (None on a one-card host,
+              which is gated; a forced mesh over the cards on a host
+              with several).
  12. lifecycle
               PredictionIO's lifecycle at MovieLens-1M's shape (6,040 x
               3,706, 1,000,209 planted ratings, 0.4% held out) through
@@ -568,7 +593,7 @@ the result line:
               the seconds of each part.
 
 `--only serve_sharded` runs the build and phase 6 alone (for a machine
-with several cards), `--only train` the build and phases 9-11,
+with several cards), `--only train` the build and phases 9-11 and 11b,
 `--only lifecycle` the build and phases 3 and 12, `--only streaming`
 the build and phases 3 and 13, `--only quickstart` the build, phase 3,
 phase 13's import and train, and phase 14, `--only templates` the
@@ -593,14 +618,15 @@ children's, the killed one's as read just before its kill, phase 4d's as
 `storage_launches`, phase 4f's (a) and (c) as `quality_launches`, phase
 4g's as `pressure_launches`, phase 4h's as `elastic_launches`: its
 children's, a retired one's at its last read before it stopped, phase
-4i's (a) and (c) as `chaos_launches`). Every
+4i's (a) and (c) as `chaos_launches`; its K2 entry phase 11b's as
+`train_mesh_launches`). Every
 run prints its seconds (`script_s`), and every phase line its second in
 the run (`at_s`).
 
 The whole run's order: phases 1-4, 4b (with 4e (a) and 4f (a)) and
 phase 8's timing, timing_ecommerce and timing_sharded, which have the
-card and the host to themselves; phase 4c (with 4f (b) and (c)); then phases 9-11 (`--only
-train`), 15, 16 and 17, each in a process of its own, started together
+card and the host to themselves; phase 4c (with 4f (b) and (c)); then phases 9-11 and 11b
+(`--only train`), 15, 16 and 17, each in a process of its own, started together
 and run beside the rest: phases 4d, 5-7, 12-14 (the ML-1M chain, 4f (d)
 inside 14) and 4g; once those four processes have ended, phase 4i
 (`--only chaos`) in a process of its own beside what remains of the
@@ -4987,10 +5013,7 @@ def phase_train(torch, dev, card: str, seed: int):
                          BiMap.from_keys(f"i{n}" for n in range(ML25M_ITEMS)))
     data_s = time.perf_counter() - t0
     engine = generated_engine(cols)
-    params = engine.engine_params_from_variant(
-        {"algorithms": [{"name": "als", "params": {
-            "rank": TRAIN_RANK, "num_iterations": TRAIN_ITERS,
-            "lambda_": TRAIN_REG, "seed": seed}}]})
+    params = train_params(engine, seed)
     registry = StorageRegistry({"PIO_STORAGE_SOURCES_MEM_TYPE": "MEM"})
     ctx = RuntimeContext(registry=registry, device=dev)
     # the anatomy below reuses this run's packing: keep the two sides
@@ -5029,14 +5052,7 @@ def phase_train(torch, dev, card: str, seed: int):
         fail(f"held-out RMSE {heldout} is not below 1.0")
     if not tm["solver_residual"] < 1e-2:
         fail(f"solver residual {tm['solver_residual']} is not below 1e-2")
-    unrated = []
-    for f, ix, n_rows in ((model.user_factors, cols.user_ix, ML25M_USERS),
-                          (model.item_factors, cols.item_ix, ML25M_ITEMS)):
-        absent = torch.from_numpy(np.bincount(ix, minlength=n_rows) == 0)
-        rows = f[absent.to(dev)]
-        if rows.numel() and bool(rows.abs().max() > 0):
-            fail("a row without ratings has nonzero factors")
-        unrated.append(int(absent.sum()))
+    unrated = unrated_rows(torch, dev, model, cols)
 
     fold = fold_timing(torch, dev, model, cols, seed)
 
@@ -5134,7 +5150,197 @@ def phase_train(torch, dev, card: str, seed: int):
                      "profile": graph_prof},
            "fold_in": fold}
     emit(out)
-    return out, engine, instance, registry, model
+    return out, engine, instance, registry, model, (u, i, r, test, cols)
+
+
+def train_params(engine, seed: int):
+    """Phases 10 and 11b's engine params: rank 64, 10 iterations,
+    lambda 0.05, the run's seed."""
+    return engine.engine_params_from_variant(
+        {"algorithms": [{"name": "als", "params": {
+            "rank": TRAIN_RANK, "num_iterations": TRAIN_ITERS,
+            "lambda_": TRAIN_REG, "seed": seed}}]})
+
+
+def unrated_rows(torch, dev, model, cols) -> list:
+    """Fail if a user or item without ratings has nonzero factors;
+    returns the two counts of such rows."""
+    unrated = []
+    for f, ix, n_rows in ((model.user_factors, cols.user_ix, ML25M_USERS),
+                          (model.item_factors, cols.item_ix, ML25M_ITEMS)):
+        absent = torch.from_numpy(np.bincount(ix, minlength=n_rows) == 0)
+        rows = f[absent.to(dev)]
+        if rows.numel() and bool(rows.abs().max() > 0):
+            fail("a row without ratings has nonzero factors")
+        unrated.append(int(absent.sum()))
+    return unrated
+
+
+MESH_SHARDS = 4      # phase 11b: "data" shards on the one card
+MESH_QUERIES = 64    # phase 11b (b): queries through the sharded plan
+
+
+def phase_train_mesh(torch, ft, dev, rng, trained, card: str,
+                     seed: int) -> dict:
+    """Phase 11b: phase 10's ratings trained over a 4-shard mesh on
+    the card through `CoreWorkflow.run_train`, gated against phase 10's
+    run, then deployed over a 4-shard serving mesh through
+    `CoreWorkflow.prepare_deploy` with 64 checked queries (see the
+    module docstring)."""
+    from predictionio_tpu_torch.core.persistence import deserialize_models
+    from predictionio_tpu_torch.core.runtime import (RuntimeContext,
+                                                     WorkflowParams)
+    from predictionio_tpu_torch.core.workflow import CoreWorkflow
+    from predictionio_tpu_torch.data.storage import EngineInstanceStatus
+    from predictionio_tpu_torch.models.recommendation import Query
+    from predictionio_tpu_torch.ops import als
+    from predictionio_tpu_torch.ops.topk_sharded import (
+        ServeMesh, ShardedBucketedTopK, serve_mesh_from_conf)
+    from predictionio_tpu_torch.parallel import MeshSpec, make_mesh
+
+    t_phase = time.perf_counter()
+    single, engine, _, registry, model1, data = trained
+    u, i, r, test, cols = data
+    mesh = make_mesh(MeshSpec({"data": MESH_SHARDS}), [dev] * MESH_SHARDS)
+    ctx = RuntimeContext(registry=registry, device=dev, mesh=mesh,
+                         workflow_params=WorkflowParams(
+                             runtime_conf={"mesh": f"data={MESH_SHARDS}"}))
+    # CUDA events around each iteration of the sharded loop, and the
+    # owner-packed layout's size (slab rows and padded entries over
+    # every shard, both sides)
+    events = []
+    call = als._ShardedIteration.__call__
+    pack_by_owner = als._pack_by_owner
+    owned = {"rows": 0, "padded_entries": 0}
+
+    def sizing(*a, **kw):
+        packed = pack_by_owner(*a, **kw)
+        for rows, idx, _ in packed:
+            owned["rows"] += len(rows)
+            owned["padded_entries"] += idx.size
+        return packed
+
+    def timed(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(self)
+        end.record()
+        events.append((start, end))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)
+    als._ShardedIteration.__call__ = timed
+    als._pack_by_owner = sizing
+    t0 = time.perf_counter()
+    try:
+        instance = CoreWorkflow.run_train(engine, train_params(engine, seed),
+                                          ctx, engine_variant="ml25m_mesh")
+    finally:
+        als._ShardedIteration.__call__ = call
+        als._pack_by_owner = pack_by_owner
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base_bytes
+    iter_ms = [a.elapsed_time(b) for a, b in events]
+    tm = dict(ctx.phase_timings)
+    if instance.status != EngineInstanceStatus.COMPLETED:
+        fail(f"train_mesh: the instance is {instance.status}")
+    blob = registry.get_model_data_models().get(instance.id)
+    if blob is None:
+        fail("train_mesh: no model blob stored")
+    stored = registry.get_meta_data_engine_instances().get(instance.id)
+    if stored.runtime_conf.get("mesh") != f"data={MESH_SHARDS}":
+        fail(f"train_mesh: the instance recorded mesh "
+             f"{stored.runtime_conf.get('mesh')!r}")
+    if len(iter_ms) != TRAIN_ITERS:
+        fail(f"train_mesh: {len(iter_ms)} sharded iterations ran, not "
+             f"{TRAIN_ITERS}")
+    model, = deserialize_models(blob.models, instance.id, [None], ctx,
+                                retrain=None)
+    model = model.to(dev)
+    heldout = als.rmse(model.user_factors, model.item_factors, u[test],
+                       i[test], r[test])
+    if not abs(heldout - single["heldout_rmse"]) <= 1e-3:
+        fail(f"train_mesh: held-out RMSE {heldout} vs phase train's "
+             f"{single['heldout_rmse']}")
+    if not tm["solver_residual"] < 1e-2:
+        fail(f"train_mesh: solver residual {tm['solver_residual']}")
+    unrated = unrated_rows(torch, dev, model, cols)
+    footprint = als.hbm_footprint(ML25M_USERS, ML25M_ITEMS, ML25M_N,
+                                  TRAIN_RANK, MESH_SHARDS)
+    bound = MESH_SHARDS * footprint["peak"]
+    if not peak <= bound:
+        fail(f"train_mesh: peak device bytes {peak} past {MESH_SHARDS} x "
+             f"hbm_footprint's peak, {bound}")
+    diff = max(float((model.user_factors - model1.user_factors).abs().max()),
+               float((model.item_factors - model1.item_factors).abs().max()))
+
+    # (b) that instance deployed over a 4-shard serving mesh
+    queries = make_queries(torch, ft, dev, rng, model, MESH_QUERIES,
+                           ML25M_ITEMS)
+    ft.LAUNCHES = 0          # the counts cover this path only
+    ft.SHARD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    algos, models, _ = CoreWorkflow.prepare_deploy(
+        engine, stored, RuntimeContext(registry=registry, device=dev),
+        warm_batch_max=64, mesh=ServeMesh((dev,) * MESH_SHARDS, forced=True))
+    deploy_s = time.perf_counter() - t0
+    plan = algos[0]._serve_plan
+    if not isinstance(plan, ShardedBucketedTopK) \
+            or plan.n_shards != MESH_SHARDS:
+        fail(f"train_mesh: deploy built {type(plan).__name__}, not a "
+             f"{MESH_SHARDS}-shard plan")
+    served = algos[0].batch_predict(
+        models[0], [(j, Query(**q)) for j, q in enumerate(queries)])
+    launches, k2, calls = ft.LAUNCHES, ft.SHARD_LAUNCHES, plan.calls
+    if not (calls == len(plan.buckets) + 1
+            and launches == k2 == MESH_SHARDS * calls):
+        fail(f"train_mesh: K2 launches {k2}, kernel launches {launches}, "
+             f"plan calls {calls}, expected {MESH_SHARDS} x "
+             f"({len(plan.buckets)} warmup + 1)")
+    if not torch.equal(models[0].user_factors, model.user_factors):
+        fail("train_mesh: the deploy served other user factors")
+    answers = [[{"item": s.item, "score": s.score} for s in res.itemScores]
+               for _, res in sorted(served, key=lambda x: x[0])]
+    max_err = check_answers(torch, ft, dev, model, queries, answers,
+                            ML25M_ITEMS)
+    from_conf = serve_mesh_from_conf(stored.runtime_conf)
+    if torch.cuda.device_count() < 2:
+        if from_conf is not None:
+            fail(f"train_mesh: serve_mesh_from_conf gave {from_conf!r} on "
+                 "a one-card host")
+    elif not (isinstance(from_conf, ServeMesh) and from_conf.forced):
+        fail(f"train_mesh: serve_mesh_from_conf gave {from_conf!r} over "
+             f"{torch.cuda.device_count()} cards")
+    out = {"phase": "train_mesh", "card": card, "shards": MESH_SHARDS,
+           "devices": [str(d) for d in mesh.devices],
+           "users": ML25M_USERS, "items": ML25M_ITEMS, "ratings": ML25M_N,
+           "rank": TRAIN_RANK, "iterations": TRAIN_ITERS,
+           "train_s": train_s, "timings": tm,
+           "pack_s": tm["pack_s"], "owner_pack_s": tm["owner_pack_s"],
+           "solve_s": tm["solve_s"], "iteration_ms": iter_ms,
+           "iteration_ms_mean_after_first": float(np.mean(iter_ms[1:])),
+           "single_device_iteration_ms": single["eager"]["iteration_ms"],
+           "heldout_rmse": heldout,
+           "single_device_heldout_rmse": single["heldout_rmse"],
+           "max_factor_diff_from_single_device": diff,
+           "unrated_rows": unrated, "owner_packed": owned,
+           "single_device_padded_entries": single["padded_entries"],
+           "owner_padding": owned["padded_entries"]
+           / single["padded_entries"],
+           "peak_device_bytes": peak,
+           "footprint_bound_bytes": bound, "footprint": footprint,
+           "single_device_peak_bytes": single["peak_device_bytes"],
+           "deploy": {"queries": MESH_QUERIES, "deploy_s": deploy_s,
+                      "plan": type(plan).__name__,
+                      "per_shard": plan.per_shard, "plan_calls": calls,
+                      "max_abs_err": max_err, "tol": TOL,
+                      "serve_mesh_from_conf": repr(from_conf)},
+           "k1_launches": launches - k2, "k2_launches": k2,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
 
 
 def phase_serve_trained(torch, ft, dev, rng, trained,
@@ -5146,7 +5352,7 @@ def phase_serve_trained(torch, ft, dev, rng, trained,
     version on the model phase train read back."""
     from predictionio_tpu_torch.cli.main import deploy_instance
     from predictionio_tpu_torch.core.runtime import RuntimeContext
-    _, engine, instance, registry, model = trained
+    _, engine, instance, registry, model, _ = trained
     ctx = RuntimeContext(registry=registry, device=dev)
     n_items = model.item_factors.shape[0]
     queries = make_queries(torch, ft, dev, rng, model, n_requests, n_items)
@@ -9894,7 +10100,8 @@ def main() -> int:
                                        "chaos", "steps"),
                     help="run only the build and these phases (serve_sharded"
                          " for a machine with several cards; train for "
-                         "train_parity, train and serve_trained; lifecycle "
+                         "train_parity, train, serve_trained and "
+                         "train_mesh; lifecycle "
                          "for parity and lifecycle; streaming for parity "
                          "and streaming; quickstart for parity and "
                          "quickstart; templates for parity and "
@@ -9956,7 +10163,9 @@ def main() -> int:
         trained = phase_train(torch, dev, card, args.seed)
         served = phase_serve_trained(torch, ft, dev, rng, trained,
                                      args.trained_requests)
-        return trained[0], served
+        mesh = phase_train_mesh(torch, ft, dev, rng, trained, card,
+                                args.seed)
+        return trained[0], served, mesh
 
     def pevlog_phases(streaming: bool, quickstart: bool, ingest: bool,
                       beside=None, pressure: bool = False):
@@ -10104,8 +10313,9 @@ def main() -> int:
         True, True, True,
         lambda: phase_lifecycle(torch, ft, dev, rng, args.seed,
                                 args.lifecycle_requests), pressure=True)
-    served = finish_phase_process(side["train"],
-                                  also=("serve_trained",))["serve_trained"]
+    train_side = finish_phase_process(side["train"],
+                                      also=("serve_trained", "train_mesh"))
+    served, train_mesh = train_side["serve_trained"], train_side["train_mesh"]
     templates = finish_phase_process(side["templates"])
     classification = finish_phase_process(side["classification"])
     neural = finish_phase_process(side["neural"])
@@ -10169,6 +10379,7 @@ def main() -> int:
         "library_ms": shard_row["library_ms"], "bucket": 64,
         "per_shard": shard_row["per_shard"],
         "neural_launches": neural["k2_launches"],
+        "train_mesh_launches": train_mesh["k2_launches"],
         "by_bucket": {str(b): r for b, r in timing_sh.items()}}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,7 +18,8 @@
     python -m predictionio_tpu_torch.cli build [--engine-json engine.json]
     python -m predictionio_tpu_torch.cli train [--engine-json engine.json] \
         [--stop-after-read | --stop-after-prepare] [--skip-sanity-check] \
-        [--device cpu] [--profile-dir DIR]
+        [--device cpu] [--profile-dir DIR] [--mesh data=N] \
+        [--coordinator HOST:PORT --num-processes N --process-id K]
     python -m predictionio_tpu_torch.cli deploy [--engine-instance-id ID] \
         [--port 8000] [--batch-max 64] [--batch-window-ms 2] \
         [--items-on-host] [--device cpu] [--refresh-interval SECONDS] \
@@ -78,7 +79,13 @@ records an engine instance with its model blob; it prints the instance
 id, status, times, phase timings and the run's kernel builds
 (`kernelBuilds`) as JSON on stdout; `--profile-dir DIR` (or
 `PIO_TPU_PROFILE_DIR`) also writes a `torch.profiler` Chrome trace of
-the run into DIR. `deploy` serves
+the run into DIR. `--mesh data=N` trains the ALS templates over N
+shards of the local cards (none: every card) and records the mesh on
+the instance, whose deploy then serves through the sharded plan;
+`--coordinator HOST:PORT --num-processes N --process-id K` (or
+`PIO_TPU_COORDINATOR` / `_NUM_PROCESSES` / `_PROCESS_ID`) joins a
+`torch.distributed` group first (nccl, gloo with `--device cpu`), and
+only process 0 writes the instance. `deploy` serves
 the latest COMPLETED instance of the variant (or the one named) on
 `/queries.json`; `GET /` shows the instance id and the kernel's launch
 counts. `deploy --model m.npz` serves a model file
@@ -383,6 +390,13 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--stop-after-prepare", action="store_true")
     x.add_argument("--device", default=None,
                    help="torch device (default cuda)")
+    x.add_argument("--mesh", help="mesh spec, e.g. data=4")
+    x.add_argument("--coordinator",
+                   help="host:port of process 0 for multi-process "
+                        "training (torch.distributed); or set "
+                        "PIO_TPU_COORDINATOR")
+    x.add_argument("--num-processes", type=int)
+    x.add_argument("--process-id", type=int)
     x.add_argument("--profile-dir",
                    help="write a torch.profiler trace of the run here (a "
                         "Chrome trace, CPU and CUDA activity); or set "
@@ -1083,7 +1097,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     skip_sanity_check=args.skip_sanity_check,
                     stop_after_read=args.stop_after_read,
                     stop_after_prepare=args.stop_after_prepare,
-                    device=args.device, profile_dir=args.profile_dir))
+                    device=args.device, profile_dir=args.profile_dir,
+                    mesh=args.mesh, coordinator=args.coordinator,
+                    num_processes=args.num_processes,
+                    process_id=args.process_id))
             except TrainingInterrupted as e:
                 # the reference ends a stop-after run normally; the
                 # instance stays FAILED, so deploy never serves it

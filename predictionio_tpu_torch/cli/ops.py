@@ -298,10 +298,23 @@ def train(registry, *, engine_json: str = "engine.json",
           engine_factory: Optional[str] = None, batch: str = "",
           skip_sanity_check: bool = False, stop_after_read: bool = False,
           stop_after_prepare: bool = False, device=None,
-          profile_dir: Optional[str] = None) -> Dict[str, Any]:
+          profile_dir: Optional[str] = None, mesh: Optional[str] = None,
+          coordinator: Optional[str] = None,
+          num_processes: Optional[int] = None,
+          process_id: Optional[int] = None) -> Dict[str, Any]:
     """pio train (commands/Engine.scala:177-188): the engine.json
     variant trained through `CoreWorkflow.run_train` on `device` (None
     = cuda), recorded as an engine instance with its model blob.
+
+    `mesh` ("data=4") goes into the instance's `runtime_conf`: the ALS
+    templates train over that mesh of `device`'s kind, and a deploy of
+    the instance serves through the sharded plan. Multi-process:
+    `coordinator` host:port with `num_processes` and `process_id` (or
+    the PIO_TPU_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID env vars)
+    join a `torch.distributed` group before the mesh is built; every
+    process trains, only process 0 writes the instance and the blob
+    (the env-forwarding spark-submit analog, Runner.scala:213-215,
+    298-305); the report's `distributed` and `persisted` say which.
 
     `profile_dir` (or PIO_TPU_PROFILE_DIR) wraps the whole run in
     `torch.profiler.profile` with CPU activity, and CUDA activity where
@@ -309,8 +322,7 @@ def train(registry, *, engine_json: str = "engine.json",
     as `pio-train-<pid>-<ms>.pt.trace.json` (the JAX package's
     `jax.profiler.trace`). The report's `kernelBuilds` counts this run's
     nvcc builds (`obs.kernelprobe`), where the JAX report has
-    `jaxCompiles`; a single process trains, so `distributed` is false
-    and the run always persists."""
+    `jaxCompiles`."""
     import contextlib
 
     from predictionio_tpu_torch.core.runtime import (RuntimeContext,
@@ -318,6 +330,16 @@ def train(registry, *, engine_json: str = "engine.json",
     from predictionio_tpu_torch.core.workflow import (CoreWorkflow,
                                                       resolve_engine)
     from predictionio_tpu_torch.obs import build_count, install_kernel_probe
+    from predictionio_tpu_torch.parallel import initialize_distributed
+    # flags override env inside initialize_distributed; nothing is
+    # written back to os.environ
+    distributed = initialize_distributed(
+        coordinator=coordinator, num_processes=num_processes,
+        process_id=process_id, device=device)
+    persist = True
+    if distributed:
+        import torch.distributed as dist
+        persist = dist.get_rank() == 0
     variant = load_variant(engine_json)
     factory = resolve_factory_name(variant, engine_factory, engine_json)
     engine = resolve_engine(factory)
@@ -326,7 +348,8 @@ def train(registry, *, engine_json: str = "engine.json",
         workflow_params=WorkflowParams(
             batch=batch, skip_sanity_check=skip_sanity_check,
             stop_after_read=stop_after_read,
-            stop_after_prepare=stop_after_prepare))
+            stop_after_prepare=stop_after_prepare,
+            runtime_conf={"mesh": mesh} if mesh else {}))
     profile_dir = profile_dir or os.environ.get("PIO_TPU_PROFILE_DIR")
     prof = None
     if profile_dir:
@@ -342,7 +365,7 @@ def train(registry, *, engine_json: str = "engine.json",
         row = CoreWorkflow.run_train(
             engine, engine.engine_params_from_variant(variant), ctx,
             engine_factory=factory,
-            engine_variant=variant.get("id", "default"))
+            engine_variant=variant.get("id", "default"), persist=persist)
     if prof is not None:
         out = Path(profile_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -354,7 +377,7 @@ def train(registry, *, engine_json: str = "engine.json",
             "endTime": format_time(row.end_time),
             "phaseTimings": dict(ctx.phase_timings),
             "kernelBuilds": int(build_count() - builds_before),
-            "distributed": False, "persisted": True}
+            "distributed": distributed, "persisted": persist}
 
 
 def latest_completed(registry, variant_id: str):

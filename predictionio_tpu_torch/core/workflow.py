@@ -157,7 +157,8 @@ class CoreWorkflow:
     @staticmethod
     def run_train(engine: Engine, engine_params: EngineParams,
                   ctx: RuntimeContext, *, engine_factory: str = "",
-                  engine_variant: str = "") -> EngineInstance:
+                  engine_variant: str = "",
+                  persist: bool = True) -> EngineInstance:
         """Train, store the models, record the instance
         (CoreWorkflow.scala:45-101). The INIT row becomes TRAINING with
         a liveness beat every `PIO_TRAIN_HEARTBEAT_S`; after the blob is
@@ -165,7 +166,24 @@ class CoreWorkflow:
         `phase_timings` (plus `blob_bytes` and `store_s`) in its
         `runtime_conf`. Any failure, a stop-after interruption included,
         leaves it FAILED, so deploy refuses it (commands/Engine.scala:
-        235-236), and re-raises."""
+        235-236), and re-raises.
+
+        `persist=False` runs the training but touches no storage: the
+        processes other than 0 of a multi-process run take part in
+        every collective while process 0 alone writes the instance and
+        the blob (Spark executors compute, the Spark driver alone
+        talks to storage). It returns an unsaved COMPLETED row with no id."""
+        if not persist:
+            engine.train(ctx, engine_params)
+            record_train_phases({k: v for k, v in ctx.phase_timings.items()
+                                 if k.endswith("_s")})
+            return EngineInstance(
+                id="", status=EngineInstanceStatus.COMPLETED,
+                start_time=utcnow(), end_time=utcnow(),
+                engine_id="default", engine_version="default",
+                engine_variant=engine_variant or "default",
+                engine_factory=engine_factory,
+                runtime_conf=dict(ctx.workflow_params.runtime_conf))
         registry = ctx.registry
         instances = registry.get_meta_data_engine_instances()
         row = EngineInstance(
@@ -234,7 +252,9 @@ class CoreWorkflow:
         `items_device` ("cpu" keeps it in host RAM); then they are
         checked and warmed as `prepare_deploy` does models in hand, over
         `mesh` (a `ServeMesh`, or a fleet member's `ShardSlice`; None
-        takes `serve_mesh_from_conf()`).
+        takes `serve_mesh_from_conf` of the instance's recorded
+        `runtime_conf` merged with `ctx`'s: a training mesh recorded
+        there forces the sharded serve plan over the local cards).
         `timings`, if given, gets the wall seconds of the blob's read
         (`load_s`), the move to the device (`place_s`) and the check and
         warmup (`warm_s`)."""
@@ -265,7 +285,9 @@ class CoreWorkflow:
             torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
         out = _ready(algos, models, serving, warm_batch_max=warm_batch_max,
-                     mesh=mesh)
+                     mesh=mesh,
+                     conf={**dict(instance.runtime_conf or {}),
+                           **dict(ctx.workflow_params.runtime_conf or {})})
         if timings is not None:
             timings.update(load_s=t1 - t0, place_s=t2 - t1,
                            warm_s=time.perf_counter() - t2)
@@ -294,9 +316,11 @@ def prepare_deploy(engine: Engine, models: Sequence[Any],
 
 def _ready(algos: List[Algorithm], models: Sequence[Any], serving: Serving,
            *, warm_batch_max: Optional[int] = None,
-           observed_sizes: Optional[Dict[int, int]] = None, mesh=None
+           observed_sizes: Optional[Dict[int, int]] = None, mesh=None,
+           conf: Optional[Dict[str, Any]] = None
            ) -> Tuple[List[Algorithm], List[Any], Serving]:
-    """Check `models` and warm them through `algos` (one per model)."""
+    """Check `models` and warm them through `algos` (one per model),
+    over `mesh`, else over `serve_mesh_from_conf(conf)`."""
     models = list(models)
     if len(models) != len(algos):
         raise ValueError(
@@ -309,7 +333,7 @@ def _ready(algos: List[Algorithm], models: Sequence[Any], serving: Serving,
         if mesh is None:
             from predictionio_tpu_torch.ops.topk_sharded import (
                 serve_mesh_from_conf)
-            mesh = serve_mesh_from_conf()
+            mesh = serve_mesh_from_conf(conf)
         warm_deploy(algos, models, warm_batch_max, mesh=mesh,
                     observed_sizes=observed_sizes)
     return algos, models, serving

@@ -22,8 +22,8 @@ cuda; raises without CUDA unless "cpu"; NB's transfer_s / solve_s and
 the forest's bin_s / device_s go into `ctx.phase_timings`); its model
 predicts there (a deploy moves it with `to`), the forest's small
 batches by its host loop (`ForestModel.HOST_CROSSOVER_CELLS`). The mesh
-forms (sharded samples with partial statistics) are not ported:
-training runs on one device. Evaluation: Accuracy (the template's
+forms (sharded samples with partial statistics) are not ported yet
+(ROADMAP item 6 brings them): training runs on one device. Evaluation: Accuracy (the template's
 PrecisionEvaluation analog).
 """
 

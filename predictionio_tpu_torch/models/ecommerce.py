@@ -4,7 +4,8 @@ constraints and a popularity fallback.
 The port of `predictionio_tpu/models/ecommerce.py` (parity target
 `examples/scala-parallel-ecommercerecommendation/adjust-score/src/main/
 scala/ECommAlgorithm.scala`):
-  - train: implicit ALS on `view` events on the context's device, plus
+  - train: implicit ALS on `view` events on the context's device (over
+    its mesh when that has two or more "data" shards), plus
     buy-count popularity (`train:90-160`, `trainDefault:214+`); the buys
     share the views' BiMaps, so popularity lines up with the factors;
   - three-way predict (`predict:331-430`):
@@ -174,7 +175,8 @@ class ECommAlgorithm(Algorithm):
                             "store_reads": 0, "store_read_s": 0.0}
 
     def train(self, ctx: RuntimeContext, pd: TrainingData) -> ECommModel:
-        """Implicit ALS on `ctx.device`; the solver phases and the
+        """Implicit ALS on `ctx.device` (sharded over `ctx.mesh` when
+        it has two or more "data" shards); the solver phases and the
         residual of the run go into `ctx.phase_timings`, whose
         `solver_residual` the convergence gates read."""
         # the training context also serves direct train -> predict use;
@@ -188,7 +190,7 @@ class ECommAlgorithm(Algorithm):
         x, y = als_train(
             pd.views, rank=p.rank, iterations=p.num_iterations,
             reg=p.lambda_, implicit=True, alpha=p.alpha,
-            seed=p.seed if p.seed is not None else 0,
+            seed=p.seed if p.seed is not None else 0, mesh=ctx.mesh,
             timings=ctx.phase_timings, device=ctx.device, **extra)
         pop = np.zeros(len(pd.views.items), np.float32)
         np.add.at(pop, pd.buys.item_ix, 1.0)

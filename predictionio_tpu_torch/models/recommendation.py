@@ -167,8 +167,9 @@ class ALSAlgorithm(Algorithm):
         self._serve_plan = None   # the plan warm_serving built
 
     def train(self, ctx: RuntimeContext, pd: RatingColumns) -> ALSModel:
-        """Explicit ALS on `ctx.device` (None = cuda); the solver phases
-        and `solver_residual` go into `ctx.phase_timings`."""
+        """Explicit ALS on `ctx.device` (None = cuda), sharded over
+        `ctx.mesh` when it has two or more "data" shards; the solver
+        phases and `solver_residual` go into `ctx.phase_timings`."""
         p = self.params
         if pd.n == 0:
             raise ValueError(
@@ -176,7 +177,7 @@ class ALSAlgorithm(Algorithm):
                 "(parity: ALSAlgorithm.scala:56-61 require non-empty)")
         x, y = als_train(
             pd, rank=p.rank, iterations=p.num_iterations, reg=p.lambda_,
-            seed=p.seed if p.seed is not None else 0,
+            seed=p.seed if p.seed is not None else 0, mesh=ctx.mesh,
             timings=ctx.phase_timings, device=ctx.device)
         return ALSModel(x, y, pd.users, pd.items)
 

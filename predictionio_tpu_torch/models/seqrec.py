@@ -7,7 +7,8 @@ recommendation template's event shapes and answers its wire format
 (`"engineFactory": "seqrec"`):
   - train: `ops.seqrec.build_sequences` over the interactions, then
     `seqrec_train` on the context's device (None = cuda; raises without
-    CUDA unless "cpu");
+    CUDA unless "cpu"); it takes no mesh yet (ROADMAP item 6 brings ring
+    attention and the sharded tables);
   - predict: the user's RECENT history read from the event store at
     query time (4 x seq_len events newest first, the ones the model's
     item map knows, the last seq_len of them: the e-commerce template's

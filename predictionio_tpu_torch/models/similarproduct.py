@@ -7,7 +7,8 @@ The port of `predictionio_tpu/models/similarproduct.py` (parity target
     events with the latest of a pair winning, and the items' `$set`
     categories (`DataSource.scala`);
   - ALSAlgorithm: MLlib implicit ALS on views (`ALSAlgorithm.scala:120`)
-    on the context's device; a query is a set of items, answered with
+    on the context's device, sharded over its mesh when that has two or
+    more "data" shards; a query is a set of items, answered with
     the items most cosine-similar to their mean vector, with category /
     whiteList / blackList filters and the query items excluded;
   - LikeAlgorithm: implicit ALS on like = +1 / dislike = -1
@@ -259,7 +260,7 @@ def _train_implicit(ctx: RuntimeContext, p: ALSParams, cols: RatingColumns,
         cols, rank=p.rank, iterations=p.num_iterations, reg=p.lambda_,
         implicit=True, alpha=p.alpha,
         seed=p.seed if p.seed is not None else 0,
-        timings=ctx.phase_timings, device=ctx.device)
+        mesh=ctx.mesh, timings=ctx.phase_timings, device=ctx.device)
     return SimilarModel(y, cols.items, item_categories, user_factors=x,
                         users=cols.users)
 

@@ -7,7 +7,8 @@ It reads the recommendation template's event shapes (`view`, `rate`,
 `"engineFactory": "twotower"` swaps in for `"recommendation"`:
   - train: `ops.twotower.twotower_train` on the context's device (None
     = cuda; raises without CUDA unless "cpu"), both towers materialized
-    into host RAM;
+    into host RAM; it takes no mesh yet (ROADMAP item 6 brings the
+    sharded tables);
   - predict: the user's tower row against every item's through
     `models.common.score_and_rank` (white and black lists; the top-k
     dispatch policy picks the host or the model's device); an unknown

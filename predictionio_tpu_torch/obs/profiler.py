@@ -208,23 +208,33 @@ class SamplingProfiler:
         names = {t.ident: t.name for t in threading.enumerate()}
         frames = sys._current_frames()
         folded = 0
-        with self._lock:
-            self._ticks += 1
-            for ident, frame in frames.items():
-                if ident == skip_ident:
-                    continue
-                role = role_of(names.get(ident, ""))
-                stack: List[str] = []
-                f = frame
-                while f is not None:
-                    code = f.f_code
-                    mod = code.co_filename.rsplit("/", 1)[-1]
-                    stack.append(f"{mod}:{code.co_name}")
-                    f = f.f_back
-                stack.reverse()        # outermost first, flamegraph order
-                self._fold_locked(role, stack)
-                folded += 1
-            self._samples += folded
+        try:
+            with self._lock:
+                self._ticks += 1
+                for ident, frame in frames.items():
+                    if ident == skip_ident:
+                        continue
+                    role = role_of(names.get(ident, ""))
+                    stack: List[str] = []
+                    f = frame
+                    while f is not None:
+                        code = f.f_code
+                        mod = code.co_filename.rsplit("/", 1)[-1]
+                        stack.append(f"{mod}:{code.co_name}")
+                        f = f.f_back
+                    stack.reverse()    # outermost first, flamegraph order
+                    self._fold_locked(role, stack)
+                    folded += 1
+                self._samples += folded
+        finally:
+            # the snapshot holds this thread's own frame, whose locals
+            # hold the snapshot: a cycle that only the cyclic GC frees.
+            # Until it runs, every sampled frame whose function has
+            # returned keeps its locals alive (a training loop's
+            # normal matrices and gathered slabs, tens of GB on the
+            # card), so the cycle is broken here
+            frames.clear()
+            frame = f = None
         return folded
 
     def _fold_locked(self, role: str, stack: List[str]) -> None:

@@ -2,7 +2,8 @@
 
 The port of `predictionio_tpu/ops/als.py` (MLlib `ALS` semantics:
 ALS-WR regularization `reg * n_row`, `abs(normal) / sqrt(rank)` init,
-explicit and Hu-Koren-Volinsky implicit feedback), single device.
+explicit and Hu-Koren-Volinsky implicit feedback), on one device or
+over a mesh.
 
   1. Host packing is a numpy copy of the JAX package's, bit for bit:
      COO ratings grouped by row, rows bucketed by degree on a x1.25
@@ -35,8 +36,23 @@ Cholesky at rank <= 16, CG from zero at larger ranks) on the device of
 the opposite factors, the rows bucketed by degree as training buckets
 them.
 
-Not ported yet: the sharded loop (`_run_als_sharded`, `_pack_by_owner`,
-`hbm_footprint`).
+Over a mesh of two or more "data" shards (`als_train(mesh=...)`) the
+loop is `_run_als_sharded`: shard s owns the contiguous row block s of
+each side, the factors padded with ZERO rows to a multiple of the shard
+count (a nonzero phantom row would bias the implicit Gram). Every
+process packs every row, as each host of the JAX package does, and
+`_pack_by_owner` (a numpy copy, byte for byte) re-lays each slab by
+owning shard, rows by LOCAL index, the fill row being the local index
+`block`; a process keeps its own shards' chunks. Each half-step casts
+the opposite blocks to the `cast` dtype, then gathers them into one
+table per device (several shards on one card share it; across
+processes by `torch.distributed.all_gather_into_tensor`), sums the
+blocks' fp32 Grams in implicit mode (the `psum`) and solves each
+shard's rows with the single-device solvers. The largest residual is a
+0-d tensor per device, reduced over processes once at the end (the
+`pmax`). A mesh of one shard trains through `_run_als`, where the JAX
+package runs its sharded program over one device. `hbm_footprint` is
+the per-device memory bound of that layout.
 
 The model: `ALSModel` holds the factor matrices as tensors plus the id
 maps. The user factors live on the serving device. The item factors
@@ -65,6 +81,7 @@ from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ingest.arrays import RatingColumns
 from predictionio_tpu_torch.ingest.bimap import BiMap
 from predictionio_tpu_torch.ops.linalg import exact_fp32, pcg_solve, spd_solve
+from predictionio_tpu_torch.parallel.mesh import pad_rows, pad_to_multiple
 
 # degree-bucket caps: BASE, then x GROWTH steps rounded up to a multiple
 # of 8; a row of degree d lands in the smallest bucket with cap >= d
@@ -351,11 +368,11 @@ class _Batch:
     """Consecutive slabs of one side whose rows one CG solves; the
     per-row tensors run over the slabs' rows in order."""
     slabs: List[_Slab]
-    safe_rows: torch.Tensor      # int64 [N]: rows, _FILL_ROW clamped
+    safe_rows: torch.Tensor      # int64 [N]: rows, fill rows clamped
     live: torch.Tensor           # bool [N, 1]: the row has entries
     diag: torch.Tensor           # f32 [N, 1]: reg * n_row, 1 if empty
     real: torch.Tensor           # int64: positions of the rows to write
-    write_rows: torch.Tensor     # int64: their row ids (no _FILL_ROW)
+    write_rows: torch.Tensor     # int64: their row ids (no fill row)
 
 
 def _prepare_side(slabs: Sequence[tuple], n_own: int, n_opp: int,
@@ -400,7 +417,9 @@ def _prepare_side(slabs: Sequence[tuple], n_own: int, n_opp: int,
             rows_l.append(rows)
             n_l.append(m.sum(dim=1))
         rows, n_row = torch.cat(rows_l), torch.cat(n_l)
-        real = torch.nonzero(rows != _FILL_ROW).squeeze(1)
+        # fill rows (_FILL_ROW, or an owner-packed slab's local `n_own`)
+        # are never written
+        real = torch.nonzero(rows < n_own).squeeze(1)
         batches.append(_Batch(
             parts, safe_rows=rows.clamp_max(n_own - 1).long(),
             live=(n_row > 0)[:, None],
@@ -445,6 +464,13 @@ def _solve_batch(own: torch.Tensor, opp_ext: torch.Tensor, batch: _Batch,
             torch.where(batch.live[:, 0], rel, 0.0))
 
 
+def _exact_slabs(slabs: Sequence[tuple], n_own: int) -> List[tuple]:
+    """The exact path's slabs: (rows to write as int64, idx, val), the
+    fill rows (ids >= `n_own`, last in a slab) left out."""
+    return [(rows[:int((rows < n_own).sum())].long(), idx, val)
+            for rows, idx, val in slabs]
+
+
 class _Iteration:
     """One ALS iteration (users, then items) over a run's slabs, in place
     on `x` and `y`; `res` holds the iteration's largest relative
@@ -468,27 +494,37 @@ class _Iteration:
                                       reg, alpha, implicit=implicit,
                                       cast=self.cast, rank=rank)
             else:
-                slabs = [(rows[:int((rows != _FILL_ROW).sum())].long(), idx,
-                          val) for rows, idx, val in slabs]
+                slabs = _exact_slabs(slabs, own.shape[0])
             self.sides.append((own, opp, slabs))
 
     def half_step(self, own: torch.Tensor, opposite: torch.Tensor,
                   slabs: Sequence) -> None:
         yty = opposite.T @ opposite if self.implicit else None
         if not self.cg:
-            for write_rows, idx, val in slabs:
-                sol = _solve_bucket(opposite, idx, val, self.reg,
-                                    self.alpha, yty, implicit=self.implicit)
-                own.index_copy_(0, write_rows, sol[:write_rows.shape[0]])
+            self.solve(own, opposite, slabs, yty, self.res)
             return
         opp = opposite.to(self.cast)
         opp_ext = torch.cat([opp, opp.new_zeros(1, self.rank)])
+        self.solve(own, opp_ext, slabs, yty, self.res)
+
+    def solve(self, own: torch.Tensor, table: torch.Tensor, slabs: Sequence,
+              yty: Optional[torch.Tensor], res: torch.Tensor) -> None:
+        """Solve the rows of `own` in `slabs` (prepared in `__init__`)
+        against `table`, the opposite factors (f32 on the exact path; in
+        the cast dtype with a zero row appended on the CG path), and
+        write them in place; the CG residuals go into `res`."""
+        if not self.cg:
+            for write_rows, idx, val in slabs:
+                sol = _solve_bucket(table, idx, val, self.reg,
+                                    self.alpha, yty, implicit=self.implicit)
+                own.index_copy_(0, write_rows, sol[:write_rows.shape[0]])
+            return
         for batch in slabs:
-            sol, rel = _solve_batch(own, opp_ext, batch, yty,
+            sol, rel = _solve_batch(own, table, batch, yty,
                                     cg_iters=self.cg_iters)
             own.index_copy_(0, batch.write_rows,
                             sol.index_select(0, batch.real))
-            torch.maximum(self.res, rel.max(), out=self.res)
+            torch.maximum(res, rel.max(), out=res)
 
     def __call__(self) -> None:
         with exact_fp32():
@@ -537,6 +573,270 @@ def half_step(own: torch.Tensor, opposite: torch.Tensor,
     with exact_fp32():
         it.half_step(*it.sides[0])
     return own, float(it.res)
+
+
+def _pack_by_owner(side: _SideBuckets, block: int, n_dev: int):
+    """Re-partition each bucket slab by owning shard (owner = row //
+    block) into [n_dev * rows_b, ...] arrays whose dim 0 splits evenly
+    over the shards: shard d's chunk holds only rows it owns, addressed
+    by LOCAL index (row - d*block; fill = block, never written).
+    Host-side, vectorized; the JAX package's, byte for byte."""
+    packed = []
+    for j, rows in enumerate(side.rows):
+        idx, vals = side.padded(j)
+        real = rows != _FILL_ROW           # _pack_side even-padding rows
+        rows, idx, vals = rows[real], idx[real], vals[real]
+        owner = rows // block
+        counts = np.bincount(owner, minlength=n_dev)
+        rb = max(int(counts.max()), 1)
+        rb += rb % 2                       # even rows per shard (pairing)
+        order = np.argsort(owner, kind="stable")
+        member, intra = _group_offsets(counts)
+        local_rows = np.full((n_dev, rb), block, np.int32)
+        # fill slabs keep the -1 idx sentinel (mask derives from it)
+        d_idx = np.full((n_dev, rb) + idx.shape[1:], -1, idx.dtype)
+        d_val = np.zeros((n_dev, rb) + vals.shape[1:], vals.dtype)
+        local_rows[member, intra] = rows[order] - member * block
+        d_idx[member, intra] = idx[order]
+        d_val[member, intra] = vals[order]
+        packed.append((local_rows.reshape(n_dev * rb),
+                       d_idx.reshape((n_dev * rb,) + idx.shape[1:]),
+                       d_val.reshape((n_dev * rb,) + vals.shape[1:])))
+    return packed
+
+
+def _data_shards(mesh) -> int:
+    """The shard count of `mesh`'s "data" axis (the port shards ALS over
+    it alone: any other axis must have size 1)."""
+    shape = mesh.shape
+    if "data" not in shape:
+        raise ValueError(f"ALS shards over a 'data' mesh axis; mesh {shape} "
+                         "has none")
+    if any(n != 1 for k, n in shape.items() if k != "data"):
+        raise ValueError(f"ALS shards over 'data' alone; mesh {shape} has "
+                         "another axis of size > 1")
+    return int(shape["data"])
+
+
+class _ShardedIteration(_Iteration):
+    """One ALS iteration over this process's shards of a mesh (the body
+    of the JAX package's `_run_als_sharded`), in place on the factor
+    blocks: `x_blocks[j]` / `y_blocks[j]` are the [block, rank] rows of
+    local shard j on its device, `user_slabs[j]` / `item_slabs[j]` its
+    owner-packed device slabs. `n_shards` counts every process's
+    shards; each process holds as many."""
+
+    def __init__(self, x_blocks: List[torch.Tensor],
+                 y_blocks: List[torch.Tensor],
+                 user_slabs: Sequence[Sequence[tuple]],
+                 item_slabs: Sequence[Sequence[tuple]],
+                 reg: float, alpha: float, *, implicit: bool, rank: int,
+                 n_shards: int, process_count: int = 1,
+                 cg_iters: int = _CG_ITERS,
+                 cast: Optional[torch.dtype] = None):
+        self.reg, self.alpha = reg, alpha
+        self.implicit, self.rank, self.cg_iters = implicit, rank, cg_iters
+        self.cast = cast or torch.float32
+        self.cg = rank > _SMALL_RANK
+        self.n_shards, self.process_count = n_shards, process_count
+        # the distinct devices, in shard order: one gathered table each
+        self.devices = list(dict.fromkeys(b.device for b in x_blocks))
+        self.res_by_dev = {d: torch.zeros((), dtype=torch.float32, device=d)
+                           for d in self.devices}
+        self.sides = []
+        for own, opp, slabs in ((x_blocks, y_blocks, user_slabs),
+                                (y_blocks, x_blocks, item_slabs)):
+            block, n_opp = own[0].shape[0], opp[0].shape[0] * n_shards
+            if self.cg:
+                slabs = [_prepare_side(sl, block, n_opp, reg, alpha,
+                                       implicit=implicit, cast=self.cast,
+                                       rank=rank) for sl in slabs]
+            else:
+                slabs = [_exact_slabs(sl, block) for sl in slabs]
+            self.sides.append((own, opp, slabs))
+
+    def gram(self, blocks: List[torch.Tensor]) -> dict:
+        """Y^T Y over every shard's block in fp32 (the `psum`), on each
+        local device."""
+        total = None
+        for b in blocks:
+            g = (b.T @ b).to(self.devices[0])
+            total = g if total is None else total + g
+        if self.process_count > 1:
+            torch.distributed.all_reduce(total)
+        return {d: total.to(d) for d in self.devices}
+
+    def gather(self, blocks: List[torch.Tensor]) -> dict:
+        """The full opposite table on each local device, every shard's
+        block cast BEFORE it moves (f32 on the exact path); on the CG
+        path a zero row follows, where slot padding points."""
+        dt = self.cast if self.cg else torch.float32
+        block = blocks[0].shape[0]
+        n = block * self.n_shards
+        parts = blocks
+        if self.process_count > 1:
+            mine = torch.empty((block * len(blocks), self.rank), dtype=dt,
+                               device=self.devices[0])
+            for j, b in enumerate(blocks):
+                mine[j * block:(j + 1) * block].copy_(b)
+            full = torch.empty((n, self.rank), dtype=dt,
+                               device=self.devices[0])
+            torch.distributed.all_gather_into_tensor(full, mine)
+            parts = [full]
+        tables = {}
+        for dev in self.devices:
+            t = torch.empty((n + int(self.cg), self.rank), dtype=dt,
+                            device=dev)
+            o = 0
+            for p in parts:
+                if p.device != dev and p.dtype != dt:
+                    p = p.to(dt)               # cast on the owning device
+                t[o:o + p.shape[0]].copy_(p)
+                o += p.shape[0]
+            t[n:].zero_()
+            tables[dev] = t
+        return tables
+
+    def half_step(self, own: List[torch.Tensor], opp: List[torch.Tensor],
+                  slabs: Sequence) -> None:
+        yty = self.gram(opp) if self.implicit else dict.fromkeys(self.devices)
+        tables = self.gather(opp)
+        for blk, shard_slabs in zip(own, slabs):
+            dev = blk.device
+            self.solve(blk, tables[dev], shard_slabs, yty[dev],
+                       self.res_by_dev[dev])
+
+    def __call__(self) -> None:
+        with exact_fp32():
+            for r in self.res_by_dev.values():
+                r.zero_()
+            for own, opp, slabs in self.sides:
+                self.half_step(own, opp, slabs)
+
+    def residual(self) -> torch.Tensor:
+        """The iteration's largest residual over every shard (the
+        `pmax`), a 0-d tensor on the first local device."""
+        res = torch.stack([r.to(self.devices[0])
+                           for r in self.res_by_dev.values()]).max()
+        if self.process_count > 1:
+            torch.distributed.all_reduce(res,
+                                         op=torch.distributed.ReduceOp.MAX)
+        return res
+
+
+def _run_als_sharded(x_blocks: List[torch.Tensor],
+                     y_blocks: List[torch.Tensor],
+                     user_slabs: Sequence[Sequence[tuple]],
+                     item_slabs: Sequence[Sequence[tuple]], reg: float,
+                     alpha: float, n_iter: int, *, implicit: bool, rank: int,
+                     mesh, cg_iters: int = _CG_ITERS,
+                     cast: Optional[torch.dtype] = None
+                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                torch.Tensor]:
+    """The sharded training loop over this process's shards of `mesh`
+    (see `_ShardedIteration`). Returns (x blocks, y blocks, the last
+    iteration's largest relative residual over every shard, 0-d on the
+    first local device). The inputs are not modified; past the per-run
+    preparation the loop never waits on the device."""
+    x_blocks = [b.clone() for b in x_blocks]
+    y_blocks = [b.clone() for b in y_blocks]
+    it = _ShardedIteration(x_blocks, y_blocks, user_slabs, item_slabs, reg,
+                           alpha, implicit=implicit, rank=rank,
+                           n_shards=_data_shards(mesh),
+                           process_count=mesh.process_count,
+                           cg_iters=cg_iters, cast=cast)
+    from predictionio_tpu_torch.resilience.watchdog import progress
+    for _ in range(n_iter):
+        progress()          # an iteration of a refresher's rebuild
+        it()
+    return x_blocks, y_blocks, it.residual()
+
+
+def _owner_slabs(side: _SideBuckets, block: int, mesh) -> List[List[tuple]]:
+    """`_pack_by_owner` over every shard of `mesh`, then this process's
+    shards' chunks: per local shard, (rows, idx, val) numpy per slab."""
+    n_dev = _data_shards(mesh)
+    packed = _pack_by_owner(side, block, n_dev)
+    out = []
+    for s in mesh.local:
+        chunks = []
+        for leaves in packed:
+            rb = leaves[0].shape[0] // n_dev
+            chunks.append(tuple(a[s * rb:(s + 1) * rb] for a in leaves))
+        out.append(chunks)
+    return out
+
+
+def _place_blocks(f: np.ndarray, n_rows: int, mesh) -> List[torch.Tensor]:
+    """This process's row blocks of host factors `f`, padded with zero
+    rows to a multiple of the shard count, each on its shard's
+    device."""
+    n_dev = _data_shards(mesh)
+    dpad = pad_to_multiple(n_rows, n_dev)
+    a = pad_rows(np.ascontiguousarray(f[:n_rows], np.float32), dpad)
+    block = dpad // n_dev
+    return [torch.tensor(a[s * block:(s + 1) * block], device=dev)
+            for s, dev in zip(mesh.local, mesh.local_devices)]
+
+
+def _upload_shards(chunks: List[List[tuple]], mesh,
+                   val_dtype: torch.dtype) -> List[List[tuple]]:
+    return [[(torch.from_numpy(rows).to(dev), torch.from_numpy(idx).to(dev),
+              torch.from_numpy(val).to(val_dtype).to(dev))
+             for rows, idx, val in shard]
+            for shard, dev in zip(chunks, mesh.local_devices)]
+
+
+def _train_on_mesh(x, y, user_side: _SideBuckets, item_side: _SideBuckets,
+                   n_users: int, n_items: int, mesh, *, reg: float,
+                   alpha: float, iterations: int, implicit: bool, rank: int,
+                   cg_iters: int = _CG_ITERS,
+                   cast: Optional[torch.dtype] = None,
+                   val_dtype: torch.dtype = torch.float32,
+                   timings: Optional[dict] = None):
+    """Owner-pack both sides, place the starting factors `x`, `y` (host
+    arrays) and the slabs on `mesh` and run `_run_als_sharded`; returns
+    this process's factor blocks of each side (padded to a multiple of
+    the shard count) and the residual over every shard. `timings` gets
+    owner_pack_s, transfer_s and solve_s."""
+    n_dev = _data_shards(mesh)
+    devs = list(dict.fromkeys(resolve_device(d) for d in mesh.local_devices))
+    t0 = time.perf_counter()
+    sides = [_owner_slabs(side, pad_to_multiple(n, n_dev) // n_dev, mesh)
+             for side, n in ((user_side, n_users), (item_side, n_items))]
+    t1 = time.perf_counter()
+    x_b = _place_blocks(np.asarray(x), n_users, mesh)
+    y_b = _place_blocks(np.asarray(y), n_items, mesh)
+    user_slabs, item_slabs = (_upload_shards(sd, mesh, val_dtype)
+                              for sd in sides)
+    del sides
+    for d in devs:
+        _sync(d)
+    t2 = time.perf_counter()
+    out = _run_als_sharded(
+        x_b, y_b, user_slabs, item_slabs, reg, alpha, iterations,
+        implicit=implicit, rank=rank, mesh=mesh, cg_iters=cg_iters,
+        cast=cast)
+    for d in devs:
+        _sync(d)
+    if timings is not None:
+        timings.update(owner_pack_s=t1 - t0, transfer_s=t2 - t1,
+                       solve_s=time.perf_counter() - t2)
+    return out
+
+
+def _fetch(blocks: List[torch.Tensor], mesh) -> torch.Tensor:
+    """Every shard's blocks in shard order on this process's first
+    device: every process ends with the full factors (the JAX package's
+    `process_allgather`)."""
+    dev0 = mesh.local_devices[0]
+    mine = torch.cat([b.to(dev0) for b in blocks])
+    if mesh.process_count == 1:
+        return mine
+    full = mine.new_empty((mine.shape[0] * mesh.process_count,
+                           mine.shape[1]))
+    torch.distributed.all_gather_into_tensor(full, mine)
+    return full
 
 
 def _row_normals(seed: int, side: int, n_rows: int, rank: int
@@ -610,6 +910,7 @@ def als_train(ratings: "RatingColumns | Tuple[np.ndarray, np.ndarray, np.ndarray
               implicit: bool = False,
               alpha: float = 1.0,
               seed: int = 0,
+              mesh=None,
               packed: Optional[PackedRatings] = None,
               timings: Optional[dict] = None,
               precision: str = "bf16",
@@ -620,11 +921,16 @@ def als_train(ratings: "RatingColumns | Tuple[np.ndarray, np.ndarray, np.ndarray
     CUDA unless `device="cpu"`).
 
     MLlib semantics: ALS-WR regularization, `abs(normal)/sqrt(rank)`
-    init, `iterations` full alternations. `packed` (from `pack_ratings`)
-    skips host packing. `timings`, if given, gets pack_s / transfer_s /
-    solve_s / fetch_s wall-clock phases and `solver_residual`, the
-    largest relative residual of the last iteration's inexact solves
-    (0.0 on the exact path).
+    init, `iterations` full alternations. `mesh` (a `parallel.Mesh`)
+    of two or more "data" shards trains through the sharded loop and
+    returns the full factors on the mesh's first local device, in every
+    process of a multi-process mesh; None or one shard trains on
+    `device`. `packed` (from `pack_ratings`) skips host packing.
+    `timings`, if given, gets pack_s / transfer_s / solve_s / fetch_s
+    wall-clock phases (on a mesh also owner_pack_s, the part of pack_s
+    in `_pack_by_owner`) and `solver_residual`, the largest relative
+    residual of the last iteration's inexact solves (0.0 on the exact
+    path).
 
     `precision` ("bf16" | "f32") is the dtype of the GATHERED opposite
     rows on the rank > 16 path; the Gram accumulation and CG are fp32,
@@ -636,7 +942,8 @@ def als_train(ratings: "RatingColumns | Tuple[np.ndarray, np.ndarray, np.ndarray
     CG may not converge; a residual above 1e-2 is logged as a warning
     (raise `cg_iters`, or use rank <= 16 for the exact solver).
     """
-    dev = resolve_device(device)
+    sharded = mesh is not None and _data_shards(mesh) > 1
+    dev = None if sharded else resolve_device(device)
     cast = {"bf16": torch.bfloat16, "f32": None}[precision]
     t0 = time.perf_counter()
     if packed is not None:
@@ -667,6 +974,20 @@ def als_train(ratings: "RatingColumns | Tuple[np.ndarray, np.ndarray, np.ndarray
               if (cg and cast is torch.bfloat16 and not implicit
                   and _bf16_exact(user_side.val))
               else torch.float32)
+    if sharded:
+        tm: dict = {}
+        x_b, y_b, res = _train_on_mesh(
+            x, y, user_side, item_side, n_users, n_items, mesh, reg=reg,
+            alpha=alpha, iterations=iterations, implicit=implicit,
+            rank=rank, cg_iters=cg_iters, cast=cast, val_dtype=val_dt,
+            timings=tm)
+        t_solve = time.perf_counter()
+        x, y = _fetch(x_b, mesh)[:n_users], _fetch(y_b, mesh)[:n_items]
+        _check_residual(float(res), timings)
+        if timings is not None:
+            timings.update(tm, pack_s=t_pack - t0 + tm["owner_pack_s"],
+                           fetch_s=time.perf_counter() - t_solve)
+        return x, y
     x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
     user_slabs = device_slabs(user_side, val_dt, dev)
     item_slabs = device_slabs(item_side, val_dt, dev)
@@ -731,6 +1052,62 @@ def rmse(x, y, u_ix, i_ix, val) -> float:
     i = torch.as_tensor(np.asarray(i_ix), dtype=torch.long, device=x.device)
     pred = (x[u] * y[i]).sum(dim=1).cpu().numpy()
     return float(np.sqrt(np.mean((pred - np.asarray(val)) ** 2)))
+
+
+def hbm_footprint(n_users: int, n_items: int, n_ratings: int, rank: int,
+                  n_devices: int, *, owner_skew: float = 2.0) -> dict:
+    """Per-device memory upper bound (bytes) of the sharded training
+    layout, in the port's buffers: {"persistent", "transient", "peak"}.
+
+    Bucket padding is bounded in closed form: a row of degree d lands in
+    a slab of cap <= max(BASE, GROWTH*d + 8), so a side's padded entry
+    count is <= (BASE + 8)*n_rows + GROWTH*n_ratings. `owner_skew`
+    bounds the extra padding from `_pack_by_owner` equalizing per-shard
+    row counts (contiguous id blocks; ~1 for uniform ids, up to
+    n_devices for fully skewed ownership).
+
+    persistent: the shard's factor rows, and per padded slab entry of
+      both sides at most 5 words: the device slab's idx and value, and
+      on the CG path `_prepare_side`'s gather index, rhs weight and
+      (implicit) confidence weight.
+    transient: the gathered opposite table (counted in f32; the default
+      bf16 table is half), the slab being gathered (2x
+      `_SLAB_GATHER_BUDGET`: the gathered copy and its weighted or
+      masked product) and the normal matrices: on the CG path one CG
+      batch's [N, R, R] fp32 systems, capped by `_CG_BATCH_BUDGET`, plus
+      about 12 [N, R] CG and right-hand-side vectors; on the exact path
+      (rank <= 16) one slab's, capped by `_SLAB_NORMAL_BUDGET`, 4x for
+      the Cholesky's copies.
+
+    The anchor: `chip_smoke.py` phase train_mesh trains MovieLens-25M's
+    shape (162,541 x 59,047, 25 M ratings) at rank 64 over 4 shards on
+    one NVIDIA H100 80GB HBM3 and gates `torch.cuda.max_memory_allocated`
+    over the run at 4x this bound (the shards share the card, so their
+    transients come one after another)."""
+    fb = 4  # f32 / int32 bytes
+    pad_side = _BUCKET_BASE + 8
+    padded_user = pad_side * n_users + _BUCKET_GROWTH * n_ratings
+    padded_item = pad_side * n_items + _BUCKET_GROWTH * n_ratings
+    factors_local = (pad_to_multiple(n_users, n_devices)
+                     + pad_to_multiple(n_items, n_devices)) * rank * fb \
+        / n_devices
+    slabs_local = ((padded_user + padded_item) * 5 * fb / n_devices
+                   * owner_skew)
+    gathered_opposite = (max(n_users, n_items) + 1) * rank * fb
+    slab_gather = 2 * min(
+        max(padded_user, padded_item) * rank * fb / n_devices * owner_skew,
+        _SLAB_GATHER_BUDGET)
+    rows_local = max(n_users, n_items) / n_devices * owner_skew
+    if rank > _SMALL_RANK:
+        normal_bufs = min(rows_local * rank * rank * fb, _CG_BATCH_BUDGET) \
+            * (1 + 12 / rank)
+    else:
+        normal_bufs = 4 * min(rows_local * rank * rank * fb,
+                              _SLAB_NORMAL_BUDGET)
+    persistent = factors_local + slabs_local
+    transient = gathered_opposite + slab_gather + normal_bufs
+    return {"persistent": persistent, "transient": transient,
+            "peak": persistent + transient}
 
 
 @dataclass

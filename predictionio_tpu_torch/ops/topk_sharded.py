@@ -116,13 +116,25 @@ def parse_fleet_mesh(spec: str):
     return n, idx
 
 
-def serve_mesh_from_conf():
+def serve_mesh_from_conf(conf=None):
     """The deploy-time serving mesh: the local CUDA cards, or None when
     sharded serving is off or pointless (fewer than two cards).
+    `conf` is the merged engine-instance + server runtime_conf; a
+    configured training mesh there forces the sharded path (training
+    and serving agree on the device layout). A cross-host
+    `items=N@fleet:i` mesh returns a `ShardSlice` instead: this member
+    serves only its owned catalog rows and the fleet router merges
+    across members; the router's own `items=N@fleet` forces nothing.
     `PIO_SERVE_SHARD` (auto/on/off; `on` forces the sharded path) and
     `PIO_SERVE_SHARDS` (a cap on the shard count) are the JAX package's
-    own knobs. The port has no runtime conf yet, so a fleet member's
-    slice is passed explicitly as `mesh=ShardSlice(n, i)`."""
+    own knobs."""
+    conf_mesh = str((conf or {}).get("mesh", "") or "")
+    fleet = parse_fleet_mesh(conf_mesh)
+    if fleet is not None:
+        n, idx = fleet
+        if idx is not None:
+            return ShardSlice(n_shards=n, index=idx)
+        conf_mesh = ""
     mode = (os.environ.get("PIO_SERVE_SHARD", "auto") or "auto").lower()
     if mode in ("off", "0", "false"):
         return None
@@ -132,7 +144,7 @@ def serve_mesh_from_conf():
     if n < 2:
         return None
     return ServeMesh(tuple(torch.device("cuda", i) for i in range(n)),
-                     forced=mode in ("on", "1", "true"))
+                     forced=mode in ("on", "1", "true") or bool(conf_mesh))
 
 
 def device_capacity_bytes(device=None) -> Optional[float]:

@@ -1,1 +1,12 @@
-"""Device layout helpers of the port (row sharding over a device list)."""
+"""Device meshes, row sharding over a device list, multi-process setup."""
+
+from predictionio_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    MeshSpec,
+    initialize_distributed,
+    local_devices,
+    make_mesh,
+    pad_rows,
+    pad_to_multiple,
+    shard_put,
+)

@@ -1,20 +1,151 @@
-"""Row sharding of host arrays over a list of torch devices.
+"""Device meshes, row sharding and multi-process setup.
 
-The port of the serving half of `predictionio_tpu/parallel/mesh.py`:
-`pad_to_multiple` and `pad_rows` are copies; `shard_put` is the row
-sharding that `jax.device_put` with a batch sharding gives there, written
-out as one contiguous tensor per device. The list may name one device
-more than once (several shards on one card). The training mesh
-(`MeshSpec`, `make_mesh`, `initialize_distributed`) comes with the
-training slices.
+The port of `predictionio_tpu/parallel/mesh.py` (Runner.scala's
+spark-submit topology, SURVEY.md §2.8). A `MeshSpec` is carried in the
+engine instance's `runtime_conf` (the slot the reference used for
+`sparkConf`), so training and serving agree on the device layout.
+
+  - `MeshSpec` is a copy of the JAX package's.
+  - `make_mesh` returns a `Mesh`: the axis names and sizes and a
+    row-major tuple of torch devices, every process's, with this
+    process's index and count. The JAX package returns a
+    `jax.sharding.Mesh`; torch has no global device, so the entries of
+    another process are its own local devices, in process order, as
+    `jax.devices()` lists them. A list may name one device more than
+    once: several shards on one card (or on the CPU).
+  - `initialize_distributed` joins a `torch.distributed` process group
+    where the JAX package joins `jax.distributed`.
+  - `pad_to_multiple` and `pad_rows` are copies; `shard_put` is the row
+    sharding that `jax.device_put` with a batch sharding gives there,
+    written out as one contiguous tensor per device. `batch_sharding`
+    and `replicated_sharding` are `jax.sharding` objects with no
+    counterpart: the port's sharded code holds a list of per-shard
+    tensors and moves them itself.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import os
+from dataclasses import dataclass, field
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from predictionio_tpu_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """A declarative mesh shape: axis name -> size; -1 means 'all remaining
+    devices'. The default is pure data parallelism over every device, the
+    analog of Spark defaulting to one partition per core."""
+    axes: Mapping[str, int] = field(default_factory=lambda: {"data": -1})
+
+    def resolve(self, n_devices: int) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+        names = tuple(self.axes.keys())
+        sizes = list(self.axes.values())
+        wild = [i for i, s in enumerate(sizes) if s == -1]
+        if len(wild) > 1:
+            raise ValueError("At most one mesh axis may be -1")
+        fixed = int(np.prod([s for s in sizes if s != -1])) if sizes else 1
+        if wild:
+            if n_devices % fixed != 0:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes {fixed}")
+            sizes[wild[0]] = n_devices // fixed
+        total = int(np.prod(sizes)) if sizes else 1
+        if total > n_devices:
+            raise ValueError(
+                f"Mesh {dict(zip(names, sizes))} needs {total} devices, "
+                f"have {n_devices}")
+        return names, tuple(int(s) for s in sizes)
+
+    @staticmethod
+    def from_conf(conf: Mapping[str, str]) -> "MeshSpec":
+        """Parse 'mesh' key of runtime_conf, e.g. 'data=8' or
+        'data=4,model=2'. Missing/empty -> default all-data mesh."""
+        s = (conf or {}).get("mesh", "")
+        if not s:
+            return MeshSpec()
+        axes = {}
+        for part in s.split(","):
+            k, _, v = part.partition("=")
+            axes[k.strip()] = int(v)
+        return MeshSpec(axes)
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A device mesh: `devices` row-major over `axis_names` x `sizes`,
+    every process's entries in process order, each process holding an
+    equal, contiguous run of them."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    devices: Tuple[torch.device, ...]
+    process_index: int = 0
+    process_count: int = 1
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as `jax.sharding.Mesh.shape`."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def local(self) -> Tuple[int, ...]:
+        """Positions in `devices` of this process's entries."""
+        per = self.size // self.process_count
+        return tuple(range(self.process_index * per,
+                           (self.process_index + 1) * per))
+
+    @property
+    def local_devices(self) -> Tuple[torch.device, ...]:
+        return tuple(self.devices[s] for s in self.local)
+
+
+def local_devices(device=None) -> List[torch.device]:
+    """This process's devices of `device`'s kind: every CUDA card for a
+    CUDA device (None = cuda; raises without CUDA), else `device`
+    repeated `PIO_CPU_DEVICE_COUNT` times (default 1), the counterpart
+    of XLA's `--xla_force_host_platform_device_count`."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev] * int(os.environ.get("PIO_CPU_DEVICE_COUNT", "1") or 1)
+
+
+def make_mesh(spec: Optional[MeshSpec] = None,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A `Mesh` of `spec` (None = all-data) over this process's
+    `devices` (None = `local_devices()`: every CUDA card, raising
+    without CUDA) and, in a `torch.distributed` group, over every
+    process's: the global list is each process's list in process order,
+    every process giving as many devices as this one.
+
+    Uses only the largest prefix of the devices that fills the mesh
+    shape (so a 7-device pool with data=-1 uses all 7; data=4 uses the
+    first 4); a shape past the devices given raises. Across processes
+    the mesh must split evenly, and each process gives its first
+    size / n_processes devices."""
+    local = [torch.device(d) for d in (
+        devices if devices is not None else local_devices())]
+    pid, n_proc = 0, 1
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        pid = torch.distributed.get_rank()
+        n_proc = torch.distributed.get_world_size()
+    spec = spec or MeshSpec()
+    names, sizes = spec.resolve(len(local) * n_proc)
+    n = int(np.prod(sizes)) if sizes else 1
+    if n % n_proc:
+        raise ValueError(f"mesh {dict(zip(names, sizes))} of {n} devices "
+                         f"does not split evenly over {n_proc} processes")
+    per = n // n_proc
+    return Mesh(names, sizes, tuple(local[:per]) * n_proc, pid, n_proc)
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -46,3 +177,42 @@ def shard_put(host: np.ndarray, devices: Sequence[torch.device]
     per = a.shape[0] // n
     return [torch.tensor(a[s * per:(s + 1) * per], device=dev)
             for s, dev in enumerate(devices)]
+
+
+def initialize_distributed(coordinator: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None, *,
+                           device=None) -> bool:
+    """Join a `torch.distributed` process group for multi-process
+    training; no-op (False) when no coordinator is configured. Explicit
+    arguments override the PIO_TPU_COORDINATOR / _NUM_PROCESSES /
+    _PROCESS_ID env vars; `coordinator` is the host:port of process 0,
+    the group's `tcp://` rendezvous. The backend is `nccl` for a CUDA
+    `device` (None = cuda) and `gloo` for the CPU. Idempotent: a call in
+    a process already in a group returns True without joining again.
+    Nothing is written to `os.environ`. The analog of the reference
+    forwarding PIO_* env through spark-submit to Spark's driver and
+    executors (`Runner.scala:213-215,298-305`)."""
+    addr = coordinator or os.environ.get("PIO_TPU_COORDINATOR")
+    if not addr:
+        return False
+    if torch.distributed.is_initialized():
+        return True
+
+    def setting(explicit, env_key, what):
+        if explicit is not None:
+            return int(explicit)
+        val = os.environ.get(env_key)
+        if val is None:
+            raise ValueError(
+                f"Multi-process init needs {what}: pass it explicitly "
+                f"(--num-processes/--process-id) or set {env_key}")
+        return int(val)
+
+    n_proc = setting(num_processes, "PIO_TPU_NUM_PROCESSES",
+                     "the process count")
+    pid = setting(process_id, "PIO_TPU_PROCESS_ID", "this process's id")
+    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    torch.distributed.init_process_group(
+        backend, init_method=f"tcp://{addr}", world_size=n_proc, rank=pid)
+    return True

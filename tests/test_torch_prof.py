@@ -237,6 +237,39 @@ class TestSamplingProfiler:
         assert prof_mod.format_thread_stack(-1) == ""
 
 
+    def test_a_sample_pins_no_returned_frame(self):
+        """A sampled frame whose function has returned frees its locals
+        without waiting for the cyclic GC: the snapshot of
+        `sys._current_frames()` holds the sampler's own frame, and a
+        cycle through it kept every sampled frame (a training loop's
+        normal matrices and gathered slabs) alive until a collection
+        (tens of GB of the card over an ALS run, PERF.md)."""
+        import weakref
+        inside, leave = threading.Event(), threading.Event()
+        ref = []
+
+        def work():
+            held = np.ones(1 << 16)
+            ref.append(weakref.ref(held))
+            inside.set()
+            leave.wait(10)
+
+        prof = SamplingProfiler(hz=0)
+        was = gc.isenabled()
+        gc.disable()
+        try:
+            t = threading.Thread(target=work, name="pio-torch-test-work")
+            t.start()
+            assert inside.wait(10)
+            prof.sample_once()
+            leave.set()
+            t.join(10)
+            assert ref[0]() is None
+        finally:
+            if was:
+                gc.enable()
+
+
 class TestGCPauseHook:
     def test_histogram_fires_on_collect(self, clean_gc_hooks):
         reg = MetricsRegistry()
