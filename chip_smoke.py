@@ -9,7 +9,8 @@
                           [--templates-requests 64]
                           [--only serve_sharded | train | lifecycle |
                                   streaming | quickstart | templates |
-                                  classification | neural | wire |
+                                  classification | neural |
+                                  neural_mesh | wire |
                                   fleet | storage | ingest | obs |
                                   quality | pressure | elastic | chaos |
                                   steps]
@@ -395,8 +396,10 @@ the result line:
               stored and the mesh recorded; held-out RMSE within 1e-3 of
               phase 10's; solver residual below 1e-2; zero factors on
               unrated rows; `torch.cuda.max_memory_allocated` over the
-              run at most 4x `ops.als.hbm_footprint(..., n_devices=4)`'s
-              peak (the shards share the card). Prints pack_s and the
+              run at most `ops.als.shared_card_bound` of
+              `ops.als.hbm_footprint(..., n_devices=4)`: 4x its
+              persistent + 1x its transient (the shards share the card
+              and solve one after another). Prints pack_s and the
               owner packing's seconds and its slab rows and padded
               entries over every shard (beside phase 10's padded
               entries), solve_s, CUDA-event ms per
@@ -547,6 +550,37 @@ the result line:
               forest's host loop, batchpredict chunks of 1,024 take its
               device traversal; eval NB above 0.85, the forest at least
               NB - 0.05; no K1 or K2 launch in the phase.
+ 16b. classification_mesh
+              in phase 16's process, after it: its 200,000 users as
+              labeled points through `CoreWorkflow.run_train` (forest 8 x
+              depth 4, naive, logreg) over a 4-shard "data" mesh on the
+              one card (`make_mesh(MeshSpec({"data": 4}), [card] * 4)`)
+              and on one device, each instance deployed and asked 64
+              /queries.json. Gates: the mesh recorded; the forest's
+              arrays `torch.equal` to one device's; NB within rtol 1e-5;
+              logreg's w within rtol 5e-3 / atol 5e-4 and 99% of its
+              labels equal; the served answers equal; no K1 or K2
+              launch. Prints each train's seconds and peak device bytes.
+ 17b. neural_mesh
+              the mesh forms, in a process of its own beside phase 17's
+              (`--only neural_mesh`), shards sharing the card: (a)
+              `ring_attention` over 2 and 4 "sp" shards against
+              `attention_reference` at seqrec's width, forward within
+              2e-5 and q/k/v gradients within 1e-4 x the largest, causal
+              with a left-padded mask and plain; (b) phase 17's
+              two-tower over data=2 x model=2 and (c) its seqrec over
+              data=2 x sp=2, each from the same weights and batches as
+              one device: the first 20 step losses within rtol 1e-5 of
+              one device's (seqrec 2e-3 when a ReLU input of its first
+              batch, within float32's error of 0, falls on the two
+              sides, as one does on the card; counted), then recall@10
+              at least 4x random (10
+              epochs) and hit-rate@10 at least 0.4 (3 epochs, cut from
+              10); ms per step on the mesh beside
+              one device's; (d) ALS on phase 13's ML-1M ratings at rank
+              64 over data=2 x model=2 and over data=2: factors
+              `torch.equal`, peak bytes within `shared_card_bound`. TF32
+              off throughout; no K1 or K2 launch; each part's seconds.
  17. neural   the two-tower and sequential recommenders (no TPU kernel
               on this path: attention, towers and transformer are
               PyTorch ops). (a) Attention on the card against float64 on
@@ -598,7 +632,8 @@ with several cards), `--only train` the build and phases 9-11 and 11b,
 the build and phases 3 and 13, `--only quickstart` the build, phase 3,
 phase 13's import and train, and phase 14, `--only templates` the
 build and phases 3 and 15, `--only classification` the build and
-phases 3 and 16, `--only neural` the build and phase 17, `--only wire`
+phases 3, 16 and 16b, `--only neural` the build and phase 17, `--only
+neural_mesh` the build and phase 17b, `--only wire`
 the build and phases 3 and 4b, `--only fleet` the build, phase 3, one
 selector pass of phase 4b's requests (its reference) and phase 4c,
 `--only storage` the build and phases 3 and 4d, `--only obs` the build,
@@ -611,7 +646,8 @@ pressure` the build, phase 3, phase 13's import and train and phase 4g,
 `--only steps` the build and a diagnostic of phase 17's seqrec step
 parity (the card's steps three times and beside a loaded card and host,
 the CPU's at 1, 2, 4 and the default intra-op threads, twice each; it
-gates nothing); none prints the kernels line (whose K1 entry counts phase
+gates nothing); none prints the kernels line (whose K1 and K2 entries
+count phase 17b's as `neural_mesh_launches`, and whose K1 entry counts phase
 4b's launches as `wire_launches`, phase 4e (a)'s as `obs_launches`, phase
 4c's as `fleet_launches`: its in-process parts' and its supervised
 children's, the killed one's as read just before its kill, phase 4d's as
@@ -626,11 +662,13 @@ the run (`at_s`).
 The whole run's order: phases 1-4, 4b (with 4e (a) and 4f (a)) and
 phase 8's timing, timing_ecommerce and timing_sharded, which have the
 card and the host to themselves; phase 4c (with 4f (b) and (c)); then phases 9-11 and 11b
-(`--only train`), 15, 16 and 17, each in a process of its own, started together
+(`--only train`), 15, 16 with 16b, 17 and 17b, each in a process of its
+own, started together
 and run beside the rest: phases 4d, 5-7, 12-14 (the ML-1M chain, 4f (d)
-inside 14) and 4g; once those four processes have ended, phase 4i
+inside 14) and 4g; once those five processes have ended, phase 4i
 (`--only chaos`) in a process of its own beside what remains of the
-chain. Their lines are passed on when they end (with run `at_s`), and a
+chain. Their lines are passed on when they end, 17b's before 17's
+(with run `at_s`), and a
 failure of one fails the run. Then phase 4h, in a process of its own,
 with the host to itself.
 
@@ -2727,12 +2765,16 @@ def phase_fleet(torch, ft, dev, rng, model, card: str,
 # 16.3-23.6 in this flash on a quiet host, 15.0-24.2 at 50 beside three
 # busy loops, and 9.6-10.0 in most ticks of this flash on another host.
 # What separates is an idle child: with no queries it answers only the
-# router's /ready probes and /metrics scrapes, whose p99 read 1.0-2.4
-# ms (none took 10 ms in any calibration), while a flash's read at least
-# 9.6. So the flash comes to an idle service (a launch), the threshold is
-# the histogram's 5-ms bound between the two, and the phase runs last,
-# on a host of its own. Its peak is 200 req/s: any query rate from 50 up
-# reads at least 9.6 ms, and at 400 the router sits at its one core, so
+# router's /ready probes and /metrics scrapes, whose p99 read 0.99-2.41
+# ms (none took 10 ms in any calibration; one recorded idle tick held
+# an answer over 2.5 ms and read 4.85), while a flash's read at least
+# 9.6 on most hosts and 4.99-8.87 on a fast one (all NVIDIA H100 80GB
+# HBM3, 700 W). So the flash comes to an idle service (a launch), the
+# threshold is the histogram's 2.5-ms bound, the one above every idle
+# tick's reading and half the lowest flash tick's, and the phase runs
+# last, on a host of its own. Its peak is 200 req/s: any query rate
+# from 50 up reads at least 4.99 ms, and at 400 the router sits at its
+# one core, so
 # a slower host queues the flash past loadsim's 10-s timeout (88 of 793
 # arrivals of one process beside three busy loops)
 ELASTIC_BASE_RPS = 0.0
@@ -2741,7 +2783,7 @@ ELASTIC_BEFORE_S, ELASTIC_RAMP_S = 20.0, 2.0
 ELASTIC_HOLD_S, ELASTIC_AFTER_S = 45.0, 30.0
 ELASTIC_MAX = 3
 ELASTIC_TSDB_INTERVAL_S = 5.0       # the router's scrape and decision tick
-ELASTIC_P99_MS = 5.0                # the breach threshold
+ELASTIC_P99_MS = 2.5                # the breach threshold
 # loadsim processes sharing each rate, each a Poisson process at its
 # share with a seed of its own (their sum is one at the whole rate)
 ELASTIC_LOADSIM_PROCS = int(os.environ.get("CHIP_SMOKE_ELASTIC_PROCS", "1"))
@@ -5269,10 +5311,10 @@ def phase_train_mesh(torch, ft, dev, rng, trained, card: str,
     unrated = unrated_rows(torch, dev, model, cols)
     footprint = als.hbm_footprint(ML25M_USERS, ML25M_ITEMS, ML25M_N,
                                   TRAIN_RANK, MESH_SHARDS)
-    bound = MESH_SHARDS * footprint["peak"]
+    bound = als.shared_card_bound(footprint, MESH_SHARDS)
     if not peak <= bound:
         fail(f"train_mesh: peak device bytes {peak} past {MESH_SHARDS} x "
-             f"hbm_footprint's peak, {bound}")
+             f"hbm_footprint's persistent + 1 x its transient, {bound}")
     diff = max(float((model.user_factors - model1.user_factors).abs().max()),
                float((model.item_factors - model1.item_factors).abs().max()))
 
@@ -9063,6 +9105,157 @@ def phase_classification(torch, ft, dev, seed: int, card: str) -> dict:
     return out
 
 
+CLF_MESH_SHARDS = 4      # phase 16b: "data" shards on the one card
+CLF_MESH_QUERIES = 64    # phase 16b: queries through each deploy
+
+
+def generated_classification_engine(points):
+    """The classification template with its data source swapped for one
+    that hands out `points` (phase 16's users as labeled points), as
+    `generated_engine` does for ALS: the store's aggregation is phase
+    16's, and this phase times the trainers."""
+    from predictionio_tpu_torch.core.base import (DataSource, FirstServing,
+                                                  IdentityPreparator)
+    from predictionio_tpu_torch.core.engine import Engine
+    from predictionio_tpu_torch.models import classification as clf
+
+    class GeneratedPoints(DataSource):
+        def read_training(self, ctx):
+            return points
+
+    return Engine(GeneratedPoints, IdentityPreparator,
+                  {"forest": clf.RandomForestAlgorithm,
+                   "naive": clf.NaiveBayesAlgorithm,
+                   "logreg": clf.LogisticRegressionAlgorithm}, FirstServing)
+
+
+def phase_classification_mesh(torch, ft, dev, seed: int, card: str) -> dict:
+    """Phase 16b: phase 16's 200,000 users (`classification_users`) as
+    labeled points, through `CoreWorkflow.run_train` with phase 16's
+    algorithms (forest 8 x depth 4, naive, logreg) over a 4-shard "data"
+    mesh on the one card (`make_mesh(MeshSpec({"data": 4}), [card] *
+    4)`, runtime_conf mesh data=4), and once on one device (mesh
+    data=1), each instance then deployed (`deploy_instance`) and asked
+    CLF_MESH_QUERIES /queries.json. Gates: both COMPLETED, the mesh
+    recorded; the forest's arrays `torch.equal` to the one-device
+    forest's; NB's pi and theta within rtol 1e-5; logreg's w within
+    rtol 5e-3 / atol 5e-4 and at least 99% of its labels on the
+    queries equal; the mesh instance's served answers equal the
+    one-device instance's; no K1 or K2 launch. Prints each train's
+    seconds, phase timings and peak device bytes."""
+    from predictionio_tpu_torch.cli.main import deploy_instance
+    from predictionio_tpu_torch.core.persistence import deserialize_models
+    from predictionio_tpu_torch.core.runtime import (RuntimeContext,
+                                                     WorkflowParams)
+    from predictionio_tpu_torch.core.workflow import CoreWorkflow
+    from predictionio_tpu_torch.data.storage import (EngineInstanceStatus,
+                                                     StorageRegistry)
+    from predictionio_tpu_torch.ingest import BiMap, LabeledPoints
+    from predictionio_tpu_torch.models import classification as clf
+    from predictionio_tpu_torch.parallel import MeshSpec, make_mesh
+
+    t_phase = time.perf_counter()
+    before = (ft.LAUNCHES, ft.SHARD_LAUNCHES)
+    u = classification_users(seed)
+    points = LabeledPoints(u["attrs"].astype(np.float32),
+                           u["plan"].astype(np.float32),
+                           BiMap.from_keys(f"u{n}" for n in range(CLF_USERS)))
+    engine = generated_classification_engine(points)
+    params = engine.engine_params_from_variant({"algorithms": [
+        {"name": "forest", "params": {"num_trees": 8, "max_depth": 4}},
+        {"name": "naive", "params": {}}, {"name": "logreg", "params": {}}]})
+    registry = StorageRegistry({
+        "PIO_STORAGE_SOURCES_MEM_TYPE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "MEM",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MEM"})
+    qs = [{"attr0": int(a), "attr1": int(b), "attr2": int(c)}
+          for a, b, c in u["queries"].tolist()]
+    queries = [(j, clf.Query(**q)) for j, q in enumerate(qs)]
+    runs = {}
+    for name, spec in (("mesh", {"data": CLF_MESH_SHARDS}),
+                       ("one_device", {"data": 1})):
+        conf = ",".join(f"{k}={v}" for k, v in spec.items())
+        ctx = RuntimeContext(
+            registry=registry, device=dev,
+            mesh=make_mesh(MeshSpec(spec), [dev] * spec["data"]),
+            workflow_params=WorkflowParams(runtime_conf={"mesh": conf}))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        row = CoreWorkflow.run_train(engine, params, ctx,
+                                     engine_variant=f"clf_{name}")
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if row.status != EngineInstanceStatus.COMPLETED:
+            fail(f"classification_mesh: the {name} instance is "
+                 f"{row.status}")
+        stored = registry.get_meta_data_engine_instances().get(row.id)
+        if stored.runtime_conf.get("mesh") != conf:
+            fail(f"classification_mesh: the {name} instance recorded mesh "
+                 f"{stored.runtime_conf.get('mesh')!r}, not {conf!r}")
+        blob = registry.get_model_data_models().get(row.id)
+        models = deserialize_models(blob.models, row.id, [None] * 3, ctx,
+                                    retrain=None)
+        server = deploy_instance(engine, stored, RuntimeContext(
+            registry=registry, device=dev), port=0)
+        try:
+            t0 = time.perf_counter()
+            answers = serve_http(server.port, qs[:CLF_MESH_QUERIES], 8)
+            serve_s = time.perf_counter() - t0
+        finally:
+            server.stop()
+        runs[name] = {"models": models,
+                      "served": [body["label"] for body, _ in answers],
+                      "line": {"mesh": conf, "train_s": train_s,
+                               "peak_device_bytes": peak,
+                               "serve_s": serve_s,
+                               "phase_timings": {
+                                   k: v for k, v in ctx.phase_timings.items()
+                                   if isinstance(v, (int, float))}}}
+    (forest, nb, lr), (forest1, nb1, lr1) = (runs[k]["models"]
+                                             for k in ("mesh", "one_device"))
+    for key in ("split_feature", "split_bin", "leaf_class"):
+        if not torch.equal(torch.from_numpy(getattr(forest, key)),
+                           torch.from_numpy(getattr(forest1, key))):
+            fail(f"classification_mesh: the forest's {key} differs from "
+                 "the one-device forest's")
+    nb_pairs = ((nb.pi, nb1.pi), (nb.theta, nb1.theta))
+    nb_rel = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+                 for a, b in nb_pairs)
+    if not all(np.allclose(a, b, rtol=1e-5, atol=0) for a, b in nb_pairs):
+        fail(f"classification_mesh: NB within rtol {nb_rel}, not 1e-5")
+    if not np.allclose(lr.w, lr1.w, rtol=5e-3, atol=5e-4):
+        fail("classification_mesh: logreg's w differs from one device's "
+             f"by {float(np.abs(lr.w - lr1.w).max())}")
+    algo = clf.LogisticRegressionAlgorithm()
+    labels = [[p.label for _, p in algo.batch_predict(m.to(dev), queries)]
+              for m in (lr, lr1)]
+    agree = float(np.mean(np.equal(*labels)))
+    if not agree >= 0.99:
+        fail(f"classification_mesh: logreg's labels agree on {agree}")
+    if runs["mesh"]["served"] != runs["one_device"]["served"]:
+        fail("classification_mesh: the mesh instance's answers differ from "
+             "the one-device instance's")
+    k1, k2 = ft.LAUNCHES - before[0], ft.SHARD_LAUNCHES - before[1]
+    if k1 or k2:
+        fail(f"K1 launched {k1}, K2 {k2} times during phase "
+             "classification_mesh")
+    out = {"phase": "classification_mesh", "card": card,
+           "users": CLF_USERS, "shards": CLF_MESH_SHARDS,
+           "forest_equal": True, "nb_max_rel": nb_rel,
+           "logreg_w_max_abs_diff": float(np.abs(lr.w - lr1.w).max()),
+           "logreg_label_agreement": agree,
+           "queries_checked": CLF_MESH_QUERIES,
+           "runs": {k: v["line"] for k, v in runs.items()},
+           "k1_launches": k1, "k2_launches": k2,
+           "seconds": time.perf_counter() - t_phase}
+    registry.close()
+    emit(out)
+    return out
+
+
 # the neural phase: bench.py's bench_twotower (bench.py:3478-3527) and
 # bench_seqrec (bench.py:3530-3585) at their data and widths
 TT_USERS, TT_ITEMS, TT_EVENTS = 5_000, 2_000, 200_000
@@ -10024,6 +10217,304 @@ def phase_neural(torch, ft, dev, seed: int, card: str) -> dict:
     return out
 
 
+# phase 17b: the mesh forms of the neural templates and ALS, their shards
+# sharing the one card
+NM_TT_MESH = {"data": 2, "model": 2}
+NM_SR_MESH = {"data": 2, "sp": 2}
+NM_ALS_MESH = {"data": 2, "model": 2}
+NM_RING_SHARDS = (2, 4)
+# seqrec's epochs over its mesh, cut from phase 17's SR_EPOCHS = 10 (depth
+# only): its 50-ms steps were the phase's longest part (45.6 s of 59.0 in
+# the whole script, NVIDIA H100 80GB HBM3, 700 W), and hit-rate@10 passes
+# its 0.4 well within 3 epochs
+NM_SR_EPOCHS = 3
+# the mesh's first PARITY_STEPS step losses against one device's from the
+# same weights and batches, relative: another association of the same
+# math (partial products summed over "model" shards, the ring's streaming
+# softmax, gradients summed over "data" shards), which Adam's division by
+# each gradient's own root mean square carries from step to step. Each
+# model is held to its CPU tests' bar, 1e-5 (two-tower reads 2.3e-7 on
+# the card, NVIDIA H100 80GB HBM3, 700 W). Where a ReLU's input sits
+# within the float32 error of 0, the two associations can land on its
+# two sides: on the card, seqrec's first batch has such a unit in layer 1
+# (`nm_relu_kinks` counts them), and that one unit moves the step losses
+# by up to 6.8e-4 over 20 steps (same card). Seqrec takes NM_KINK_RTOL
+# only when `nm_relu_kinks` counts at least one such flip
+NM_STEP_RTOL = 1e-5
+NM_KINK_RTOL = 2e-3
+
+
+def nm_mesh(spec: dict, dev):
+    from predictionio_tpu_torch.parallel import MeshSpec, make_mesh
+    return make_mesh(MeshSpec(spec), [dev] * int(np.prod(list(
+        spec.values()))))
+
+
+def nm_attention(torch, dev, seed: int) -> dict:
+    """(a) `ring_attention` over NM_RING_SHARDS "sp" shards on the card
+    against `attention_reference` there, at seqrec's width (B 256, S
+    32, H 2, Dh 32): forward within ATTN_TOL and the q/k/v gradients of
+    sum(out^2) within ATTN_GRAD_TOL x the largest, causal with a
+    left-padded kv_mask and plain; dead rows exactly 0. Times both
+    forwards by CUDA events."""
+    from predictionio_tpu_torch.ops import attention as at
+    gen = torch.Generator().manual_seed(seed + 17)
+    B, S, H, Dh = SR_BATCH, SR_SEQ, SR_HEADS, SR_DIM // SR_HEADS
+    q, k, v = (torch.randn((B, S, H, Dh), generator=gen).to(dev)
+               for _ in range(3))
+    pad = torch.arange(B, device=dev) % S
+    mask = torch.arange(S, device=dev)[None, :] >= pad[:, None]
+    out = {"B": B, "S": S, "H": H, "Dh": Dh, "tol": ATTN_TOL,
+           "grad_tol": ATTN_GRAD_TOL, "cases": []}
+    for n in NM_RING_SHARDS:
+        mesh = nm_mesh({"sp": n}, dev)
+        for causal, m in ((True, mask), (False, None)):
+            res = []
+            for fn in (lambda *a: at.ring_attention(*a, mesh, causal=causal,
+                                                    kv_mask=m),
+                       lambda *a: at.attention_reference(*a, causal=causal,
+                                                         kv_mask=m)):
+                ts = tuple(t.clone().requires_grad_() for t in (q, k, v))
+                o = fn(*ts)
+                res.append((o.detach(), torch.autograd.grad(
+                    (o ** 2).sum(), ts)))
+            (o, g), (o_ref, g_ref) = res
+            err = float((o - o_ref).abs().max())
+            gmax = max(float(x.abs().max()) for x in g_ref)
+            gerr = max(float((a - b).abs().max()) for a, b in zip(g, g_ref))
+            dead = 0.0
+            if causal:
+                rows = torch.arange(S, device=dev)[None, :] < pad[:, None]
+                dead = float(o[rows].abs().max())
+            case = {"sp": n, "causal": causal, "masked": m is not None,
+                    "max_abs_err": err, "grad_max_abs_err": gerr,
+                    "grad_max": gmax, "dead_max_abs": dead}
+            if not (err <= ATTN_TOL and gerr <= ATTN_GRAD_TOL * max(1.0, gmax)
+                    and dead == 0.0
+                    and all(bool(torch.isfinite(x).all()) for x in g)):
+                fail(f"neural_mesh attention: {case}")
+            with torch.no_grad():
+                case["ring_ms"] = time_ms(torch, lambda: at.ring_attention(
+                    q, k, v, mesh, causal=causal, kv_mask=m), 20)
+                case["reference_ms"] = time_ms(
+                    torch, lambda: at.attention_reference(
+                        q, k, v, causal=causal, kv_mask=m), 20)
+            out["cases"].append(case)
+    return out
+
+
+def nm_losses(card_losses, ref_losses) -> list:
+    """Per step of the first PARITY_STEPS, the mesh's loss relative to
+    one device's (inf where a loss is missing or not finite)."""
+    got = np.array([float(x) for x in card_losses[:PARITY_STEPS]])
+    ref = np.array([float(x) for x in ref_losses[:PARITY_STEPS]])
+    if len(got) != PARITY_STEPS or len(ref) != PARITY_STEPS \
+            or not np.isfinite(got).all():
+        return [float("inf")]
+    return (np.abs(got - ref) / np.abs(ref)).tolist()
+
+
+def nm_twotower(torch, dev) -> dict:
+    """(b) phase neural's two-tower data and widths over NM_TT_MESH (4
+    shards on the card) from the same weights and batches as one device
+    (`twotower_train`, seed 0): the first PARITY_STEPS losses within
+    NM_STEP_RTOL of one device's, then the full TT_EPOCHS run's
+    recall@10 at least 4x random (phase neural's gate). Steps timed by
+    `StepClock` on both."""
+    from predictionio_tpu_torch.ops import twotower as tw
+    d = twotower_data()
+    ut, it = d["u"][~d["held"]], d["i"][~d["held"]]
+    kw = dict(n_users=TT_USERS, n_items=TT_ITEMS, emb_dim=TT_EMB,
+              hidden=TT_HIDDEN, out_dim=TT_OUT, batch_size=TT_BATCH,
+              seed=0)
+    mesh = nm_mesh(NM_TT_MESH, dev)
+    steps = len(ut) // TT_BATCH
+    for m in (None, mesh):                               # CUDA set-up
+        tw.twotower_train(ut[:2 * TT_BATCH], it[:2 * TT_BATCH], epochs=1,
+                          device=dev, mesh=m, **kw)
+    one, clock1 = [], StepClock(torch, 5, steps)
+    tw.twotower_train(ut, it, epochs=1, device=dev, step_losses=one,
+                      on_step=clock1, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = steps * TT_EPOCHS
+    losses, clock = [], StepClock(torch, steps, n_steps)
+    t0 = time.perf_counter()
+    model = tw.twotower_train(ut, it, epochs=TT_EPOCHS, mesh=mesh,
+                              step_losses=losses, on_step=clock, **kw)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps_rel = nm_losses(losses, one)
+    rel = max(steps_rel)
+    if not rel <= NM_STEP_RTOL:
+        fail(f"neural_mesh twotower: step losses {rel} from one device's "
+             f"(tol {NM_STEP_RTOL}; per step {steps_rel})")
+    scores = model.user_emb[d["u"][d["sample"]]] @ model.item_emb.T
+    top10 = np.argpartition(-scores, 10, axis=1)[:, :10]
+    recall = float((top10 == d["i"][d["sample"]][:, None]).any(1).mean())
+    if not recall >= 4 * 10 / TT_ITEMS:
+        fail(f"neural_mesh twotower recall@10 {recall} < 4 x random")
+    return {"mesh": NM_TT_MESH, "steps": n_steps, "train_s": train_s,
+            "step_losses_max_rel": rel, "step_losses_rel": steps_rel,
+            "tol": NM_STEP_RTOL,
+            "mesh_steps_timed": clock.report(),
+            "one_device_steps_timed": clock1.report(),
+            "recall_at_10": recall, "random_recall_at_10": 10 / TT_ITEMS,
+            "peak_device_bytes": peak}
+
+
+def nm_relu_kinks(torch, sq, init, seqs, mesh, dev) -> dict:
+    """The FFN ReLUs whose input changes sign between the one-device
+    encoder and the mesh's on one batch at `init` (float32 on the card):
+    their count per layer, and the smallest |input| of the one-device
+    run's."""
+    real = torch.relu
+    runs = []
+    for m in (None, mesh):
+        pre = []
+
+        def spy(x):
+            pre.append(x.detach())
+            return real(x)
+        net = sq.SeqRecNet(init, n_items=SR_ITEMS, n_heads=SR_HEADS,
+                           device=dev)
+        torch.relu = spy
+        try:
+            with torch.no_grad():
+                net(seqs, m)
+        finally:
+            torch.relu = real
+        if m is not None:        # per layer, one call per "sp" block
+            n = len(pre) // net.n_layers
+            pre = [torch.cat(pre[i:i + n], 1) for i in range(0, len(pre), n)]
+        runs.append(pre)
+    return {"flips_per_layer": [int(((a > 0) != (b > 0)).sum())
+                                for a, b in zip(*runs)],
+            "smallest_abs_input": [float(a.abs().min()) for a in runs[0]]}
+
+
+def nm_seqrec(torch, dev) -> dict:
+    """(c) phase neural's seqrec data and widths over NM_SR_MESH (the
+    batch over "data", the sequence over "sp" through the ring; 4 shards
+    on the card) from the same weights and batches as one device: the
+    first PARITY_STEPS losses within NM_STEP_RTOL of one device's
+    (NM_KINK_RTOL where `nm_relu_kinks` counts a flip), then
+    the NM_SR_EPOCHS run's hit-rate@10 on the held-out sequences at
+    least 0.4 (phase neural's gate). Steps timed by `StepClock`."""
+    from predictionio_tpu_torch.ops import seqrec as sq
+    d, st, tt_, init, kw = seqrec_parity_inputs()
+    sh, th = d["seqs"][d["held"]], d["targets"][d["held"]]
+    mesh = nm_mesh(NM_SR_MESH, dev)
+    kinks = nm_relu_kinks(torch, sq, init, torch.from_numpy(
+        st[:SR_BATCH].astype(np.int64)).to(dev), mesh, dev)
+    steps = len(st) // SR_BATCH
+    for m in (None, mesh):                               # CUDA set-up
+        sq.seqrec_train(st[:2 * SR_BATCH], tt_[:2 * SR_BATCH], epochs=1,
+                        device=dev, mesh=m, **kw)
+    one, clock1 = [], StepClock(torch, 5, steps)
+    sq.seqrec_train(st, tt_, epochs=1, device=dev, step_losses=one,
+                    on_step=clock1, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = steps * NM_SR_EPOCHS
+    losses, clock = [], StepClock(torch, steps, n_steps)
+    t0 = time.perf_counter()
+    model = sq.seqrec_train(st, tt_, epochs=NM_SR_EPOCHS, mesh=mesh,
+                            step_losses=losses, on_step=clock, **kw)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps_rel = nm_losses(losses, one)
+    rel = max(steps_rel)
+    tol = NM_KINK_RTOL if sum(kinks["flips_per_layer"]) else NM_STEP_RTOL
+    if not rel <= tol:
+        fail(f"neural_mesh seqrec: step losses {rel} from one device's "
+             f"(tol {tol}; ReLU flips {kinks}; per step {steps_rel})")
+    vecs = sq.seqrec_encode(model, sh, device=dev)
+    top10 = np.argpartition(-(vecs @ model.item_emb.T), 10, axis=1)[:, :10]
+    hr = float((top10 == th[:, None]).any(1).mean())
+    if not hr >= 0.4:
+        fail(f"neural_mesh seqrec hitrate@10 {hr} < 0.4")
+    return {"mesh": NM_SR_MESH, "steps": n_steps, "train_s": train_s,
+            "step_losses_max_rel": rel, "step_losses_rel": steps_rel,
+            "tol": tol,
+            "mesh_steps_timed": clock.report(),
+            "one_device_steps_timed": clock1.report(),
+            "relu_kinks_first_batch": kinks,
+            "hitrate_at_10": hr, "peak_device_bytes": peak}
+
+
+def nm_als(torch, dev, seed: int) -> dict:
+    """(d) phase 13's ML-1M planted ratings (its generator and seed),
+    rank 64, TRAIN_ITERS iterations, through `als_train` over
+    NM_ALS_MESH and over its "data" axis alone (shards on the card):
+    the factors `torch.equal`; each run's peak device bytes within
+    `shared_card_bound` of `hbm_footprint` at its "data" shard count
+    (the other axis replicates, and runs once)."""
+    from predictionio_tpu_torch.ops import als
+    u, i, r = planted(ML1M_USERS, ML1M_ITEMS, ML1M_N, seed + 5)
+    n_data = NM_ALS_MESH["data"]
+    fp = als.hbm_footprint(ML1M_USERS, ML1M_ITEMS, ML1M_N, TRAIN_RANK,
+                           n_data)
+    bound = als.shared_card_bound(fp, n_data)
+    runs, factors = {}, []
+    for name, spec in (("grid", NM_ALS_MESH), ("data", {"data": n_data})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tm: dict = {}
+        t0 = time.perf_counter()
+        x, y = als.als_train((u, i, r), ML1M_USERS, ML1M_ITEMS,
+                             rank=TRAIN_RANK, iterations=TRAIN_ITERS,
+                             reg=TRAIN_REG, seed=seed, timings=tm,
+                             mesh=nm_mesh(spec, dev))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        if not peak <= bound:
+            fail(f"neural_mesh als {name}: peak device bytes {peak} past "
+                 f"shared_card_bound {bound}")
+        factors.append((x, y))
+        runs[name] = {"mesh": spec, "train_s": train_s,
+                      "solve_s": tm.get("solve_s"),
+                      "peak_device_bytes": peak}
+    (x1, y1), (x2, y2) = factors
+    if not (torch.equal(x1, x2) and torch.equal(y1, y2)):
+        fail("neural_mesh als: the data x model factors differ from the "
+             "data-only mesh's")
+    return {"ratings": ML1M_N, "rank": TRAIN_RANK,
+            "iterations": TRAIN_ITERS, "factors_equal": True,
+            "shared_card_bound": bound, "runs": runs}
+
+
+def phase_neural_mesh(torch, ft, dev, seed: int, card: str) -> dict:
+    """Phase 17b: the mesh forms on the card, shards sharing it: (a)
+    `nm_attention`, (b) `nm_twotower`, (c) `nm_seqrec`, (d) `nm_als`.
+    TF32 stays off through every comparison (F3); no K1 or K2 launch
+    anywhere in the phase."""
+    t_phase = time.perf_counter()
+    before = (ft.LAUNCHES, ft.SHARD_LAUNCHES)
+    out = {"phase": "neural_mesh", "card": card, "part_seconds": {}}
+    for key, fn in (("attention", lambda: nm_attention(torch, dev, seed)),
+                    ("twotower", lambda: nm_twotower(torch, dev)),
+                    ("seqrec", lambda: nm_seqrec(torch, dev)),
+                    ("als", lambda: nm_als(torch, dev, seed))):
+        t = time.perf_counter()
+        out[key] = fn()
+        out["part_seconds"][key] = time.perf_counter() - t
+        if tf32_flag(torch) == "tf32":
+            fail(f"neural_mesh {key}: TF32 was on for the comparison")
+        emit({"phase": f"neural_mesh_{key}", "card": card, **out[key],
+              "seconds": out["part_seconds"][key]})
+    k1, k2 = ft.LAUNCHES - before[0], ft.SHARD_LAUNCHES - before[1]
+    if k1 or k2:
+        fail(f"K1 launched {k1}, K2 {k2} times during phase neural_mesh")
+    out.update(k1_launches=k1, k2_launches=k2, tf32=tf32_flag(torch),
+               seconds=time.perf_counter() - t_phase)
+    emit({k: out[k] for k in ("phase", "card", "part_seconds", "k1_launches",
+                              "k2_launches", "tf32", "seconds")})
+    return out
+
+
 def obs_only(torch, ft, dev, rng, model) -> dict:
     """`--only obs`: phase wire's selector pass of its whole mix on
     phase 4's model (the untraced reference), then phase obs (a) on
@@ -10094,7 +10585,8 @@ def main() -> int:
     ap.add_argument("--only", choices=("serve_sharded", "train", "lifecycle",
                                        "streaming", "quickstart",
                                        "templates", "classification",
-                                       "neural", "wire", "fleet",
+                                       "neural", "neural_mesh", "wire",
+                                       "fleet",
                                        "storage", "ingest", "obs",
                                        "quality", "pressure", "elastic",
                                        "chaos", "steps"),
@@ -10106,7 +10598,9 @@ def main() -> int:
                          "and streaming; quickstart for parity and "
                          "quickstart; templates for parity and "
                          "templates; classification for parity and "
-                         "classification; neural for phase neural; wire "
+                         "classification and classification_mesh; "
+                         "neural for phase neural; neural_mesh for phase "
+                         "neural_mesh; wire "
                          "for parity and wire; fleet for parity, one "
                          "direct selector pass and fleet; storage for "
                          "parity and storage; ingest for parity, the "
@@ -10221,8 +10715,11 @@ def main() -> int:
             if not in_phase_process:
                 phase_parity(torch, ft, dev, rng)
             phase_classification(torch, ft, dev, args.seed, card)
+            phase_classification_mesh(torch, ft, dev, args.seed, card)
         elif args.only == "neural":
             phase_neural(torch, ft, dev, args.seed, card)
+        elif args.only == "neural_mesh":
+            phase_neural_mesh(torch, ft, dev, args.seed, card)
         elif args.only == "steps":
             phase_steps(torch, dev, card)
         elif args.only == "wire":
@@ -10287,12 +10784,13 @@ def main() -> int:
                         wire["wires"]["selector"]["all"])
     # the phases that need nothing of the ML-1M chain run beside it, each
     # in a process of its own (F7): the ML-25M train, the templates,
-    # classification and the neural recommenders
+    # classification, the neural recommenders and their mesh forms
     side = {name: start_phase_process(name, args.seed)
-            for name in ("train", "templates", "classification", "neural")}
-    # phase chaos in a process of its own once those four have ended,
+            for name in ("train", "templates", "classification", "neural",
+                         "neural_mesh")}
+    # phase chaos in a process of its own once those five have ended,
     # beside the rest of the chain (its drills' 0.1-s probes and 0.5-s
-    # lease want a host that the four no longer load)
+    # lease want a host that the five no longer load)
     chaos_proc = []
 
     def start_chaos():
@@ -10318,6 +10816,7 @@ def main() -> int:
     served, train_mesh = train_side["serve_trained"], train_side["train_mesh"]
     templates = finish_phase_process(side["templates"])
     classification = finish_phase_process(side["classification"])
+    neural_mesh = finish_phase_process(side["neural_mesh"])
     neural = finish_phase_process(side["neural"])
     chaos_starter.join()
     chaos = finish_phase_process(chaos_proc[0])
@@ -10361,6 +10860,7 @@ def main() -> int:
         "templates_launches": templates["templates_launches"],
         "classification_launches": classification["k1_launches"],
         "neural_launches": neural["k1_launches"],
+        "neural_mesh_launches": neural_mesh["k1_launches"],
         "quality_launches": quality["launches"],
         "pressure_launches": pressure["launches"],
         "elastic_launches": elastic["launches"],
@@ -10379,6 +10879,7 @@ def main() -> int:
         "library_ms": shard_row["library_ms"], "bucket": 64,
         "per_shard": shard_row["per_shard"],
         "neural_launches": neural["k2_launches"],
+        "neural_mesh_launches": neural_mesh["k2_launches"],
         "train_mesh_launches": train_mesh["k2_launches"],
         "by_bucket": {str(b): r for b, r in timing_sh.items()}}]})
     print(smi_line(), flush=True)

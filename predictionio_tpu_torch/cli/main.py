@@ -18,7 +18,7 @@
     python -m predictionio_tpu_torch.cli build [--engine-json engine.json]
     python -m predictionio_tpu_torch.cli train [--engine-json engine.json] \
         [--stop-after-read | --stop-after-prepare] [--skip-sanity-check] \
-        [--device cpu] [--profile-dir DIR] [--mesh data=N] \
+        [--device cpu] [--profile-dir DIR] [--mesh data=N[,model=M|sp=M]] \
         [--coordinator HOST:PORT --num-processes N --process-id K]
     python -m predictionio_tpu_torch.cli deploy [--engine-instance-id ID] \
         [--port 8000] [--batch-max 64] [--batch-window-ms 2] \
@@ -79,9 +79,12 @@ records an engine instance with its model blob; it prints the instance
 id, status, times, phase timings and the run's kernel builds
 (`kernelBuilds`) as JSON on stdout; `--profile-dir DIR` (or
 `PIO_TPU_PROFILE_DIR`) also writes a `torch.profiler` Chrome trace of
-the run into DIR. `--mesh data=N` trains the ALS templates over N
-shards of the local cards (none: every card) and records the mesh on
-the instance, whose deploy then serves through the sharded plan;
+the run into DIR. `--mesh data=N` (or a mesh with "model" and "sp"
+axes, e.g. `data=2,model=2`) trains every template over those shards of
+the local cards (none: data over every card): ALS, NB, logistic
+regression and the forest over "data", two-tower over "data" and
+"model", seqrec over "data" and "sp". It records the mesh on the
+instance, whose deploy then serves through the sharded plan;
 `--coordinator HOST:PORT --num-processes N --process-id K` (or
 `PIO_TPU_COORDINATOR` / `_NUM_PROCESSES` / `_PROCESS_ID`) joins a
 `torch.distributed` group first (nccl, gloo with `--device cpu`), and
@@ -390,7 +393,8 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--stop-after-prepare", action="store_true")
     x.add_argument("--device", default=None,
                    help="torch device (default cuda)")
-    x.add_argument("--mesh", help="mesh spec, e.g. data=4")
+    x.add_argument("--mesh",
+                   help="mesh spec, e.g. data=4 or data=2,model=2")
     x.add_argument("--coordinator",
                    help="host:port of process 0 for multi-process "
                         "training (torch.distributed); or set "

@@ -306,9 +306,11 @@ def train(registry, *, engine_json: str = "engine.json",
     variant trained through `CoreWorkflow.run_train` on `device` (None
     = cuda), recorded as an engine instance with its model blob.
 
-    `mesh` ("data=4") goes into the instance's `runtime_conf`: the ALS
-    templates train over that mesh of `device`'s kind, and a deploy of
-    the instance serves through the sharded plan. Multi-process:
+    `mesh` ("data=4", "data=2,model=2", "data=2,sp=2") goes into the
+    instance's `runtime_conf`: every template trains over that mesh of
+    `device`'s kind (each over the axes it shards, replicated over the
+    others), and a deploy of the instance serves through the sharded
+    plan. Multi-process:
     `coordinator` host:port with `num_processes` and `process_id` (or
     the PIO_TPU_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID env vars)
     join a `torch.distributed` group before the mesh is built; every

@@ -3,8 +3,8 @@
 The port of `predictionio_tpu/core/runtime.py` (WorkflowContext.scala,
 WorkflowParams.scala). It carries the storage registry the components
 read events from, the device the run computes on, the device mesh the
-ALS templates train over, and the workflow params that `cli train`
-flags set.
+templates train over, and the workflow params that `cli train` flags
+set.
 """
 
 from __future__ import annotations

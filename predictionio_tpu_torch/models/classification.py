@@ -19,12 +19,12 @@ The port of `predictionio_tpu/models/classification.py` (parity target
 
 Every algorithm trains on the context's device (`ctx.device`, None =
 cuda; raises without CUDA unless "cpu"; NB's transfer_s / solve_s and
-the forest's bin_s / device_s go into `ctx.phase_timings`); its model
-predicts there (a deploy moves it with `to`), the forest's small
-batches by its host loop (`ForestModel.HOST_CROSSOVER_CELLS`). The mesh
-forms (sharded samples with partial statistics) are not ported yet
-(ROADMAP item 6 brings them): training runs on one device. Evaluation: Accuracy (the template's
-PrecisionEvaluation analog).
+the forest's bin_s / device_s go into `ctx.phase_timings`), or over
+`ctx.mesh` when that has two or more "data" shards (the samples sharded,
+partial statistics summed); its model predicts there (a deploy moves it
+with `to`), the forest's small batches by its host loop
+(`ForestModel.HOST_CROSSOVER_CELLS`). Evaluation: Accuracy (the
+template's PrecisionEvaluation analog).
 """
 
 from __future__ import annotations
@@ -146,7 +146,8 @@ class NaiveBayesAlgorithm(Algorithm):
     def train(self, ctx: RuntimeContext,
               pd: LabeledPoints) -> nb_ops.NaiveBayesModel:
         return nb_ops.nb_train(pd.features, pd.label, self.params.lambda_,
-                               device=ctx.device, timings=ctx.phase_timings)
+                               device=ctx.device, mesh=ctx.mesh,
+                               timings=ctx.phase_timings)
 
     def predict(self, model, query: Query) -> PredictedResult:
         return self.batch_predict(model, [(0, query)])[0][1]
@@ -170,7 +171,8 @@ class LogisticRegressionAlgorithm(Algorithm):
               pd: LabeledPoints) -> lr_ops.LogRegModel:
         p = self.params
         return lr_ops.logreg_train(pd.features, pd.label, steps=p.steps,
-                                   lr=p.lr, reg=p.reg, device=ctx.device)
+                                   lr=p.lr, reg=p.reg, device=ctx.device,
+                                   mesh=ctx.mesh)
 
     def predict(self, model, query: Query) -> PredictedResult:
         return self.batch_predict(model, [(0, query)])[0][1]
@@ -204,7 +206,7 @@ class RandomForestAlgorithm(Algorithm):
             max_depth=p.max_depth, max_bins=p.max_bins,
             impurity=p.impurity,
             feature_subset_strategy=p.feature_subset_strategy, seed=p.seed,
-            device=ctx.device, timings=ctx.phase_timings)
+            device=ctx.device, mesh=ctx.mesh, timings=ctx.phase_timings)
 
     def predict(self, model, query: Query) -> PredictedResult:
         return self.batch_predict(model, [(0, query)])[0][1]

@@ -7,8 +7,9 @@ recommendation template's event shapes and answers its wire format
 (`"engineFactory": "seqrec"`):
   - train: `ops.seqrec.build_sequences` over the interactions, then
     `seqrec_train` on the context's device (None = cuda; raises without
-    CUDA unless "cpu"); it takes no mesh yet (ROADMAP item 6 brings ring
-    attention and the sharded tables);
+    CUDA unless "cpu"), or over `ctx.mesh` when that has a "data" or
+    "sp" axis of size > 1 (the batch over "data", the sequence over "sp"
+    through ring attention);
   - predict: the user's RECENT history read from the event store at
     query time (4 x seq_len events newest first, the ones the model's
     item map knows, the last seq_len of them: the e-commerce template's
@@ -85,7 +86,7 @@ class SeqRecAlgorithm(Algorithm):
                             "encodes": 0, "encode_s": 0.0}
 
     def _train(self, seqs, targets, n_items: int, seq_len: int, device, *,
-               epochs: int, init_params=None) -> SeqRecModel:
+               epochs: int, mesh=None, init_params=None) -> SeqRecModel:
         p = self.params
         return seqrec_train(
             seqs, targets, n_items=n_items, seq_len=seq_len, dim=p.dim,
@@ -93,7 +94,7 @@ class SeqRecAlgorithm(Algorithm):
             batch_size=min(p.batch_size, len(seqs)), epochs=epochs,
             lr=p.lr, temperature=p.temperature,
             seed=p.seed if p.seed is not None else 0, device=device,
-            init_params=init_params)
+            mesh=mesh, init_params=init_params)
 
     def train(self, ctx: RuntimeContext,
               pd: RatingColumns) -> SeqRecServingModel:
@@ -111,7 +112,7 @@ class SeqRecAlgorithm(Algorithm):
                 "No user has >= 2 events; sequences cannot be built")
         dev = resolve_device(ctx.device)
         net = self._train(seqs, targets, len(pd.items), p.seq_len, dev,
-                          epochs=p.epochs)
+                          epochs=p.epochs, mesh=ctx.mesh)
         return SeqRecServingModel(net, pd.users, pd.items, str(dev))
 
     def fold_in(self, model: SeqRecServingModel, delta,
@@ -141,7 +142,7 @@ class SeqRecAlgorithm(Algorithm):
             return None
         net = self._train(seqs, targets, model.net.n_items,
                           model.net.seq_len, model.device, epochs=1,
-                          init_params=model.net.params)
+                          mesh=fctx.mesh, init_params=model.net.params)
         return SeqRecServingModel(net, model.users, model.items,
                                   model.device)
 

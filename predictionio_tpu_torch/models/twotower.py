@@ -6,15 +6,17 @@ It reads the recommendation template's event shapes (`view`, `rate`,
 `buy` interactions, each worth 1) and answers its wire format, so
 `"engineFactory": "twotower"` swaps in for `"recommendation"`:
   - train: `ops.twotower.twotower_train` on the context's device (None
-    = cuda; raises without CUDA unless "cpu"), both towers materialized
-    into host RAM; it takes no mesh yet (ROADMAP item 6 brings the
-    sharded tables);
+    = cuda; raises without CUDA unless "cpu"), or over `ctx.mesh` when
+    that has a "data" or "model" axis of size > 1 (the batch over
+    "data", the tables and towers over "model"), both towers
+    materialized into host RAM;
   - predict: the user's tower row against every item's through
     `models.common.score_and_rank` (white and black lists; the top-k
     dispatch policy picks the host or the model's device); an unknown
     user gets an empty result;
   - streaming fold-in: one warm-start epoch from the served weights over
-    the store's full interaction set on the model's device; a new user
+    the store's full interaction set on the model's device (over the
+    fold context's mesh when it has one, as in the JAX package); a new user
     or item, or a model without raw weights, raises `DeltaInvalidated`
     (the table shapes are baked into the net), and the refresher
     rebuilds in full. The refresher publishes the new model; no plan
@@ -70,7 +72,7 @@ class TwoTowerAlgorithm(Algorithm):
     query_class = Query
 
     def _train(self, u_ix, i_ix, n_users: int, n_items: int, device, *,
-               epochs: int, init_params=None) -> TwoTowerModel:
+               epochs: int, mesh=None, init_params=None) -> TwoTowerModel:
         p = self.params
         return twotower_train(
             u_ix, i_ix, n_users=n_users, n_items=n_items,
@@ -78,7 +80,7 @@ class TwoTowerAlgorithm(Algorithm):
             batch_size=p.batch_size, epochs=epochs, lr=p.lr,
             temperature=p.temperature,
             seed=p.seed if p.seed is not None else 0, device=device,
-            init_params=init_params)
+            mesh=mesh, init_params=init_params)
 
     def train(self, ctx: RuntimeContext,
               pd: RatingColumns) -> TwoTowerServingModel:
@@ -86,7 +88,8 @@ class TwoTowerAlgorithm(Algorithm):
             raise ValueError("No interaction events found")
         dev = resolve_device(ctx.device)
         net = self._train(pd.user_ix, pd.item_ix, len(pd.users),
-                          len(pd.items), dev, epochs=self.params.epochs)
+                          len(pd.items), dev, epochs=self.params.epochs,
+                          mesh=ctx.mesh)
         return TwoTowerServingModel(net, pd.users, pd.items, str(dev))
 
     def fold_in(self, model: TwoTowerServingModel, delta,
@@ -114,7 +117,8 @@ class TwoTowerAlgorithm(Algorithm):
                 "shapes are baked into the net; full rebuild required")
         net = self._train(u_of[full.entity_ix], i_of[full.target_ix],
                           len(model.users), len(model.items), model.device,
-                          epochs=1, init_params=model.net.params)
+                          epochs=1, mesh=fctx.mesh,
+                          init_params=model.net.params)
         return TwoTowerServingModel(net, model.users, model.items,
                                     model.device)
 

@@ -34,18 +34,23 @@ class Adam:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        dev = self.params[0].device
-        self._b1 = torch.tensor(ADAM_B1, dtype=torch.float32, device=dev)
-        self._b2 = torch.tensor(ADAM_B2, dtype=torch.float32, device=dev)
+        # b1, b2 as float32 scalars once on each device that holds a
+        # parameter (the shards of a parameter over a mesh may lie on
+        # several cards)
+        self._betas = {dev: tuple(
+            torch.tensor(b, dtype=torch.float32, device=dev)
+            for b in (ADAM_B1, ADAM_B2))
+            for dev in dict.fromkeys(p.device for p in self.params)}
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         """One update of every parameter by its gradient."""
         self.count += 1
-        bc1 = 1 - self._b1 ** self.count
-        bc2 = 1 - self._b2 ** self.count
+        bcs = {dev: (1 - b1 ** self.count, 1 - b2 ** self.count)
+               for dev, (b1, b2) in self._betas.items()}
         lr = self.lr
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+            bc1, bc2 = bcs[p.device]
             m.copy_((1 - ADAM_B1) * g + ADAM_B1 * m)
             v.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * v)
             p.add_(-lr * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)))

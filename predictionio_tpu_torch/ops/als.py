@@ -51,8 +51,11 @@ blocks' fp32 Grams in implicit mode (the `psum`) and solves each
 shard's rows with the single-device solvers. The largest residual is a
 0-d tensor per device, reduced over processes once at the end (the
 `pmax`). A mesh of one shard trains through `_run_als`, where the JAX
-package runs its sharded program over one device. `hbm_footprint` is
-the per-device memory bound of that layout.
+package runs its sharded program over one device. A mesh with other
+axes ("model", "sp") trains over its "data" axis alone (`_data_mesh`):
+the JAX program replicates over them, and here each data group runs
+once, so the factors equal a "data"-only mesh's bit for bit.
+`hbm_footprint` is the per-device memory bound of that layout.
 
 The model: `ALSModel` holds the factor matrices as tensors plus the id
 maps. The user factors live on the serving device. The item factors
@@ -605,17 +608,21 @@ def _pack_by_owner(side: _SideBuckets, block: int, n_dev: int):
     return packed
 
 
+def _data_mesh(mesh):
+    """The one-axis mesh that ALS shards over: `mesh`'s "data" axis at
+    coordinate 0 of every other axis (`Mesh.along`). The JAX program is
+    the same on every position of the other axes, which replicate it;
+    here each data group runs once and its factors stand for the
+    replicas. Across processes only "data" may span."""
+    if "data" not in mesh.shape:
+        raise ValueError(f"ALS shards over a 'data' mesh axis; mesh "
+                         f"{mesh.shape} has none")
+    return mesh.along("data")
+
+
 def _data_shards(mesh) -> int:
-    """The shard count of `mesh`'s "data" axis (the port shards ALS over
-    it alone: any other axis must have size 1)."""
-    shape = mesh.shape
-    if "data" not in shape:
-        raise ValueError(f"ALS shards over a 'data' mesh axis; mesh {shape} "
-                         "has none")
-    if any(n != 1 for k, n in shape.items() if k != "data"):
-        raise ValueError(f"ALS shards over 'data' alone; mesh {shape} has "
-                         "another axis of size > 1")
-    return int(shape["data"])
+    """The shard count of `mesh`'s "data" axis."""
+    return _data_mesh(mesh).size
 
 
 class _ShardedIteration(_Iteration):
@@ -901,7 +908,7 @@ def _present(side: _SideBuckets, n_rows: int) -> np.ndarray:
     return present
 
 
-def als_train(ratings: "RatingColumns | Tuple[np.ndarray, np.ndarray, np.ndarray] | None",
+def als_train(ratings: "RatingColumns | Tuple[np.ndarray, ...] | None",
               n_users: Optional[int] = None,
               n_items: Optional[int] = None, *,
               rank: int = 10,
@@ -922,7 +929,8 @@ def als_train(ratings: "RatingColumns | Tuple[np.ndarray, np.ndarray, np.ndarray
 
     MLlib semantics: ALS-WR regularization, `abs(normal)/sqrt(rank)`
     init, `iterations` full alternations. `mesh` (a `parallel.Mesh`)
-    of two or more "data" shards trains through the sharded loop and
+    of two or more "data" shards trains through the sharded loop over
+    its "data" axis (`_data_mesh`: any other axis replicates it) and
     returns the full factors on the mesh's first local device, in every
     process of a multi-process mesh; None or one shard trains on
     `device`. `packed` (from `pack_ratings`) skips host packing.
@@ -942,7 +950,8 @@ def als_train(ratings: "RatingColumns | Tuple[np.ndarray, np.ndarray, np.ndarray
     CG may not converge; a residual above 1e-2 is logged as a warning
     (raise `cg_iters`, or use rank <= 16 for the exact solver).
     """
-    sharded = mesh is not None and _data_shards(mesh) > 1
+    mesh = _data_mesh(mesh) if mesh is not None else None
+    sharded = mesh is not None and mesh.size > 1
     dev = None if sharded else resolve_device(device)
     cast = {"bf16": torch.bfloat16, "f32": None}[precision]
     t0 = time.perf_counter()
@@ -1082,8 +1091,8 @@ def hbm_footprint(n_users: int, n_items: int, n_ratings: int, rank: int,
     The anchor: `chip_smoke.py` phase train_mesh trains MovieLens-25M's
     shape (162,541 x 59,047, 25 M ratings) at rank 64 over 4 shards on
     one NVIDIA H100 80GB HBM3 and gates `torch.cuda.max_memory_allocated`
-    over the run at 4x this bound (the shards share the card, so their
-    transients come one after another)."""
+    over the run at `shared_card_bound` of this bound: the shards share
+    the card, so their transients come one after another."""
     fb = 4  # f32 / int32 bytes
     pad_side = _BUCKET_BASE + 8
     padded_user = pad_side * n_users + _BUCKET_GROWTH * n_ratings
@@ -1108,6 +1117,15 @@ def hbm_footprint(n_users: int, n_items: int, n_ratings: int, rank: int,
     transient = gathered_opposite + slab_gather + normal_bufs
     return {"persistent": persistent, "transient": transient,
             "peak": persistent + transient}
+
+
+def shared_card_bound(footprint: dict, shards: int) -> float:
+    """The memory bound (bytes) of `shards` shards of `hbm_footprint`'s
+    layout on ONE card: each shard keeps its persistent buffers, while
+    their transients come one after another (`_ShardedIteration` solves
+    the shards in turn and gathers one opposite table per card), so
+    shards x persistent + 1 x transient."""
+    return shards * footprint["persistent"] + footprint["transient"]
 
 
 @dataclass

@@ -11,23 +11,28 @@ this path):
     with no visible key (a left-padding slot under the causal mask) is
     exactly 0, forward and backward. `F.scaled_dot_product_attention`
     masks with -inf, which makes such rows NaN; it is not used here.
-  - `blockwise_attention`: the ring's recurrence on one device. Each of
-    `n_blocks` query blocks takes the key/value blocks in the order
-    the ring hands them round (its own first, then the one before it),
-    accumulating a streaming softmax `(m, num, den)` per query with
-    `_stream_block`; a dead row's `den` of 0 is replaced by 1. It equals
-    `attention_reference` up to float association. `_stream_block` is
-    the body a `torch.distributed` ring over several cards would run
-    once per hop.
+  - `ring_blocks`: the ring of the JAX package's `_ring_attention_local`
+    over the shards of one sequence, each query, key, value and
+    key-validity block on its shard's device. Every shard accumulates a
+    streaming softmax `(m, num, den)` per query with `_stream_block`,
+    one hop per shard: its own key/value block first, then the one
+    before it, each block moving to the next shard's device with `.to`
+    after a hop (autograd carries its gradient back); a dead row's
+    `den` of 0 is replaced by 1. It equals `attention_reference` up to
+    float association.
+  - `blockwise_attention`: `ring_blocks` with every block on one device.
   - `ring_attention`: with no mesh, or a trivial sequence axis, the
-    reference path; a sequence axis over several devices is the
-    sharded ring, which the port does not have yet.
+    reference path; else the sequence split into the "sp" blocks of
+    each of this process's `batch_axis` groups (the batch split over
+    them where it divides, as in the JAX package) and `ring_blocks`
+    over each group's devices. An "sp" axis that spans processes
+    raises NotImplementedError (`Mesh.require_local`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -87,54 +92,96 @@ def _stream_block(carry: Carry, k_blk: torch.Tensor, v_blk: torch.Tensor,
     return m_new, num, den
 
 
+def ring_blocks(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
+                vs: Sequence[torch.Tensor], oks: Sequence[torch.Tensor], *,
+                causal: bool = False) -> List[torch.Tensor]:
+    """The ring over the n shards of a sequence: shard i holds the
+    query, key and value blocks `qs[i]`, `ks[i]`, `vs[i]` [B, S/n, H,
+    Dh] of sequence block i and its key-validity block `oks[i]` [B, S/n]
+    (bool), on its device. Returns each shard's attention output block,
+    on the shard's device."""
+    n = len(qs)
+    s_loc = qs[0].shape[1]
+    scale = 1.0 / math.sqrt(qs[0].shape[-1])
+    devs = [q.device for q in qs]
+    iotas = [torch.arange(s_loc, device=d) for d in devs]
+    carries = [(q.new_full((q.shape[0], q.shape[2], s_loc), _NEG),
+                torch.zeros_like(q), q.new_zeros((q.shape[0], q.shape[2],
+                                                  s_loc))) for q in qs]
+    blocks = list(zip(ks, vs, oks))
+    for hop in range(n):
+        for i in range(n):
+            owner = (i - hop) % n              # whose block shard i holds
+            carries[i] = _stream_block(
+                carries[i], *blocks[i], qs[i], i * s_loc + iotas[i],
+                owner * s_loc + iotas[i], scale, causal)
+        if hop < n - 1:                        # shard i's block moves on
+            blocks = [tuple(t.to(devs[i]) for t in blocks[i - 1])
+                      for i in range(n)]
+    outs = []
+    for _, num, den in carries:
+        # dead rows have num = 0 and den = 0: divide by a where'd 1, not
+        # max(den, eps), whose backward scales gradients by 1/eps
+        den_safe = torch.where(den > 0, den, torch.ones_like(den))
+        outs.append(num / den_safe.transpose(1, 2)[..., None])
+    return outs
+
+
+def _blocks(t: torch.Tensor, n: int) -> List[torch.Tensor]:
+    s_loc = t.shape[1] // n
+    return [t[:, j * s_loc:(j + 1) * s_loc] for j in range(n)]
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, n_blocks: int, causal: bool = False,
                         kv_mask: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """The ring's recurrence over `n_blocks` sequence blocks on one
     device; [B, S, H, Dh] in and out, S a multiple of `n_blocks`."""
-    B, S, H, _ = q.shape
+    B, S = q.shape[:2]
     if S % n_blocks:
         raise ValueError(f"sequence length {S} must divide over "
                          f"{n_blocks} blocks")
     if kv_mask is None:
         kv_mask = torch.ones((B, S), dtype=torch.bool, device=q.device)
-    s_loc = S // n_blocks
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    iota = torch.arange(s_loc, device=q.device)
-    outs = []
-    for idx in range(n_blocks):
-        rows = slice(idx * s_loc, (idx + 1) * s_loc)
-        q_blk = q[:, rows]
-        carry = (q.new_full((B, H, s_loc), _NEG), torch.zeros_like(q_blk),
-                 q.new_zeros((B, H, s_loc)))
-        for step in range(n_blocks):
-            owner = (idx - step) % n_blocks      # the ring's hand-round
-            cols = slice(owner * s_loc, (owner + 1) * s_loc)
-            carry = _stream_block(carry, k[:, cols], v[:, cols],
-                                  kv_mask[:, cols], q_blk,
-                                  idx * s_loc + iota, owner * s_loc + iota,
-                                  scale, causal)
-        _, num, den = carry
-        # dead rows have num = 0 and den = 0: divide by a where'd 1, not
-        # max(den, eps), whose backward scales gradients by 1/eps
-        den_safe = torch.where(den > 0, den, torch.ones_like(den))
-        outs.append(num / den_safe.transpose(1, 2)[..., None])
-    return torch.cat(outs, dim=1)
+    return torch.cat(ring_blocks(
+        *(_blocks(t, n_blocks) for t in (q, k, v, kv_mask)),
+        causal=causal), dim=1)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   mesh=None, *, axis: str = "sp", causal: bool = False,
+                   mesh=None, *, axis: str = "sp", batch_axis: str = "data",
+                   causal: bool = False,
                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sequence-parallel attention over `mesh` axis `axis` (a mapping
-    `mesh.shape` of axis sizes). With no mesh or a trivial axis (size 1
-    or absent) it is `attention_reference`. A sequence axis over several
-    devices raises: the `torch.distributed` ring is not ported yet
-    (ROADMAP Queue 1, item 6)."""
+    """Sequence-parallel attention over `mesh` (a `parallel.Mesh`) axis
+    `axis`, the batch over this process's `batch_axis` groups where it
+    divides; [B, S, H, Dh] in, and out on `q`'s device. Equal to
+    `attention_reference` up to float association; with no mesh or a
+    trivial axis (size 1 or absent) it is `attention_reference`.
+    `kv_mask` [B, S] bool marks valid key positions (False =
+    padding)."""
     shape = getattr(mesh, "shape", None) or {}
-    if int(shape.get(axis, 1)) == 1:
+    n = int(shape.get(axis, 1))
+    if n == 1:
         return attention_reference(q, k, v, causal=causal, kv_mask=kv_mask)
-    raise NotImplementedError(
-        f"ring attention over a {shape[axis]}-device {axis!r} axis needs "
-        "the torch.distributed ring (ROADMAP Queue 1, item 6); this port "
-        "runs attention on one device (mesh=None)")
+    B, S = q.shape[:2]
+    if S % n:
+        raise ValueError(f"sequence length {S} must divide over {n} "
+                         f"{axis!r} shards")
+    mesh.require_local(axis)
+    if kv_mask is None:
+        kv_mask = torch.ones((B, S), dtype=torch.bool, device=q.device)
+    rows = [r for r in mesh.plane(batch_axis, axis)
+            if mesh.owner(int(r[0])) == mesh.process_index]
+    if B % len(rows):
+        rows = rows[:1]
+    b_loc = B // len(rows)
+    outs = []
+    for g, row in enumerate(rows):
+        devs = [mesh.devices[int(p)] for p in row]
+        parts = [[blk.to(d) for blk, d in zip(
+            _blocks(t[g * b_loc:(g + 1) * b_loc], n), devs)]
+            for t in (q, k, v, kv_mask)]
+        outs.append(torch.cat([o.to(q.device) for o in ring_blocks(
+            *parts, causal=causal)], dim=1))
+    return torch.cat(outs, dim=0)

@@ -9,7 +9,8 @@ scala/RandomForestAlgorithm.scala:41-72`):
      `maxBins` analog; split candidates = bin boundaries), bit for bit
      the JAX package's numpy.
   2. All trees grow together on `device` (None = cuda; raises without
-     CUDA unless `device="cpu"`), one depth level per `grow_level`. The
+     CUDA unless `device="cpu"`), one depth level per
+     `grow_level_sharded` (one device is a mesh of one shard). The
      class histogram `hist[tree, node, feature, bin, class]` of a level
      is one flat fp32 tensor `[t * n_nodes * C * f * B]` indexed by
      `tree * size + (node * C + class) * f * B + feature * B + bin`, and
@@ -36,8 +37,18 @@ package's threefry draws: a forest of one tree over every feature draws
 nothing that matters and equals the JAX package's; any other forest
 differs from it by design, as `ops.als.init_factors` does.
 
-The mesh form (per-device partial histograms and a `psum`) is not
-ported: training runs on one device.
+Over a mesh (`forest_train(mesh=)`) the samples shard over "data": the
+rows are padded to a multiple of the shard count with weight-0 rows
+(invisible to every histogram), each level's histogram is `_histogram`
+once per shard, summed on this process's first shard device and
+`all_reduce`d over processes (the JAX package's `psum`), the splits are
+selected once from the sum and each shard routes its own rows. The
+weights and the per-level ranks are drawn once, over the unpadded
+samples, exactly as on one device; the weights are whole numbers, so
+the summed histograms are exact and the sharded forest equals the
+one-device forest bit for bit. The fallback class distribution counts
+the unpadded labels. One device runs the same loop over one shard,
+with no padding and no reduction.
 """
 
 from __future__ import annotations
@@ -51,6 +62,8 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.parallel.mesh import (all_reduce, data_mesh,
+                                                  pad_rows, pad_to_multiple)
 
 
 # rows sampled for quantile estimation: exact quantiles over millions
@@ -129,9 +142,25 @@ def _histogram(s: torch.Tensor, w: torch.Tensor, fb_cols: torch.Tensor, *,
     s:       [t, n]  node*C + class per (tree, sample)
     w:       [t, n]  bootstrap weights (float32)
     fb_cols: [n, f]  flat feature-bin column f*B + bin
-    Returns [t, nd, f, B, C] (a view of the flat histogram). Keys are
-    int32 while the flat index fits, else int64; samples go in chunks
-    whose keys and weight broadcast respect `_HIST_KEY_BUDGET`."""
+    Returns [t, nd, f, B, C] (`_hist_view` of the flat histogram)."""
+    return _hist_view(_flat_histogram(s, w, fb_cols, n_nodes=n_nodes, c=c,
+                                      f=f, b=b), n_nodes=n_nodes, c=c, f=f,
+                      b=b)
+
+
+def _hist_view(hist: torch.Tensor, *, n_nodes: int, c: int, f: int,
+               b: int) -> torch.Tensor:
+    """The flat histogram [t * nd * C * f * B] as [t, nd, f, B, C]."""
+    t = hist.shape[0] // (n_nodes * c * f * b)
+    return hist.view(t, n_nodes, c, f, b).permute(0, 1, 3, 4, 2)
+
+
+def _flat_histogram(s: torch.Tensor, w: torch.Tensor,
+                    fb_cols: torch.Tensor, *, n_nodes: int, c: int, f: int,
+                    b: int) -> torch.Tensor:
+    """`_histogram`'s flat tensor. Keys are int32 while the flat index
+    fits, else int64; samples go in chunks whose keys and weight
+    broadcast respect `_HIST_KEY_BUDGET`."""
     t, n = s.shape
     size = n_nodes * c * f * b
     idx, idx_bytes = ((torch.int32, 4) if t * size < 2 ** 31
@@ -147,7 +176,7 @@ def _histogram(s: torch.Tensor, w: torch.Tensor, fb_cols: torch.Tensor, *,
         keys = s[:, lo:hi, None] + fb[None, lo:hi, :]   # [t, chunk, f]
         upd = w[:, lo:hi, None].expand(-1, -1, f)
         hist.index_add_(0, keys.reshape(-1), upd.reshape(-1))
-    return hist.view(t, n_nodes, c, f, b).permute(0, 1, 3, 4, 2)
+    return hist
 
 
 def _select_splits(hist: torch.Tensor, ranks: torch.Tensor, *,
@@ -202,7 +231,8 @@ def grow_level(fb_cols: torch.Tensor, node: torch.Tensor, y: torch.Tensor,
                w: torch.Tensor, xb: torch.Tensor, ranks: torch.Tensor, *,
                n_nodes: int, n_classes: int, n_features: int, n_bins: int,
                subset: int, impurity: str):
-    """One level for every tree at once.
+    """One level for every tree at once: `grow_level_sharded` over one
+    shard on `ranks`'s device.
 
     fb_cols: [n, f]      flat feature-bin columns (shared across trees)
     node:    [t, n]      current node of each sample in each tree (int64)
@@ -211,12 +241,34 @@ def grow_level(fb_cols: torch.Tensor, node: torch.Tensor, y: torch.Tensor,
     xb:      [n, f]      binned features
     ranks:   [t, nd, f]  per-node feature ranks (the random subset)
     Returns (split_feature [t, nd], split_bin [t, nd], new node [t, n])."""
+    split_f, split_b, (new,) = grow_level_sharded(
+        [(fb_cols, node, y, w, xb)], ranks, data_mesh(None, ranks.device),
+        n_nodes=n_nodes, n_classes=n_classes, n_features=n_features,
+        n_bins=n_bins, subset=subset, impurity=impurity)
+    return split_f, split_b, new
+
+
+def grow_level_sharded(shards, ranks: torch.Tensor, mesh, *, n_nodes: int,
+                       n_classes: int, n_features: int, n_bins: int,
+                       subset: int, impurity: str):
+    """`grow_level` over this process's shards of a one-axis "data"
+    mesh: `shards` holds one (fb_cols, node, y, w, xb) per local shard,
+    on its device; the histograms add up on the first shard's device
+    (and over processes), where `ranks` lies and the splits are chosen.
+    Returns (split_feature, split_bin, [new node per shard])."""
     kw = dict(n_nodes=n_nodes, c=n_classes, f=n_features, b=n_bins)
-    s = node * n_classes + y[None, :]
-    hist = _histogram(s, w, fb_cols, **kw)
-    split_f, split_b = _select_splits(hist, ranks, subset=subset,
-                                      impurity=impurity, **kw)
-    return split_f, split_b, _route(xb, node, split_f, split_b)
+    dev = ranks.device
+    hist = None
+    for fb_cols, node, y, w, _ in shards:
+        h = _flat_histogram(node * n_classes + y[None, :], w, fb_cols,
+                            **kw).to(dev)
+        hist = h if hist is None else hist + h
+    split_f, split_b = _select_splits(
+        _hist_view(all_reduce(hist, mesh), **kw), ranks, subset=subset,
+        impurity=impurity, **kw)
+    return split_f, split_b, [
+        _route(xb, node, split_f.to(xb.device), split_b.to(xb.device))
+        for _, node, _, _, xb in shards]
 
 
 def _leaf_counts(node: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
@@ -339,17 +391,49 @@ def _predict_device(xb: torch.Tensor, split_feature: torch.Tensor,
     return torch.argmax(counts, dim=1)
 
 
+def _shard_samples(xb_np: np.ndarray, y_np: np.ndarray, w: torch.Tensor,
+                   f: int, max_bins: int, mesh):
+    """This process's shards of the samples on a one-axis "data" mesh:
+    per local shard (fb_cols, node, y, w, xb) on its device, the rows
+    padded with weight-0 rows to a multiple of the shard count."""
+    n_dev = mesh.size
+    n = xb_np.shape[0]
+    npad = pad_to_multiple(max(n, n_dev), n_dev)
+    per = npad // n_dev
+    xb_np = pad_rows(xb_np, npad)
+    y_np = pad_rows(y_np.astype(np.int64), npad)
+    if npad > n:
+        w = torch.nn.functional.pad(w, (0, npad - n))
+    # binned features cross at uint8 (max_bins <= 256) and stay narrow
+    # on the device (the router's gather and compare read them as they
+    # are); fb_cols is derived on the device
+    shards = []
+    for s, dev in zip(mesh.local, mesh.local_devices):
+        rows = slice(s * per, (s + 1) * per)
+        xb = torch.from_numpy(xb_np[rows]).to(dev)
+        fb_cols = (xb.to(torch.int32)
+                   + torch.arange(f, dtype=torch.int32, device=dev)[None, :]
+                   * max_bins)
+        node = torch.zeros((w.shape[0], per), dtype=torch.int64, device=dev)
+        shards.append((fb_cols, node, torch.from_numpy(y_np[rows]).to(dev),
+                       w[:, rows].to(dev), xb))
+    return shards
+
+
 def forest_train(features: np.ndarray, labels: np.ndarray, *,
                  n_trees: int = 10, max_depth: int = 5, max_bins: int = 32,
                  impurity: str = "gini",
                  feature_subset_strategy: str = "auto",
-                 seed: int = 0, device=None,
+                 seed: int = 0, device=None, mesh=None,
                  timings: Optional[dict] = None) -> ForestModel:
     """Train a random forest on dense features [n, f] and labels [n] on
-    `device`. `timings`, if given, is filled with bin_s (host quantile
-    binning) and device_s (the draws, upload, level loop and fetch)
-    wall-clock phases."""
-    dev = resolve_device(device)
+    `device`, or over the "data" axis of `mesh` (a `parallel.Mesh`; the
+    model then traverses on its first local device; a mesh of one
+    "data" shard trains as one device does). `timings`, if given, is
+    filled with bin_s (host quantile binning) and device_s
+    (the draws, upload, level loop and fetch) wall-clock phases."""
+    dev = resolve_device(device if mesh is None else mesh.local_devices[0])
+    dm = data_mesh(mesh, dev)
     t0 = time.perf_counter()
     features = np.asarray(features, np.float32)
     labels = np.asarray(labels)
@@ -366,30 +450,26 @@ def forest_train(features: np.ndarray, labels: np.ndarray, *,
         w = torch.ones((1, n), dtype=torch.float32)
     else:
         w = torch.poisson(torch.ones((n_trees, n)), generator=gen)
-    w = w.to(dev)
-    # binned features cross at uint8 (max_bins <= 256) and stay narrow on
-    # the device (the router's gather and compare read them as they
-    # are); fb_cols is derived on the device
-    xb = torch.from_numpy(xb_np).to(dev)
-    fb_cols = (xb.to(torch.int32)
-               + torch.arange(f, dtype=torch.int32, device=dev)[None, :]
-               * max_bins)
-    y = torch.from_numpy(y_np.astype(np.int64)).to(dev)
-    node = torch.zeros((n_trees, n), dtype=torch.int64, device=dev)
-
+    kw = dict(n_classes=c, n_features=f, n_bins=max_bins, subset=subset,
+              impurity=impurity)
     split_fs, split_bs = [], []
+    shards = _shard_samples(xb_np, y_np, w, f, max_bins, dm)
     for level in range(max_depth):
         ranks = draw_ranks(gen, n_trees, 1 << level, f).to(dev)
-        sf, sb, node = grow_level(
-            fb_cols, node, y, w, xb, ranks, n_nodes=1 << level,
-            n_classes=c, n_features=f, n_bins=max_bins, subset=subset,
-            impurity=impurity)
+        sf, sb, nodes = grow_level_sharded(shards, ranks, dm,
+                                           n_nodes=1 << level, **kw)
+        shards = [(fb, nd, y, ws, xb) for (fb, _, y, ws, xb), nd
+                  in zip(shards, nodes)]
         split_fs.append(sf)
         split_bs.append(sb)
-
-    counts = _leaf_counts(node, y, w, n_nodes=1 << max_depth, n_classes=c)
+    counts = None
+    for _, node, y, ws, _ in shards:
+        part = _leaf_counts(node, y, ws, n_nodes=1 << max_depth,
+                            n_classes=c).to(dev)
+        counts = part if counts is None else counts + part
+    counts = all_reduce(counts, dm)
     # empty leaves (never reached in training) fall back to the global
-    # class distribution
+    # class distribution of the unpadded labels
     global_counts = torch.from_numpy(
         np.bincount(y_np, minlength=c).astype(np.float32)).to(dev)
     counts = counts + 1e-6 * global_counts[None, None, :]

@@ -14,6 +14,15 @@ product of the class one-hot with the features (TF32 is off,
 `device.resolve_device`): on whole-number features below 2^24 per sum
 they are exact in any summation order, so the card's statistics equal
 the CPU's bit for bit. Prediction scores on the model's device.
+
+Over a mesh (`nb_train(mesh=)`, the JAX package's GSPMD form) the
+samples shard over "data" (`parallel.shard_put`: the narrow features,
+the class ids and a `valid` column that is 0 on the padding rows), the
+class sums are per-shard partial sums added on this process's first
+shard device and `all_reduce`d over processes, and the logs run once on
+the totals: the same statistics as one device's, every other axis
+replicated (`Mesh.along`). One device is a mesh of one shard
+(`parallel.data_mesh`).
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.parallel.mesh import (all_reduce, data_mesh,
+                                                  shard_put)
 
 
 @dataclass
@@ -43,17 +54,20 @@ class NaiveBayesModel:
         return replace(self, device=str(resolve_device(device)))
 
 
-def _fit(features: torch.Tensor, class_ix: torch.Tensor, lam: float, *,
-         n_classes: int):
-    """(pi [C], theta [C, d]) from features [n, d] (any dtype: a narrow
-    upload widens here) and class indices [n], on their device."""
-    d = features.shape[1]
+def _class_sums(features: torch.Tensor, class_ix: torch.Tensor,
+                valid: torch.Tensor, n_classes: int):
+    """(counts [C], feature sums [C, d]) of one shard's rows, each row
+    weighted by `valid`."""
     x = features.to(torch.float32)
     onehot = torch.nn.functional.one_hot(
-        class_ix.long(), n_classes).to(torch.float32)      # [n, C]
-    counts = onehot.sum(0)
-    feat_sums = onehot.T @ x                               # [C, d]
-    lam_t = torch.tensor(lam, dtype=torch.float32, device=x.device)
+        class_ix.long(), n_classes).to(torch.float32) * valid[:, None]
+    return onehot.sum(0), onehot.T @ x                     # [C], [C, d]
+
+
+def _fit(counts: torch.Tensor, feat_sums: torch.Tensor, lam: float):
+    """(pi [C], theta [C, d]) from the class sums, on their device."""
+    d = feat_sums.shape[1]
+    lam_t = torch.tensor(lam, dtype=torch.float32, device=feat_sums.device)
     pi = torch.log(counts) - torch.log(counts.sum())
     theta = (torch.log(feat_sums + lam_t)
              - torch.log(feat_sums.sum(1, keepdim=True) + lam_t * d))
@@ -90,16 +104,41 @@ def narrow_features(features: np.ndarray) -> np.ndarray:
     return feats
 
 
+def _sums_on_mesh(feats: np.ndarray, class_ix: np.ndarray, dm,
+                  n_classes: int):
+    """The class sums over the shards of the one-axis "data" mesh `dm`
+    (see the module docstring), on this process's first shard device,
+    and the `perf_counter` time at which the upload had landed."""
+    feats_d = shard_put(feats, dm, dtype=None)
+    cix_d = shard_put(class_ix, dm, dtype=None)
+    valid_d = shard_put(np.ones(len(class_ix), np.float32), dm)
+    devs = list(dict.fromkeys(dm.local_devices))
+    for d in devs:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+    t_up = time.perf_counter()
+    counts = feat_sums = None
+    for x, c, v in zip(feats_d, cix_d, valid_d):
+        pc, pf = (a.to(devs[0]) for a in _class_sums(x, c, v, n_classes))
+        counts = pc if counts is None else counts + pc
+        feat_sums = pf if feat_sums is None else feat_sums + pf
+    return (all_reduce(counts, dm), all_reduce(feat_sums, dm)), t_up
+
+
 def nb_train(features: np.ndarray, labels: np.ndarray,
-             lam: float = 1.0, *, device=None,
+             lam: float = 1.0, *, device=None, mesh=None,
              timings: Optional[dict] = None) -> NaiveBayesModel:
     """features [n, d] nonnegative; labels [n] arbitrary floats/ints.
 
     The upload narrows to `narrow_features`' dtype and widens on the
-    device; accumulation is f32 in every case. `timings`, if given, is
-    filled with transfer_s (the upload, synchronized) and solve_s (the
-    fit and the fetch) wall-clock phases."""
-    dev = resolve_device(device)
+    device; accumulation is f32 in every case. `mesh` (a
+    `parallel.Mesh`) shards the samples over its "data" axis and the
+    model predicts on its first local device (a mesh of one "data"
+    shard trains there as on one device); None trains on `device`.
+    `timings`, if given, is filled with transfer_s (the upload,
+    synchronized) and solve_s (the fit and the fetch) wall-clock
+    phases."""
+    dev = resolve_device(device if mesh is None else mesh.local_devices[0])
     if features.shape[0] == 0:
         raise ValueError("no training points")
     if float(np.asarray(features).min(initial=0.0)) < 0:
@@ -108,12 +147,9 @@ def nb_train(features: np.ndarray, labels: np.ndarray,
     class_ix = np.searchsorted(uniq, labels).astype(np.int32)
     feats_np = narrow_features(features)
     t0 = time.perf_counter()
-    feats_d = torch.from_numpy(np.ascontiguousarray(feats_np)).to(dev)
-    cix_d = torch.from_numpy(class_ix).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
-    pi, theta = _fit(feats_d, cix_d, lam, n_classes=len(uniq))
+    sums, t1 = _sums_on_mesh(feats_np, class_ix, data_mesh(mesh, dev),
+                             len(uniq))
+    pi, theta = _fit(*sums, lam)
     out = NaiveBayesModel(pi.cpu().numpy(), theta.cpu().numpy(), uniq,
                           str(dev))
     if timings is not None:

@@ -25,9 +25,20 @@ in order every epoch, one eager autograd step and `ops.adam.Adam`
 update per batch (the JAX package scans an epoch in one program). The
 initialization draws from a `torch.Generator` seeded by `seed` on the
 CPU, not from threefry. `seqrec_encode` is the serving path: the device
-copy of the weights is cached on the model (`_devp`, never pickled).
-The mesh forms (batch over "data", the sequence over "sp" by ring
-attention) are not ported: training runs on one device.
+copy of the weights is cached on the model (`_devp`, never pickled); it
+runs on one device, as the JAX package's does.
+
+Over a mesh (`seqrec_train(mesh=)`, the JAX package's shardings) each
+step's batch splits over "data" (unsplit where its length does not
+divide) and each data block's sequence over "sp": block i of the
+positions lies on sp shard i's device through the whole encoder, and
+attention is the ring between the blocks (`ops.attention.ring_blocks`,
+as `ring_attention` runs it). The parameters are held once per process
+and move to each shard's device with `.to`, so autograd sums the
+shards' gradients; the encodings and the target rows gather onto this
+process's first device (and over processes, `parallel.gather_rows`)
+for the in-batch loss, and the gradients of a split batch `all_reduce`
+over processes. Adam stays replicated.
 """
 
 from __future__ import annotations
@@ -43,7 +54,10 @@ from torch import nn
 
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops.adam import Adam
-from predictionio_tpu_torch.ops.attention import attention_reference
+from predictionio_tpu_torch.ops.attention import (attention_reference,
+                                                  ring_blocks)
+from predictionio_tpu_torch.parallel.mesh import (all_reduce, gather_rows,
+                                                  spans, split_over_data)
 
 TOP_NAMES = ("item_table", "pos_emb", "ln_f", "ln_f_b")
 BLOCK_NAMES = ("ln1", "ln1_b", "wq", "wk", "wv", "wo", "ln2", "ln2_b",
@@ -173,33 +187,92 @@ class SeqRecNet(nn.Module):
         for i in range(self.n_layers):
             self.add_module(f"l{i}", _Block(params[f"l{i}"], dev))
 
-    def forward(self, seqs: torch.Tensor) -> torch.Tensor:
+    def forward(self, seqs: torch.Tensor, mesh=None,
+                shard: int = 0) -> torch.Tensor:
         """[B, S] int ids (PAD = n_items, right-aligned) -> [B, D], the
-        final position's representation."""
-        B, S = seqs.shape
+        final position's representation, on `seqs`' device. `mesh`
+        splits the positions over its "sp" axis (on the devices of this
+        process's data group `shard`, a local index), the result on
+        that group's first device."""
+        if not spans(mesh, "sp"):
+            return self.encode_blocks([seqs])
+        devs = _layout(mesh)[1][shard]
+        n = len(devs)
+        if seqs.shape[1] % n:
+            raise ValueError(f"sequence length {seqs.shape[1]} must "
+                             f"divide over {n} 'sp' shards")
+        s_loc = seqs.shape[1] // n
+        return self.encode_blocks([seqs[:, i * s_loc:(i + 1) * s_loc]
+                                   .to(d) for i, d in enumerate(devs)]
+                                  ).to(devs[0])
+
+    def encode_blocks(self, blocks: List[torch.Tensor]) -> torch.Tensor:
+        """The encoder over consecutive position blocks [B, S / n], each
+        on its own device (one block: `attention_reference`; several:
+        the ring between them) -> [B, D] on the last block's device."""
+        n = len(blocks)
+        B, s_loc = blocks[0].shape
         D = self.pos_emb.shape[1]
         H = self.n_heads
-        valid = seqs != self.n_items                         # [B, S]
-        x = self.item_table[seqs] * math.sqrt(D) + self.pos_emb
-        for i in range(self.n_layers):
-            lp = getattr(self, f"l{i}")
-            h = F.layer_norm(x, (D,), lp.ln1, lp.ln1_b, eps=LN_EPS)
-            q = (h @ lp.wq).reshape(B, S, H, D // H)
-            k = (h @ lp.wk).reshape(B, S, H, D // H)
-            v = (h @ lp.wv).reshape(B, S, H, D // H)
-            a = attention_reference(q, k, v, causal=True, kv_mask=valid)
-            x = x + a.reshape(B, S, D) @ lp.wo
-            h = F.layer_norm(x, (D,), lp.ln2, lp.ln2_b, eps=LN_EPS)
-            x = x + torch.relu(h @ lp.w1) @ lp.w2
-        x = F.layer_norm(x, (D,), self.ln_f, self.ln_f_b, eps=LN_EPS)
+        devs = [b.device for b in blocks]
+
+        def on(i, t):
+            # the parameter itself on its own device; a data shard's one
+            # block on another card takes a copy that autograd sums back
+            return t if t.device == devs[i] else t.to(devs[i])
+
+        def positions(i):
+            # one block runs the one-device encoder, op for op
+            pos = on(i, self.pos_emb)
+            return pos if n == 1 else pos[i * s_loc:(i + 1) * s_loc]
+
+        valid = [b != self.n_items for b in blocks]            # [B, S/n]
+        xs = [on(i, self.item_table)[b] * math.sqrt(D) + positions(i)
+              for i, b in enumerate(blocks)]
+        for layer in range(self.n_layers):
+            lp = getattr(self, f"l{layer}")
+            qkv = []
+            for i, x in enumerate(xs):
+                h = F.layer_norm(x, (D,), on(i, lp.ln1), on(i, lp.ln1_b),
+                                 eps=LN_EPS)
+                qkv.append([(h @ on(i, w)).reshape(B, s_loc, H, D // H)
+                            for w in (lp.wq, lp.wk, lp.wv)])
+            if n == 1:
+                att = [attention_reference(*qkv[0], causal=True,
+                                           kv_mask=valid[0])]
+            else:
+                att = ring_blocks(*zip(*qkv), valid, causal=True)
+            for i, x in enumerate(xs):
+                x = x + att[i].reshape(B, s_loc, D) @ on(i, lp.wo)
+                h = F.layer_norm(x, (D,), on(i, lp.ln2), on(i, lp.ln2_b),
+                                 eps=LN_EPS)
+                xs[i] = x + torch.relu(h @ on(i, lp.w1)) @ on(i, lp.w2)
+        x = F.layer_norm(xs[-1], (D,), on(n - 1, self.ln_f),
+                         on(n - 1, self.ln_f_b), eps=LN_EPS)
         return x[:, -1, :]                 # right-aligned: last = newest
 
     def loss(self, seqs: torch.Tensor, targets: torch.Tensor,
-             temperature: float) -> torch.Tensor:
+             temperature: float, mesh=None) -> torch.Tensor:
         """In-batch softmax of the encodings against the tied table's
-        target rows."""
-        u = self(seqs)
-        t = self.item_table[targets]                         # [B, D]
+        target rows; over `mesh` the batch splits over "data" where it
+        divides (`split_over_data`), each block encoded over its group's
+        "sp" devices."""
+        if not spans(mesh, "data", "sp"):
+            u, t = self(seqs), self.item_table[targets]
+        else:
+            data, devs = _layout(mesh)
+            split = split_over_data(mesh, len(seqs))
+            b = len(seqs) // data.size if split else len(seqs)
+            us, ts = [], []
+            for j, s in enumerate(data.local if split else [0]):
+                rows = slice(s * b, (s + 1) * b)
+                dev = devs[j][0]
+                us.append(self(seqs[rows].to(dev), mesh, j).to(devs[0][0]))
+                ts.append(self.item_table.to(dev)[targets[rows].to(dev)]
+                          .to(devs[0][0]))
+            u, t = torch.cat(us), torch.cat(ts)
+            if split:
+                u, t = gather_rows(u, data), gather_rows(t, data)
         logits = (u @ t.T) / temperature
         return -torch.log_softmax(logits, dim=-1).diagonal().mean()
 
@@ -213,12 +286,29 @@ class SeqRecNet(nn.Module):
         return out
 
 
+def _layout(mesh):
+    """(the "data" mesh, per local data shard the devices of its "sp"
+    group) of `mesh`; raises NotImplementedError when "sp" spans
+    processes."""
+    mesh.require_local("sp")
+    data = mesh.along("data")
+    plane = mesh.plane("data", "sp")
+    return data, [[mesh.devices[int(p)] for p in plane[s]]
+                  for s in data.local]
+
+
 def train_step(net: SeqRecNet, adam: Adam, seqs: torch.Tensor,
-               targets: torch.Tensor, temperature: float) -> torch.Tensor:
-    """One batch: the loss, its gradients by autograd, one Adam update.
-    Returns the loss (a 0-dim device tensor; nothing waits for it)."""
-    loss = net.loss(seqs, targets, temperature)
-    adam.step(torch.autograd.grad(loss, adam.params))
+               targets: torch.Tensor, temperature: float,
+               mesh=None) -> torch.Tensor:
+    """One batch: the loss, its gradients by autograd, one Adam update,
+    over `mesh` when given (the gradients of a split batch summed over
+    processes). Returns the loss (a 0-dim device tensor; nothing waits
+    for it)."""
+    loss = net.loss(seqs, targets, temperature, mesh)
+    grads = torch.autograd.grad(loss, adam.params)
+    if split_over_data(mesh, len(seqs)):
+        grads = [all_reduce(g, mesh) for g in grads]
+    adam.step(grads)
     return loss.detach()
 
 
@@ -227,18 +317,23 @@ def seqrec_train(sequences: np.ndarray, targets: np.ndarray, *,
                  n_heads: int = 2, n_layers: int = 2,
                  batch_size: int = 256, epochs: int = 5,
                  lr: float = 3e-3, temperature: float = 0.07,
-                 seed: int = 0, device=None, init_params=None,
+                 seed: int = 0, device=None, mesh=None, init_params=None,
                  step_losses: Optional[List[torch.Tensor]] = None,
                  on_step: Optional[Callable[[int], None]] = None
                  ) -> SeqRecModel:
     """Train on [N, seq_len] right-aligned item-id sequences (PAD =
-    n_items) with [N] next-item targets. `init_params` (the JAX pytree's
+    n_items) with [N] next-item targets. `mesh` (a `parallel.Mesh` with
+    a "data" or "sp" axis of size > 1) shards each step's batch over
+    "data" and the sequence over "sp", the parameters on its first local
+    device (a mesh without such an axis trains there as on one device);
+    None trains on `device`. `init_params` (the JAX pytree's
     names and layout; its layers set the depth) resumes from earlier
     weights with fresh Adam moments. `step_losses`, if given, gets each
     step's loss as a device tensor; `on_step`, if given, is called with
     each step's index (from 0 over all epochs) once the step is
     enqueued."""
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.local_devices[0])
+    mesh = mesh if spans(mesh, "data", "sp") else None
     if sequences.shape[1] != seq_len:
         raise ValueError(f"sequences are {sequences.shape[1]} wide, "
                          f"seq_len is {seq_len}")
@@ -261,7 +356,8 @@ def seqrec_train(sequences: np.ndarray, targets: np.ndarray, *,
     for epoch in range(epochs):
         progress()          # an epoch of a refresher's rebuild stamps it
         for s in range(steps):
-            loss = train_step(net, adam, seq_all[s], tgt_all[s], temperature)
+            loss = train_step(net, adam, seq_all[s], tgt_all[s], temperature,
+                              mesh)
             if step_losses is not None:
                 step_losses.append(loss)
             if on_step is not None:

@@ -121,7 +121,9 @@ def serve_mesh_from_conf(conf=None):
     sharded serving is off or pointless (fewer than two cards).
     `conf` is the merged engine-instance + server runtime_conf; a
     configured training mesh there forces the sharded path (training
-    and serving agree on the device layout). A cross-host
+    and serving agree on the device layout): whatever its axes
+    ("data=2,model=2" as "data=4"), the plan shards the catalog over
+    every local card, as the JAX package's "items" axis does. A cross-host
     `items=N@fleet:i` mesh returns a `ShardSlice` instead: this member
     serves only its owned catalog rows and the fleet router merges
     across members; the router's own `items=N@fleet` forces nothing.

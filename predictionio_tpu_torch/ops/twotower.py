@@ -22,8 +22,22 @@ the same seed the trained weights differ from the JAX package's, and
 from the same `init_params` they agree to float association. After
 training both towers are materialized over every id, in host RAM.
 
-The mesh forms (the "model" tensor-parallel shardings and the per-step
-"data" loop) are not ported: training runs on one device.
+Over a mesh (`twotower_train(mesh=)`, the JAX package's shardings) the
+towers are `ShardedTwoTowerNet`: over "model" the tables are
+row-sharded (vocabulary blocks: each shard looks up the ids of its
+range and the shards' lookups sum), `*_w1` column-sharded and `*_w2`
+row-sharded (the shards' partial outputs sum); over "data" each step's
+batch splits into one block per data shard, whose towers run on that
+shard's devices; the towers' rows gather onto this process's first
+device (and over processes, `parallel.gather_rows`) for the in-batch
+loss. Each model shard of a parameter is held once per process and
+moves to each data shard's device with `.to`, so autograd sums the data
+shards' gradients; across processes they `all_reduce`. A batch whose
+length does not divide over "data" runs unsplit on the first data
+shard, as the JAX package's `len(sel) % data_size` test leaves it.
+`ops.adam.Adam` updates every shard. `numpy_params` reassembles the
+full tables, so the model pickles and serves as one trained on one
+device.
 """
 
 from __future__ import annotations
@@ -37,6 +51,9 @@ from torch import nn
 
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops.adam import Adam
+from predictionio_tpu_torch.parallel.mesh import (all_reduce, gather_rows,
+                                                  pad_to_multiple, spans,
+                                                  split_over_data)
 
 PARAM_NAMES = ("user_table", "item_table", "user_w1", "user_w2",
                "item_w1", "item_w2")
@@ -121,22 +138,125 @@ class TwoTowerNet(nn.Module):
              temperature: float) -> torch.Tensor:
         """In-batch sampled softmax: each (u, i) pair takes the batch's
         other items as negatives."""
-        u = self.tower("user", u_ix)
-        v = self.tower("item", i_ix)
-        logits = (u @ v.T) / temperature                  # [b, b]
-        return -torch.log_softmax(logits, dim=1).diagonal().mean()
+        return _in_batch_loss(self.tower("user", u_ix),
+                              self.tower("item", i_ix), temperature)
 
     def numpy_params(self) -> Dict[str, np.ndarray]:
         return {name: getattr(self, name).detach().cpu().numpy()
                 for name in PARAM_NAMES}
 
 
-def train_step(net: TwoTowerNet, adam: Adam, u_ix: torch.Tensor,
-               i_ix: torch.Tensor, temperature: float) -> torch.Tensor:
+def _in_batch_loss(u: torch.Tensor, v: torch.Tensor,
+                   temperature: float) -> torch.Tensor:
+    logits = (u @ v.T) / temperature                      # [b, b]
+    return -torch.log_softmax(logits, dim=1).diagonal().mean()
+
+
+class ShardedTwoTowerNet:
+    """The two towers over the "data" x "model" plane of a mesh (see the
+    module docstring). `shards[name][m]` is model shard m of parameter
+    `name`, an `nn.Parameter` on this process's first data shard's
+    device of that model position; a table is padded with zero rows,
+    and `*_w1` / `*_w2` with zero hidden units, to a multiple of the
+    model shards (a padding row is never looked up and a padding unit
+    stays 0 under Adam)."""
+
+    def __init__(self, params: Dict[str, np.ndarray], mesh):
+        mesh.require_local("model")
+        self.mesh = mesh
+        self.data = mesh.along("data")
+        plane = mesh.plane("data", "model")
+        self.devs = [[mesh.devices[int(p)] for p in plane[s]]
+                     for s in self.data.local]
+        m = plane.shape[1]
+        self.widths = {k: v.shape for k, v in params.items()}
+        hidden = params["user_w1"].shape[1]
+        hp = pad_to_multiple(hidden, m)
+        self.rows = {}
+        self.shards: Dict[str, List[nn.Parameter]] = {}
+        for name, a in params.items():
+            a = np.asarray(a, np.float32)
+            if name.endswith("_table"):
+                self.rows[name] = pad_to_multiple(a.shape[0], m) // m
+                a = np.pad(a, ((0, self.rows[name] * m - a.shape[0]), (0, 0)))
+                parts = np.split(a, m, axis=0)
+            elif name.endswith("_w1"):
+                parts = np.split(np.pad(a, ((0, 0), (0, hp - hidden))), m,
+                                 axis=1)
+            else:
+                parts = np.split(np.pad(a, ((0, hp - hidden), (0, 0))), m,
+                                 axis=0)
+            self.shards[name] = [nn.Parameter(torch.from_numpy(
+                np.ascontiguousarray(part)).to(dev))
+                for part, dev in zip(parts, self.devs[0])]
+
+    def parameters(self) -> List[nn.Parameter]:
+        return [p for name in PARAM_NAMES for p in self.shards[name]]
+
+    def tower(self, side: str, ix: torch.Tensor, shard: int = 0
+              ) -> torch.Tensor:
+        """`TwoTowerNet.tower` on local data shard `shard`'s devices;
+        the result on its first device."""
+        devs = self.devs[shard]
+        root = devs[0]
+        name = f"{side}_table"
+        rows = self.rows[name]
+        emb = None
+        for m, dev in enumerate(devs):
+            local = ix.to(dev) - m * rows
+            hit = (local >= 0) & (local < rows)
+            e = (self.shards[name][m].to(dev)[local.clamp(0, rows - 1)]
+                 * hit[:, None]).to(root)
+            emb = e if emb is None else emb + e
+        out = None
+        for m, dev in enumerate(devs):
+            h = torch.relu(emb.to(dev)
+                           @ self.shards[f"{side}_w1"][m].to(dev))
+            o = (h @ self.shards[f"{side}_w2"][m].to(dev)).to(root)
+            out = o if out is None else out + o
+        return out / (torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+                      + 1e-8)
+
+    def loss(self, u_ix: torch.Tensor, i_ix: torch.Tensor,
+             temperature: float) -> torch.Tensor:
+        """`TwoTowerNet.loss` on this process's first device, the batch
+        split over "data" where `split_over_data` says so."""
+        if not split_over_data(self.mesh, len(u_ix)):
+            return _in_batch_loss(self.tower("user", u_ix),
+                                  self.tower("item", i_ix), temperature)
+        root = self.devs[0][0]
+        b = len(u_ix) // self.data.size
+        us, vs = [], []
+        for j, s in enumerate(self.data.local):
+            rows = slice(s * b, (s + 1) * b)
+            us.append(self.tower("user", u_ix[rows], j).to(root))
+            vs.append(self.tower("item", i_ix[rows], j).to(root))
+        u = gather_rows(torch.cat(us), self.data)
+        v = gather_rows(torch.cat(vs), self.data)
+        return _in_batch_loss(u, v, temperature)
+
+    def numpy_params(self) -> Dict[str, np.ndarray]:
+        out = {}
+        for name, (n, w) in self.widths.items():
+            parts = [p.detach().cpu().numpy() for p in self.shards[name]]
+            axis = 1 if name.endswith("_w1") else 0
+            full = np.concatenate(parts, axis=axis)
+            out[name] = full[:, :w] if axis else full[:n]
+        return out
+
+
+def train_step(net, adam: Adam, u_ix: torch.Tensor, i_ix: torch.Tensor,
+               temperature: float) -> torch.Tensor:
     """One batch: the loss, its gradients by autograd, one Adam update.
-    Returns the loss (a 0-dim device tensor; nothing waits for it)."""
+    Returns the loss (a 0-dim device tensor; nothing waits for it). On a
+    `ShardedTwoTowerNet` the gradients of a split batch sum over
+    processes first."""
     loss = net.loss(u_ix, i_ix, temperature)
-    adam.step(torch.autograd.grad(loss, adam.params))
+    grads = torch.autograd.grad(loss, adam.params)
+    mesh = getattr(net, "mesh", None)
+    if split_over_data(mesh, len(u_ix)):
+        grads = [all_reduce(g, mesh) for g in grads]
+    adam.step(grads)
     return loss.detach()
 
 
@@ -145,19 +265,24 @@ def twotower_train(u_ix: np.ndarray, i_ix: np.ndarray, *,
                    emb_dim: int = 32, hidden: int = 64, out_dim: int = 32,
                    batch_size: int = 1024, epochs: int = 10,
                    lr: float = 1e-2, temperature: float = 0.1,
-                   seed: int = 0, device=None,
+                   seed: int = 0, device=None, mesh=None,
                    init_params: Optional[dict] = None,
                    step_losses: Optional[List[torch.Tensor]] = None,
                    on_step: Optional[Callable[[int], None]] = None
                    ) -> TwoTowerModel:
     """Train on interaction pairs; returns the materialized towers.
 
-    `init_params` (JAX names and layout) resumes from earlier weights,
-    with fresh Adam moments, so that one epoch from converged weights
-    moves them only slightly. `step_losses`, if given, gets each step's
-    loss as a device tensor; `on_step`, if given, is called with each
-    step's index (from 0 over all epochs) once the step is enqueued."""
-    dev = resolve_device(device)
+    `mesh` (a `parallel.Mesh` with a "data" or "model" axis of size > 1)
+    trains `ShardedTwoTowerNet` over it, the towers materialized on its
+    first local device (a mesh without such an axis trains there as on
+    one device); None trains on `device`. `init_params` (JAX
+    names and layout) resumes from earlier weights, with fresh Adam
+    moments, so that one epoch from converged weights moves them only
+    slightly. `step_losses`, if given, gets each step's loss as a device
+    tensor; `on_step`, if given, is called with each step's index (from
+    0 over all epochs) once the step is enqueued."""
+    dev = resolve_device(device if mesh is None else mesh.local_devices[0])
+    mesh = mesh if spans(mesh, "data", "model") else None
     n = len(u_ix)
     if n == 0:
         raise ValueError("no interaction pairs")
@@ -167,7 +292,8 @@ def twotower_train(u_ix: np.ndarray, i_ix: np.ndarray, *,
     else:
         params = random_params(seed, n_users, n_items, emb_dim, hidden,
                                out_dim)
-    net = TwoTowerNet(params, dev)
+    net = (TwoTowerNet(params, dev) if mesh is None
+           else ShardedTwoTowerNet(params, mesh))
     adam = Adam(list(net.parameters()), lr)
     rng = np.random.RandomState(seed)
     steps = max(n // batch_size, 1)
@@ -187,6 +313,8 @@ def twotower_train(u_ix: np.ndarray, i_ix: np.ndarray, *,
                 step_losses.append(loss)
             if on_step is not None:
                 on_step(epoch * steps + s)
+    if mesh is not None:
+        net = TwoTowerNet(net.numpy_params(), dev)
     with torch.no_grad():
         user_emb = net.tower("user", torch.arange(n_users, device=dev))
         item_emb = net.tower("item", torch.arange(n_items, device=dev))

@@ -21,6 +21,16 @@ engine instance's `runtime_conf` (the slot the reference used for
     and `replicated_sharding` are `jax.sharding` objects with no
     counterpart: the port's sharded code holds a list of per-shard
     tensors and moves them itself.
+  - A trainer addresses one axis through the `Mesh`: `groups(axis)`
+    (the positions that vary only along it), `local_part` (this
+    process's part of a group), `plane(*axes)` (the positions over
+    some axes at coordinate 0 of the others) and `along(axis)` (the
+    one-axis mesh of a program replicated over the other axes). Inside
+    a process a shard's tensors move with `.to(device)`, a no-op where
+    shards share a card, and autograd carries gradients through it.
+    Across processes only "data" may span (`require_local`): its sums
+    go through `all_reduce`, and `gather_rows` collects the rows of a
+    batch for a loss that every process computes whole.
 """
 
 from __future__ import annotations
@@ -106,6 +116,78 @@ class Mesh:
     def local_devices(self) -> Tuple[torch.device, ...]:
         return tuple(self.devices[s] for s in self.local)
 
+    def owner(self, pos: int) -> int:
+        """The process that holds mesh position `pos`."""
+        return pos // (self.size // self.process_count)
+
+    def plane(self, *axes: str) -> np.ndarray:
+        """Positions (flat indices into `devices`) over `axes`, in that
+        order, at coordinate 0 of every other axis: an int array of
+        shape [size of each axis]; an axis the mesh lacks has size 1."""
+        grid = np.arange(self.size).reshape(self.sizes)
+        grid = grid[tuple(slice(None) if a in axes else 0
+                          for a in self.axis_names)]
+        kept = [a for a in self.axis_names if a in axes]
+        grid = np.transpose(grid, [kept.index(a) for a in axes if a in kept])
+        return grid.reshape([self.shape.get(a, 1) for a in axes])
+
+    def groups(self, axis: str) -> List[Tuple[int, ...]]:
+        """The groups of positions that vary only along `axis`, one per
+        setting of the other axes in row-major order, each in `axis`
+        order (one group per position when the mesh lacks `axis`)."""
+        grid = np.arange(self.size).reshape(self.sizes)
+        if axis not in self.axis_names:
+            return [(int(p),) for p in grid.ravel()]
+        grid = np.moveaxis(grid, self.axis_names.index(axis), -1)
+        return [tuple(int(p) for p in g)
+                for g in grid.reshape(-1, self.shape[axis])]
+
+    def local_part(self, group: Sequence[int]) -> Tuple[int, ...]:
+        """The positions of `group` that this process holds."""
+        return tuple(p for p in group if self.owner(p) == self.process_index)
+
+    def axis_is_local(self, axis: str) -> bool:
+        """True when every group along `axis` lies inside one process:
+        its shards exchange tensors with `.to(device)`, never over
+        `torch.distributed`."""
+        return all(len({self.owner(p) for p in g}) == 1
+                   for g in self.groups(axis))
+
+    def require_local(self, *axes: str) -> None:
+        """Raise NotImplementedError when one of `axes` spans processes.
+        Only "data" may: its partial sums and gradients reduce with
+        `torch.distributed.all_reduce`; a "model" or "sp" axis across
+        processes needs a ppermute over `torch.distributed` (ROADMAP
+        Queue 1, item 6(e))."""
+        for axis in axes:
+            if self.shape.get(axis, 1) > 1 and not self.axis_is_local(axis):
+                raise NotImplementedError(
+                    f"the {axis!r} axis of mesh {self.shape} spans "
+                    f"{self.process_count} processes; only 'data' may "
+                    "span processes (split the mesh over 'data', with "
+                    f"every {axis!r} group inside one process)")
+
+    def along(self, axis: str = "data") -> "Mesh":
+        """The one-axis mesh over `axis` at coordinate 0 of every other
+        axis: the shards of a program that runs over `axis` alone and
+        is the same on every position of the others (each data group
+        is computed once and stands for its replicas). Its processes
+        hold equal, contiguous runs, as every `Mesh`'s do; raises
+        NotImplementedError when another axis spans processes or the
+        processes do not split `axis` so."""
+        self.require_local(*(a for a in self.axis_names if a != axis))
+        group = [int(p) for p in self.plane(axis).ravel()]
+        owners = [self.owner(p) for p in group]
+        per = len(group) // self.process_count
+        if not per or owners != [i // per for i in range(len(group))]:
+            raise NotImplementedError(
+                f"mesh {self.shape} over {self.process_count} processes: "
+                f"each process must hold an equal, contiguous run of "
+                f"{axis!r}")
+        return Mesh((axis,), (len(group),),
+                    tuple(self.devices[p] for p in group),
+                    self.process_index, self.process_count)
+
 
 def local_devices(device=None) -> List[torch.device]:
     """This process's devices of `device`'s kind: every CUDA card for a
@@ -163,20 +245,90 @@ def pad_rows(a: np.ndarray, target: int, fill=0) -> np.ndarray:
     return np.pad(a, pad_width, constant_values=fill)
 
 
-def shard_put(host: np.ndarray, devices: Sequence[torch.device]
-              ) -> List[torch.Tensor]:
-    """Pad dim 0 of `host` with zero rows to a multiple of
-    `len(devices)` and place block s of the rows on `devices[s]`: one
-    contiguous fp32 tensor of `per_shard` rows per device, never sharing
-    memory with `host`."""
-    if not devices:
+def shard_put(host: np.ndarray, devices, *,
+              dtype=np.float32) -> List[torch.Tensor]:
+    """Pad dim 0 of `host` with zero rows to a multiple of the shard
+    count and place block s of the rows on shard s's device: one
+    contiguous tensor of `per_shard` rows per shard, in `dtype` (None
+    keeps `host`'s), never sharing memory with `host`. `devices` is a
+    device list (every shard is here) or a one-axis `Mesh`, whose rows
+    split over all its shards and of which this process places its own
+    (`mesh.local`)."""
+    if isinstance(devices, Mesh):
+        n, mine = devices.size, list(zip(devices.local,
+                                         devices.local_devices))
+    else:
+        n, mine = len(devices), list(enumerate(devices))
+    if not n:
         raise ValueError("shard_put: no devices")
-    a = np.ascontiguousarray(host, dtype=np.float32)
-    n = len(devices)
+    a = np.ascontiguousarray(host, dtype=dtype)
     a = pad_rows(a, pad_to_multiple(a.shape[0], n))
     per = a.shape[0] // n
     return [torch.tensor(a[s * per:(s + 1) * per], device=dev)
-            for s, dev in enumerate(devices)]
+            for s, dev in mine]
+
+
+def spans(mesh, *axes: str) -> bool:
+    """True when `mesh` (None = no mesh) has one of `axes` at a size
+    above 1: a trainer then takes its mesh form, else it trains on its
+    `device` as without a mesh (the JAX package runs its sharded
+    program over one device there)."""
+    return mesh is not None and any(mesh.shape.get(a, 1) > 1 for a in axes)
+
+
+def data_mesh(mesh, device) -> Mesh:
+    """The one-axis "data" mesh that a sample-sharded trainer runs over:
+    `mesh.along("data")` when `mesh` has a "data" axis of size > 1, else
+    one shard on `device` (one device's training, no padding and no
+    reduction)."""
+    if spans(mesh, "data"):
+        return mesh.along("data")
+    return Mesh(("data",), (1,), (torch.device(device),))
+
+
+def split_over_data(mesh, batch: int) -> bool:
+    """True when a batch of `batch` rows splits over the "data" axis of
+    `mesh` (size > 1, dividing it), as the JAX package's trainers shard
+    it; else it runs unsplit."""
+    n = mesh.shape.get("data", 1) if mesh is not None else 1
+    return n > 1 and batch % n == 0
+
+
+def all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """`t` summed in place over the processes of `mesh` (a no-op in one
+    process): the `psum` of a "data" axis that spans processes."""
+    if mesh.process_count > 1:
+        torch.distributed.all_reduce(t)
+    return t
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every process's rows of a tensor, in process order. Its backward
+    keeps this process's rows of the incoming gradient and sends
+    nothing: every process runs the same computation on the gathered
+    tensor, so each already holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, n_proc: int, rank: int):
+        ctx.rows, ctx.rank = t.shape[0], rank
+        t = t.contiguous()
+        full = t.new_empty((t.shape[0] * n_proc,) + tuple(t.shape[1:]))
+        torch.distributed.all_gather_into_tensor(full, t)
+        return full
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        lo = ctx.rank * ctx.rows
+        return grad[lo:lo + ctx.rows], None, None
+
+
+def gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The rows of `t` from every process of `mesh`, in process order
+    (`t` itself in one process), differentiable when every process
+    computes the same function of the result (`_GatherRows`)."""
+    if mesh.process_count == 1:
+        return t
+    return _GatherRows.apply(t, mesh.process_count, mesh.process_index)
 
 
 def initialize_distributed(coordinator: Optional[str] = None,

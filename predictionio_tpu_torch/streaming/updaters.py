@@ -52,6 +52,9 @@ class FoldContext:
     channel_id: Optional[int]
     since: Dict[str, int]
     upto: Dict[str, int]
+    # the device mesh a neural template's warm-start epoch trains over
+    # (None, as the refresher leaves it: the model's device)
+    mesh: object = None
     ds_params: Dict[str, object] = field(default_factory=dict)
     history_cache: Optional[dict] = None
     # what `history_columns` cost this tick: seconds, and how many of

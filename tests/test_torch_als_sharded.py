@@ -143,11 +143,17 @@ class TestMeshSpec:
             RuntimeContext().mesh
 
     def test_als_refuses_other_axes(self):
-        mesh = make_mesh(MeshSpec({"data": 2, "model": 2}), [CPU] * 4)
+        """Another axis replicates ALS (the data=2,model=2 case is in
+        TestOtherAxes); ALS refuses a mesh of other axes alone, and one
+        whose "model" axis spans processes."""
         u, i, v = synthetic()
-        with pytest.raises(ValueError, match="'data' alone"):
+        with pytest.raises(ValueError, match="has none"):
             pals.als_train((u, i, v), 40, 30, rank=3, iterations=1,
-                           mesh=mesh)
+                           mesh=make_mesh(MeshSpec({"model": 2}), [CPU] * 2))
+        spanning = Mesh(("model", "data"), (2, 2), (CPU,) * 4, 0, 2)
+        with pytest.raises(NotImplementedError, match="'model' axis"):
+            pals.als_train((u, i, v), 40, 30, rank=3, iterations=1,
+                           mesh=spanning)
 
 
 class TestShardedMatchesSingleDevice:
@@ -303,6 +309,54 @@ class TestHbmFootprint:
             words = sum(idx.size * 5 for side in owned
                         for _, idx, _ in side[s])
             assert words * 4 + (60 + 80) * rank * 4 / n <= fp["persistent"]
+
+    def test_shared_card_bound_splits_persistent_and_transient(self):
+        """Shards sharing one card: every shard's persistent buffers
+        (the device slabs, `_prepare_side`'s, the factor rows) add up
+        under shards x persistent, and the bound keeps one transient:
+        below shards x peak, and the peak itself for one shard."""
+        u, i, r = skewed()
+        n, rank = 4, 24
+        fp = pals.hbm_footprint(60, 80, len(u), rank, n, owner_skew=4.0)
+        bound = pals.shared_card_bound(fp, n)
+        assert bound == n * fp["persistent"] + fp["transient"]
+        assert fp["peak"] <= bound < n * fp["peak"]
+        assert pals.shared_card_bound(fp, 1) == fp["peak"]
+        mesh = cpu_mesh(n)
+        owned = [pals._owner_slabs(pals._pack_side(a, b, r, m, rank),
+                                   -(-m // n), mesh)
+                 for a, b, m in ((u, i, 60), (i, u, 80))]
+        words = sum(idx.size * 5 for side in owned for s in range(n)
+                    for _, idx, _ in side[s])
+        assert words * 4 + (60 + 80) * rank * 4 <= n * fp["persistent"]
+
+
+class TestOtherAxes:
+    """A mesh with "model" or "sp" axes trains ALS over its "data" axis:
+    the factors equal a "data"-only mesh's bit for bit (the exact path
+    and the bf16 CG path, explicit and implicit)."""
+
+    @pytest.mark.parametrize("rank,implicit", [(4, False), (24, False),
+                                               (24, True)])
+    @pytest.mark.parametrize("other", [{"model": 2}, {"sp": 2}],
+                             ids=["model2", "sp2"])
+    def test_factors_equal_the_data_only_mesh(self, rank, implicit, other):
+        u, i, v = synthetic(density=0.4)
+        v = np.abs(v) if implicit else v
+        kw = dict(rank=rank, iterations=3, reg=0.05, seed=2,
+                  implicit=implicit)
+        x2, y2 = pals.als_train((u, i, v), 40, 30, mesh=cpu_mesh(2), **kw)
+        spec = {"data": 2, **other}
+        xg, yg = pals.als_train((u, i, v), 40, 30, mesh=make_mesh(
+            MeshSpec(spec), [CPU] * 4), **kw)
+        assert torch.equal(x2, xg) and torch.equal(y2, yg)
+
+    def test_data_mesh_of_a_grid(self):
+        grid = make_mesh(MeshSpec({"data": 2, "model": 2}), [CPU] * 4)
+        dm = pals._data_mesh(grid)
+        assert dm.shape == {"data": 2} and dm.size == 2
+        assert pals._data_shards(grid) == 2
+
 
 VARIANT = {"id": "default", "engineFactory": "recommendation",
            "datasource": {"params": {"app_name": "shop"}},

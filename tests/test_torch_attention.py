@@ -18,6 +18,7 @@ from jax.sharding import Mesh
 
 from predictionio_tpu.ops import attention as ja
 from predictionio_tpu_torch.ops import attention as pa
+from predictionio_tpu_torch.parallel import mesh as pmesh
 
 pytestmark = pytest.mark.torch
 
@@ -150,14 +151,20 @@ def test_masked_keys_do_not_leak():
 
 
 def test_ring_attention_falls_through_and_refuses_a_sharded_axis():
+    """A trivial "sp" axis is the reference path exactly; an "sp" axis
+    that spans processes is refused (only "data" may span)."""
     q, k, v = _t(*_qkv(seed=4))
     ref = pa.attention_reference(q, k, v, causal=True)
-    for mesh in (None, _mesh((8, "data")), _mesh((1, "sp"))):
+    cpu = torch.device("cpu")
+    for mesh in (None, pmesh.make_mesh(pmesh.MeshSpec({"data": 8}),
+                                       [cpu] * 8),
+                 pmesh.make_mesh(pmesh.MeshSpec({"sp": 1}), [cpu])):
         torch.testing.assert_close(
             pa.ring_attention(q, k, v, mesh, causal=True), ref,
             rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        pa.ring_attention(q, k, v, _mesh((8, "sp")), causal=True)
+    spanning = pmesh.Mesh(("sp",), (8,), (cpu,) * 8, 0, 2)
+    with pytest.raises(NotImplementedError, match="'sp' axis"):
+        pa.ring_attention(q, k, v, spanning, causal=True)
 
 
 def test_indivisible_sequence_raises():
